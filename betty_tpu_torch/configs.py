@@ -1,0 +1,118 @@
+"""Configuration dataclasses for problems and the engine.
+
+Field-for-field copy of ``betty_tpu/configs.py`` so that a program written
+for the JAX package configures the port unchanged. On one CUDA card some
+fields have no meaning and are accepted but inert:
+
+* ``Config``: ``initial_dynamic_scale``/``scale_factor`` (bf16 needs no loss
+  scaling; ``"fp16"`` is treated as ``"bf16"``), ``retain_graph``,
+  ``allow_unused``, ``shard_rules``, ``use_fused_vector_ops`` and
+  ``hvp_mode`` (the CG/Neumann solvers come in a later slice).
+* ``EngineConfig``: ``backend``, ``mesh_shape``, ``autoshard_data``,
+  ``donate_state``, ``compile_cache_dir``, ``rng_impl``, ``block_periods``
+  and ``profile_dir``. ``strategy`` must be ``"default"``.
+
+Options of the JAX package that this slice does not port raise when set:
+``Config.remat``, ``EngineConfig.compile_blocks``, any other ``strategy``,
+and engine checkpointing (``checkpoint_step > 0`` or ``auto_resume``).
+"""
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass
+class Config:
+    """Per-problem training configuration (``betty_tpu.configs.Config``)."""
+
+    type: str = "darts"
+    unroll_steps: int = 1
+    first_order: bool = True
+    retain_graph: bool = False
+    allow_unused: bool = True
+
+    gradient_accumulation: int = 1
+    gradient_clipping: float = 0.0
+
+    # "fp32" | "bf16" ("fp16" is treated as "bf16")
+    precision: str = "fp32"
+    initial_dynamic_scale: float = 4096.0
+    scale_factor: float = 2.0
+    # precision of the hypergradient pipeline when ``precision`` is reduced:
+    # "fp32" runs the direct cross-gradient and the solver's perturbed
+    # evaluations without the bf16 cast
+    solver_precision: str = "fp32"
+
+    warmup_steps: int = 0
+
+    log_step: int = -1
+    log_local_step: bool = False
+
+    darts_alpha: float = 0.01
+    darts_multitask: bool = False
+
+    sama_adam_alpha: float = 1.0
+    sama_multitask: bool = False
+
+    neumann_iterations: int = 1
+    neumann_alpha: float = 1.0
+
+    cg_iterations: int = 1
+    cg_alpha: float = 1.0
+
+    reinforce_alpha: float = 0.01
+    reinforce_sigma: float = 0.01
+    reinforce_samples: int = 4
+
+    use_fused_vector_ops: bool = False
+    hvp_mode: str = "jvp"
+    remat: bool = False
+    shard_rules: Optional[Tuple] = None
+
+    def __post_init__(self):
+        if self.remat:
+            raise NotImplementedError(
+                "Config.remat: activation rematerialization is not ported yet")
+
+
+@dataclass
+class EngineConfig:
+    """Global engine configuration (``betty_tpu.configs.EngineConfig``)."""
+
+    train_iters: int = 50000
+    valid_step: int = 500
+
+    logger_type: str = "none"
+
+    roll_back: bool = False
+
+    backend: str = "xla"
+    strategy: str = "default"
+
+    early_stopping: bool = False
+    early_stopping_mode: str = "min"
+    early_stopping_tolerance: int = 5
+    early_stopping_metric: str = "loss"
+
+    mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None
+    compile_blocks: bool = False
+    block_periods: int = 0
+    donate_state: bool = False
+    autoshard_data: bool = True
+    profile_dir: Optional[str] = None
+    compile_cache_dir: Optional[str] = "auto"
+    rng_impl: str = "threefry"
+    checkpoint_dir: Optional[str] = None
+    checkpoint_step: int = 0
+    auto_resume: bool = False
+
+    def __post_init__(self):
+        if self.compile_blocks:
+            raise NotImplementedError(
+                "EngineConfig.compile_blocks: compiled blocks are not ported yet")
+        if self.strategy != "default":
+            raise NotImplementedError(
+                f"EngineConfig.strategy={self.strategy!r}: the port runs on one card "
+                "(strategy='default')")
+        if self.checkpoint_step > 0 or self.auto_resume:
+            raise NotImplementedError("engine checkpointing is not ported yet")

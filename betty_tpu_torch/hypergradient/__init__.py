@@ -1,0 +1,71 @@
+"""Best-response-Jacobian solvers (``betty_tpu/hypergradient/__init__.py``).
+
+Chains matrix-vector products along each backprop path
+``[upper, mid_k, ..., mid_1, upper]``: the chain starts with the gradient
+of the upper loss with respect to ``path[1]``'s parameters, then applies
+one solver per edge ``(curr=path[i], prev=path[i+1])``. Solvers get the
+context dict and evaluate losses on perturbed copies; no parameter is
+perturbed in place.
+
+This slice registers ``darts`` and ``sama``. ``cg``, ``neumann`` and
+``reinforce`` need Hessian-vector products and come in a later slice.
+"""
+
+from betty_tpu_torch.utils import tree_add, grad
+
+from .darts import darts
+from .sama import sama
+
+jvp_fn_mapping = {
+    "darts": darts,
+    "sama": sama,
+}
+
+_LATER = ("cg", "neumann", "reinforce")
+
+
+def register_solver(name: str, fn):
+    """Extension point: register a custom solver under ``name``."""
+    jvp_fn_mapping[name] = fn
+
+
+def _solver(name):
+    if name in _LATER and name not in jvp_fn_mapping:
+        raise NotImplementedError(
+            f"hypergradient solver {name!r} is not ported yet: it comes with the "
+            "CG/Neumann slice (Hessian-vector products and the vector kernels B6-B8)")
+    assert name in jvp_fn_mapping, f"Unknown hypergradient solver {name!r}"
+    return jvp_fn_mapping[name]
+
+
+def compute_path_grads(problem, ctx, states, batch, path_batches, rng, gas, v_by_child=None):
+    """Sum of hypergradient contributions over all of ``problem``'s paths.
+
+    ``v_by_child``: per-child starting vectors already computed by the
+    caller's joint backward pass; None = compute them here, in fp32 when
+    ``solver_precision`` is "fp32". Returns a gradient tree matching
+    ``problem``'s params."""
+    from betty_tpu_torch.problems.problem import ctx_replace, force_fp32
+
+    total = None
+    for path in problem.paths:
+        child = path[1]
+        if v_by_child is not None:
+            v = v_by_child[child.name]
+        else:
+            def child_loss(child_params, _child=child):
+                c = ctx_replace(ctx, _child.name, child_params)
+                loss, _, _ = problem.eval_loss(c, batch, rng=rng)
+                return loss / gas
+
+            with force_fp32(problem.config.solver_precision == "fp32"):
+                v = grad(child_loss)(ctx[child.name]["params"])
+        v = child.meta_filter_grad(v)
+
+        for i in range(1, len(path) - 1):
+            curr, prev = path[i], path[i + 1]
+            jvp_fn = _solver(curr.config.type)
+            with force_fp32(curr.config.solver_precision == "fp32"):
+                v = jvp_fn(v, curr, prev, ctx, states, path_batches[curr.name], rng)
+        total = tree_add(total, v)
+    return total

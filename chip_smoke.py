@@ -1,0 +1,402 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py                     # every phase (needs one card)
+    python3 chip_smoke.py --phases kernels    # build and check the kernels only
+
+Phases:
+
+1. set-up: print the card's name and power limit, turn TF32 off, build the
+   CUDA kernels from ``betty_tpu_torch/csrc`` (timed);
+2. kernels: hold each kernel against its plain PyTorch version on the card at
+   the slice's shape (B32 H16 S128 D64) in bfloat16 and float32, with an
+   all-true mask, a padded mask, a fully masked row and causal masking, and
+   time it beside its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (a yardstick only; the port never calls
+   it);
+3. slice: a small fp32 reweighting run on the card against the same run on
+   the CPU (plain versions) from the same weights; then two SAMA
+   meta-periods of data reweighting of the RoBERTa-large encoder (24 layers,
+   d 1024, 16 heads, random weights from a seed) at B32 S128 with
+   ``--flash``, through ``build_engine`` and ``Engine.run``, where the
+   launch counts of both kernels are read; then one more meta-period under
+   ``torch.profiler`` for the device-time breakdown and idle share.
+
+Prints one JSON line of kernel results, the card's name and power limit, and
+as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
+no result, when there is no CUDA card, when the port cannot be imported, or
+when any phase fails.
+"""
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
+# larger of its bytes over the memory rate and its flops over the rate of
+# its operand type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+SHAPE = dict(B=32, H=16, S=128, D=64)
+TOL = {  # (forward, backward relative to max|reference|)
+    "float32": (1e-5, 1e-4),
+    "bfloat16": (1e-2, 2e-2),
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "not read"
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"not read ({e})"
+
+
+def time_ms(fn, reps=20, warmup=3):
+    """Median device time of ``fn`` over ``reps`` back-to-back launches."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    for s, e in zip(starts, ends):
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def _inputs(dtype, case, gen):
+    import torch
+
+    B, H, S, D = SHAPE["B"], SHAPE["H"], SHAPE["S"], SHAPE["D"]
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    if case == "padded":
+        lengths = torch.randint(S // 4, S + 1, (B,), generator=gen, device="cuda")
+        mask = torch.arange(S, device="cuda")[None, :] < lengths[:, None]
+    elif case == "masked_row":
+        mask[0, S // 2:] = False
+        mask[1, :] = False
+    return q, k, v, do, mask, case == "causal"
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def kernel_phase():
+    import torch
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sm = 1.0 / math.sqrt(SHAPE["D"])
+    worst = {"flash_single_fwd": 0.0, "flash_single_bwd": 0.0}
+    failures = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        tf, tb = TOL[dname]
+        for case in ("all_true", "padded", "masked_row", "causal"):
+            q, k, v, do, mask, causal = _inputs(dtype, case, gen)
+            o, lse = fa._fwd_single(q, k, v, mask, causal=causal, sm_scale=sm)
+            po, plse = fa._fwd_single_plain(q, k, v, mask, causal=causal, sm_scale=sm)
+            torch.cuda.synchronize()
+            scale_o = max(1.0, float(po.float().abs().max())) if dname == "bfloat16" else 1.0
+            e_o, e_lse = _err(o, po), _err(lse, plse)
+            ok_f = e_o <= tf * scale_o and e_lse <= tf * max(1.0, float(plse.abs().max()))
+            if case == "masked_row":
+                ok_f &= bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
+            # the backward is compared on the kernel's own o and lse
+            dq, dk, dv = fa._bwd_single(q, k, v, do, o, lse, mask, causal=causal, sm_scale=sm)
+            pq, pk, pv = fa._bwd_single_plain(q, k, v, do, o, lse, mask, causal=causal,
+                                              sm_scale=sm)
+            torch.cuda.synchronize()
+            pairs = ((dq, pq), (dk, pk), (dv, pv))
+            e_b = max(_err(a, b) / max(float(b.float().abs().max()), 1e-30) for a, b in pairs)
+            e_b_abs = max(_err(a, b) for a, b in pairs)
+            ok_b = e_b <= tb and all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+            worst["flash_single_fwd"] = max(worst["flash_single_fwd"], e_o)
+            worst["flash_single_bwd"] = max(worst["flash_single_bwd"], e_b_abs)
+            log(f"[kernels] {dname:8s} {case:10s} fwd |o|err {e_o:.3e} |lse|err {e_lse:.3e} "
+                f"(tol {tf:g}{' x max|o|' if scale_o != 1.0 else ''}) "
+                f"bwd rel err {e_b:.3e} (tol {tb:g}) -> {'ok' if ok_f and ok_b else 'FAIL'}")
+            if not (ok_f and ok_b):
+                failures.append(f"{dname}/{case}")
+    if failures:
+        raise AssertionError(f"kernels disagree with their plain versions: {failures}")
+    return worst
+
+
+def kernel_timings():
+    """Times at the main path's inputs: all-true kv mask, not causal."""
+    import torch
+    import torch.nn.functional as F
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    B, H, S, D = SHAPE["B"], SHAPE["H"], SHAPE["S"], SHAPE["D"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sm = 1.0 / math.sqrt(D)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q, k, v, do, mask, _ = _inputs(dtype, "all_true", gen)
+        o, lse = fa._fwd_single(q, k, v, mask, causal=False, sm_scale=sm)
+        attn_mask = mask[:, None, None, :]
+        t_fwd = time_ms(lambda: fa._fwd_single(q, k, v, mask, causal=False, sm_scale=sm))
+        p_fwd = time_ms(lambda: fa._fwd_single_plain(q, k, v, mask, causal=False, sm_scale=sm))
+        l_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
+        t_bwd = time_ms(lambda: fa._bwd_single(q, k, v, do, o, lse, mask, causal=False,
+                                               sm_scale=sm))
+        p_bwd = time_ms(lambda: fa._bwd_single_plain(q, k, v, do, o, lse, mask, causal=False,
+                                                     sm_scale=sm))
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=attn_mask)
+        l_bwd = time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True))
+
+        n = B * H * S * D
+        item = q.element_size()
+        mm = 2 * B * H * S * S * D  # flops of one (S x S x D) product per head
+        fwd_bytes = 3 * n * item + mask.numel() + n * item + B * H * S * 4
+        bwd_bytes = 5 * n * item + B * H * S * 4 + mask.numel() + 3 * n * item
+        for name, t, p, lib, nbytes, flops in (
+                ("flash_single_fwd", t_fwd, p_fwd, l_fwd, fwd_bytes, 2 * mm),
+                ("flash_single_bwd", t_bwd, p_bwd, l_bwd, bwd_bytes, 5 * mm)):
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            rows[(name, dname)] = dict(
+                ms=t, plain_ms=p, library_ms=lib, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            log(f"[timing] {name} {dname:8s} kernel {t:.4f} ms  plain {p:.4f} ms  "
+                f"sdpa {lib:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    return rows
+
+
+SMALL_ARGV = ["--dim", "64", "--depth", "2", "--heads", "4", "--seq_len", "16",
+              "--batch_size", "4", "--train_size", "64", "--meta_size", "32", "--flash",
+              "--precision", "fp32", "--dropout", "0", "--unroll_steps", "2", "--train_iters",
+              "4"]
+
+
+def small_run_phase():
+    """The small fp32 reweighting run on the card (kernels) and on the CPU
+    (their plain versions) from the same weights: parameters agree within
+    1e-4 after 4 classifier and 2 reweight steps, as the CPU tests hold the
+    port to the JAX package."""
+    import torch
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        engines[dev] = ex.build_engine(ex.parse_args(SMALL_ARGV + ["--device", dev]))
+    for name, st in engines["cpu"].states.items():
+        engines["cuda"].states[name]["params"] = {k: v.to("cuda") for k, v in
+                                                  st["params"].items()}
+    fa.reset_launch_counts()
+    for eng in engines.values():
+        eng.run()
+    torch.cuda.synchronize()
+    assert fa._fwd_single.launches > 0 and fa._bwd_single.launches > 0
+    err = max(float((engines["cuda"].states[n]["params"][k].cpu() - t).abs().max())
+              for n, st in engines["cpu"].states.items() for k, t in st["params"].items())
+    log(f"[small] card vs CPU after 4+2 steps: max |param diff| {err:.3e} (tol 1e-4)")
+    assert err <= 1e-4, err
+
+
+def slice_phase(meta_periods=2):
+    import torch
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    unroll = 5
+    argv = ["--model", "large", "--hypergradient", "sama", "--precision", "bf16",
+            "--solver_precision", "fp32", "--flash", "--unroll_steps", str(unroll),
+            "--batch_size", "32", "--seq_len", "128", "--device_data",
+            "--train_iters", str(unroll * meta_periods), "--train_size", "2048",
+            "--meta_size", "512", "--device", "cuda"]
+    log(f"[slice] argv: {' '.join(argv)}")
+    t0 = time.time()
+    engine = ex.build_engine(ex.parse_args(argv))
+    torch.cuda.synchronize()
+    log(f"[slice] build_engine {time.time() - t0:.1f} s")
+
+    losses = {"classifier": [], "reweight": []}
+    period_ends = []  # host clock after each reweight step, device synchronised
+    for prob in (engine.classifier, engine.reweight):
+        orig = prob.one_step_descent
+
+        def record(*a, _orig=orig, _name=prob.name, **kw):
+            out = _orig(*a, **kw)
+            losses[_name].append(out["loss"].detach())
+            if _name == "reweight":
+                torch.cuda.synchronize()
+                period_ends.append(time.time())
+            return out
+
+        prob.one_step_descent = record
+    rw_before = {k: t.clone() for k, t in engine.states["reweight"]["params"].items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.time()
+    engine.run()
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = {"flash_single_fwd": fa._fwd_single.launches,
+                "flash_single_bwd": fa._bwd_single.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    vals = {k: [float(x) for x in v] for k, v in losses.items()}
+    log(f"[slice] losses {json.dumps(vals)}")
+    log(f"[slice] counts classifier {engine.classifier.count} reweight {engine.reweight.count}")
+    log(f"[slice] launches {launches}")
+    periods = [b - a for a, b in zip([t0] + period_ends, period_ends)]
+    log(f"[slice] meta-period seconds {periods} (the first includes warm-up); run "
+        f"{elapsed:.3f} s; max_memory_allocated {peak / 2**30:.2f} GiB")
+    assert engine.classifier.count == unroll * meta_periods, engine.classifier.count
+    assert engine.reweight.count == meta_periods, engine.reweight.count
+    assert all(math.isfinite(x) for v in vals.values() for x in v), vals
+    assert len(vals["classifier"]) == unroll * meta_periods and len(vals["reweight"]) >= 2
+    assert all(n > 0 for n in launches.values()), launches
+    changed = any(not torch.equal(rw_before[k], t)
+                  for k, t in engine.states["reweight"]["params"].items())
+    assert changed, "the reweight parameters did not change"
+    finite = all(bool(torch.isfinite(t).all())
+                 for s in engine.states.values() for t in s["params"].values())
+    assert finite, "non-finite parameters after the run"
+    profile_period(engine, unroll)
+    return launches
+
+
+def profile_period(engine, unroll):
+    """One more meta-period under ``torch.profiler``: device time by kernel
+    class and the device's idle share over the period's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.train_iters = unroll
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        engine.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        kernels.append((t / 1e3, e.count, e.key))
+    busy = sum(t for t, _, _ in kernels)
+    if busy == 0.0:
+        log("[profile] the profiler recorded no device time")
+        return
+
+    def kind(name):
+        low = name.lower()
+        if "fwd_kernel" in low or "bwd_kernel" in low:
+            return "flash (B1/B2)"
+        if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "matmul")):
+            return "matmul"
+        return "other"
+
+    by_kind = {}
+    for t, _, name in kernels:
+        by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + t
+    log(f"[profile] profiled meta-period: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+        f"idle share {1 - busy / wall_ms:.3f}, {sum(c for _, c, _ in kernels)} kernel launches")
+    for k, t in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {k:14s} {t:9.2f} ms  {t / busy:.3f} of device time")
+    for t, c, name in sorted(kernels, reverse=True)[:15]:
+        log(f"[profile]   {t:9.2f} ms  x{c:<6d} {name[:110]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="kernels,slice")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 2
+    try:
+        from betty_tpu_torch.ops import flash_attention as fa
+    except ImportError as e:
+        print(f"chip_smoke: the betty_tpu_torch package is not here ({e})", file=sys.stderr)
+        return 3
+
+    card = card_line()
+    log(f"[setup] card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    t0 = time.time()
+    lib = fa.build_kernels()
+    fa._lib()
+    log(f"[setup] kernels built in {time.time() - t0:.1f} s: {lib}")
+    for line in fa.BUILD_LOG.splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            log(f"[setup] ptxas {line.strip()}")
+
+    worst = kernel_phase()
+    rows = kernel_timings()
+    launches = {"flash_single_fwd": None, "flash_single_bwd": None}
+    if "slice" in phases:
+        small_run_phase()
+        launches = slice_phase()
+
+    replaces = {
+        "flash_single_fwd": "betty_tpu/ops/flash_attention.py:177",
+        "flash_single_bwd": "betty_tpu/ops/flash_attention.py:209",
+    }
+    kernels = []
+    for name in ("flash_single_fwd", "flash_single_bwd"):
+        r = rows[(name, "bfloat16")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "betty_tpu_torch/csrc/flash_single.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "float32": {k: rows[(name, "float32")][k]
+                        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    if phases != {"kernels", "slice"}:
+        log(f"[done] phases {sorted(phases)} only: no result line")
+        return 0
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,111 @@
+"""The port's TransformerClassifier and MetaWeightNet against betty_tpu's.
+
+Both sides get the same weights (flax init, moved across with
+``betty_tpu_torch.convert``) and the same token ids, padded rows included.
+float32: logits within 1e-5, parameter gradients within 1e-4 relative to
+max|grad| over all leaves (the key bias has a gradient that is zero up to
+rounding, so a bound per leaf would measure noise). bfloat16: logits within
+2e-2, the rounding of two frameworks that round at different places.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from betty_tpu.models import MetaWeightNet as JMWN
+from betty_tpu.models.transformer import TransformerClassifier as JTC
+from betty_tpu_torch import convert
+from betty_tpu_torch.models import MetaWeightNet, TransformerClassifier
+from betty_tpu_torch.utils import tree_cast
+
+VOCAB, DIM, DEPTH, HEADS, S, B = 100, 64, 2, 4, 16, 4
+
+
+def _ids(seed=0):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(2, VOCAB, size=(B, S)).astype(np.int32)
+    ids[1, 10:] = 1  # padding (pad_id 1)
+    ids[3, 5:] = 1
+    return ids
+
+
+def _pair(use_flash):
+    jm = JTC(vocab_size=VOCAB, max_len=S, dim=DIM, depth=DEPTH, heads=HEADS, dropout=0.0,
+             use_flash=use_flash)
+    jp = jm.init(jax.random.PRNGKey(0), jnp.zeros((B, S), jnp.int32), train=False)["params"]
+    tm = TransformerClassifier(vocab_size=VOCAB, max_len=S, dim=DIM, depth=DEPTH, heads=HEADS,
+                               dropout=0.0, use_flash=use_flash)
+    tp = convert.from_flax_transformer(jax.tree_util.tree_map(np.asarray, jp))
+    assert set(tp) == {n for n, _ in tm.named_parameters()}
+    for n, p in tm.named_parameters():
+        assert tuple(tp[n].shape) == tuple(p.shape), n
+    return jm, jp, tm, tp
+
+
+def _loss_weights():
+    return np.random.RandomState(1).randn(B, 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_forward_and_grads_match_flax(use_flash):
+    jm, jp, tm, tp = _pair(use_flash)
+    ids, w = _ids(), _loss_weights()
+
+    def jloss(p):
+        out = jm.apply({"params": p}, jnp.asarray(ids), train=False)
+        return jnp.sum(out * w), out
+
+    (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(jp)
+    tp = {k: v.requires_grad_(True) for k, v in tp.items()}
+    tout = torch.func.functional_call(tm, tp, (torch.tensor(ids),), {"train": False})
+    names = list(tp)
+    tgrad = torch.autograd.grad((tout * torch.tensor(w)).sum(), [tp[n] for n in names])
+
+    assert np.max(np.abs(tout.detach().numpy() - np.asarray(jout))) < 1e-5
+    jg = convert.from_flax_transformer(jax.tree_util.tree_map(np.asarray, jgrad))
+    scale = max(float(np.max(np.abs(g.numpy()))) for g in jg.values())
+    for n, g in zip(names, tgrad):
+        err = np.max(np.abs(g.numpy() - jg[n].numpy()))
+        assert err <= 1e-4 * scale, (n, err, scale)
+
+
+def test_bf16_forward_matches_flax():
+    jm, jp, tm, tp = _pair(True)
+    ids = _ids(2)
+    jout = jm.apply({"params": jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), jp)},
+                    jnp.asarray(ids), train=False)
+    tout = torch.func.functional_call(tm, tree_cast(tp, torch.bfloat16),
+                                      (torch.tensor(ids),), {"train": False})
+    assert tout.dtype == torch.bfloat16
+    err = np.max(np.abs(tout.float().numpy() - np.asarray(jout.astype(jnp.float32))))
+    assert err < 2e-2
+
+
+def test_meta_weight_net_matches_flax():
+    jm = JMWN()
+    jp = jm.init(jax.random.PRNGKey(1), jnp.zeros((8,)))["params"]
+    tm = MetaWeightNet()
+    tp = convert.from_flax_mwn(jax.tree_util.tree_map(np.asarray, jp))
+    x = np.abs(np.random.RandomState(3).randn(8)).astype(np.float32)
+    jout = jm.apply({"params": jp}, jnp.asarray(x))
+    tout = torch.func.functional_call(tm, tp, (torch.tensor(x),))
+    assert np.max(np.abs(tout.numpy() - np.asarray(jout))) < 1e-6
+
+
+def test_dropout_replays_with_the_same_seed():
+    tm = TransformerClassifier(vocab_size=VOCAB, max_len=S, dim=DIM, depth=1, heads=HEADS,
+                               dropout=0.1, use_flash=True)
+    ids = torch.tensor(_ids())
+    a = tm(ids, train=True, rngs={"dropout": 7})
+    b = tm(ids, train=True, rngs={"dropout": 7})
+    c = tm(ids, train=True, rngs={"dropout": 8})
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with pytest.raises(ValueError, match="rngs"):
+        tm(ids, train=True)
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="remat"):
+        TransformerClassifier(vocab_size=VOCAB, dim=DIM, depth=1, heads=HEADS, remat=True)
