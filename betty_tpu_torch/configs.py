@@ -6,15 +6,16 @@ fields have no meaning and are accepted but inert:
 
 * ``Config``: ``initial_dynamic_scale``/``scale_factor`` (bf16 needs no loss
   scaling; ``"fp16"`` is treated as ``"bf16"``), ``retain_graph``,
-  ``allow_unused``, ``shard_rules``, ``use_fused_vector_ops`` and
-  ``hvp_mode`` (the CG/Neumann solvers come in a later slice).
+  ``allow_unused`` and ``shard_rules``.
 * ``EngineConfig``: ``backend``, ``mesh_shape``, ``autoshard_data``,
   ``donate_state``, ``compile_cache_dir``, ``rng_impl``, ``block_periods``
   and ``profile_dir``. ``strategy`` must be ``"default"``.
 
-Options of the JAX package that this slice does not port raise when set:
-``Config.remat``, ``EngineConfig.compile_blocks``, any other ``strategy``,
-and engine checkpointing (``checkpoint_step > 0`` or ``auto_resume``).
+``Config.hvp_mode`` other than ``"jvp"``/``"vjp"`` raises, as the JAX
+package's ``make_hvp`` does. Options of the JAX package that the port does
+not have yet raise when set: ``Config.remat``,
+``EngineConfig.compile_blocks``, any other ``strategy``, and engine
+checkpointing (``checkpoint_step > 0`` or ``auto_resume``).
 """
 
 from dataclasses import dataclass
@@ -73,6 +74,8 @@ class Config:
         if self.remat:
             raise NotImplementedError(
                 "Config.remat: activation rematerialization is not ported yet")
+        if self.hvp_mode not in ("jvp", "vjp"):
+            raise ValueError(f"hvp_mode must be 'jvp' or 'vjp', got {self.hvp_mode!r}")
 
 
 @dataclass

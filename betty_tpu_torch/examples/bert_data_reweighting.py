@@ -1,11 +1,15 @@
-"""BERT/RoBERTa-style data reweighting with SAMA (the north-star workload).
+"""BERT/RoBERTa-style data reweighting (the north-star workload).
 
 Port of ``examples/bert_data_reweighting/main.py``: a Meta-Weight-Net
 reweighter above a transformer classifier trained on an imbalanced
-synthetic SST-2-like task, with ``--hypergradient sama`` (or darts), bf16
-precision and ``--unroll_steps 5`` by default. ``--model large`` is the
-RoBERTa-large shape (24 layers, d 1024, 16 heads, about 355M parameters);
-``--flash`` routes attention through the port's CUDA kernels.
+synthetic SST-2-like task, with ``--hypergradient sama`` (or darts, cg,
+neumann), bf16 precision and ``--unroll_steps 5`` by default. ``--model
+large`` is the RoBERTa-large shape (24 layers, d 1024, 16 heads, about 355M
+parameters); ``--flash`` routes attention through the port's CUDA kernels
+(darts and SAMA only: CG and Neumann differentiate through the gradient and
+run the plain attention). ``build_engine(args, **solver_config)`` passes
+further ``Config`` fields (``cg_iterations``, ``use_fused_vector_ops``, ...)
+to the classifier, whose config chooses the hypergradient solver.
 
     python -m betty_tpu_torch.examples.bert_data_reweighting --model large --flash
 
@@ -65,7 +69,7 @@ class Classifier(ImplicitProblem):
         return torch.sum(weight * ce) / torch.clamp(torch.sum(weight), min=1e-8)
 
 
-def build_engine(args):
+def build_engine(args, **solver_config):
     vocab = 1000 if args.model == "small" else 50265
     device = torch.device(args.device)
     x_train, y_train = make_synthetic_sst2(args.train_size, args.seq_len, vocab, seed=0,
@@ -106,7 +110,7 @@ def build_engine(args):
                                       device=loader_device),
         config=Config(type=args.hypergradient, unroll_steps=args.unroll_steps,
                       precision=args.precision, solver_precision=args.solver_precision,
-                      log_step=args.log_step),
+                      log_step=args.log_step, **solver_config),
     )
     return Engine(
         config=EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step,
@@ -120,10 +124,11 @@ def build_engine(args):
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="small", choices=["small", "large"])
-    p.add_argument("--hypergradient", default="sama", choices=["sama", "darts"])
+    p.add_argument("--hypergradient", default="sama", choices=["sama", "darts", "cg", "neumann"],
+                   help="hypergradient solver (cg and neumann need the plain attention)")
     p.add_argument("--precision", default="bf16", choices=["fp32", "bf16"])
     p.add_argument("--solver_precision", default="fp32", choices=["fp32", "bf16"],
-                   help="precision of the SAMA/darts hypergradient pipeline")
+                   help="precision of the hypergradient pipeline")
     p.add_argument("--strategy", default="default", choices=["default"])
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--seq_len", type=int, default=128)

@@ -7,21 +7,25 @@ one solver per edge ``(curr=path[i], prev=path[i+1])``. Solvers get the
 context dict and evaluate losses on perturbed copies; no parameter is
 perturbed in place.
 
-This slice registers ``darts`` and ``sama``. ``cg``, ``neumann`` and
-``reinforce`` need Hessian-vector products and come in a later slice.
+Registered: ``darts``, ``sama``, ``cg`` and ``neumann``. ``reinforce``
+is not ported yet and raises.
 """
 
 from betty_tpu_torch.utils import tree_add, grad
 
+from .cg import cg
 from .darts import darts
+from .neumann import neumann
 from .sama import sama
 
 jvp_fn_mapping = {
     "darts": darts,
     "sama": sama,
+    "neumann": neumann,
+    "cg": cg,
 }
 
-_LATER = ("cg", "neumann", "reinforce")
+_LATER = ("reinforce",)
 
 
 def register_solver(name: str, fn):
@@ -32,8 +36,9 @@ def register_solver(name: str, fn):
 def _solver(name):
     if name in _LATER and name not in jvp_fn_mapping:
         raise NotImplementedError(
-            f"hypergradient solver {name!r} is not ported yet: it comes with the "
-            "CG/Neumann slice (Hessian-vector products and the vector kernels B6-B8)")
+            f"hypergradient solver {name!r} is not ported yet: it comes in a later "
+            "slice of the port, after the multi-tile attention kernels (B3-B5) and the "
+            "ResNet-32/Meta-Weight-Net slice")
     assert name in jvp_fn_mapping, f"Unknown hypergradient solver {name!r}"
     return jvp_fn_mapping[name]
 

@@ -8,9 +8,11 @@ epsilon 1e-6 and the tanh approximation of GELU.
 
 The q/k/v projections emit the kernels' ``(B, H, L, Dh)`` layout straight
 from their einsum. ``use_flash=True`` routes attention through the
-single-tile CUDA kernels (``ops/flash_attention.py``); ``use_flash=False``
-uses ``reference_attention`` on the same parameters. Neither path has
-attention-probability dropout.
+single-tile CUDA kernels (``ops/flash_attention.py``) and has no
+attention-probability dropout, as in the JAX package's flash path;
+``use_flash=False`` uses ``reference_attention`` on the same parameters
+with flax ``MultiHeadDotProductAttention``'s attention dropout (one keep
+mask over (query, key), broadcast across batch and heads, 1/keep scaling).
 
 Dropout draws its masks from a ``torch.Generator`` seeded with
 ``rngs["dropout"]``, so a forward repeated with the same seed draws the same
@@ -75,20 +77,26 @@ class FlashSelfAttention(nn.Module):
     ``kv_mask`` is the (B, L) key-padding mask (True = attend); query rows
     are not masked (every model here masks them downstream)."""
 
-    def __init__(self, num_heads, qkv_features, causal=False, use_flash=True, device=None,
-                 generator=None):
+    def __init__(self, num_heads, qkv_features, causal=False, use_flash=True, dropout=0.0,
+                 device=None, generator=None):
         super().__init__()
         head_dim = qkv_features // num_heads
         self.causal = causal
         self.use_flash = use_flash
+        self.dropout = dropout
         for name in ("query", "key", "value"):
             setattr(self, name, _HeadProj(qkv_features, num_heads, head_dim, device, generator))
         self.out = _OutProj(num_heads, head_dim, qkv_features, device, generator)
 
-    def forward(self, x, kv_mask=None):
+    def forward(self, x, kv_mask=None, generator=None):
+        """``generator``: the dropout stream in train mode, None in eval."""
         q, k, v = self.query(x), self.key(x), self.value(x)
-        attend = flash_attention if self.use_flash else reference_attention
-        return self.out(attend(q, k, v, kv_mask, causal=self.causal))
+        if self.use_flash:
+            o = flash_attention(q, k, v, kv_mask, causal=self.causal)
+        else:
+            o = reference_attention(q, k, v, kv_mask, causal=self.causal,
+                                    dropout_rate=self.dropout, generator=generator)
+        return self.out(o)
 
 
 class EncoderBlock(nn.Module):
@@ -97,14 +105,14 @@ class EncoderBlock(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.ln1 = nn.LayerNorm(dim, eps=1e-6, device=device)
-        self.attn = FlashSelfAttention(heads, dim, use_flash=use_flash, device=device,
-                                       generator=generator)
+        self.attn = FlashSelfAttention(heads, dim, use_flash=use_flash, dropout=dropout,
+                                       device=device, generator=generator)
         self.ln2 = nn.LayerNorm(dim, eps=1e-6, device=device)
         self.fc1 = _linear(dim, dim * mlp_ratio, device, generator)
         self.fc2 = _linear(dim * mlp_ratio, dim, device, generator)
 
     def forward(self, x, kv_mask=None, generator=None):
-        y = self.attn(self.ln1(x), kv_mask=kv_mask)
+        y = self.attn(self.ln1(x), kv_mask=kv_mask, generator=generator)
         x = x + _dropout(y, self.dropout, generator)
         y = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
         return x + _dropout(y, self.dropout, generator)

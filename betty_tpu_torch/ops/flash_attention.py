@@ -19,24 +19,22 @@ launches the kernel or raises; nothing falls back. Sequences longer than 512
 need the multi-tile kernels, which are not ported yet.
 
 ``FlashAttentionFn`` is reverse-mode only, like the JAX ``custom_vjp``:
-``torch.func.jvp`` through it raises, so Hessian-vector solvers (CG,
-Neumann) must use the plain attention.
+``torch.func.jvp`` through it raises, so the Hessian-vector solvers (CG,
+Neumann) run the plain attention, ``reference_attention``, which carries
+flax's attention-probability dropout in train mode.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` beside the package (or ``$BETTY_TORCH_BUILD_DIR``) and
-loaded with ``ctypes``.
+loaded with ``ctypes`` (``ops/_build.py``).
 """
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
+
+from betty_tpu_torch.ops import _build
 
 # -0.7 * max float32: large enough to vanish in exp, without -inf NaN traps
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -45,65 +43,25 @@ MAX_SINGLE_TILE = 512
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_single.cu"
-_LIB = None
+_NAME = "flash_single"
 BUILD_LOG = ""  # nvcc's output of the last build (ptxas register/smem report)
-
-
-def build_dir() -> Path:
-    env = os.environ.get("BETTY_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[2] / "build" / "kernels"
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return found
 
 
 def build_kernels() -> Path:
     """Compile ``csrc/flash_single.cu`` into a shared library keyed by the
     source's hash; a library already built from the same source is reused."""
     global BUILD_LOG
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    out = build_dir() / f"libflash_single_{tag}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_SOURCE)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    out = _build.build_all([_NAME])[_NAME]
+    BUILD_LOG = _build.BUILD_LOGS.get(_NAME, BUILD_LOG)
     return out
 
 
 def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_kernels()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_single_fwd.argtypes = [p] * 6 + [i] * 7 + [f, p]
-        lib.flash_single_fwd.restype = i
-        lib.flash_single_bwd.argtypes = [p] * 11 + [i] * 7 + [f, p]
-        lib.flash_single_bwd.restype = i
-        _LIB = lib
-    return _LIB
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.load(_NAME, {
+        "flash_single_fwd": ([p] * 6 + [i] * 7 + [f, p], i),
+        "flash_single_bwd": ([p] * 11 + [i] * 7 + [f, p], i),
+    })
 
 
 def _ptr(t):
@@ -304,9 +262,15 @@ def flash_attention(q, k, v, kv_mask=None, *, causal=False, sm_scale=None):
     return o
 
 
-def reference_attention(q, k, v, kv_mask=None, *, causal=False, sm_scale=None):
+def reference_attention(q, k, v, kv_mask=None, *, causal=False, sm_scale=None,
+                        dropout_rate=0.0, generator=None):
     """Plain einsum attention with the same mask semantics: the numeric
-    oracle for the kernels and the non-flash path."""
+    oracle for the kernels and the non-flash path.
+
+    With a ``generator`` and ``dropout_rate > 0`` the float32 probabilities
+    get flax's attention dropout (``broadcast_dropout=True``): one
+    ``(1, 1, Sq, Skv)`` keep mask shared by every batch element and head,
+    kept values scaled by ``1 / (1 - dropout_rate)``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", _acc(q), _acc(k)) * sm_scale
@@ -316,4 +280,8 @@ def reference_attention(q, k, v, kv_mask=None, *, causal=False, sm_scale=None):
     p = torch.softmax(s, dim=-1)
     if mask is not None:
         p = torch.where(mask, p, 0.0)
+    if generator is not None and dropout_rate > 0.0:
+        keep = torch.rand((1, 1) + tuple(p.shape[2:]), generator=generator,
+                          device=p.device) >= dropout_rate
+        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, _acc(v)).to(q.dtype)

@@ -40,9 +40,19 @@ def tree_add(a, b):
     return tree_map(torch.add, a, b)
 
 
+def tree_scale(a, s):
+    """s * a, leafwise (s a number or a 0-dim tensor)."""
+    return tree_map(lambda x: s * x, a)
+
+
 def tree_axpy(alpha, x, y):
     """alpha * x + y, leafwise (alpha a number or a 0-dim tensor)."""
     return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def neg(tree):
+    """Leafwise negation."""
+    return tree_map(torch.neg, tree)
 
 
 def tree_zeros_like(a):

@@ -6,20 +6,27 @@
 Phases:
 
 1. set-up: print the card's name and power limit, turn TF32 off, build the
-   CUDA kernels from ``betty_tpu_torch/csrc`` (timed);
-2. kernels: hold each kernel against its plain PyTorch version on the card at
-   the slice's shape (B32 H16 S128 D64) in bfloat16 and float32, with an
-   all-true mask, a padded mask, a fully masked row and causal masking, and
-   time it beside its plain version and PyTorch's
-   ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it);
-3. slice: a small fp32 reweighting run on the card against the same run on
-   the CPU (plain versions) from the same weights; then two SAMA
-   meta-periods of data reweighting of the RoBERTa-large encoder (24 layers,
-   d 1024, 16 heads, random weights from a seed) at B32 S128 with
-   ``--flash``, through ``build_engine`` and ``Engine.run``, where the
-   launch counts of both kernels are read; then one more meta-period under
-   ``torch.profiler`` for the device-time breakdown and idle share.
+   CUDA sources of ``betty_tpu_torch/csrc`` (one ``nvcc`` each, all started
+   together, each timed);
+2. kernels: hold each flash-attention kernel (B1, B2) against its plain
+   PyTorch version on the card at the SAMA path's shape (B32 H16 S128 D64)
+   in bfloat16 and float32, with an all-true mask, a padded mask, a fully
+   masked row and causal masking, and time it beside its plain version and
+   PyTorch's ``scaled_dot_product_attention`` (a yardstick only; the port
+   never calls it); then the solvers' vector kernels (B6, B7, B8) at the
+   CG/Neumann path's length (the RoBERTa-large classifier's parameter count,
+   padded to the ravel tile) and at a ragged length, timed beside their
+   plain versions (no single PyTorch call computes any of the three);
+3. slice: small fp32 reweighting runs (SAMA with ``--flash``, then CG and
+   Neumann on the plain attention with the fused vector loops) on the card
+   against the same runs on the CPU (plain versions) from the same weights;
+   then data reweighting of the RoBERTa-large encoder (24 layers, d 1024, 16
+   heads, random weights from a seed) at B32 S128 through ``build_engine``
+   and ``Engine.run``: two SAMA meta-periods with ``--flash`` and one more
+   under ``torch.profiler``; two CG meta-periods (3 iterations, fused
+   vector loops, dropout 0.1) and one more under the profiler; two Neumann
+   meta-periods (3 iterations). Each run reads the launch counts of its
+   kernels, set to 0 just before it.
 
 Prints one JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -46,6 +53,21 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 SHAPE = dict(B=32, H=16, S=128, D=64)
+
+
+def roberta_large_params(vocab=50265, max_len=128, d=1024, depth=24, classes=2):
+    """Parameter count of the port's RoBERTa-large classifier by its shapes:
+    embeddings, 24 blocks of 12 d^2 + 13 d (q/k/v/out projections with
+    biases, two LayerNorms, the 4d MLP), the final LayerNorm, pooler and
+    head."""
+    return (vocab * d + max_len * d + depth * (12 * d * d + 13 * d) + 2 * d + d * d + d
+            + d * classes + classes)
+
+
+RAVEL_TILE = 8 * 1024
+N_PARAMS = roberta_large_params()
+N_VECTOR = -(-N_PARAMS // RAVEL_TILE) * RAVEL_TILE  # the CG/Neumann path's vector length
+N_RAGGED = 3 * RAVEL_TILE + 1000
 TOL = {  # (forward, backward relative to max|reference|)
     "float32": (1e-5, 1e-4),
     "bfloat16": (1e-2, 2e-2),
@@ -190,54 +212,170 @@ def kernel_timings():
     return rows
 
 
+VECTOR_KERNELS = ("fused_dot2", "cg_fused_step", "neumann_fused_step")
+
+
+def vector_phase():
+    """B6-B8 against their plain versions at the path's length and at a
+    ragged one. Elementwise outputs agree within 1e-6 x max|ref| (the kernels
+    contract a*b+c into one fused multiply-add, the plain versions round the
+    product first); dots within 1e-5 x sum|a_i b_i| (the kernels sum in
+    another order). Times at the path's length, median of 20 launches."""
+    import torch
+    from betty_tpu_torch.ops import vector as vec
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {name: {"max_abs_err": 0.0} for name in VECTOR_KERNELS}
+    failures = []
+
+    def elementwise(name, got, want, n):
+        err = _err(got, want)
+        tol = 1e-6 * float(want.abs().max())
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        log(f"[vector] n={n} {name:18s} elementwise |err| {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            failures.append(f"{name}/{n}")
+
+    def dot(name, got, want, x, y, n):
+        err = abs(float(got) - float(want))
+        tol = 1e-5 * float((x * y).abs().sum())
+        key = "max_abs_err" if name == "fused_dot2" else "dot_abs_err"
+        rows[name][key] = max(rows[name].get(key, 0.0), err)
+        log(f"[vector] n={n} {name:18s} dot {float(got):.6e} vs {float(want):.6e} "
+            f"|err| {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            failures.append(f"{name}/{n}/dot")
+
+    for n in (N_VECTOR, N_RAGGED):
+        a, b, c, d = (torch.randn(n, generator=gen, device="cuda") for _ in range(4))
+        ak = torch.rand((), generator=gen, device="cuda")
+        alpha = 0.5
+        for got, want, (x, y) in zip(vec.fused_dot2(a, b, c, d), vec.fused_dot2_plain(a, b, c, d),
+                                     ((a, b), (c, d))):
+            dot("fused_dot2", got, want, x, y, n)
+        x2, r2, rr = vec.cg_fused_step(ak, a, b, c, d)
+        px, pr, prr = vec.cg_fused_step_plain(ak, a, b, c, d)
+        elementwise("cg_fused_step", x2, px, n)
+        elementwise("cg_fused_step", r2, pr, n)
+        dot("cg_fused_step", rr, prr, pr, pr, n)
+        for got, want in zip(vec.neumann_fused_step(alpha, a, b, c),
+                             vec.neumann_fused_step_plain(alpha, a, b, c)):
+            elementwise("neumann_fused_step", got, want, n)
+        torch.cuda.synchronize()
+        if n == N_VECTOR:
+            calls = {
+                "fused_dot2": (lambda: vec.fused_dot2(a, b, c, d),
+                               lambda: vec.fused_dot2_plain(a, b, c, d), 16 * n, 4 * n),
+                "cg_fused_step": (lambda: vec.cg_fused_step(ak, a, b, c, d),
+                                  lambda: vec.cg_fused_step_plain(ak, a, b, c, d),
+                                  24 * n + 8, 6 * n),
+                "neumann_fused_step": (lambda: vec.neumann_fused_step(alpha, a, b, c),
+                                       lambda: vec.neumann_fused_step_plain(alpha, a, b, c),
+                                       20 * n, 3 * n),
+            }
+            for name, (kernel, plain, nbytes, flops) in calls.items():
+                t, pt = time_ms(kernel), time_ms(plain)
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+                rows[name].update(ms=t, plain_ms=pt, library_ms=None,
+                                  bound_ms=max(t_bytes, t_ops),
+                                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+                log(f"[timing] {name} n={n} kernel {t:.4f} ms  plain {pt:.4f} ms  "
+                    f"bound {max(t_bytes, t_ops):.4f} ms "
+                    f"({'bytes' if t_bytes >= t_ops else 'operations'}); library: none "
+                    "(no single PyTorch call computes it)")
+        del a, b, c, d, x2, r2, px, pr
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"vector kernels disagree with their plain versions: {failures}")
+    return rows
+
+
 SMALL_ARGV = ["--dim", "64", "--depth", "2", "--heads", "4", "--seq_len", "16",
-              "--batch_size", "4", "--train_size", "64", "--meta_size", "32", "--flash",
+              "--batch_size", "4", "--train_size", "64", "--meta_size", "32",
               "--precision", "fp32", "--dropout", "0", "--unroll_steps", "2", "--train_iters",
               "4"]
+SOLVER_CONFIG = {  # the fused loops at the iterations of the logistic-HPO example
+    "sama": {},
+    "cg": dict(use_fused_vector_ops=True, cg_iterations=3),
+    "neumann": dict(use_fused_vector_ops=True, neumann_iterations=3),
+}
 
 
-def small_run_phase():
+def _counters(hypergradient):
+    """``(reset, counters)``: a function that sets every kernel's launch
+    count to 0, and the counters of the kernels that a solver's path runs."""
+    from betty_tpu_torch.ops import flash_attention as fa
+    from betty_tpu_torch.ops import vector as vec
+
+    def reset():
+        fa.reset_launch_counts()
+        vec.reset_launch_counts()
+
+    if hypergradient == "sama":
+        return reset, {"flash_single_fwd": fa._fwd_single, "flash_single_bwd": fa._bwd_single}
+    if hypergradient == "cg":
+        return reset, {"fused_dot2": vec.fused_dot2, "cg_fused_step": vec.cg_fused_step}
+    return reset, {"neumann_fused_step": vec.neumann_fused_step}
+
+
+def small_run_phase(hypergradient):
     """The small fp32 reweighting run on the card (kernels) and on the CPU
     (their plain versions) from the same weights: parameters agree within
     1e-4 after 4 classifier and 2 reweight steps, as the CPU tests hold the
-    port to the JAX package."""
+    port to the JAX package. SAMA runs with ``--flash``, CG and Neumann on
+    the plain attention with the fused vector loops."""
     import torch
     from betty_tpu_torch.examples import bert_data_reweighting as ex
-    from betty_tpu_torch.ops import flash_attention as fa
 
+    argv = SMALL_ARGV + ["--hypergradient", hypergradient]
+    if hypergradient == "sama":
+        argv.append("--flash")
     engines = {}
     for dev in ("cpu", "cuda"):
-        engines[dev] = ex.build_engine(ex.parse_args(SMALL_ARGV + ["--device", dev]))
+        engines[dev] = ex.build_engine(ex.parse_args(argv + ["--device", dev]),
+                                       **SOLVER_CONFIG[hypergradient])
     for name, st in engines["cpu"].states.items():
         engines["cuda"].states[name]["params"] = {k: v.to("cuda") for k, v in
                                                   st["params"].items()}
-    fa.reset_launch_counts()
+    reset, counters = _counters(hypergradient)
+    reset()
     for eng in engines.values():
         eng.run()
     torch.cuda.synchronize()
-    assert fa._fwd_single.launches > 0 and fa._bwd_single.launches > 0
+    launches = {k: c.launches for k, c in counters.items()}
+    assert all(n > 0 for n in launches.values()), launches
     err = max(float((engines["cuda"].states[n]["params"][k].cpu() - t).abs().max())
               for n, st in engines["cpu"].states.items() for k, t in st["params"].items())
-    log(f"[small] card vs CPU after 4+2 steps: max |param diff| {err:.3e} (tol 1e-4)")
+    log(f"[small] {hypergradient}: card vs CPU after 4+2 steps: max |param diff| {err:.3e} "
+        f"(tol 1e-4); launches {launches}")
     assert err <= 1e-4, err
 
 
-def slice_phase(meta_periods=2):
+def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True):
+    """Data reweighting of the RoBERTa-large encoder at B32 S128 for
+    ``meta_periods`` meta-periods, then (``profile``) one more under the
+    profiler. Returns the launch counts of the path's kernels over the
+    timed periods; ``expected`` gives exact counts to hold them to."""
     import torch
     from betty_tpu_torch.examples import bert_data_reweighting as ex
-    from betty_tpu_torch.ops import flash_attention as fa
 
     unroll = 5
-    argv = ["--model", "large", "--hypergradient", "sama", "--precision", "bf16",
-            "--solver_precision", "fp32", "--flash", "--unroll_steps", str(unroll),
+    argv = ["--model", "large", "--hypergradient", hypergradient, "--precision", "bf16",
+            "--solver_precision", "fp32", "--unroll_steps", str(unroll),
             "--batch_size", "32", "--seq_len", "128", "--device_data",
             "--train_iters", str(unroll * meta_periods), "--train_size", "2048",
             "--meta_size", "512", "--device", "cuda"]
-    log(f"[slice] argv: {' '.join(argv)}")
+    if hypergradient == "sama":
+        argv.append("--flash")
+    tag = f"[slice {hypergradient}]"
+    log(f"{tag} argv: {' '.join(argv)}; solver config {SOLVER_CONFIG[hypergradient]}")
     t0 = time.time()
-    engine = ex.build_engine(ex.parse_args(argv))
+    engine = ex.build_engine(ex.parse_args(argv), **SOLVER_CONFIG[hypergradient])
     torch.cuda.synchronize()
-    log(f"[slice] build_engine {time.time() - t0:.1f} s")
+    n_params = sum(t.numel() for t in engine.states["classifier"]["params"].values())
+    log(f"{tag} build_engine {time.time() - t0:.1f} s; classifier parameters {n_params}")
+    assert n_params == N_PARAMS, (n_params, N_PARAMS)
 
     losses = {"classifier": [], "reweight": []}
     period_ends = []  # host clock after each reweight step, device synchronised
@@ -255,39 +393,44 @@ def slice_phase(meta_periods=2):
         prob.one_step_descent = record
     rw_before = {k: t.clone() for k, t in engine.states["reweight"]["params"].items()}
 
+    reset, counters = _counters(hypergradient)
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset()
     t0 = time.time()
     engine.run()
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    launches = {"flash_single_fwd": fa._fwd_single.launches,
-                "flash_single_bwd": fa._bwd_single.launches}
+    launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
     vals = {k: [float(x) for x in v] for k, v in losses.items()}
-    log(f"[slice] losses {json.dumps(vals)}")
-    log(f"[slice] counts classifier {engine.classifier.count} reweight {engine.reweight.count}")
-    log(f"[slice] launches {launches}")
+    log(f"{tag} losses {json.dumps(vals)}")
+    log(f"{tag} counts classifier {engine.classifier.count} reweight {engine.reweight.count}")
+    log(f"{tag} launches {launches}")
     periods = [b - a for a, b in zip([t0] + period_ends, period_ends)]
-    log(f"[slice] meta-period seconds {periods} (the first includes warm-up); run "
+    log(f"{tag} meta-period seconds {periods} (the first includes warm-up); run "
         f"{elapsed:.3f} s; max_memory_allocated {peak / 2**30:.2f} GiB")
     assert engine.classifier.count == unroll * meta_periods, engine.classifier.count
     assert engine.reweight.count == meta_periods, engine.reweight.count
     assert all(math.isfinite(x) for v in vals.values() for x in v), vals
     assert len(vals["classifier"]) == unroll * meta_periods and len(vals["reweight"]) >= 2
     assert all(n > 0 for n in launches.values()), launches
+    if expected is not None:
+        assert launches == expected, (launches, expected)
     changed = any(not torch.equal(rw_before[k], t)
                   for k, t in engine.states["reweight"]["params"].items())
     assert changed, "the reweight parameters did not change"
     finite = all(bool(torch.isfinite(t).all())
                  for s in engine.states.values() for t in s["params"].values())
     assert finite, "non-finite parameters after the run"
-    profile_period(engine, unroll)
+    if profile:
+        profile_period(engine, unroll, tag)
+    del engine
+    torch.cuda.empty_cache()
     return launches
 
 
-def profile_period(engine, unroll):
+def profile_period(engine, unroll, tag):
     """One more meta-period under ``torch.profiler``: device time by kernel
     class and the device's idle share over the period's wall time."""
     import torch
@@ -310,11 +453,14 @@ def profile_period(engine, unroll):
         kernels.append((t / 1e3, e.count, e.key))
     busy = sum(t for t, _, _ in kernels)
     if busy == 0.0:
-        log("[profile] the profiler recorded no device time")
+        log(f"{tag} [profile] the profiler recorded no device time")
         return
 
     def kind(name):
         low = name.lower()
+        if any(w in low for w in ("dot2_kernel", "cg_step_kernel", "neumann_step_kernel",
+                                  "sum_partials")):
+            return "vector (B6-B8)"
         if "fwd_kernel" in low or "bwd_kernel" in low:
             return "flash (B1/B2)"
         if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "matmul")):
@@ -324,12 +470,24 @@ def profile_period(engine, unroll):
     by_kind = {}
     for t, _, name in kernels:
         by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + t
-    log(f"[profile] profiled meta-period: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {1 - busy / wall_ms:.3f}, {sum(c for _, c, _ in kernels)} kernel launches")
+    log(f"{tag} [profile] profiled meta-period: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        f"{sum(c for _, c, _ in kernels)} kernel launches")
     for k, t in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        log(f"[profile]   {k:14s} {t:9.2f} ms  {t / busy:.3f} of device time")
+        log(f"{tag} [profile]   {k:14s} {t:9.2f} ms  {t / busy:.3f} of device time")
     for t, c, name in sorted(kernels, reverse=True)[:15]:
-        log(f"[profile]   {t:9.2f} ms  x{c:<6d} {name[:110]}")
+        log(f"{tag} [profile]   {t:9.2f} ms  x{c:<6d} {name[:110]}")
+
+
+REPLACES = {
+    "flash_single_fwd": ("betty_tpu/ops/flash_attention.py:177",
+                         "betty_tpu_torch/csrc/flash_single.cu"),
+    "flash_single_bwd": ("betty_tpu/ops/flash_attention.py:209",
+                         "betty_tpu_torch/csrc/flash_single.cu"),
+    "fused_dot2": ("betty_tpu/ops/vector.py:85", "betty_tpu_torch/csrc/vector_ops.cu"),
+    "cg_fused_step": ("betty_tpu/ops/vector.py:119", "betty_tpu_torch/csrc/vector_ops.cu"),
+    "neumann_fused_step": ("betty_tpu/ops/vector.py:163", "betty_tpu_torch/csrc/vector_ops.cu"),
+}
 
 
 def main(argv=None):
@@ -344,7 +502,9 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
     try:
+        from betty_tpu_torch.ops import _build
         from betty_tpu_torch.ops import flash_attention as fa
+        from betty_tpu_torch.ops import vector as vec
     except ImportError as e:
         print(f"chip_smoke: the betty_tpu_torch package is not here ({e})", file=sys.stderr)
         return 3
@@ -357,35 +517,51 @@ def main(argv=None):
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.time()
-    lib = fa.build_kernels()
+    libs = _build.build_all()
+    fa.build_kernels()
     fa._lib()
-    log(f"[setup] kernels built in {time.time() - t0:.1f} s: {lib}")
-    for line in fa.BUILD_LOG.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"[setup] ptxas {line.strip()}")
+    vec._lib()
+    log(f"[setup] kernels built in {time.time() - t0:.1f} s (parallel): "
+        + ", ".join(f"{k} {_build.BUILD_SECONDS.get(k, 0.0):.1f} s -> {v}"
+                    for k, v in libs.items()))
+    for name, text in _build.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"[setup] ptxas {name}: {line.strip()}")
 
     worst = kernel_phase()
     rows = kernel_timings()
-    launches = {"flash_single_fwd": None, "flash_single_bwd": None}
+    vrows = vector_phase()
+    launches = {name: None for name in REPLACES}
     if "slice" in phases:
-        small_run_phase()
-        launches = slice_phase()
+        for hypergradient in ("sama", "cg", "neumann"):
+            small_run_phase(hypergradient)
+        launches.update(slice_phase("sama"))
+        launches.update(slice_phase("cg", expected={"fused_dot2": 2, "cg_fused_step": 6}))
+        launches.update(slice_phase("neumann", expected={"neumann_fused_step": 6},
+                                    profile=False))
 
-    replaces = {
-        "flash_single_fwd": "betty_tpu/ops/flash_attention.py:177",
-        "flash_single_bwd": "betty_tpu/ops/flash_attention.py:209",
-    }
     kernels = []
     for name in ("flash_single_fwd", "flash_single_bwd"):
         r = rows[(name, "bfloat16")]
         kernels.append({
-            "name": name, "route": "cuda", "source": "betty_tpu_torch/csrc/flash_single.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": REPLACES[name][1],
+            "replaces": REPLACES[name][0], "launches": launches[name],
             "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "float32": {k: rows[(name, "float32")][k]
                         for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        })
+    for name in VECTOR_KERNELS:
+        r = vrows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": REPLACES[name][1],
+            "replaces": REPLACES[name][0], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            **({"dot_abs_err": r["dot_abs_err"]} if "dot_abs_err" in r else {}),
+            "n": N_VECTOR,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

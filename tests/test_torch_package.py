@@ -14,7 +14,7 @@ from betty_tpu.data import ArrayLoader as JArrayLoader
 from betty_tpu_torch import Config, Engine, EngineConfig
 from betty_tpu_torch.data import ArrayLoader
 from betty_tpu_torch.examples import bert_data_reweighting as tex
-from betty_tpu_torch.hypergradient import _solver
+from betty_tpu_torch.hypergradient import _solver, cg, neumann
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "betty_tpu")
@@ -32,6 +32,9 @@ def _imports(path):
 def test_port_imports_no_jax_and_nothing_of_betty_tpu():
     files = sorted((ROOT / "betty_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for new in ("ops/vector.py", "ops/_build.py", "hypergradient/hvp.py", "hypergradient/cg.py",
+                "hypergradient/neumann.py", "examples/logistic_regression_hpo.py"):
+        assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -44,9 +47,11 @@ def test_unported_options_raise():
         EngineConfig(strategy="fsdp")
     with pytest.raises(NotImplementedError, match="remat"):
         Config(remat=True)
-    for name in ("cg", "neumann", "reinforce"):
-        with pytest.raises(NotImplementedError, match="CG/Neumann slice"):
-            _solver(name)
+    assert _solver("cg") is cg and _solver("neumann") is neumann
+    with pytest.raises(NotImplementedError, match="later slice"):
+        _solver("reinforce")
+    with pytest.raises(ValueError, match="hvp_mode"):
+        Config(hvp_mode="forward")
     for flag in ("--remat", "--compile_blocks"):
         args = tex.parse_args(["--device", "cpu", "--dim", "16", "--depth", "1", "--heads",
                                "2", flag])

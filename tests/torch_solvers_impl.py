@@ -1,8 +1,13 @@
-"""darts and SAMA hypergradients of the port against betty_tpu and against
-the float64 torch-autograd references of golden_impl.py, on golden_impl's
-bilevel logistic-regression fixture. Run as a subprocess by
-test_torch_solvers.py (float64 JAX must not leak into the float32 test
-process). Required agreement: 1e-10 in float64."""
+"""darts, SAMA, CG and Neumann hypergradients of the port against betty_tpu
+and against the float64 torch-autograd references of golden_impl.py, on
+golden_impl's bilevel logistic-regression fixture. CG and Neumann run in
+both ``hvp_mode``s, with and without ``use_fused_vector_ops``. Run as a
+subprocess by test_torch_solvers.py (float64 JAX must not leak into the
+float32 test process). Required agreement: 1e-10 in float64.
+
+The JAX package's fused path ravels to float32 even under float64, so the
+port's fused path (whose ravel keeps float64) is held against the JAX tree
+path of the same ``hvp_mode``."""
 
 import os
 import sys
@@ -18,7 +23,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from betty_tpu import optim as joptim  # noqa: E402
 from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim  # noqa: E402
-from betty_tpu_torch.hypergradient import compute_path_grads, darts, sama  # noqa: E402
+from betty_tpu_torch.hypergradient import (  # noqa: E402
+    cg, compute_path_grads, darts, neumann, sama)
 from betty_tpu_torch.module import from_fn  # noqa: E402
 from betty_tpu_torch.problems.problem import ctx_replace  # noqa: E402
 from betty_tpu_torch.utils import grad  # noqa: E402
@@ -127,6 +133,30 @@ def main():
     want = g.t_sama(torch.as_tensor(tv["w"]), torch.as_tensor(mu), torch.as_tensor(nu),
                     torch.as_tensor(lg))
     ok &= check("sama vs torch autograd", tsama["w"], want.detach())
+
+    # cg and neumann: golden_impl's settings, both HVP constructions, tree
+    # and fused vector loops
+    solvers = (
+        ("neumann", neumann, g.jax_neumann, g.t_neumann,
+         dict(neumann_iterations=4, neumann_alpha=0.7)),
+        ("cg", cg, g.jax_cg, g.t_cg, dict(cg_iterations=3, cg_alpha=0.35)),
+    )
+    for name, port_fn, jax_fn, torch_fn, extra in solvers:
+        for hvp_mode in ("jvp", "vjp"):
+            jeng, jout, jin, jctx, jbatch = g.build_jax(
+                Config_j(type=name, hvp_mode=hvp_mode, **extra), joptim.sgd(lr=0.1))
+            jv = g.j_direct_v(jout, jin, jctx)
+            jres = jax_fn(jv, jin, jout, jctx, jeng.states, jbatch, key)
+            for fused in (False, True):
+                teng, tout, tin, tctx, tbatch = build_port(
+                    Config(type=name, hvp_mode=hvp_mode, use_fused_vector_ops=fused, **extra),
+                    optim.sgd(lr=0.1))
+                tv = port_direct_v(tout, tctx)
+                tres = port_fn(tv, tin, tout, tctx, teng.states, tbatch, 0)
+                tag = f"{name}[{hvp_mode}{', fused' if fused else ''}]"
+                ok &= check(f"{tag} vs betty_tpu", tres["w"], jres["w"])
+                ok &= check(f"{tag} vs torch autograd", tres["w"],
+                            torch_fn(torch.as_tensor(tv["w"])).detach())
     sys.exit(0 if ok else 1)
 
 
