@@ -7,9 +7,10 @@ the same parameter shapes (q/k/v kernels ``(d, H, Dh)`` with bias
 epsilon 1e-6 and the tanh approximation of GELU.
 
 The q/k/v projections emit the kernels' ``(B, H, L, Dh)`` layout straight
-from their einsum. ``use_flash=True`` routes attention through the
-single-tile CUDA kernels (``ops/flash_attention.py``) and has no
-attention-probability dropout, as in the JAX package's flash path;
+from their einsum. ``use_flash=True`` routes attention through the flash
+CUDA kernels (``ops/flash_attention.py``: single-tile up to the blocks,
+512 by default, multi-tile beyond) and has no attention-probability
+dropout, as in the JAX package's flash path;
 ``use_flash=False`` uses ``reference_attention`` on the same parameters
 with flax ``MultiHeadDotProductAttention``'s attention dropout (one keep
 mask over (query, key), broadcast across batch and heads, 1/keep scaling).
@@ -75,14 +76,17 @@ class _OutProj(nn.Module):
 class FlashSelfAttention(nn.Module):
     """Self-attention with ``query``/``key``/``value``/``out`` projections.
     ``kv_mask`` is the (B, L) key-padding mask (True = attend); query rows
-    are not masked (every model here masks them downstream)."""
+    are not masked (every model here masks them downstream). ``block_q`` /
+    ``block_kv``: the flash path's tile sizes (None: ``flash_attention``'s
+    defaults), as the JAX module's fields."""
 
     def __init__(self, num_heads, qkv_features, causal=False, use_flash=True, dropout=0.0,
-                 device=None, generator=None):
+                 block_q=None, block_kv=None, device=None, generator=None):
         super().__init__()
         head_dim = qkv_features // num_heads
         self.causal = causal
         self.use_flash = use_flash
+        self.block_q, self.block_kv = block_q, block_kv
         self.dropout = dropout
         for name in ("query", "key", "value"):
             setattr(self, name, _HeadProj(qkv_features, num_heads, head_dim, device, generator))
@@ -92,7 +96,8 @@ class FlashSelfAttention(nn.Module):
         """``generator``: the dropout stream in train mode, None in eval."""
         q, k, v = self.query(x), self.key(x), self.value(x)
         if self.use_flash:
-            o = flash_attention(q, k, v, kv_mask, causal=self.causal)
+            o = flash_attention(q, k, v, kv_mask, causal=self.causal, block_q=self.block_q,
+                                block_kv=self.block_kv)
         else:
             o = reference_attention(q, k, v, kv_mask, causal=self.causal,
                                     dropout_rate=self.dropout, generator=generator)

@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library of
 its own, ``build/kernels/lib<name>_<hash>.so`` beside the package (or under
-``$BETTY_TORCH_BUILD_DIR``), keyed by the hash of the source, so a library
-already built from the same source is reused. Each library has a plain C
+``$BETTY_TORCH_BUILD_DIR``), keyed by the hash of the source and of every
+``csrc`` header it includes, so a library already built from the same code
+is reused and an edited header builds anew. Each library has a plain C
 interface and is loaded with ``ctypes``. ``build_all`` starts one ``nvcc``
 for every source that is not built yet, all at once, and waits for them.
 """
@@ -11,6 +12,7 @@ for every source that is not built yet, all at once, and waits for them.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -21,6 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_LOGS = {}  # source name -> nvcc's output (ptxas register/smem report)
 BUILD_SECONDS = {}  # source name -> wall seconds of its nvcc run
 _LIBS = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def build_dir() -> Path:
@@ -45,9 +48,27 @@ def _nvcc() -> str:
     return found
 
 
+def source_files(name: str):
+    """``csrc/<name>.cu`` and every header of ``csrc`` that it includes,
+    directly or through another header."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header.exists():
+                todo.append(header)
+    return files
+
+
 def library_path(name: str) -> Path:
-    tag = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return build_dir() / f"lib{name}_{tag}.so"
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return build_dir() / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names=None):

@@ -1,22 +1,28 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py                     # every phase (needs one card)
-    python3 chip_smoke.py --phases kernels    # build and check the kernels only
+    python3 chip_smoke.py                          # every phase (needs one card)
+    python3 chip_smoke.py --phases kernels         # build and check the kernels only
+    python3 chip_smoke.py --phases kernels,long    # ... and the S1024 runs
 
 Phases:
 
 1. set-up: print the card's name and power limit, turn TF32 off, build the
    CUDA sources of ``betty_tpu_torch/csrc`` (one ``nvcc`` each, all started
    together, each timed);
-2. kernels: hold each flash-attention kernel (B1, B2) against its plain
-   PyTorch version on the card at the SAMA path's shape (B32 H16 S128 D64)
-   in bfloat16 and float32, with an all-true mask, a padded mask, a fully
-   masked row and causal masking, and time it beside its plain version and
-   PyTorch's ``scaled_dot_product_attention`` (a yardstick only; the port
-   never calls it); then the solvers' vector kernels (B6, B7, B8) at the
-   CG/Neumann path's length (the RoBERTa-large classifier's parameter count,
-   padded to the ravel tile) and at a ragged length, timed beside their
-   plain versions (no single PyTorch call computes any of the three);
+2. kernels (always): hold each single-tile flash-attention kernel (B1, B2)
+   against its plain PyTorch version on the card at the SAMA path's shape
+   (B32 H16 S128 D64) in bfloat16 and float32, with an all-true mask, a
+   padded mask, a fully masked row and causal masking, and time it beside
+   its plain version and PyTorch's ``scaled_dot_product_attention`` (a
+   yardstick only; the port never calls it); the same for the multi-tile
+   kernels (B3, B4, B5) at the long-sequence path's shape (B8 H16 S1024
+   D64) and at two edge shapes (S384 with blocks of 128 and causal masking;
+   S96 with blocks of 32 and D16, a ragged last tile), where
+   ``flash_attention`` with those blocks must launch B3-B5 and not B1/B2;
+   then the solvers' vector kernels (B6, B7, B8) at the CG/Neumann path's
+   length (the RoBERTa-large classifier's parameter count, padded to the
+   ravel tile) and at a ragged length, timed beside their plain versions
+   (no single PyTorch call computes any of the three);
 3. slice: small fp32 reweighting runs (SAMA with ``--flash``, then CG and
    Neumann on the plain attention with the fused vector loops) on the card
    against the same runs on the CPU (plain versions) from the same weights;
@@ -25,8 +31,14 @@ Phases:
    and ``Engine.run``: two SAMA meta-periods with ``--flash`` and one more
    under ``torch.profiler``; two CG meta-periods (3 iterations, fused
    vector loops, dropout 0.1) and one more under the profiler; two Neumann
-   meta-periods (3 iterations). Each run reads the launch counts of its
-   kernels, set to 0 just before it.
+   meta-periods (3 iterations);
+4. long: the small fp32 SAMA ``--flash`` run at S1024 on the card against
+   the CPU (the multi-tile path); then SAMA reweighting of the RoBERTa-large
+   encoder at B8 S1024 with ``--flash``: two meta-periods and one more
+   under the profiler.
+
+Each run reads the launch counts of its kernels, set to 0 just before it,
+and holds them to the counts its code path implies.
 
 Prints one JSON line of kernel results, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -38,6 +50,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -52,12 +65,17 @@ sys.path.insert(0, ROOT)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-SHAPE = dict(B=32, H=16, S=128, D=64)
+SHAPE = dict(B=32, H=16, S=128, D=64)  # the single-tile path (S128 SAMA run)
+LONG_SHAPE = dict(B=8, H=16, S=1024, D=64)  # the multi-tile path (S1024 SAMA run)
+# multi-tile edge shapes: (B, H, S, D, block, mask case)
+EDGE_SHAPES = [(2, 4, 384, 64, 128, "causal"), (2, 4, 96, 16, 32, "padded")]
+KERNEL_TILE = 64  # rows per tile of the CUDA flash kernels
 
 
 def roberta_large_params(vocab=50265, max_len=128, d=1024, depth=24, classes=2):
     """Parameter count of the port's RoBERTa-large classifier by its shapes:
-    embeddings, 24 blocks of 12 d^2 + 13 d (q/k/v/out projections with
+    embeddings (``max_len`` position rows: the example sets it to the
+    sequence length), 24 blocks of 12 d^2 + 13 d (q/k/v/out projections with
     biases, two LayerNorms, the 4d MLP), the final LayerNorm, pooler and
     head."""
     return (vocab * d + max_len * d + depth * (12 * d * d + 13 * d) + 2 * d + d * d + d
@@ -65,7 +83,7 @@ def roberta_large_params(vocab=50265, max_len=128, d=1024, depth=24, classes=2):
 
 
 RAVEL_TILE = 8 * 1024
-N_PARAMS = roberta_large_params()
+N_PARAMS = roberta_large_params()  # at S128, the CG/Neumann path
 N_VECTOR = -(-N_PARAMS // RAVEL_TILE) * RAVEL_TILE  # the CG/Neumann path's vector length
 N_RAGGED = 3 * RAVEL_TILE + 1000
 TOL = {  # (forward, backward relative to max|reference|)
@@ -105,10 +123,10 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def _inputs(dtype, case, gen):
+def _inputs(dtype, case, gen, shape=SHAPE):
     import torch
 
-    B, H, S, D = SHAPE["B"], SHAPE["H"], SHAPE["S"], SHAPE["D"]
+    B, H, S, D = shape["B"], shape["H"], shape["S"], shape["D"]
     q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
@@ -209,6 +227,152 @@ def kernel_timings():
             log(f"[timing] {name} {dname:8s} kernel {t:.4f} ms  plain {p:.4f} ms  "
                 f"sdpa {lib:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    return rows
+
+
+MULTI_KERNELS = ("flash_multi_fwd", "flash_multi_bwd_dkv", "flash_multi_bwd_dq")
+SINGLE_KERNELS = ("flash_single_fwd", "flash_single_bwd")
+MASK_CASES = ("all_true", "padded", "masked_row", "causal")
+
+
+def _multi_check(dtype, shape, case, gen, worst):
+    """B3, B4 and B5 against their plain versions on one input. The plain
+    forward runs at the kernel's own 64-row tiles, so p is rounded against
+    the same running max; B4 and B5 are compared on the kernel's own o and
+    lse, with di = rowsum(o * do) in float32 as the backward computes it.
+    Tolerances as B1/B2's. Returns True if all agree."""
+    import torch
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    dname = str(dtype).split(".")[-1]
+    tf, tb = TOL[dname]
+    q, k, v, do, mask, causal = _inputs(dtype, case, gen, shape)
+    kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(shape["D"]))
+    tiles = dict(block_q=KERNEL_TILE, block_kv=KERNEL_TILE)
+    o, lse = fa._fwd_multi(q, k, v, mask, **tiles, **kw)
+    po, plse = fa._fwd_multi_plain(q, k, v, mask, **tiles, **kw)
+    torch.cuda.synchronize()
+    scale_o = max(1.0, float(po.float().abs().max())) if dname == "bfloat16" else 1.0
+    e_o, e_lse = _err(o, po), _err(lse, plse)
+    ok_f = e_o <= tf * scale_o and e_lse <= tf * max(1.0, float(plse.abs().max()))
+    if case == "masked_row":
+        ok_f &= bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv = fa._bwd_dkv(q, k, v, do, lse, di, mask, **kw)
+    dq = fa._bwd_dq(q, k, v, do, lse, di, mask, **kw)
+    pk, pv = fa._bwd_dkv_plain(q, k, v, do, lse, di, mask, **kw)
+    pq = fa._bwd_dq_plain(q, k, v, do, lse, di, mask, **kw)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return _err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+    e_dkv, e_dq = max(rel(dk, pk), rel(dv, pv)), rel(dq, pq)
+    ok_b = (e_dkv <= tb and e_dq <= tb
+            and all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv)))
+    worst["flash_multi_fwd"] = max(worst["flash_multi_fwd"], e_o)
+    worst["flash_multi_bwd_dkv"] = max(worst["flash_multi_bwd_dkv"], _err(dk, pk), _err(dv, pv))
+    worst["flash_multi_bwd_dq"] = max(worst["flash_multi_bwd_dq"], _err(dq, pq))
+    geo = "B{B} H{H} S{S} D{D}".format(**shape)
+    log(f"[kernels] B3-B5 {geo} {dname:8s} {case:10s} fwd |o|err {e_o:.3e} |lse|err "
+        f"{e_lse:.3e} (tol {tf:g}{' x max|o|' if scale_o != 1.0 else ''}) bwd rel err dk/dv "
+        f"{e_dkv:.3e} dq {e_dq:.3e} (tol {tb:g}) -> {'ok' if ok_f and ok_b else 'FAIL'}")
+    return ok_f and ok_b
+
+
+def multi_kernel_phase():
+    """B3-B5 at the long-sequence path's shape for both dtypes and the four
+    mask cases, then at the edge shapes; there ``flash_attention`` with the
+    edge's blocks must launch B3, B4 and B5 once each and neither B1 nor B2.
+    Returns the largest absolute error of each kernel."""
+    import torch
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = dict.fromkeys(MULTI_KERNELS, 0.0)
+    failures = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in MASK_CASES:
+            if not _multi_check(dtype, LONG_SHAPE, case, gen, worst):
+                failures.append(f"S{LONG_SHAPE['S']}/{dtype}/{case}")
+    for B, H, S, D, block, case in EDGE_SHAPES:
+        shape = dict(B=B, H=H, S=S, D=D)
+        for dtype in (torch.bfloat16, torch.float32):
+            if not _multi_check(dtype, shape, case, gen, worst):
+                failures.append(f"S{S}/{dtype}/{case}")
+        q, k, v, do, mask, causal = _inputs(torch.float32, case, gen, shape)
+        qg, kg, vg = (t.requires_grad_(True) for t in (q, k, v))
+        fa.reset_launch_counts()
+        out = fa.flash_attention(qg, kg, vg, mask, causal=causal, block_q=block, block_kv=block)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        counts = {name: f.launches for name, f in fa.KERNELS.items()}
+        want = {name: int(name in MULTI_KERNELS) for name in fa.KERNELS}
+        log(f"[kernels] flash_attention S{S} blocks {block}: launches {counts}")
+        if counts != want:
+            failures.append(f"S{S}/dispatch {counts}")
+    fa.reset_launch_counts()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"multi-tile kernels disagree with their plain versions: {failures}")
+    return worst
+
+
+def multi_kernel_timings():
+    """B3-B5 at the long-sequence path's inputs (B8 H16 S1024 D64, all-true
+    kv mask, not causal), beside their plain versions at the path's blocks
+    (JAX's default 512) and PyTorch's ``scaled_dot_product_attention``: its
+    forward for B3, its backward (which computes dq, dk and dv, the outputs
+    of B4 and B5 together) for both B4 and B5."""
+    import torch
+    import torch.nn.functional as F
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    B, H, S, D = (LONG_SHAPE[x] for x in "BHSD")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    kw = dict(causal=False, sm_scale=1.0 / math.sqrt(D))
+    blocks = dict(block_q=fa.DEFAULT_BLOCK, block_kv=fa.DEFAULT_BLOCK)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q, k, v, do, mask, _ = _inputs(dtype, "all_true", gen, LONG_SHAPE)
+        o, lse = fa._fwd_multi(q, k, v, mask, **blocks, **kw)
+        di = (o.float() * do.float()).sum(-1)
+        attn_mask = mask[:, None, None, :]
+        bwd_args = (q, k, v, do, lse, di, mask)
+        t_fwd = time_ms(lambda: fa._fwd_multi(q, k, v, mask, **blocks, **kw))
+        p_fwd = time_ms(lambda: fa._fwd_multi_plain(q, k, v, mask, **blocks, **kw))
+        l_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
+        t_dkv = time_ms(lambda: fa._bwd_dkv(*bwd_args, **kw))
+        p_dkv = time_ms(lambda: fa._bwd_dkv_plain(*bwd_args, **kw))
+        t_dq = time_ms(lambda: fa._bwd_dq(*bwd_args, **kw))
+        p_dq = time_ms(lambda: fa._bwd_dq_plain(*bwd_args, **kw))
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=attn_mask)
+        l_bwd = time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True))
+
+        n = B * H * S * D
+        item = q.element_size()
+        mm = 2 * B * H * S * S * D  # flops of one (S x S x D) product per head
+        stats = B * H * S * 4  # one float32 value per row: lse or di
+        for name, t, p, lib, nbytes, flops in (
+                ("flash_multi_fwd", t_fwd, p_fwd, l_fwd,
+                 3 * n * item + mask.numel() + n * item + stats, 2 * mm),
+                ("flash_multi_bwd_dkv", t_dkv, p_dkv, l_bwd,
+                 4 * n * item + 2 * stats + mask.numel() + 2 * n * item, 4 * mm),
+                ("flash_multi_bwd_dq", t_dq, p_dq, l_bwd,
+                 4 * n * item + 2 * stats + mask.numel() + n * item, 3 * mm)):
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            rows[(name, dname)] = dict(
+                ms=t, plain_ms=p, library_ms=lib, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            log(f"[timing] {name} {dname:8s} kernel {t:.4f} ms  plain {p:.4f} ms  "
+                f"sdpa {'backward ' if name != 'flash_multi_fwd' else ''}{lib:.4f} ms  "
+                f"bound {max(t_bytes, t_ops):.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+        del q, k, v, do, o, lse, di, ql, kl, vl, ol, bwd_args
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -313,22 +477,34 @@ def _counters(hypergradient):
         vec.reset_launch_counts()
 
     if hypergradient == "sama":
-        return reset, {"flash_single_fwd": fa._fwd_single, "flash_single_bwd": fa._bwd_single}
+        return reset, dict(fa.KERNELS)
     if hypergradient == "cg":
         return reset, {"fused_dot2": vec.fused_dot2, "cg_fused_step": vec.cg_fused_step}
     return reset, {"neumann_fused_step": vec.neumann_fused_step}
 
 
-def small_run_phase(hypergradient):
+def _used(hypergradient, seq_len, counters):
+    """The kernels of ``counters`` that a run's path launches: SAMA's flash
+    attention is single-tile up to the default block (512), multi-tile
+    beyond; the vector kernels are all on their solver's path."""
+    if hypergradient != "sama":
+        return set(counters)
+    return set(SINGLE_KERNELS if seq_len <= 512 else MULTI_KERNELS)
+
+
+def small_run_phase(hypergradient, seq_len=16, batch=4):
     """The small fp32 reweighting run on the card (kernels) and on the CPU
     (their plain versions) from the same weights: parameters agree within
     1e-4 after 4 classifier and 2 reweight steps, as the CPU tests hold the
-    port to the JAX package. SAMA runs with ``--flash``, CG and Neumann on
-    the plain attention with the fused vector loops."""
+    port to the JAX package. SAMA runs with ``--flash`` (at S1024 through
+    B3-B5, with B1/B2 launched no time), CG and Neumann on the plain
+    attention with the fused vector loops."""
     import torch
     from betty_tpu_torch.examples import bert_data_reweighting as ex
 
     argv = SMALL_ARGV + ["--hypergradient", hypergradient]
+    argv[argv.index("--seq_len") + 1] = str(seq_len)
+    argv[argv.index("--batch_size") + 1] = str(batch)
     if hypergradient == "sama":
         argv.append("--flash")
     engines = {}
@@ -344,38 +520,41 @@ def small_run_phase(hypergradient):
         eng.run()
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
-    assert all(n > 0 for n in launches.values()), launches
+    used = _used(hypergradient, seq_len, counters)
+    assert all((n > 0) == (k in used) for k, n in launches.items()), launches
     err = max(float((engines["cuda"].states[n]["params"][k].cpu() - t).abs().max())
               for n, st in engines["cpu"].states.items() for k, t in st["params"].items())
-    log(f"[small] {hypergradient}: card vs CPU after 4+2 steps: max |param diff| {err:.3e} "
-        f"(tol 1e-4); launches {launches}")
+    log(f"[small] {hypergradient} S{seq_len} B{batch}: card vs CPU after 4+2 steps: max |param "
+        f"diff| {err:.3e} (tol 1e-4); launches {launches}")
     assert err <= 1e-4, err
 
 
-def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True):
-    """Data reweighting of the RoBERTa-large encoder at B32 S128 for
-    ``meta_periods`` meta-periods, then (``profile``) one more under the
-    profiler. Returns the launch counts of the path's kernels over the
-    timed periods; ``expected`` gives exact counts to hold them to."""
+def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_len=128,
+                batch=32):
+    """Data reweighting of the RoBERTa-large encoder at B``batch``
+    S``seq_len`` for ``meta_periods`` meta-periods, then (``profile``) one
+    more under the profiler. Returns the launch counts of the path's kernels
+    over the timed periods; ``expected`` gives exact counts to hold them
+    to."""
     import torch
     from betty_tpu_torch.examples import bert_data_reweighting as ex
 
     unroll = 5
     argv = ["--model", "large", "--hypergradient", hypergradient, "--precision", "bf16",
             "--solver_precision", "fp32", "--unroll_steps", str(unroll),
-            "--batch_size", "32", "--seq_len", "128", "--device_data",
+            "--batch_size", str(batch), "--seq_len", str(seq_len), "--device_data",
             "--train_iters", str(unroll * meta_periods), "--train_size", "2048",
             "--meta_size", "512", "--device", "cuda"]
     if hypergradient == "sama":
         argv.append("--flash")
-    tag = f"[slice {hypergradient}]"
+    tag = f"[slice {hypergradient}{'' if seq_len == 128 else f' S{seq_len}'}]"
     log(f"{tag} argv: {' '.join(argv)}; solver config {SOLVER_CONFIG[hypergradient]}")
     t0 = time.time()
     engine = ex.build_engine(ex.parse_args(argv), **SOLVER_CONFIG[hypergradient])
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in engine.states["classifier"]["params"].values())
     log(f"{tag} build_engine {time.time() - t0:.1f} s; classifier parameters {n_params}")
-    assert n_params == N_PARAMS, (n_params, N_PARAMS)
+    assert n_params == roberta_large_params(max_len=seq_len), n_params
 
     losses = {"classifier": [], "reweight": []}
     period_ends = []  # host clock after each reweight step, device synchronised
@@ -414,8 +593,9 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True):
     assert engine.reweight.count == meta_periods, engine.reweight.count
     assert all(math.isfinite(x) for v in vals.values() for x in v), vals
     assert len(vals["classifier"]) == unroll * meta_periods and len(vals["reweight"]) >= 2
-    assert all(n > 0 for n in launches.values()), launches
-    if expected is not None:
+    if expected is None:
+        assert all(n > 0 for n in launches.values()), launches
+    else:
         assert launches == expected, (launches, expected)
     changed = any(not torch.equal(rw_before[k], t)
                   for k, t in engine.states["reweight"]["params"].items())
@@ -457,13 +637,10 @@ def profile_period(engine, unroll, tag):
         return
 
     def kind(name):
-        low = name.lower()
-        if any(w in low for w in ("dot2_kernel", "cg_step_kernel", "neumann_step_kernel",
-                                  "sum_partials")):
-            return "vector (B6-B8)"
-        if "fwd_kernel" in low or "bwd_kernel" in low:
-            return "flash (B1/B2)"
-        if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "matmul")):
+        own = re.search(r"\(anonymous namespace\)::(\w+)[<(]", name)
+        if own and own.group(1) in KERNEL_SYMBOLS:
+            return KERNEL_SYMBOLS[own.group(1)]
+        if any(w in name.lower() for w in ("gemm", "xmma", "cutlass", "cublas", "matmul")):
             return "matmul"
         return "other"
 
@@ -479,22 +656,64 @@ def profile_period(engine, unroll, tag):
         log(f"{tag} [profile]   {t:9.2f} ms  x{c:<6d} {name[:110]}")
 
 
+# the port's kernels by their own symbol names (csrc/*.cu), for the profile
+KERNEL_SYMBOLS = {
+    "fwd_kernel": "flash B1", "bwd_kernel": "flash B2", "multi_fwd_kernel": "flash B3",
+    "multi_bwd_dkv_kernel": "flash B4", "multi_bwd_dq_kernel": "flash B5",
+    "dot2_kernel": "vector (B6-B8)", "cg_step_kernel": "vector (B6-B8)",
+    "neumann_step_kernel": "vector (B6-B8)", "sum_partials": "vector (B6-B8)",
+}
+
 REPLACES = {
     "flash_single_fwd": ("betty_tpu/ops/flash_attention.py:177",
                          "betty_tpu_torch/csrc/flash_single.cu"),
     "flash_single_bwd": ("betty_tpu/ops/flash_attention.py:209",
                          "betty_tpu_torch/csrc/flash_single.cu"),
+    "flash_multi_fwd": ("betty_tpu/ops/flash_attention.py:373",
+                        "betty_tpu_torch/csrc/flash_multi.cu"),
+    "flash_multi_bwd_dkv": ("betty_tpu/ops/flash_attention.py:547",
+                            "betty_tpu_torch/csrc/flash_multi.cu"),
+    "flash_multi_bwd_dq": ("betty_tpu/ops/flash_attention.py:621",
+                           "betty_tpu_torch/csrc/flash_multi.cu"),
     "fused_dot2": ("betty_tpu/ops/vector.py:85", "betty_tpu_torch/csrc/vector_ops.cu"),
     "cg_fused_step": ("betty_tpu/ops/vector.py:119", "betty_tpu_torch/csrc/vector_ops.cu"),
     "neumann_fused_step": ("betty_tpu/ops/vector.py:163", "betty_tpu_torch/csrc/vector_ops.cu"),
 }
 
 
+PHASES = ("kernels", "slice", "long")
+# exact launch counts of the two SAMA runs over two meta-periods: per period
+# 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
+# layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
+# backward
+SAMA_S128 = {"flash_single_fwd": 432, "flash_single_bwd": 288, "flash_multi_fwd": 0,
+             "flash_multi_bwd_dkv": 0, "flash_multi_bwd_dq": 0}
+SAMA_S1024 = {"flash_single_fwd": 0, "flash_single_bwd": 0, "flash_multi_fwd": 432,
+              "flash_multi_bwd_dkv": 288, "flash_multi_bwd_dq": 288}
+
+
+def _flash_row(name, worst, rows, launches):
+    r = rows[(name, "bfloat16")]
+    row = {
+        "name": name, "route": "cuda", "source": REPLACES[name][1],
+        "replaces": REPLACES[name][0], "launches": launches[name],
+        "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "float32": {k: rows[(name, "float32")][k]
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+    }
+    if name in ("flash_multi_bwd_dkv", "flash_multi_bwd_dq"):
+        row["library_computes"] = "dq, dk and dv: the outputs of B4 and B5 together"
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,slice")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="kernels (always run), slice (S128 runs), long (S1024 runs)")
     args = ap.parse_args(argv)
-    phases = set(args.phases.split(","))
+    phases = set(args.phases.split(",")) | {"kernels"}
 
     import torch
 
@@ -518,8 +737,8 @@ def main(argv=None):
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.time()
     libs = _build.build_all()
-    fa.build_kernels()
-    fa._lib()
+    fa._lib("flash_single")
+    fa._lib("flash_multi")
     vec._lib()
     log(f"[setup] kernels built in {time.time() - t0:.1f} s (parallel): "
         + ", ".join(f"{k} {_build.BUILD_SECONDS.get(k, 0.0):.1f} s -> {v}"
@@ -531,28 +750,25 @@ def main(argv=None):
 
     worst = kernel_phase()
     rows = kernel_timings()
+    worst.update(multi_kernel_phase())
+    rows.update(multi_kernel_timings())
     vrows = vector_phase()
+    # each kernel's launches come from its own path's run
     launches = {name: None for name in REPLACES}
     if "slice" in phases:
         for hypergradient in ("sama", "cg", "neumann"):
             small_run_phase(hypergradient)
-        launches.update(slice_phase("sama"))
+        sama = slice_phase("sama", expected=SAMA_S128)
+        launches.update({k: sama[k] for k in SINGLE_KERNELS})
         launches.update(slice_phase("cg", expected={"fused_dot2": 2, "cg_fused_step": 6}))
         launches.update(slice_phase("neumann", expected={"neumann_fused_step": 6},
                                     profile=False))
+    if "long" in phases:
+        small_run_phase("sama", seq_len=1024, batch=2)
+        sama = slice_phase("sama", expected=SAMA_S1024, seq_len=1024, batch=8)
+        launches.update({k: sama[k] for k in MULTI_KERNELS})
 
-    kernels = []
-    for name in ("flash_single_fwd", "flash_single_bwd"):
-        r = rows[(name, "bfloat16")]
-        kernels.append({
-            "name": name, "route": "cuda", "source": REPLACES[name][1],
-            "replaces": REPLACES[name][0], "launches": launches[name],
-            "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "float32": {k: rows[(name, "float32")][k]
-                        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-        })
+    kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:
         r = vrows[name]
         kernels.append({
@@ -565,7 +781,7 @@ def main(argv=None):
         })
     print(json.dumps({"kernels": kernels}))
     print(card)
-    if phases != {"kernels", "slice"}:
+    if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} only: no result line")
         return 0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
 """The port's CUDA build (``betty_tpu_torch/ops/_build.py``) with a stand-in
 ``nvcc``: one compiler process per source, started together, each library
-keyed by its source's hash and reused, and a failed build raising with the
-compiler's output and leaving nothing behind."""
+keyed by the hash of its source and the headers it includes and reused, and
+a failed build raising with the compiler's output and leaving nothing
+behind."""
 
 import os
+import shutil
 import stat
 
 import pytest
@@ -43,15 +45,15 @@ def fake_cuda(tmp_path, monkeypatch):
 
 
 def test_build_all_builds_every_source_once(fake_cuda):
-    assert _build.sources() == ["flash_single", "vector_ops"]
+    assert _build.sources() == ["flash_multi", "flash_single", "vector_ops"]
     paths = _build.build_all()
-    assert set(paths) == {"flash_single", "vector_ops"}
+    assert set(paths) == {"flash_multi", "flash_single", "vector_ops"}
     for name, path in paths.items():
         assert path.parent == fake_cuda and path.read_text() == "built\n"
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
         assert f"{name}.cu" in _build.BUILD_LOGS[name]
         assert 0.0 < _build.BUILD_SECONDS[name] < 60.0
-    # the only files left are the two libraries
+    # the only files left are the three libraries
     assert sorted(os.listdir(fake_cuda)) == sorted(p.name for p in paths.values())
     # reused while the sources are unchanged: no second compile
     _build.BUILD_SECONDS.clear()
@@ -62,4 +64,25 @@ def test_failed_build_raises_and_leaves_nothing(fake_cuda, monkeypatch):
     monkeypatch.setenv("FAKE_NVCC_FAIL", "vector_ops")
     with pytest.raises(RuntimeError, match="vector_ops.cu: nvcc failed"):
         _build.build_all()
-    assert sorted(os.listdir(fake_cuda)) == [_build.library_path("flash_single").name]
+    assert sorted(os.listdir(fake_cuda)) == sorted(
+        _build.library_path(name).name for name in ("flash_multi", "flash_single"))
+
+
+def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
+    """A library is keyed by its source and every header it includes, so an
+    edited header is not served by a library built before the edit."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("BETTY_TORCH_BUILD_DIR", str(tmp_path / "kernels"))
+    for name in ("flash_multi", "flash_single"):
+        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "flash_common.cuh"]
+    assert [p.name for p in _build.source_files("vector_ops")] == ["vector_ops.cu"]
+    before = {name: _build.library_path(name) for name in _build.sources()}
+    assert before == {name: _build.library_path(name) for name in _build.sources()}
+    header = csrc / "flash_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.sources()}
+    assert after["flash_multi"] != before["flash_multi"]
+    assert after["flash_single"] != before["flash_single"]
+    assert after["vector_ops"] == before["vector_ops"]

@@ -3,10 +3,13 @@
 The JAX side runs its Pallas kernels in interpret mode on the CPU, as
 tests/test_flash_attention.py runs them. The port's ``flash_attention`` on a
 CPU tensor goes through ``FlashAttentionFn`` with the kernels' plain
-versions (``_fwd_single_plain`` / ``_bwd_single_plain``), so these tests hold
-the arithmetic the CUDA kernels repeat. Tolerances are those of
-tests/test_flash_attention.py: float32 1e-5 forward, 1e-4 for gradients
-relative to max|grad|.
+versions, so these tests hold the arithmetic the CUDA kernels repeat: the
+single-tile path (B1/B2, ``_fwd_single_plain`` / ``_bwd_single_plain``) at
+S96 with the default blocks, and the multi-tile path (B3-B5,
+``_fwd_multi_plain`` / ``_bwd_dkv_plain`` / ``_bwd_dq_plain``) at S96 with
+blocks smaller than the sequence and at S1024 with the default 512 blocks.
+Tolerances are those of tests/test_flash_attention.py: float32 1e-5
+forward, 1e-4 for gradients relative to max|grad|; bfloat16 forward 1e-2.
 """
 
 import jax
@@ -20,8 +23,21 @@ from betty_tpu_torch.ops import flash_attention as tfa
 
 B, H, S, D = 2, 2, 96, 16
 
+# (sequence, block_q, block_kv): None = the default blocks, min(512, S)
+SINGLE = (S, None, None)
+TILES = [
+    SINGLE,
+    (S, 32, 32),  # multi-tile, three tiles each way
+    (S, 32, 48),  # unequal tiles: causal tile skips at other places
+    (1024, None, None),  # the long-sequence path at the default 512 blocks
+]
 
-def _inputs(seed, masked_row=False, pad=False):
+
+def _tiles_id(t):
+    return f"S{t[0]}" + ("" if t[1] is None else f"-q{t[1]}-kv{t[2]}")
+
+
+def _inputs(seed, masked_row=False, pad=False, S=S):
     rng = np.random.RandomState(seed)
     q, k, v, w = (rng.randn(B, H, S, D).astype(np.float32) for _ in range(4))
     mask = None
@@ -42,11 +58,12 @@ CASES = [
 ]
 
 
-def _jax_run(q, k, v, w, mask, causal):
+def _jax_run(q, k, v, w, mask, causal, blocks=(None, None)):
     jm = None if mask is None else jnp.asarray(mask)
 
     def loss(q, k, v):
-        o = jfa.flash_attention(q, k, v, jm, causal=causal)
+        o = jfa.flash_attention(q, k, v, jm, causal=causal, block_q=blocks[0],
+                                block_kv=blocks[1])
         return jnp.sum(o * w), o
 
     (_, o), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
@@ -54,21 +71,33 @@ def _jax_run(q, k, v, w, mask, causal):
     return np.asarray(o), [np.asarray(g) for g in grads]
 
 
-def _torch_run(fn, q, k, v, w, mask, causal):
+def _torch_run(fn, q, k, v, w, mask, causal, **blocks):
     qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     tm = None if mask is None else torch.tensor(mask)
-    o = fn(qt, kt, vt, tm, causal=causal)
+    o = fn(qt, kt, vt, tm, causal=causal, **blocks)
     grads = torch.autograd.grad((o * torch.tensor(w)).sum(), (qt, kt, vt))
     return o.detach().numpy(), [g.numpy() for g in grads]
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(k for k, x in c.items() if x)
-                         or "plain")
-@pytest.mark.parametrize("fn", ["flash_attention", "reference_attention"])
-def test_matches_jax_flash_attention(case, fn):
-    q, k, v, w, mask = _inputs(0, pad=case["pad"], masked_row=case["masked_row"])
-    jo, jg = _jax_run(q, k, v, w, mask, case["causal"])
-    to, tg = _torch_run(getattr(tfa, fn), q, k, v, w, mask, case["causal"])
+def _case_id(case):
+    return "-".join(k for k, x in case.items() if x) or "plain"
+
+
+# single-tile ids carry no tile suffix
+MATCH_CASES = [
+    pytest.param(case, fn, tiles, id=f"{fn}-{_case_id(case)}"
+                 + ("" if tiles == SINGLE else f"-{_tiles_id(tiles)}"))
+    for tiles in TILES for case in CASES for fn in ("flash_attention", "reference_attention")
+]
+
+
+@pytest.mark.parametrize("case,fn,tiles", MATCH_CASES)
+def test_matches_jax_flash_attention(case, fn, tiles):
+    seq, bq, bkv = tiles
+    q, k, v, w, mask = _inputs(0, pad=case["pad"], masked_row=case["masked_row"], S=seq)
+    jo, jg = _jax_run(q, k, v, w, mask, case["causal"], (bq, bkv))
+    blocks = dict(block_q=bq, block_kv=bkv) if fn == "flash_attention" else {}
+    to, tg = _torch_run(getattr(tfa, fn), q, k, v, w, mask, case["causal"], **blocks)
     assert np.max(np.abs(to - jo)) < 1e-5
     for a, b in zip(tg, jg):
         assert np.max(np.abs(a - b)) <= 1e-4 * max(np.max(np.abs(b)), 1e-6)
@@ -88,30 +117,106 @@ def test_lse_matches_jax_single_tile_kernel():
     assert np.all(tlse.numpy()[1] == 0.0)
 
 
-def test_bf16_forward_matches_jax():
-    q, k, v, _, mask = _inputs(2, pad=True)
+@pytest.mark.parametrize("tiles", TILES[1:], ids=_tiles_id)
+def test_lse_matches_jax_multi_tile_kernel(tiles):
+    """B3's o and lse against JAX's ``_fwd`` (``_fwd_kernel``) with the same
+    blocks: padded keys, a fully masked row (o = 0, lse = 0) and, at S96,
+    causal tile skips."""
+    seq, bq, bkv = tiles
+    bq, bkv = bq or 512, bkv or 512
+    q, k, v, _, mask = _inputs(1, pad=True, masked_row=True, S=seq)
+    for causal in (False, True):
+        jo, jlse = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+                            causal=causal, sm_scale=1.0 / np.sqrt(D), block_q=bq,
+                            block_kv=bkv, interpret=True)
+        to, tlse = tfa._fwd_multi(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                  torch.tensor(mask), causal=causal,
+                                  sm_scale=1.0 / np.sqrt(D), block_q=bq, block_kv=bkv)
+        assert np.max(np.abs(to.numpy() - np.asarray(jo))) < 1e-5
+        assert np.max(np.abs(tlse.numpy() - np.asarray(jlse)[..., 0])) < 1e-5
+        assert np.all(tlse.numpy()[1] == 0.0) and np.all(to.numpy()[1] == 0.0)
+
+
+def _check_bf16_forward(seq, bq, bkv):
+    q, k, v, _, mask = _inputs(2, pad=True, S=seq)
     cast = lambda x: jnp.asarray(x).astype(jnp.bfloat16)  # noqa: E731
-    jo = jfa.flash_attention(cast(q), cast(k), cast(v), jnp.asarray(mask))
+    jo = jfa.flash_attention(cast(q), cast(k), cast(v), jnp.asarray(mask), block_q=bq,
+                             block_kv=bkv)
     to = tfa.flash_attention(*(torch.tensor(x).to(torch.bfloat16) for x in (q, k, v)),
-                             torch.tensor(mask))
+                             torch.tensor(mask), block_q=bq, block_kv=bkv)
     assert to.dtype == torch.bfloat16
     err = np.max(np.abs(to.float().numpy() - np.asarray(jo.astype(jnp.float32))))
     assert err < 1e-2
 
 
+def test_bf16_forward_matches_jax():
+    _check_bf16_forward(*SINGLE)
+
+
+@pytest.mark.parametrize("tiles", TILES[1:], ids=_tiles_id)
+def test_bf16_multi_tile_forward_matches_jax(tiles):
+    _check_bf16_forward(*tiles)
+
+
 def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
+    """Single-tile and multi-tile paths alike."""
     tfa.reset_launch_counts()
     q, k, v, w, _ = _inputs(3)
-    _torch_run(tfa.flash_attention, q, k, v, w, None, False)
-    assert tfa._fwd_single.launches == 0 and tfa._bwd_single.launches == 0
+    for _, bq, bkv in (SINGLE, (S, 32, 32)):
+        _torch_run(tfa.flash_attention, q, k, v, w, None, False, block_q=bq, block_kv=bkv)
+    assert {name: f.launches for name, f in tfa.KERNELS.items()} == dict.fromkeys(tfa.KERNELS, 0)
+
+
+@pytest.mark.parametrize("tiles,path", [
+    ((S, None, None), "single"),
+    ((S, 96, 96), "single"),
+    ((S, 128, 512), "single"),
+    ((S, 32, 32), "multi"),
+    ((S, 96, 48), "multi"),
+    ((S, 48, 96), "multi"),
+    ((1024, None, None), "multi"),
+], ids=lambda x: _tiles_id(x) if isinstance(x, tuple) else x)
+def test_dispatch_is_jax_single_tile_predicate(tiles, path, monkeypatch):
+    """Single tile iff Sq <= block_q and Skv <= block_kv (JAX's
+    ``_single_tile``), and the backward takes the forward's branch."""
+    seq, bq, bkv = tiles
+    calls = []
+    for name in ("_fwd_single", "_bwd_single", "_fwd_multi", "_bwd_dkv", "_bwd_dq"):
+        def spy(*a, _orig=getattr(tfa, name), _name=name, **kw):
+            calls.append(_name)
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(tfa, name, spy)
+    q, k, v, w, _ = _inputs(7, S=seq)
+    _torch_run(tfa.flash_attention, q, k, v, w, None, True, block_q=bq, block_kv=bkv)
+    want = (["_fwd_single", "_bwd_single"] if path == "single"
+            else ["_fwd_multi", "_bwd_dkv", "_bwd_dq"])
+    assert calls == want
+    assert jfa._single_tile(seq, seq, bq or min(512, seq), bkv or min(512, seq)) == (
+        path == "single")
 
 
 def test_long_sequence_on_cuda_path_raises():
-    q = torch.empty(1, 1, 640, 64, device="meta")
-    with pytest.raises(NotImplementedError, match="B3"):
-        tfa._check_kernel_inputs(q, q, q, None)
+    """A sequence that does not divide by its block raises JAX's own
+    ValueError, on the CPU and on any other device, before any kernel is
+    chosen; a meta tensor on the multi-tile path has no kernel."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(1, 1, 640, 16).astype(np.float32)
+    with pytest.raises(ValueError) as jerr:
+        jfa.flash_attention(jnp.asarray(x), jnp.asarray(x), jnp.asarray(x))
+    assert "640" in str(jerr.value) and "512" in str(jerr.value)
+    for device in ("cpu", "meta"):
+        q = torch.tensor(x, device=device)
+        with pytest.raises(ValueError) as terr:
+            tfa.flash_attention(q, q, q)
+        assert str(terr.value) == str(jerr.value)
+    long = torch.empty(1, 1, 1024, 64, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
-        tfa._fwd_single(q, q, q, None, causal=False, sm_scale=0.125)
+        tfa.flash_attention(long, long, long)
+    for wrapper in (tfa._fwd_multi, tfa._fwd_single):
+        with pytest.raises(RuntimeError, match="no kernel"):
+            wrapper(long, long, long, None, causal=False, sm_scale=0.125, **(
+                dict(block_q=512, block_kv=512) if wrapper is tfa._fwd_multi else {}))
 
 
 def test_forward_mode_raises():

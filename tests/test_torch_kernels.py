@@ -43,6 +43,42 @@ def test_kernels_match_plain_on_card():
 
 
 @pytest.mark.gpu
+def test_multi_tile_kernels_match_plain_on_card():
+    """B3-B5 at S96 with blocks of 32 (two 64-row kernel tiles, the last
+    ragged) and a padded mask: the plain forward runs at the kernel's own
+    64-row tiles; float32 within 1e-5 forward, 1e-4 x max|ref| backward.
+    ``flash_attention`` with those blocks launches B3, B4 and B5 once each
+    and neither single-tile kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
+    q, k, v, w, mask = _inputs(7)
+    dev = torch.device("cuda")
+    args = [torch.tensor(x, device=dev) for x in (q, k, v)]
+    tm = torch.tensor(mask, device=dev)
+    kw = dict(causal=False, sm_scale=0.25)
+    o, lse = tfa._fwd_multi(*args, tm, block_q=32, block_kv=32, **kw)
+    po, plse = tfa._fwd_multi_plain(*args, tm, block_q=64, block_kv=64, **kw)
+    torch.testing.assert_close(o, po, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=0)
+    do = torch.tensor(w, device=dev)
+    di = (o * do).sum(-1)
+    got = (*tfa._bwd_dkv(*args, do, lse, di, tm, **kw), tfa._bwd_dq(*args, do, lse, di, tm, **kw))
+    want = (*tfa._bwd_dkv_plain(*args, do, lse, di, tm, **kw),
+            tfa._bwd_dq_plain(*args, do, lse, di, tm, **kw))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
+
+    tfa.reset_launch_counts()
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in args)
+    out = tfa.flash_attention(qg, kg, vg, tm, block_q=32, block_kv=32)
+    torch.autograd.grad((out * do).sum(), (qg, kg, vg))
+    torch.cuda.synchronize()
+    assert {n: f.launches for n, f in tfa.KERNELS.items()} == {
+        "flash_single_fwd": 0, "flash_single_bwd": 0, "flash_multi_fwd": 1,
+        "flash_multi_bwd_dkv": 1, "flash_multi_bwd_dq": 1}
+
+
+@pytest.mark.gpu
 def test_vector_kernels_match_plain_on_card():
     """B6-B8 on a ragged length (3 * TILE + 1000): elementwise outputs
     within 1e-6 x max|ref| (fused multiply-add against a separate multiply

@@ -2,7 +2,8 @@
 example and by the port from the same initial weights (moved across with
 ``betty_tpu_torch.convert``) on the same batches. SAMA and darts run with
 ``--flash``; CG and Neumann run the plain attention with 3 solver
-iterations and the fused vector loops. After 4 classifier steps and 2
+iterations and the fused vector loops. SAMA also runs at ``--seq_len 1024``,
+where ``--flash`` takes the multi-tile path (B3-B5) on both sides. After 4 classifier steps and 2
 reweight steps (unroll 2) the parameters of both problems agree within 1e-4
 in float32 (ROADMAP §C: the attention key bias, whose true gradient is zero,
 is the leaf nearest that bound), and the graph's paths and the step counts
@@ -88,6 +89,34 @@ def test_small_reweighting_run_matches_jax(hypergradient):
     init_r = convert.from_flax_mwn(_numpy(jmod.build_engine(
         jmod.parse_args(argv)).states["reweight"]["params"]))
     assert any(float((want_r[k] - init_r[k]).abs().max()) > 0 for k in want_r)
+
+
+def test_long_sequence_sama_run_matches_jax(monkeypatch):
+    """SAMA with ``--flash`` at S1024 (dim 32, one layer, batch 2): the
+    attention runs the multi-tile path (the JAX default blocks are 512), and
+    the parameters agree within 1e-4 after 4 + 2 steps."""
+    from betty_tpu_torch.ops import flash_attention as tfa
+
+    paths = []
+    for name in ("_fwd_single", "_fwd_multi"):
+        def spy(*a, _orig=getattr(tfa, name), _name=name, **kw):
+            paths.append(_name)
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(tfa, name, spy)
+    argv = ARGV[:]
+    for flag, value in (("--dim", "32"), ("--depth", "1"), ("--seq_len", "1024"),
+                        ("--batch_size", "2")):
+        argv[argv.index(flag) + 1] = value
+    _, jeng, teng = _engines(argv + ["--hypergradient", "sama"])
+    rw0 = {k: v.clone() for k, v in teng.states["reweight"]["params"].items()}
+    jeng.run()
+    teng.run()
+    assert (teng.classifier.count, teng.reweight.count) == (4, 2)
+    want_r = _assert_same_params(jeng, teng)
+    assert any(float((want_r[k] - rw0[k]).abs().max()) > 0 for k in want_r)
+    assert paths and set(paths) == {"_fwd_multi"}
+    assert all(f.launches == 0 for f in tfa.KERNELS.values())
 
 
 @pytest.mark.parametrize("hypergradient,solver_config", [

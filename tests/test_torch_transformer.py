@@ -193,3 +193,45 @@ def test_plain_attention_eval_is_unchanged():
     models = [TransformerClassifier(vocab_size=VOCAB, max_len=S, dim=DIM, depth=1, heads=HEADS,
                                     dropout=rate, use_flash=False) for rate in (0.0, 0.5)]
     assert torch.equal(models[0](ids, train=False), models[1](ids, train=False))
+
+
+def test_flash_self_attention_blocks_match_flax():
+    """``FlashSelfAttention(block_q=32, block_kv=32)`` at S96 takes the
+    multi-tile path (B3-B5) on both sides: output and the gradients of the
+    weights and the input against betty_tpu's module with the same blocks and
+    weights, a padded sequence in the batch. float32: output within 1e-5,
+    gradients within 1e-4 x max|grad|."""
+    from betty_tpu.models.transformer import FlashSelfAttention as JFSA
+    from betty_tpu_torch.models.transformer import FlashSelfAttention
+
+    heads, dim, seq = 2, 32, 96
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, seq, dim).astype(np.float32)
+    w = rng.randn(2, seq, dim).astype(np.float32)
+    pad = np.ones((2, seq), bool)
+    pad[1, 70:] = False
+    jatt = JFSA(num_heads=heads, qkv_features=dim, block_q=32, block_kv=32)
+    params = jatt.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+
+    def jloss(p, x):
+        out = jatt.apply({"params": p}, x, kv_mask=jnp.asarray(pad))
+        return jnp.sum(out * w), out
+
+    (_, jout), (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(x))
+
+    att = FlashSelfAttention(heads, dim, block_q=32, block_kv=32)
+    names = [f"{n}.{p}" for n in ("query", "key", "value", "out") for p in ("kernel", "bias")]
+    tp = {name: torch.tensor(np.asarray(params[name.split(".")[0]][name.split(".")[1]]),
+                             requires_grad=True) for name in names}
+    assert set(tp) == {n for n, _ in att.named_parameters()}
+    tx = torch.tensor(x, requires_grad=True)
+    tout = torch.func.functional_call(att, tp, (tx,), {"kv_mask": torch.tensor(pad)})
+    tgrads = torch.autograd.grad((tout * torch.tensor(w)).sum(), [tp[n] for n in names] + [tx])
+
+    assert np.max(np.abs(tout.detach().numpy() - np.asarray(jout))) < 1e-5
+    want = [np.asarray(jgp[n.split(".")[0]][n.split(".")[1]]) for n in names] + [np.asarray(jgx)]
+    scale = max(float(np.max(np.abs(g))) for g in want)
+    for name, got, ref in zip(names + ["x"], tgrads, want):
+        err = float(np.max(np.abs(got.numpy() - ref)))
+        assert err <= 1e-4 * scale, (name, err, scale)
