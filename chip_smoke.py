@@ -16,9 +16,15 @@ Phases:
    its plain version and PyTorch's ``scaled_dot_product_attention`` (a
    yardstick only; the port never calls it); the same for the multi-tile
    kernels (B3, B4, B5) at the long-sequence path's shape (B8 H16 S1024
-   D64) and at two edge shapes (S384 with blocks of 128 and causal masking;
-   S96 with blocks of 32 and D16, a ragged last tile), where
-   ``flash_attention`` with those blocks must launch B3-B5 and not B1/B2;
+   D64) and at four edge shapes (S384 with blocks of 128 and causal
+   masking; S96 with blocks of 32 and D16, a ragged last tile; S256 D128
+   with blocks of 128 and a fully masked row; S320 D32 with blocks of 64
+   and causal masking), where ``flash_attention`` with those blocks must
+   launch B3-B5 and not B1/B2; the multi-tile timings with their achieved
+   TFLOP/s; each kernel's registers and spills as ``ptxas`` reports them
+   (the bf16 backward kernels may not spill at D64) and the count of
+   tensor-core (``HMMA``) instructions in each bf16 backward kernel from
+   ``cuobjdump --dump-sass`` (it must not be 0);
    then the solvers' vector kernels (B6, B7, B8) at the CG/Neumann path's
    length (the RoBERTa-large classifier's parameter count, padded to the
    ravel tile) and at a ragged length, timed beside their plain versions
@@ -68,7 +74,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SHAPE = dict(B=32, H=16, S=128, D=64)  # the single-tile path (S128 SAMA run)
 LONG_SHAPE = dict(B=8, H=16, S=1024, D=64)  # the multi-tile path (S1024 SAMA run)
 # multi-tile edge shapes: (B, H, S, D, block, mask case)
-EDGE_SHAPES = [(2, 4, 384, 64, 128, "causal"), (2, 4, 96, 16, 32, "padded")]
+EDGE_SHAPES = [(2, 4, 384, 64, 128, "causal"), (2, 4, 96, 16, 32, "padded"),
+               (2, 4, 256, 128, 128, "masked_row"), (2, 4, 320, 32, 64, "causal")]
 KERNEL_TILE = 64  # rows per tile of the CUDA flash kernels
 
 
@@ -367,10 +374,14 @@ def multi_kernel_timings():
             rows[(name, dname)] = dict(
                 ms=t, plain_ms=p, library_ms=lib, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
-            log(f"[timing] {name} {dname:8s} kernel {t:.4f} ms  plain {p:.4f} ms  "
+            log(f"[timing] {name} {dname:8s} kernel {t:.4f} ms ({flops / t * 1e-9:.1f} "
+                f"TFLOP/s)  plain {p:.4f} ms  "
                 f"sdpa {'backward ' if name != 'flash_multi_fwd' else ''}{lib:.4f} ms  "
                 f"bound {max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+        t_bwd = t_dkv + t_dq
+        log(f"[timing] flash_multi_bwd_dkv + flash_multi_bwd_dq {dname:8s} {t_bwd:.4f} ms "
+            f"({7 * mm / t_bwd * 1e-9:.1f} TFLOP/s) against sdpa backward {l_bwd:.4f} ms")
         del q, k, v, do, o, lse, di, ql, kl, vl, ol, bwd_args
         torch.cuda.empty_cache()
     return rows
@@ -574,6 +585,7 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
 
     reset, counters = _counters(hypergradient)
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the engine's state, and anything left from before
     reset()
     t0 = time.time()
     engine.run()
@@ -588,7 +600,8 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
     log(f"{tag} launches {launches}")
     periods = [b - a for a, b in zip([t0] + period_ends, period_ends)]
     log(f"{tag} meta-period seconds {periods} (the first includes warm-up); run "
-        f"{elapsed:.3f} s; max_memory_allocated {peak / 2**30:.2f} GiB")
+        f"{elapsed:.3f} s; max_memory_allocated {peak / 2**30:.2f} GiB "
+        f"({held / 2**30:.2f} GiB allocated when the run started)")
     assert engine.classifier.count == unroll * meta_periods, engine.classifier.count
     assert engine.reweight.count == meta_periods, engine.reweight.count
     assert all(math.isfinite(x) for v in vals.values() for x in v), vals
@@ -660,6 +673,7 @@ def profile_period(engine, unroll, tag):
 KERNEL_SYMBOLS = {
     "fwd_kernel": "flash B1", "bwd_kernel": "flash B2", "multi_fwd_kernel": "flash B3",
     "multi_bwd_dkv_kernel": "flash B4", "multi_bwd_dq_kernel": "flash B5",
+    "mma_bwd_dkv_kernel": "flash B4", "mma_bwd_dq_kernel": "flash B5",
     "dot2_kernel": "vector (B6-B8)", "cg_step_kernel": "vector (B6-B8)",
     "neumann_step_kernel": "vector (B6-B8)", "sum_partials": "vector (B6-B8)",
 }
@@ -679,6 +693,81 @@ REPLACES = {
     "cg_fused_step": ("betty_tpu/ops/vector.py:119", "betty_tpu_torch/csrc/vector_ops.cu"),
     "neumann_fused_step": ("betty_tpu/ops/vector.py:163", "betty_tpu_torch/csrc/vector_ops.cu"),
 }
+
+
+# the bf16 backward kernels of flash_multi.cu, which run on the tensor cores
+MMA_KERNELS = ("mma_bwd_dkv_kernel", "mma_bwd_dq_kernel")
+
+
+def _kernel_label(symbol):
+    """``name<args>`` from the mangled symbol of a kernel in a source's
+    anonymous namespace, e.g. ``mma_bwd_dkv_kernel<64>`` or
+    ``multi_bwd_dq_kernel<float,64>``; the symbol itself when it is not
+    one of those."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", symbol)
+    pos = m.end(1) + int(m.group(1)) if m else 0  # past the namespace's name
+    n = m and re.match(r"\d+", symbol[pos:])
+    if not n:
+        return symbol
+    start = pos + n.end()
+    name, rest = symbol[start:start + int(n.group())], symbol[start + int(n.group()):]
+    args = []
+    if rest.startswith("I"):
+        for tok in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f", rest[1:rest.find("EE") + 1]):
+            args.append(tok.group(1) or ("bf16" if tok.group(0).startswith("13") else "float"))
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_report(build_logs):
+    """Each kernel's registers and spills as ``ptxas -v`` reported them in
+    ``build_logs`` (``{library: nvcc output}``); raises if a bf16 backward
+    kernel (the tensor-core B4/B5) spills at D64."""
+    spilled = []
+    for lib, text in build_logs.items():
+        current = None
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+            if m:
+                current = _kernel_label(m.group(1))
+                continue
+            if current is None:
+                continue
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if sp:
+                log(f"[setup] ptxas {lib} {current}: {line.strip()}")
+                if current.split("<")[0] in MMA_KERNELS and current.endswith("<64>") and (
+                        int(sp.group(1)) or int(sp.group(2))):
+                    spilled.append(current)
+            elif "registers" in line:
+                log(f"[setup] ptxas {lib} {current}: {line.split(':', 1)[-1].strip()}")
+    if spilled:
+        raise AssertionError(f"bf16 backward kernels spill at D64: {spilled}")
+
+
+def sass_report(lib_path, head_dims):
+    """Count the tensor-core instructions (``HMMA``) of each bf16 backward
+    kernel (one per head dim in ``head_dims``) in the built library's SASS;
+    raises if one is missing or has none."""
+    tools = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
+             "cuobjdump"]
+    tool = next((t for t in tools if os.path.isfile(t)), "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({out.returncode}): {out.stderr[-2000:]}")
+    counts, current = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = _kernel_label(m.group(1))
+            counts[current] = 0
+        elif current is not None and "HMMA" in line:
+            counts[current] += 1
+    mma = {k: n for k, n in counts.items() if k.split("<")[0] in MMA_KERNELS}
+    for k, n in sorted(counts.items()):
+        log(f"[setup] sass flash_multi {k}: {n} HMMA instructions")
+    if len(mma) != len(MMA_KERNELS) * len(head_dims) or not all(mma.values()):
+        raise AssertionError(f"bf16 backward kernels without tensor-core instructions: {mma}")
 
 
 PHASES = ("kernels", "slice", "long")
@@ -743,10 +832,8 @@ def main(argv=None):
     log(f"[setup] kernels built in {time.time() - t0:.1f} s (parallel): "
         + ", ".join(f"{k} {_build.BUILD_SECONDS.get(k, 0.0):.1f} s -> {v}"
                     for k, v in libs.items()))
-    for name, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"[setup] ptxas {name}: {line.strip()}")
+    ptxas_report(_build.BUILD_LOGS)
+    sass_report(libs["flash_multi"], fa.KERNEL_HEAD_DIMS)
 
     worst = kernel_phase()
     rows = kernel_timings()

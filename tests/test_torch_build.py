@@ -68,15 +68,24 @@ def test_failed_build_raises_and_leaves_nothing(fake_cuda, monkeypatch):
         _build.library_path(name).name for name in ("flash_multi", "flash_single"))
 
 
-def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
-    """A library is keyed by its source and every header it includes, so an
-    edited header is not served by a library built before the edit."""
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """A copy of ``csrc`` that ``_build`` reads, free to edit."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setenv("BETTY_TORCH_BUILD_DIR", str(tmp_path / "kernels"))
-    for name in ("flash_multi", "flash_single"):
-        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "flash_common.cuh"]
+    return csrc
+
+
+def test_editing_a_header_changes_the_library_path(csrc_copy):
+    """A library is keyed by its source and every header it includes, so an
+    edited header is not served by a library built before the edit."""
+    csrc = csrc_copy
+    assert [p.name for p in _build.source_files("flash_single")] == [
+        "flash_single.cu", "flash_common.cuh"]
+    assert sorted(p.name for p in _build.source_files("flash_multi")) == [
+        "flash_common.cuh", "flash_mma.cuh", "flash_multi.cu"]
     assert [p.name for p in _build.source_files("vector_ops")] == ["vector_ops.cu"]
     before = {name: _build.library_path(name) for name in _build.sources()}
     assert before == {name: _build.library_path(name) for name in _build.sources()}
@@ -85,4 +94,16 @@ def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
     after = {name: _build.library_path(name) for name in _build.sources()}
     assert after["flash_multi"] != before["flash_multi"]
     assert after["flash_single"] != before["flash_single"]
+    assert after["vector_ops"] == before["vector_ops"]
+
+
+def test_editing_the_tensor_core_header_rebuilds_flash_multi_only(csrc_copy):
+    """``flash_mma.cuh`` is included by ``flash_multi.cu`` alone: editing it
+    changes that library's path and leaves the other two."""
+    before = {name: _build.library_path(name) for name in _build.sources()}
+    header = csrc_copy / "flash_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.sources()}
+    assert after["flash_multi"] != before["flash_multi"]
+    assert after["flash_single"] == before["flash_single"]
     assert after["vector_ops"] == before["vector_ops"]

@@ -6,6 +6,8 @@ JAX, so it runs where the card is:
 Skips without a CUDA device; chip_smoke.py runs the full comparison at the
 slices' shapes."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -73,6 +75,61 @@ def test_multi_tile_kernels_match_plain_on_card():
     out = tfa.flash_attention(qg, kg, vg, tm, block_q=32, block_kv=32)
     torch.autograd.grad((out * do).sum(), (qg, kg, vg))
     torch.cuda.synchronize()
+    assert {n: f.launches for n, f in tfa.KERNELS.items()} == {
+        "flash_single_fwd": 0, "flash_single_bwd": 0, "flash_multi_fwd": 1,
+        "flash_multi_bwd_dkv": 1, "flash_multi_bwd_dq": 1}
+
+
+# (B, H, S, D, JAX block, kv mask, causal) of the bf16 backward checks
+BF16_BWD_CASES = {
+    "S96_D16_blocks32_padded": (2, 2, 96, 16, 32, "padded", False),
+    "S384_D64_blocks128_causal": (2, 2, 384, 64, 128, "all_true", True),
+    "S256_D128_blocks128_masked_row": (2, 2, 256, 128, 128, "masked_row", False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BF16_BWD_CASES))
+def test_bf16_backward_kernels_match_plain_on_card(case):
+    """bf16 B4 and B5 (the tensor-core kernels) against their plain
+    versions on the kernels' own lse and di = rowsum(o * do): within 2e-2 x
+    max|ref|, as ``TOL`` in chip_smoke.py, because the tensor cores sum in
+    another order than the plain einsum, so one bf16 ulp may flip on p, on
+    ds and on the outputs. Gradients stay finite where a row is fully
+    masked. ``flash_attention`` with the case's blocks launches B3, B4 and
+    B5 once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
+    b, h, s, d, block, mask_case, causal = BF16_BWD_CASES[case]
+    rng = np.random.RandomState(11)
+    q, k, v, do = (torch.tensor(rng.randn(b, h, s, d).astype(np.float32), device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    mask = np.ones((b, s), bool)
+    if mask_case == "padded":
+        mask[0, s - 20:] = False
+        mask[1, s // 3:] = False
+    elif mask_case == "masked_row":
+        mask[0, s // 2:] = False
+        mask[1, :] = False
+    tm = torch.tensor(mask, device="cuda")
+    kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
+    o, lse = tfa._fwd_multi(q, k, v, tm, block_q=block, block_kv=block, **kw)
+    di = (o.float() * do.float()).sum(-1)
+    got = (*tfa._bwd_dkv(q, k, v, do, lse, di, tm, **kw),
+           tfa._bwd_dq(q, k, v, do, lse, di, tm, **kw))
+    want = (*tfa._bwd_dkv_plain(q, k, v, do, lse, di, tm, **kw),
+            tfa._bwd_dq_plain(q, k, v, do, lse, di, tm, **kw))
+    for name, a, ref in zip(("dk", "dv", "dq"), got, want):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()), name
+        err = float((a.float() - ref.float()).abs().max())
+        assert err <= 2e-2 * float(ref.float().abs().max()), (name, err)
+
+    tfa.reset_launch_counts()
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = tfa.flash_attention(qg, kg, vg, tm, causal=causal, block_q=block, block_kv=block)
+    grads = torch.autograd.grad((out.float() * do.float()).sum(), (qg, kg, vg))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
     assert {n: f.launches for n, f in tfa.KERNELS.items()} == {
         "flash_single_fwd": 0, "flash_single_bwd": 0, "flash_multi_fwd": 1,
         "flash_multi_bwd_dkv": 1, "flash_multi_bwd_dq": 1}
