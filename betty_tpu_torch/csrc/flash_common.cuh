@@ -1,7 +1,8 @@
 // Device code shared by the flash-attention kernels (flash_single.cu,
 // flash_multi.cu): tile geometry, bfloat16 conversions, tile loads, the
 // 16-lane reductions, the forward of one 64-row q tile (the body of B1 and
-// B3) and the s = q k^T, dp = do v^T products of the backward kernels.
+// of float32 B3) and the s = q k^T, dp = do v^T products of the float32
+// backward kernels.
 //
 // Layout: q, k, v, o, do of shape (B, H, S, D), row-major and contiguous;
 // lse and di of shape (B, H, S) in float32; the kv mask (B, Skv) bytes,
@@ -242,7 +243,7 @@ constexpr size_t fwd_smem_bytes() {
   return (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LP) * sizeof(float);
 }
 
-// the kernel signature of B1 and B3
+// the kernel signature of B1 and float32 B3
 template <typename T>
 using FwdKernel = void (*)(const T*, const T*, const T*, const uint8_t*, T*, float*, int, int,
                            int, int, float);

@@ -22,23 +22,44 @@
 //   forward:  one block of 256 threads per (b, h, 64-row q tile); it walks
 //             64-row k/v chunks with an online softmax (running max m, sum
 //             l, float32 accumulator), so the score matrix never leaves
-//             registers and shared memory.
-//   backward: one block per (b, h); it walks 64-row k/v chunks, and for each
-//             chunk every 64-row q tile, accumulating dk and dv for the
-//             chunk in registers. dq of a q tile gets one partial sum per
-//             k/v chunk; partial sums go to a float32 scratch row owned by
-//             the same thread in every chunk, so the sum is deterministic
-//             and needs no atomics, and the last chunk writes dq.
-// Every product is a float32 FMA loop over tiles in shared memory (rows
-// padded to an odd stride, so row and column walks are free of bank
-// conflicts); the tile code shared with flash_multi.cu is in
-// flash_common.cuh. What bounds it on this card: at S = 128, D = 64 the work is
-// about 2 * 2 * S * S * D flops per head forward and 2.5 times that
-// backward against 4 * S * D elements moved, so the bound is the tensor-core
-// rate; these kernels use the CUDA cores and run far from that bound. The
-// tensor-core version (mma.sync or wgmma) is later work.
+//             registers and shared memory (flash_common.cuh::fwd_q_tile,
+//             float32 FMA loops on the CUDA cores in both input types).
+//   backward, bfloat16 (mma_bwd_single_kernel): on the tensor cores, with
+//             the bodies of the multi-tile backward (flash_mma.cuh). Block x
+//             of head (b, h), 128 threads, first computes dk and dv of k/v
+//             chunk x, walking every 64-row q tile (mma_dkv_chunk, B4's
+//             body), then dq of q tile x, walking every k/v chunk
+//             (mma_dq_tile, B5's body); a part whose chunk or tile is past
+//             its sequence is skipped, so Sq != Skv works. Every output is
+//             summed in registers and written once: no atomics, no float32
+//             scratch, the same order of sums on every run; at B32 H16 S128
+//             that is 1024 blocks of two tiles each. di = rowsum(o * do)
+//             stays in the kernel, as in the TPU kernel: the walked q tiles
+//             bring their o tile through the cp.async ring with q and do,
+//             and the dq part computes its own rows' di from its o tile. s
+//             and dp are computed in both parts, 7 products per pair of
+//             tiles for the TPU kernel's 5; at S128 the kernel moves 67 MB
+//             for 5.4 GFLOP, so it is bound by bytes and the extra products
+//             cost less than the parallelism they buy.
+//   backward, float32 (bwd_kernel): one block of 256 threads per (b, h); it
+//             walks 64-row k/v chunks, and for each chunk every 64-row q
+//             tile, accumulating dk and dv for the chunk in registers. dq of
+//             a q tile gets one partial sum per k/v chunk; partial sums go to
+//             a float32 scratch row owned by the same thread in every chunk,
+//             so the sum is deterministic and needs no atomics, and the last
+//             chunk writes dq. Float32 FMA loops over tiles in shared memory
+//             (rows padded to an odd stride, so row and column walks are free
+//             of bank conflicts): tensor cores in float32 would mean TF32,
+//             which would break the float32 solver passes' 1e-4 parity.
+// What bounds them on this card: at S = 128, D = 64 the work is about
+// 2 * 2 * S * S * D flops per head forward and 2.5 times that backward
+// against 4 * S * D elements moved, so the bytes bound bfloat16 and the
+// CUDA cores' rate float32.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -51,6 +72,32 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   fwd_q_tile<T, D>(q, k, v, mask, o, lse, H, Sq, Skv, causal, scale);
 }
 
+// B2 in bf16 on the tensor cores: block blockIdx.x of head (blockIdx.z,
+// blockIdx.y) computes dk, dv of k/v chunk blockIdx.x and then dq of q tile
+// blockIdx.x, with di from o in the kernel
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+mma_bwd_single_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                      const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,
+                      const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dq,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
+                      int Sq, int Skv, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int x = blockIdx.x;
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  const uint8_t* mb = mask ? mask + (size_t)blockIdx.z * Skv : nullptr;
+  if (x * BK < Skv)
+    mma_dkv_chunk<D, true>(q, k, v, dout, o, lse, nullptr, mb, dk, dv, Sq, Skv, causal, scale,
+                           x * BK, bh, smem_raw);
+  if (x * BQ < Sq) {
+    __syncthreads();  // every warp is done with the dk/dv part's shared memory
+    mma_dq_tile<D, true>(q, k, v, dout, o, lse, nullptr, mb, dq, Sq, Skv, causal, scale, x * BQ,
+                         bh, smem_raw);
+  }
+}
+
+// B2 in float32
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -206,6 +253,30 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_
 }
 
 template <typename T, int D>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const void* o, const float* lse, const uint8_t* mask, void* dq,
+                           void* dk, void* dv, int B, int H, int Sq, int Skv, int causal,
+                           float scale, cudaStream_t stream) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core path is bf16");
+  const void* in[] = {q, k, v, dout, o};
+  const void* out[] = {dq, dk, dv};
+  if (!mma_aligned(in, 5, out, 3)) return cudaErrorMisalignedAddress;
+  // D = 64: 75 KB, over the 48 KB default (the dk/dv part's; the dq part's
+  // is less)
+  const size_t smem = mma_dkv_smem<D>(true);
+  cudaError_t err = cudaFuncSetAttribute(
+      mma_bwd_single_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_q = (Sq + BQ - 1) / BQ, n_kv = (Skv + BK - 1) / BK;
+  dim3 grid(n_q > n_kv ? n_q : n_kv, H, B);
+  mma_bwd_single_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const T*>(o), lse, mask, static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Skv, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const void* o, const float* lse, const uint8_t* mask, void* dq, void* dk,
                        void* dv, float* dq_acc, int B, int H, int Sq, int Skv, int causal,
@@ -239,7 +310,8 @@ extern "C" int flash_single_fwd(const void* q, const void* k, const void* v, con
   DISPATCH_D(float, launch_fwd, q, k, v, m, o, l, B, H, Sq, Skv, causal, scale, s)
 }
 
-// dq_acc: float32 scratch of q's shape, used when Skv > 64 (else unread).
+// dq_acc: float32 scratch of q's shape, read by the float32 kernel when
+// Skv > 64 (else unread; null for bfloat16).
 extern "C" int flash_single_bwd(const void* q, const void* k, const void* v, const void* dout,
                                 const void* o, const void* lse, const void* mask, void* dq,
                                 void* dk, void* dv, void* dq_acc, int B, int H, int Sq,
@@ -250,8 +322,9 @@ extern "C" int flash_single_bwd(const void* q, const void* k, const void* v, con
   float* acc = static_cast<float*>(dq_acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    DISPATCH_D(__nv_bfloat16, launch_bwd, q, k, v, dout, o, l, m, dq, dk, dv, acc, B, H, Sq,
-               Skv, causal, scale, s)
+    // the tensor-core kernel (mma_bwd_single_kernel); float32 keeps the FMA loop
+    DISPATCH_D(__nv_bfloat16, launch_bwd_mma, q, k, v, dout, o, l, m, dq, dk, dv, B, H, Sq, Skv,
+               causal, scale, s)
   }
   DISPATCH_D(float, launch_bwd, q, k, v, dout, o, l, m, dq, dk, dv, acc, B, H, Sq, Skv,
              causal, scale, s)

@@ -13,12 +13,14 @@ path runs.
   the per-row logsumexp ``lse`` of shape (B, H, S) in float32;
   ``_bwd_single`` launches ``flash_single_bwd``, the port of
   ``_bwd_single_kernel`` (B2): dq, dk, dv with ``di = rowsum(o * do)``
-  computed in the kernel.
+  computed in the kernel (in bf16 on the tensor cores with dq in
+  registers, in float32 with a float32 dq scratch).
 * multi-tile: ``_fwd_multi`` launches ``flash_multi_fwd``
   (``csrc/flash_multi.cu``), the port of ``_fwd_kernel`` (B3); the backward
   computes ``di`` once in PyTorch and feeds it to ``_bwd_dkv``
   (``flash_multi_bwd_dkv``, the port of ``_bwd_dkv_kernel``, B4) and
-  ``_bwd_dq`` (``flash_multi_bwd_dq``, the port of ``_bwd_dq_kernel``, B5).
+  ``_bwd_dq`` (``flash_multi_bwd_dq``, the port of ``_bwd_dq_kernel``, B5);
+  in bf16 all three run on the tensor cores.
   The kernels tile by 64 rows whatever the blocks are; the blocks choose the
   path and the plain versions' tiles.
 
@@ -289,8 +291,9 @@ def _bwd_single(q, k, v, do, o, lse, kv_mask, *, causal, sm_scale):
     o, lse = o.contiguous(), lse.to(torch.float32).contiguous()
     mask = _mask_bytes(kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the float32 kernel's dq partial sums; the bf16 kernel keeps dq in registers
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-              if k.shape[2] > 64 else None)
+              if q.dtype == torch.float32 and k.shape[2] > 64 else None)
     err = _lib("flash_single").flash_single_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(o), _ptr(lse), _ptr(mask), _ptr(dq),
         _ptr(dk), _ptr(dv), _ptr(dq_acc), *_dims(q, k, causal, sm_scale))

@@ -12,9 +12,13 @@ Phases:
 2. kernels (always): hold each single-tile flash-attention kernel (B1, B2)
    against its plain PyTorch version on the card at the SAMA path's shape
    (B32 H16 S128 D64) in bfloat16 and float32, with an all-true mask, a
-   padded mask, a fully masked row and causal masking, and time it beside
-   its plain version and PyTorch's ``scaled_dot_product_attention`` (a
-   yardstick only; the port never calls it); the same for the multi-tile
+   padded mask, a fully masked row and causal masking, and at four edge
+   shapes (S16 D64, the small runs' ragged tile; S96 D16 padded; S200 D128
+   with a fully masked row; S320 D32 causal), where ``flash_attention``
+   with the default blocks must launch B1 and B2 and no multi-tile kernel;
+   time them (with their achieved TFLOP/s) beside their plain versions and
+   PyTorch's ``scaled_dot_product_attention`` (a yardstick only; the port
+   never calls it); the same for the multi-tile
    kernels (B3, B4, B5) at the long-sequence path's shape (B8 H16 S1024
    D64) and at four edge shapes (S384 with blocks of 128 and causal
    masking; S96 with blocks of 32 and D16, a ragged last tile; S256 D128
@@ -22,9 +26,9 @@ Phases:
    and causal masking), where ``flash_attention`` with those blocks must
    launch B3-B5 and not B1/B2; the multi-tile timings with their achieved
    TFLOP/s; each kernel's registers and spills as ``ptxas`` reports them
-   (the bf16 backward kernels may not spill at D64) and the count of
-   tensor-core (``HMMA``) instructions in each bf16 backward kernel from
-   ``cuobjdump --dump-sass`` (it must not be 0);
+   (the bf16 tensor-core kernels, B2-B5, may not spill at D64) and the
+   count of tensor-core (``HMMA``) instructions in each of them at every
+   head dim from ``cuobjdump --dump-sass`` (it must not be 0);
    then the solvers' vector kernels (B6, B7, B8) at the CG/Neumann path's
    length (the RoBERTa-large classifier's parameter count, padded to the
    ravel tile) and at a ragged length, timed beside their plain versions
@@ -41,7 +45,7 @@ Phases:
 4. long: the small fp32 SAMA ``--flash`` run at S1024 on the card against
    the CPU (the multi-tile path); then SAMA reweighting of the RoBERTa-large
    encoder at B8 S1024 with ``--flash``: two meta-periods and one more
-   under the profiler.
+   under the profiler (flash device time split by input dtype).
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -76,6 +80,9 @@ LONG_SHAPE = dict(B=8, H=16, S=1024, D=64)  # the multi-tile path (S1024 SAMA ru
 # multi-tile edge shapes: (B, H, S, D, block, mask case)
 EDGE_SHAPES = [(2, 4, 384, 64, 128, "causal"), (2, 4, 96, 16, 32, "padded"),
                (2, 4, 256, 128, 128, "masked_row"), (2, 4, 320, 32, 64, "causal")]
+# single-tile edge shapes (default blocks): (B, H, S, D, mask case)
+SINGLE_EDGE_SHAPES = [(2, 4, 16, 64, "all_true"), (2, 4, 96, 16, "padded"),
+                      (2, 4, 200, 128, "masked_row"), (2, 4, 320, 32, "causal")]
 KERNEL_TILE = 64  # rows per tile of the CUDA flash kernels
 
 
@@ -150,43 +157,87 @@ def _err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def kernel_phase():
+def _single_check(dtype, shape, case, gen, worst):
+    """B1 and B2 against their plain versions on one input; B2 is compared
+    on the kernel's own o and lse. Returns True if all agree."""
     import torch
     from betty_tpu_torch.ops import flash_attention as fa
 
+    dname = str(dtype).split(".")[-1]
+    tf, tb = TOL[dname]
+    q, k, v, do, mask, causal = _inputs(dtype, case, gen, shape)
+    sm = 1.0 / math.sqrt(shape["D"])
+    o, lse = fa._fwd_single(q, k, v, mask, causal=causal, sm_scale=sm)
+    po, plse = fa._fwd_single_plain(q, k, v, mask, causal=causal, sm_scale=sm)
+    torch.cuda.synchronize()
+    scale_o = max(1.0, float(po.float().abs().max())) if dname == "bfloat16" else 1.0
+    e_o, e_lse = _err(o, po), _err(lse, plse)
+    ok_f = e_o <= tf * scale_o and e_lse <= tf * max(1.0, float(plse.abs().max()))
+    if case == "masked_row":
+        ok_f &= bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
+    dq, dk, dv = fa._bwd_single(q, k, v, do, o, lse, mask, causal=causal, sm_scale=sm)
+    pq, pk, pv = fa._bwd_single_plain(q, k, v, do, o, lse, mask, causal=causal, sm_scale=sm)
+    torch.cuda.synchronize()
+    pairs = ((dq, pq), (dk, pk), (dv, pv))
+    e_b = max(_err(a, b) / max(float(b.float().abs().max()), 1e-30) for a, b in pairs)
+    ok_b = e_b <= tb and all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+    worst["flash_single_fwd"] = max(worst["flash_single_fwd"], e_o)
+    worst["flash_single_bwd"] = max(worst["flash_single_bwd"], *(_err(a, b) for a, b in pairs))
+    geo = "B{B} H{H} S{S} D{D}".format(**shape)
+    log(f"[kernels] B1/B2 {geo} {dname:8s} {case:10s} fwd |o|err {e_o:.3e} |lse|err "
+        f"{e_lse:.3e} (tol {tf:g}{' x max|o|' if scale_o != 1.0 else ''}) "
+        f"bwd rel err {e_b:.3e} (tol {tb:g}) -> {'ok' if ok_f and ok_b else 'FAIL'}")
+    return ok_f and ok_b
+
+
+def _dispatch_check(dtype, shape, case, gen, block, want_kernels):
+    """``flash_attention`` forward and backward with ``block`` (None: the
+    default) launches each kernel of ``want_kernels`` once and no other,
+    and gives finite gradients. Returns a failure string or None."""
+    import torch
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, mask, causal = _inputs(dtype, case, gen, shape)
+    qg, kg, vg = (t.requires_grad_(True) for t in (q, k, v))
+    fa.reset_launch_counts()
+    out = fa.flash_attention(qg, kg, vg, mask, causal=causal, block_q=block, block_kv=block)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    counts = {name: f.launches for name, f in fa.KERNELS.items()}
+    want = {name: int(name in want_kernels) for name in fa.KERNELS}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    dname = str(dtype).split(".")[-1]
+    log(f"[kernels] flash_attention S{shape['S']} D{shape['D']} {dname} blocks "
+        f"{block or 'default'}: launches {counts}; finite gradients {finite}")
+    fa.reset_launch_counts()
+    if counts != want or not finite:
+        return f"S{shape['S']}/{dname}/dispatch {counts} finite {finite}"
+    return None
+
+
+def kernel_phase():
+    """B1/B2 at the S128 path's shape for both dtypes and the four mask
+    cases, then at the single-tile edge shapes, where ``flash_attention``
+    with the default blocks must launch B1 and B2 and nothing else. Returns
+    the largest absolute error of each kernel."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    sm = 1.0 / math.sqrt(SHAPE["D"])
     worst = {"flash_single_fwd": 0.0, "flash_single_bwd": 0.0}
     failures = []
     for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).split(".")[-1]
-        tf, tb = TOL[dname]
-        for case in ("all_true", "padded", "masked_row", "causal"):
-            q, k, v, do, mask, causal = _inputs(dtype, case, gen)
-            o, lse = fa._fwd_single(q, k, v, mask, causal=causal, sm_scale=sm)
-            po, plse = fa._fwd_single_plain(q, k, v, mask, causal=causal, sm_scale=sm)
-            torch.cuda.synchronize()
-            scale_o = max(1.0, float(po.float().abs().max())) if dname == "bfloat16" else 1.0
-            e_o, e_lse = _err(o, po), _err(lse, plse)
-            ok_f = e_o <= tf * scale_o and e_lse <= tf * max(1.0, float(plse.abs().max()))
-            if case == "masked_row":
-                ok_f &= bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
-            # the backward is compared on the kernel's own o and lse
-            dq, dk, dv = fa._bwd_single(q, k, v, do, o, lse, mask, causal=causal, sm_scale=sm)
-            pq, pk, pv = fa._bwd_single_plain(q, k, v, do, o, lse, mask, causal=causal,
-                                              sm_scale=sm)
-            torch.cuda.synchronize()
-            pairs = ((dq, pq), (dk, pk), (dv, pv))
-            e_b = max(_err(a, b) / max(float(b.float().abs().max()), 1e-30) for a, b in pairs)
-            e_b_abs = max(_err(a, b) for a, b in pairs)
-            ok_b = e_b <= tb and all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
-            worst["flash_single_fwd"] = max(worst["flash_single_fwd"], e_o)
-            worst["flash_single_bwd"] = max(worst["flash_single_bwd"], e_b_abs)
-            log(f"[kernels] {dname:8s} {case:10s} fwd |o|err {e_o:.3e} |lse|err {e_lse:.3e} "
-                f"(tol {tf:g}{' x max|o|' if scale_o != 1.0 else ''}) "
-                f"bwd rel err {e_b:.3e} (tol {tb:g}) -> {'ok' if ok_f and ok_b else 'FAIL'}")
-            if not (ok_f and ok_b):
-                failures.append(f"{dname}/{case}")
+        for case in MASK_CASES:
+            if not _single_check(dtype, SHAPE, case, gen, worst):
+                failures.append(f"S{SHAPE['S']}/{dtype}/{case}")
+    for B, H, S, D, case in SINGLE_EDGE_SHAPES:
+        shape = dict(B=B, H=H, S=S, D=D)
+        for dtype in (torch.bfloat16, torch.float32):
+            if not _single_check(dtype, shape, case, gen, worst):
+                failures.append(f"S{S}/{dtype}/{case}")
+            bad = _dispatch_check(dtype, shape, case, gen, None, SINGLE_KERNELS)
+            if bad:
+                failures.append(bad)
+    torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return worst
@@ -231,8 +282,10 @@ def kernel_timings():
             rows[(name, dname)] = dict(
                 ms=t, plain_ms=p, library_ms=lib, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
-            log(f"[timing] {name} {dname:8s} kernel {t:.4f} ms  plain {p:.4f} ms  "
-                f"sdpa {lib:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
+            log(f"[timing] {name} {dname:8s} kernel {t:.4f} ms ({flops / t * 1e-9:.1f} "
+                f"TFLOP/s)  plain {p:.4f} ms  "
+                f"sdpa {'backward ' if name != 'flash_single_fwd' else ''}{lib:.4f} ms  "
+                f"bound {max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
     return rows
 
@@ -293,7 +346,6 @@ def multi_kernel_phase():
     edge's blocks must launch B3, B4 and B5 once each and neither B1 nor B2.
     Returns the largest absolute error of each kernel."""
     import torch
-    from betty_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = dict.fromkeys(MULTI_KERNELS, 0.0)
@@ -307,18 +359,9 @@ def multi_kernel_phase():
         for dtype in (torch.bfloat16, torch.float32):
             if not _multi_check(dtype, shape, case, gen, worst):
                 failures.append(f"S{S}/{dtype}/{case}")
-        q, k, v, do, mask, causal = _inputs(torch.float32, case, gen, shape)
-        qg, kg, vg = (t.requires_grad_(True) for t in (q, k, v))
-        fa.reset_launch_counts()
-        out = fa.flash_attention(qg, kg, vg, mask, causal=causal, block_q=block, block_kv=block)
-        torch.autograd.grad(out, (qg, kg, vg), do)
-        torch.cuda.synchronize()
-        counts = {name: f.launches for name, f in fa.KERNELS.items()}
-        want = {name: int(name in MULTI_KERNELS) for name in fa.KERNELS}
-        log(f"[kernels] flash_attention S{S} blocks {block}: launches {counts}")
-        if counts != want:
-            failures.append(f"S{S}/dispatch {counts}")
-    fa.reset_launch_counts()
+            bad = _dispatch_check(dtype, shape, case, gen, block, MULTI_KERNELS)
+            if bad:
+                failures.append(bad)
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"multi-tile kernels disagree with their plain versions: {failures}")
@@ -625,7 +668,8 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
 
 def profile_period(engine, unroll, tag):
     """One more meta-period under ``torch.profiler``: device time by kernel
-    class and the device's idle share over the period's wall time."""
+    class, the flash kernels' split by input dtype, and the device's idle
+    share over the period's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -649,29 +693,42 @@ def profile_period(engine, unroll, tag):
         log(f"{tag} [profile] the profiler recorded no device time")
         return
 
+    def own(name):
+        m = re.search(r"\(anonymous namespace\)::(\w+)[<(]", name)
+        return m.group(1) if m and m.group(1) in KERNEL_SYMBOLS else None
+
     def kind(name):
-        own = re.search(r"\(anonymous namespace\)::(\w+)[<(]", name)
-        if own and own.group(1) in KERNEL_SYMBOLS:
-            return KERNEL_SYMBOLS[own.group(1)]
+        if own(name):
+            return KERNEL_SYMBOLS[own(name)]
         if any(w in name.lower() for w in ("gemm", "xmma", "cutlass", "cublas", "matmul")):
             return "matmul"
         return "other"
 
-    by_kind = {}
-    for t, _, name in kernels:
-        by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + t
+    by_kind, by_dtype = {}, {}
+    for t, c, name in kernels:
+        k = kind(name)
+        by_kind[k] = by_kind.get(k, 0.0) + t
+        if k.startswith("flash"):
+            # the tensor-core kernels (mma_*) take bf16, the others their type argument
+            bf16 = own(name).startswith("mma_") or "__nv_bfloat16" in name
+            key = (k, "bf16" if bf16 else "fp32")
+            prev = by_dtype.get(key, (0.0, 0))
+            by_dtype[key] = (prev[0] + t, prev[1] + c)
     log(f"{tag} [profile] profiled meta-period: wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}, "
         f"{sum(c for _, c, _ in kernels)} kernel launches")
     for k, t in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         log(f"{tag} [profile]   {k:14s} {t:9.2f} ms  {t / busy:.3f} of device time")
+    for (k, dt), (t, c) in sorted(by_dtype.items()):
+        log(f"{tag} [profile]   {k} {dt}: {t:.2f} ms over {c} launches")
     for t, c, name in sorted(kernels, reverse=True)[:15]:
         log(f"{tag} [profile]   {t:9.2f} ms  x{c:<6d} {name[:110]}")
 
 
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
 KERNEL_SYMBOLS = {
-    "fwd_kernel": "flash B1", "bwd_kernel": "flash B2", "multi_fwd_kernel": "flash B3",
+    "fwd_kernel": "flash B1", "bwd_kernel": "flash B2", "mma_bwd_single_kernel": "flash B2",
+    "multi_fwd_kernel": "flash B3", "mma_fwd_kernel": "flash B3",
     "multi_bwd_dkv_kernel": "flash B4", "multi_bwd_dq_kernel": "flash B5",
     "mma_bwd_dkv_kernel": "flash B4", "mma_bwd_dq_kernel": "flash B5",
     "dot2_kernel": "vector (B6-B8)", "cg_step_kernel": "vector (B6-B8)",
@@ -695,8 +752,10 @@ REPLACES = {
 }
 
 
-# the bf16 backward kernels of flash_multi.cu, which run on the tensor cores
-MMA_KERNELS = ("mma_bwd_dkv_kernel", "mma_bwd_dq_kernel")
+# the bf16 kernels that run on the tensor cores, by library
+MMA_LIBS = {"flash_multi": ("mma_fwd_kernel", "mma_bwd_dkv_kernel", "mma_bwd_dq_kernel"),
+            "flash_single": ("mma_bwd_single_kernel",)}
+MMA_KERNELS = tuple(k for kernels in MMA_LIBS.values() for k in kernels)
 
 
 def _kernel_label(symbol):
@@ -720,8 +779,8 @@ def _kernel_label(symbol):
 
 def ptxas_report(build_logs):
     """Each kernel's registers and spills as ``ptxas -v`` reported them in
-    ``build_logs`` (``{library: nvcc output}``); raises if a bf16 backward
-    kernel (the tensor-core B4/B5) spills at D64."""
+    ``build_logs`` (``{library: nvcc output}``); raises if a tensor-core
+    kernel (``MMA_KERNELS``) spills at D64."""
     spilled = []
     for lib, text in build_logs.items():
         current = None
@@ -741,33 +800,37 @@ def ptxas_report(build_logs):
             elif "registers" in line:
                 log(f"[setup] ptxas {lib} {current}: {line.split(':', 1)[-1].strip()}")
     if spilled:
-        raise AssertionError(f"bf16 backward kernels spill at D64: {spilled}")
+        raise AssertionError(f"tensor-core kernels spill at D64: {spilled}")
 
 
-def sass_report(lib_path, head_dims):
-    """Count the tensor-core instructions (``HMMA``) of each bf16 backward
-    kernel (one per head dim in ``head_dims``) in the built library's SASS;
-    raises if one is missing or has none."""
+def sass_report(lib_paths, head_dims):
+    """Count the tensor-core instructions (``HMMA``) of each tensor-core
+    kernel of ``MMA_LIBS`` (one per head dim in ``head_dims``) in its built
+    library's SASS (``lib_paths``: ``{library: path}``); raises if one is
+    missing or has none."""
     tools = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
              "cuobjdump"]
     tool = next((t for t in tools if os.path.isfile(t)), "cuobjdump")
-    out = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True, text=True,
-                         timeout=300)
-    if out.returncode != 0:
-        raise RuntimeError(f"cuobjdump failed ({out.returncode}): {out.stderr[-2000:]}")
-    counts, current = {}, None
-    for line in out.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            current = _kernel_label(m.group(1))
-            counts[current] = 0
-        elif current is not None and "HMMA" in line:
-            counts[current] += 1
-    mma = {k: n for k, n in counts.items() if k.split("<")[0] in MMA_KERNELS}
-    for k, n in sorted(counts.items()):
-        log(f"[setup] sass flash_multi {k}: {n} HMMA instructions")
-    if len(mma) != len(MMA_KERNELS) * len(head_dims) or not all(mma.values()):
-        raise AssertionError(f"bf16 backward kernels without tensor-core instructions: {mma}")
+    missing = []
+    for lib, kernels in MMA_LIBS.items():
+        out = subprocess.run([tool, "--dump-sass", str(lib_paths[lib])], capture_output=True,
+                             text=True, timeout=300)
+        if out.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed ({out.returncode}): {out.stderr[-2000:]}")
+        counts, current = {}, None
+        for line in out.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = _kernel_label(m.group(1))
+                counts[current] = 0
+            elif current is not None and "HMMA" in line:
+                counts[current] += 1
+        for k, n in sorted(counts.items()):
+            log(f"[setup] sass {lib} {k}: {n} HMMA instructions")
+        missing += [f"{lib} {kernel}<{d}>" for kernel in kernels for d in head_dims
+                    if not counts.get(f"{kernel}<{d}>")]
+    if missing:
+        raise AssertionError(f"tensor-core kernels without tensor-core instructions: {missing}")
 
 
 PHASES = ("kernels", "slice", "long")
@@ -833,7 +896,7 @@ def main(argv=None):
         + ", ".join(f"{k} {_build.BUILD_SECONDS.get(k, 0.0):.1f} s -> {v}"
                     for k, v in libs.items()))
     ptxas_report(_build.BUILD_LOGS)
-    sass_report(libs["flash_multi"], fa.KERNEL_HEAD_DIMS)
+    sass_report(libs, fa.KERNEL_HEAD_DIMS)
 
     worst = kernel_phase()
     rows = kernel_timings()

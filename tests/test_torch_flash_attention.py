@@ -158,6 +158,69 @@ def test_bf16_multi_tile_forward_matches_jax(tiles):
     _check_bf16_forward(*tiles)
 
 
+def _bf16(x):
+    return jnp.asarray(x).astype(jnp.bfloat16)
+
+
+def _to_torch_bf16(x):
+    """A JAX or numpy array as a torch bf16 tensor (exact for bf16 values)."""
+    return torch.tensor(np.asarray(jnp.asarray(x).astype(jnp.float32))).to(torch.bfloat16)
+
+
+# (sequence, head dim, causal, padded keys) of the bf16 single-tile backward
+BF16_SINGLE_BWD = [(16, 64, False, False), (128, 64, False, False), (96, 16, True, True)]
+
+
+@pytest.mark.parametrize("seq,dim,causal,pad", BF16_SINGLE_BWD,
+                         ids=lambda x: None if isinstance(x, bool) else str(x))
+def test_bf16_single_tile_backward_matches_jax_kernel(seq, dim, causal, pad):
+    """The plain bf16 B2 (``_bwd_single_plain``, what the tensor-core kernel
+    repeats) against JAX's interpret-mode ``_bwd_single`` on JAX's own o and
+    lse: di in float32 from the bf16 o and do, p and ds rounded to bf16 at
+    the same places, so only the order of float32 sums differs; within
+    5e-3 x max|ref| (a flipped bf16 ulp on p or ds moves a gradient by about
+    4e-3 of its largest element)."""
+    rng = np.random.RandomState(12)
+    q, k, v, do = (rng.randn(B, H, seq, dim).astype(np.float32) for _ in range(4))
+    mask = None
+    if pad:
+        mask = np.ones((B, seq), bool)
+        mask[0, seq - 20:] = False
+    jm = None if mask is None else jnp.asarray(mask)
+    kw = dict(causal=causal, sm_scale=1.0 / np.sqrt(dim))
+    jo, jlse = jfa._fwd_single(_bf16(q), _bf16(k), _bf16(v), jm, interpret=True, **kw)
+    jgrads = jfa._bwd_single(_bf16(q), _bf16(k), _bf16(v), _bf16(do), jo, jlse, jm,
+                             interpret=True, **kw)
+    tgrads = tfa._bwd_single_plain(
+        *(_to_torch_bf16(x) for x in (q, k, v, do, jo)), torch.tensor(np.asarray(jlse)[..., 0]),
+        None if mask is None else torch.tensor(mask), **kw)
+    for name, got, want in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        assert got.dtype == torch.bfloat16, name
+        ref = np.asarray(want.astype(jnp.float32))
+        err = np.max(np.abs(got.float().numpy() - ref))
+        assert err <= 5e-3 * np.max(np.abs(ref)), (name, err)
+
+
+@pytest.mark.parametrize("tiles", [(S, 32, 32), (1024, None, None)], ids=_tiles_id)
+def test_bf16_lse_matches_jax_multi_tile_kernel(tiles):
+    """The plain bf16 B3 (``_fwd_multi_plain``) against JAX's interpret-mode
+    ``_fwd`` with the same blocks, padded keys and a fully masked row: lse
+    within 1e-5 x max(1, max|lse|), since both sum the unrounded float32 p
+    of float32 scores; o within 1e-2, as the bf16 forward; the masked row
+    gives o = 0 and lse = 0."""
+    seq, bq, bkv = tiles
+    bq, bkv = bq or 512, bkv or 512
+    q, k, v, _, mask = _inputs(1, pad=True, masked_row=True, S=seq)
+    kw = dict(causal=False, sm_scale=1.0 / np.sqrt(D), block_q=bq, block_kv=bkv)
+    jo, jlse = jfa._fwd(_bf16(q), _bf16(k), _bf16(v), jnp.asarray(mask), interpret=True, **kw)
+    to, tlse = tfa._fwd_multi(*(_to_torch_bf16(x) for x in (q, k, v)), torch.tensor(mask), **kw)
+    assert to.dtype == torch.bfloat16
+    jl = np.asarray(jlse)[..., 0]
+    assert np.max(np.abs(tlse.numpy() - jl)) <= 1e-5 * max(1.0, np.max(np.abs(jl)))
+    assert np.max(np.abs(to.float().numpy() - np.asarray(jo.astype(jnp.float32)))) < 1e-2
+    assert np.all(tlse.numpy()[1] == 0.0) and np.all(to.float().numpy()[1] == 0.0)
+
+
 def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
     """Single-tile and multi-tile paths alike."""
     tfa.reset_launch_counts()

@@ -70,22 +70,58 @@ def test_multi_tile_kernels_match_plain_on_card():
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
 
-    tfa.reset_launch_counts()
-    qg, kg, vg = (t.clone().requires_grad_(True) for t in args)
-    out = tfa.flash_attention(qg, kg, vg, tm, block_q=32, block_kv=32)
-    torch.autograd.grad((out * do).sum(), (qg, kg, vg))
-    torch.cuda.synchronize()
-    assert {n: f.launches for n, f in tfa.KERNELS.items()} == {
-        "flash_single_fwd": 0, "flash_single_bwd": 0, "flash_multi_fwd": 1,
-        "flash_multi_bwd_dkv": 1, "flash_multi_bwd_dq": 1}
+    assert _launches_through_flash_attention(*args, do, tm, False, 32) == MULTI_LAUNCHES
 
 
-# (B, H, S, D, JAX block, kv mask, causal) of the bf16 backward checks
+# (B, H, S, D, JAX block, kv mask, causal) of the bf16 multi-tile checks
 BF16_BWD_CASES = {
     "S96_D16_blocks32_padded": (2, 2, 96, 16, 32, "padded", False),
     "S384_D64_blocks128_causal": (2, 2, 384, 64, 128, "all_true", True),
     "S256_D128_blocks128_masked_row": (2, 2, 256, 128, 128, "masked_row", False),
 }
+BF16_FWD_CASES = dict(BF16_BWD_CASES, S320_D32_blocks64_causal=(2, 2, 320, 32, 64, "all_true",
+                                                                True))
+# (B, H, S, D, kv mask, causal) of the bf16 single-tile checks (default blocks)
+BF16_SINGLE_CASES = {
+    "S16_D64_all_true": (2, 2, 16, 64, "all_true", False),
+    "S96_D16_padded": (2, 2, 96, 16, "padded", False),
+    "S200_D128_masked_row": (2, 2, 200, 128, "masked_row", False),
+    "S320_D32_causal": (2, 2, 320, 32, "all_true", True),
+}
+
+
+def _bf16_inputs(b, h, s, d, mask_case, seed=11):
+    """q, k, v, do in bf16 and the kv mask on the card: "padded" cuts both
+    batch elements' keys, "masked_row" masks every key of batch element 1."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.tensor(rng.randn(b, h, s, d).astype(np.float32), device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    mask = np.ones((b, s), bool)
+    if mask_case == "padded":
+        mask[0, s - 20:] = False
+        mask[1, s // 3:] = False
+    elif mask_case == "masked_row":
+        mask[0, s // 2:] = False
+        mask[1, :] = False
+    return q, k, v, do, torch.tensor(mask, device="cuda")
+
+
+def _launches_through_flash_attention(q, k, v, do, tm, causal, block):
+    """Launch counts of one ``flash_attention`` forward and backward, whose
+    gradients must be finite."""
+    tfa.reset_launch_counts()
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = tfa.flash_attention(qg, kg, vg, tm, causal=causal, block_q=block, block_kv=block)
+    grads = torch.autograd.grad((out.float() * do.float()).sum(), (qg, kg, vg))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    return {n: f.launches for n, f in tfa.KERNELS.items()}
+
+
+MULTI_LAUNCHES = {"flash_single_fwd": 0, "flash_single_bwd": 0, "flash_multi_fwd": 1,
+                  "flash_multi_bwd_dkv": 1, "flash_multi_bwd_dq": 1}
+SINGLE_LAUNCHES = {"flash_single_fwd": 1, "flash_single_bwd": 1, "flash_multi_fwd": 0,
+                   "flash_multi_bwd_dkv": 0, "flash_multi_bwd_dq": 0}
 
 
 @pytest.mark.gpu
@@ -101,17 +137,7 @@ def test_bf16_backward_kernels_match_plain_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
     b, h, s, d, block, mask_case, causal = BF16_BWD_CASES[case]
-    rng = np.random.RandomState(11)
-    q, k, v, do = (torch.tensor(rng.randn(b, h, s, d).astype(np.float32), device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    mask = np.ones((b, s), bool)
-    if mask_case == "padded":
-        mask[0, s - 20:] = False
-        mask[1, s // 3:] = False
-    elif mask_case == "masked_row":
-        mask[0, s // 2:] = False
-        mask[1, :] = False
-    tm = torch.tensor(mask, device="cuda")
+    q, k, v, do, tm = _bf16_inputs(b, h, s, d, mask_case)
     kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
     o, lse = tfa._fwd_multi(q, k, v, tm, block_q=block, block_kv=block, **kw)
     di = (o.float() * do.float()).sum(-1)
@@ -123,16 +149,57 @@ def test_bf16_backward_kernels_match_plain_on_card(case):
         assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()), name
         err = float((a.float() - ref.float()).abs().max())
         assert err <= 2e-2 * float(ref.float().abs().max()), (name, err)
+    assert _launches_through_flash_attention(q, k, v, do, tm, causal, block) == MULTI_LAUNCHES
 
-    tfa.reset_launch_counts()
-    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-    out = tfa.flash_attention(qg, kg, vg, tm, causal=causal, block_q=block, block_kv=block)
-    grads = torch.autograd.grad((out.float() * do.float()).sum(), (qg, kg, vg))
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BF16_FWD_CASES))
+def test_bf16_multi_tile_forward_kernel_matches_plain_on_card(case):
+    """bf16 B3 (the tensor-core forward) against its plain version at the
+    kernel's 64-row tiles, so that p is rounded against the same running
+    max: o within 1e-2 x max(1, max|o|) and lse within 1e-2 x max(1,
+    max|lse|), as ``TOL`` in chip_smoke.py; a fully masked row gives o = 0
+    and lse = 0. ``flash_attention`` with the case's blocks launches B3, B4
+    and B5 once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
+    b, h, s, d, block, mask_case, causal = BF16_FWD_CASES[case]
+    q, k, v, do, tm = _bf16_inputs(b, h, s, d, mask_case, seed=13)
+    kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
+    o, lse = tfa._fwd_multi(q, k, v, tm, block_q=block, block_kv=block, **kw)
+    po, plse = tfa._fwd_multi_plain(q, k, v, tm, block_q=64, block_kv=64, **kw)
     torch.cuda.synchronize()
-    assert all(bool(torch.isfinite(g).all()) for g in grads)
-    assert {n: f.launches for n, f in tfa.KERNELS.items()} == {
-        "flash_single_fwd": 0, "flash_single_bwd": 0, "flash_multi_fwd": 1,
-        "flash_multi_bwd_dkv": 1, "flash_multi_bwd_dq": 1}
+    assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o).all())
+    assert float((o.float() - po.float()).abs().max()) <= 1e-2 * max(
+        1.0, float(po.float().abs().max()))
+    assert float((lse - plse).abs().max()) <= 1e-2 * max(1.0, float(plse.abs().max()))
+    if mask_case == "masked_row":
+        assert bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
+    assert _launches_through_flash_attention(q, k, v, do, tm, causal, block) == MULTI_LAUNCHES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BF16_SINGLE_CASES))
+def test_bf16_single_tile_backward_kernel_matches_plain_on_card(case):
+    """bf16 B2 (the tensor-core backward, di computed in the kernel) against
+    its plain version on B1's own o and lse: within 2e-2 x max|ref|, as
+    ``TOL`` in chip_smoke.py (the tensor cores sum in another order, so one
+    bf16 ulp may flip on p, ds and the outputs); finite where a row is fully
+    masked. ``flash_attention`` with the default blocks launches B1 and B2
+    once each and no multi-tile kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
+    b, h, s, d, mask_case, causal = BF16_SINGLE_CASES[case]
+    q, k, v, do, tm = _bf16_inputs(b, h, s, d, mask_case, seed=17)
+    kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
+    o, lse = tfa._fwd_single(q, k, v, tm, **kw)
+    got = tfa._bwd_single(q, k, v, do, o, lse, tm, **kw)
+    want = tfa._bwd_single_plain(q, k, v, do, o, lse, tm, **kw)
+    for name, a, ref in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()), name
+        err = float((a.float() - ref.float()).abs().max())
+        assert err <= 2e-2 * float(ref.float().abs().max()), (name, err)
+    assert _launches_through_flash_attention(q, k, v, do, tm, causal, None) == SINGLE_LAUNCHES
 
 
 @pytest.mark.gpu
