@@ -1,8 +1,8 @@
 // Device code shared by the flash-attention kernels (flash_single.cu,
 // flash_multi.cu): tile geometry, bfloat16 conversions, tile loads, the
-// 16-lane reductions, the forward of one 64-row q tile (the body of B1 and
-// of float32 B3) and the s = q k^T, dp = do v^T products of the float32
-// backward kernels.
+// cp.async copies, the 16-lane reductions, the forward of one 64-row q tile
+// (the body of B1 and of float32 B3) and the s = q k^T, dp = do v^T
+// products of the float32 single-tile backward (B2).
 //
 // Layout: q, k, v, o, do of shape (B, H, S, D), row-major and contiguous;
 // lse and di of shape (B, H, S) in float32; the kv mask (B, Skv) bytes,
@@ -28,6 +28,7 @@ constexpr int LP = BK + 1;
 // -0.7 * max float32, as betty_tpu's MASK_VALUE: exp of it underflows to 0
 // without the NaN traps of -inf
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -58,11 +59,38 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-// state of one k/v column: 0 = past the sequence, 1 = masked by kv_mask,
-// 2 = attended
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zero-filled when
+// !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes, as cp_async16
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's copies of every committed group have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// state of one k/v column of an N-column chunk: 0 = past the sequence,
+// 1 = masked by kv_mask, 2 = attended
+template <int N = BK>
 __device__ __forceinline__ void load_col_state(int* ms, const uint8_t* __restrict__ mask,
                                                int k0, int nk, int tid) {
-  if (tid < BK) {
+  if (tid < N) {
     int st = 0;
     if (tid < nk) st = (mask == nullptr || mask[k0 + tid] != 0) ? 2 : 1;
     ms[tid] = st;
@@ -74,6 +102,15 @@ __device__ __forceinline__ void load_col_state(int* ms, const uint8_t* __restric
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
                                           int valid, int tid) {
   if (tid < BQ) dst[tid] = tid < valid ? src[tid] : 0.f;
+}
+
+// 2^x on the SFU (ex2.approx.ftz: about 2^-22 relative error, results
+// below 2^-126 flushed to 0, 2^-inf = 0), with no branch for denormal
+// results as exp2f has
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float reduce16_max(float x) {
@@ -125,7 +162,13 @@ __device__ __forceinline__ void scores_and_dp(const float* Qs, const float* dOs,
 // walks 64-row k/v chunks with an online softmax (running max m, sum l,
 // float32 accumulator) and writes o and lse for the tile's rows. Needs
 // (BQ + 2 BK) (D + 1) + BQ LP floats of dynamic shared memory.
-template <typename T, int D>
+// ROW_MAX_FIRST (bf16 B1): a first walk over the chunks takes each row's max
+// of the masked scaled scores, so that p is computed, and rounded to the
+// input type, against the row max, as betty_tpu's _fwd_single_kernel rounds
+// it; the second walk then computes p, l and p v with alpha = 1. It costs
+// one more q k^T product. Without it (float32 B1 and B3), where p is not
+// rounded, the running max changes float32 rounding only.
+template <typename T, int D, bool ROW_MAX_FIRST>
 __device__ __forceinline__ void fwd_q_tile(const T* __restrict__ q, const T* __restrict__ k,
                                            const T* __restrict__ v,
                                            const uint8_t* __restrict__ mask,
@@ -155,17 +198,9 @@ __device__ __forceinline__ void fwd_q_tile(const T* __restrict__ q, const T* __r
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
   }
 
-  // causal: chunks wholly above the tile's last row contribute nothing
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous chunk's reads of Ks, Vs, Ps are done
-    const int nk = min(BK, Skv - k0);
-    load_tile<T, D>(Ks, k + (bh * Skv + k0) * D, nk, tid);
-    load_tile<T, D>(Vs, v + (bh * Skv + k0) * D, nk, tid);
-    load_col_state(ms, mb, k0, nk, tid);
-    __syncthreads();
-
-    float s[4][4];
+  // the chunk's masked scaled scores of rows ty*4 + i, columns tx + 16 j:
+  // MASK_VALUE where masked, -inf past the sequence
+  auto chunk_scores = [&](int k0, float (&s)[4][4], bool (&allowed)[4][4]) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -181,35 +216,74 @@ __device__ __forceinline__ void fwd_q_tile(const T* __restrict__ q, const T* __r
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
     }
-
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      bool allowed[4];
-      float rowmax = -INFINITY;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, st = ms[c];
-        allowed[j] = st == 2 && (!causal || k0 + c <= row);
-        const float x = st == 0 ? -INFINITY : (allowed[j] ? s[i][j] * scale : MASK_VALUE);
-        s[i][j] = x;
-        rowmax = fmaxf(rowmax, x);
+        allowed[i][j] = st == 2 && (!causal || k0 + c <= q0 + ty * 4 + i);
+        s[i][j] = st == 0 ? -INFINITY : (allowed[i][j] ? s[i][j] * scale : MASK_VALUE);
       }
-      rowmax = reduce16_max(rowmax);
-      const float m_new = fmaxf(m[i], rowmax);
-      const float alpha = expf(m[i] - m_new);
+  };
+
+  // causal: chunks wholly above the tile's last row contribute nothing
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  if constexpr (ROW_MAX_FIRST) {
+    for (int k0 = 0; k0 < kv_end; k0 += BK) {
+      __syncthreads();  // the previous chunk's reads of Ks are done
+      const int nk = min(BK, Skv - k0);
+      load_tile<T, D>(Ks, k + (bh * Skv + k0) * D, nk, tid);
+      load_col_state(ms, mb, k0, nk, tid);
+      __syncthreads();
+      float s[4][4];
+      bool allowed[4][4];
+      chunk_scores(k0, s, allowed);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float rowmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rowmax = fmaxf(rowmax, s[i][j]);
+        m[i] = fmaxf(m[i], reduce16_max(rowmax));
+      }
+    }
+  }
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    __syncthreads();  // the previous chunk's reads of Ks, Vs, Ps are done
+    const int nk = min(BK, Skv - k0);
+    load_tile<T, D>(Ks, k + (bh * Skv + k0) * D, nk, tid);
+    load_tile<T, D>(Vs, v + (bh * Skv + k0) * D, nk, tid);
+    load_col_state(ms, mb, k0, nk, tid);
+    __syncthreads();
+
+    float s[4][4];
+    bool allowed[4][4];
+    chunk_scores(k0, s, allowed);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float m_new = m[i], alpha = 1.f;
+      if constexpr (!ROW_MAX_FIRST) {
+        float rowmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rowmax = fmaxf(rowmax, s[i][j]);
+        m_new = fmaxf(m[i], reduce16_max(rowmax));
+        alpha = expf(m[i] - m_new);
+      }
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = allowed[j] ? expf(s[i][j] - m_new) : 0.f;
+        const float p = allowed[i][j] ? expf(s[i][j] - m_new) : 0.f;
         psum += p;
         Ps[(ty * 4 + i) * LP + tx + 16 * j] = round_t<T>(p);
       }
       psum = reduce16_sum(psum);
-      l[i] = alpha * l[i] + psum;
-      m[i] = m_new;
+      if constexpr (ROW_MAX_FIRST) {
+        l[i] += psum;
+      } else {
+        l[i] = alpha * l[i] + psum;
+        m[i] = m_new;
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
+        for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
+      }
     }
     __syncthreads();
 

@@ -1,7 +1,8 @@
 // Tensor-core building blocks for the bfloat16 flash-attention kernels on
-// Hopper (sm_90a): cp.async copies into padded bf16 tiles, ldmatrix
-// fragment loads, the mma.sync m16n8k16 product (bf16 operands, float32
-// accumulators) and the conversion of an accumulator into an A operand;
+// Hopper (sm_90a): cp.async copies (helpers in flash_common.cuh) into padded
+// bf16 tiles, ldmatrix fragment loads, the mma.sync m16n8k16 product (bf16
+// operands, float32 accumulators) and the conversion of an accumulator into
+// an A operand;
 // and the per-block bodies built from them, shared by the kernels of
 // flash_multi.cu (B3 mma_fwd_kernel, B4 mma_bwd_dkv_kernel, B5
 // mma_bwd_dq_kernel) and flash_single.cu (B2 mma_bwd_single_kernel):
@@ -55,37 +56,10 @@
 namespace {
 
 constexpr int MMA_NT = 128;  // threads of a tensor-core block: 4 warps of 16 rows
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 __host__ __device__ constexpr int tile_ld() {
   return D + 8;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zero-filled when
-// !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes, as cp_async16
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until this thread's copies of every committed group have landed
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // rows [0, 64) x D of a row-major (rows, D) bf16 source into a tile of

@@ -29,16 +29,17 @@
 // run):
 //   B3: one block per (b, h, 64-row q tile), walking 64-row k/v chunks up
 //       to the diagonal when causal, with an online softmax.
-//   B4: one block per (b, h, 64-row k/v chunk), walking the 64-row q tiles
-//       from the first that reaches the diagonal when causal; K and V stay
-//       in shared memory, s and p are recomputed from lse.
+//   B4: one block per (b, h, 64-row k/v chunk), walking the q tiles from
+//       the first that reaches the diagonal when causal; K and V stay in
+//       shared memory, s and p are recomputed from lse.
 //   B5: one block per (b, h, 64-row q tile), walking the k/v chunks up to the
 //       diagonal when causal; Q and dO stay in shared memory. At B8 H16
 //       S1024 that is 2048 blocks on 132 SMs, where one block per (b, h)
 //       would give 128.
-// The tiles are 64 rows whatever the JAX blocks are (the blocks only have to
+// The resident tiles are 64 rows and the walked ones 64 rows (32 in float32
+// B4 up to D64) whatever the JAX blocks are (the blocks only have to
 // divide S, and the TPU's (512, 512) tile does not fit a Hopper block); a
-// ragged last tile is zero-filled and its columns are masked.
+// ragged last tile is zero-filled and its rows and columns are masked.
 //
 // What bounds them: at B8 H16 S1024 D64 they do 2, 4 and 3 products of
 // 2 S^2 D flops per head against about 4 to 6 (S, D) tensors moved, so the
@@ -72,17 +73,24 @@
 //   * Shared memory at D64: 46 KB in B3 (Q and two ring stages of K, V),
 //     55 KB in B4 (K, V, two ring stages of Q and dO, and lse, di) and B5
 //     (the same tiles less lse, di); at D128 87 and 103 KB, against 99.8 and
-//     161.5 KB of float32 tiles in the float32 B4. Up to D64 the resident
+//     168.5 KB of float32 tiles in the float32 B4. Up to D64 the resident
 //     tiles' A fragments stay in registers; at D128 they are loaded with
 //     ldmatrix at each use, and B4 computes s^T in two passes of 32 q
 //     columns, so that dK and dV (128 registers) fit __launch_bounds__(128).
-// float32 B3, B4 and B5 stay CUDA-core FMA loops over float32 tiles (256
-// threads, flash_common.cuh): tensor cores in float32 would mean TF32, which
-// would break the float32 solver passes' 1e-4 parity.
+// float32 B4 and B5 (fp32_bwd_dkv_kernel, fp32_bwd_dq_kernel) run exact
+// float32 FMAs on the CUDA cores, on the per-block bodies of flash_fp32.cuh
+// (fp32_dkv_chunk, fp32_dq_tile): 128 threads (256 for B4 at D128), half
+// of them computing s and the other half dp, so that each product has a
+// register tile of 4 x 8 or 8 x 8 read with float4 shared-memory loads;
+// walked tiles through a 2-stage cp.async ring; tensor cores in float32
+// would mean TF32, which would break the float32 solver passes' 1e-4
+// parity. float32 B3 stays the CUDA-core FMA loop of flash_common.cuh
+// (fwd_q_tile, 256 threads).
 
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_fp32.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -93,190 +101,37 @@ __global__ void __launch_bounds__(NT)
 multi_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
                  int H, int Sq, int Skv, int causal, float scale) {
-  fwd_q_tile<T, D>(q, k, v, mask, o, lse, H, Sq, Skv, causal, scale);
+  fwd_q_tile<T, D, false>(q, k, v, mask, o, lse, H, Sq, Skv, causal, scale);
 }
 
-// B4: dk and dv of the 64-row k/v chunk blockIdx.x of head (blockIdx.z,
+// B4 in float32: dk and dv of the 64-row k/v chunk blockIdx.x of head
+// (blockIdx.z, blockIdx.y)
+template <int D>
+__global__ void __launch_bounds__(Fp32Dkv<D>::NT)
+fp32_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ di,
+                    const uint8_t* __restrict__ mask, float* __restrict__ dk,
+                    float* __restrict__ dv, int H, int Sq, int Skv, int causal, float scale) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  fp32_dkv_chunk<D>(q, k, v, dout, lse, di, mask ? mask + (size_t)blockIdx.z * Skv : nullptr,
+                    dk, dv, Sq, Skv, causal, scale, blockIdx.x * BK, bh, smem_f32);
+}
+
+// B5 in float32: dq of the 64-row q tile blockIdx.x of head (blockIdx.z,
 // blockIdx.y)
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-multi_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ di, const uint8_t* __restrict__ mask,
-                     T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Skv, int causal,
-                     float scale) {
-  constexpr int LD = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* dSs = Ps + BQ * LP;
-  __shared__ int ms[BK];
-  __shared__ float lse_s[BQ];
-  __shared__ float di_s[BQ];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const int nk = min(BK, Skv - k0);
-  load_tile<T, D>(Ks, k + (bh * Skv + k0) * D, nk, tid);
-  load_tile<T, D>(Vs, v + (bh * Skv + k0) * D, nk, tid);
-  load_col_state(ms, mask ? mask + (size_t)b * Skv : nullptr, k0, nk, tid);
-
-  float dk_acc[4][NJ], dv_acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
-
-  // causal: q tiles wholly above the chunk's first column see none of it
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_begin; q0 < Sq; q0 += BQ) {
-    const int nq = min(BQ, Sq - q0);
-    __syncthreads();  // the previous tile's reads of Qs, dOs, Ps, dSs are done
-    load_tile<T, D>(Qs, q + (bh * Sq + q0) * D, nq, tid);
-    load_tile<T, D>(dOs, dout + (bh * Sq + q0) * D, nq, tid);
-    load_rows(lse_s, lse + bh * Sq + q0, nq, tid);
-    load_rows(di_s, di + bh * Sq + q0, nq, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    scores_and_dp<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        // masked after the exp, as the TPU kernel: select, never multiply,
-        // since a fully masked row has lse = 0 and the exp may overflow
-        const bool allowed = r < nq && ms[c] == 2 && (!causal || k0 + c <= row);
-        const float p = allowed ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        Ps[r * LP + c] = round_t<T>(p);
-        dSs[r * LP + c] = round_t<T>(p * (dp[i][j] - di_s[r]) * scale);
-      }
-    }
-    __syncthreads();
-
-    // dv += p^T do and dk += ds^T q for k/v rows k0 + ty*4 + i
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pa[4], sa[4], gb[NJ], qb[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = Ps[qq * LP + ty * 4 + i];
-        sa[i] = dSs[qq * LP + ty * 4 + i];
-      }
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        gb[jj] = dOs[qq * LD + tx + 16 * jj];
-        qb[jj] = Qs[qq * LD + tx + 16 * jj];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          dv_acc[i][jj] = fmaf(pa[i], gb[jj], dv_acc[i][jj]);
-          dk_acc[i][jj] = fmaf(sa[i], qb[jj], dk_acc[i][jj]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
-    if (row >= Skv) continue;
-    const size_t base = (bh * Skv + row) * D;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      dk[base + tx + 16 * jj] = from_f<T>(dk_acc[i][jj]);
-      dv[base + tx + 16 * jj] = from_f<T>(dv_acc[i][jj]);
-    }
-  }
-}
-
-// B5: dq of the 64-row q tile blockIdx.x of head (blockIdx.z, blockIdx.y)
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-multi_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ di, const uint8_t* __restrict__ mask,
-                    T* __restrict__ dq, int H, int Sq, int Skv, int causal, float scale) {
-  constexpr int LD = D + 1, NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD;
-  __shared__ int ms[BK];
-  __shared__ float lse_s[BQ];
-  __shared__ float di_s[BQ];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const uint8_t* mb = mask ? mask + (size_t)b * Skv : nullptr;
-  const int nq = min(BQ, Sq - q0);
-  load_tile<T, D>(Qs, q + (bh * Sq + q0) * D, nq, tid);
-  load_tile<T, D>(dOs, dout + (bh * Sq + q0) * D, nq, tid);
-  load_rows(lse_s, lse + bh * Sq + q0, nq, tid);
-  load_rows(di_s, di + bh * Sq + q0, nq, tid);
-
-  float dq_acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) dq_acc[i][jj] = 0.f;
-
-  // causal: chunks wholly above the tile's last row contribute nothing
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    const int nk = min(BK, Skv - k0);
-    __syncthreads();  // the previous chunk's reads of Ks, Vs, dSs are done
-    load_tile<T, D>(Ks, k + (bh * Skv + k0) * D, nk, tid);
-    load_tile<T, D>(Vs, v + (bh * Skv + k0) * D, nk, tid);
-    load_col_state(ms, mb, k0, nk, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    scores_and_dp<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool allowed = r < nq && ms[c] == 2 && (!causal || k0 + c <= row);
-        const float p = allowed ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dSs[r * LP + c] = round_t<T>(p * (dp[i][j] - di_s[r]) * scale);
-      }
-    }
-    __syncthreads();
-
-    // dq += ds k for q rows q0 + ty*4 + i
-    for (int kk = 0; kk < BK; ++kk) {
-      float sa[4], kb[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = dSs[(ty * 4 + i) * LP + kk];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) kb[jj] = Ks[kk * LD + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) dq_acc[i][jj] = fmaf(sa[i], kb[jj], dq_acc[i][jj]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    T* drow = dq + (bh * Sq + row) * D;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) drow[tx + 16 * jj] = from_f<T>(dq_acc[i][jj]);
-  }
+template <int D>
+__global__ void __launch_bounds__(Fp32Dq<D>::NT)
+fp32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ di,
+                   const uint8_t* __restrict__ mask, float* __restrict__ dq, int H, int Sq,
+                   int Skv, int causal, float scale) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  fp32_dq_tile<D>(q, k, v, dout, lse, di, mask ? mask + (size_t)blockIdx.z * Skv : nullptr, dq,
+                  Sq, Skv, causal, scale, blockIdx.x * BQ, bh, smem_f32);
 }
 
 // B3 in bf16 on the tensor cores: o and lse of the 64-row q tile blockIdx.x
@@ -400,14 +255,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const float* lse, const float* di, const uint8_t* mask, void* dk,
                        void* dv, int B, int H, int Sq, int Skv, int causal, float scale,
                        cudaStream_t stream) {
-  // D = 128: 161.5 KB, over the 48 KB default
-  const size_t smem =
-      (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * LP) * sizeof(float);
+  static_assert(std::is_same<T, float>::value, "the CUDA-core backward is float32");
+  const void* ptrs[] = {q, k, v, dout, dk, dv};
+  if (!fp32_aligned(ptrs, 6)) return cudaErrorMisalignedAddress;
+  const size_t smem = Fp32Dkv<D>::smem();  // D = 64: 86.5 KB, over the 48 KB default
   cudaError_t err = cudaFuncSetAttribute(
-      multi_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fp32_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Skv + BK - 1) / BK, H, B);
-  multi_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+  fp32_bwd_dkv_kernel<D><<<grid, Fp32Dkv<D>::NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, di, mask, static_cast<T*>(dk), static_cast<T*>(dv), H,
       Sq, Skv, causal, scale);
@@ -418,13 +274,15 @@ template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* di, const uint8_t* mask, void* dq, int B,
                       int H, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LP) * sizeof(float);
+  static_assert(std::is_same<T, float>::value, "the CUDA-core backward is float32");
+  const void* ptrs[] = {q, k, v, dout, dq};
+  if (!fp32_aligned(ptrs, 5)) return cudaErrorMisalignedAddress;
+  const size_t smem = Fp32Dq<D>::smem();  // D = 64: 102 KB
   cudaError_t err = cudaFuncSetAttribute(
-      multi_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fp32_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  multi_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+  fp32_bwd_dq_kernel<D><<<grid, Fp32Dq<D>::NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, di, mask, static_cast<T*>(dq), H, Sq, Skv, causal,
       scale);
@@ -459,7 +317,7 @@ extern "C" int flash_multi_bwd_dkv(const void* q, const void* k, const void* v,
   const float* d = static_cast<const float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    // the tensor-core kernel (mma_bwd_dkv_kernel); float32 keeps the FMA loop
+    // the tensor-core kernel (mma_bwd_dkv_kernel); float32 runs fp32_bwd_dkv_kernel
     DISPATCH_D(__nv_bfloat16, launch_dkv_mma, q, k, v, dout, l, d, m, dk, dv, B, H, Sq, Skv,
                causal, scale, s)
   }
@@ -475,7 +333,7 @@ extern "C" int flash_multi_bwd_dq(const void* q, const void* k, const void* v, c
   const float* d = static_cast<const float*>(di);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    // the tensor-core kernel (mma_bwd_dq_kernel); float32 keeps the FMA loop
+    // the tensor-core kernel (mma_bwd_dq_kernel); float32 runs fp32_bwd_dq_kernel
     DISPATCH_D(__nv_bfloat16, launch_dq_mma, q, k, v, dout, l, d, m, dq, B, H, Sq, Skv, causal,
                scale, s)
   }

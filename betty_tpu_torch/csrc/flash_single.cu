@@ -23,7 +23,10 @@
 //             64-row k/v chunks with an online softmax (running max m, sum
 //             l, float32 accumulator), so the score matrix never leaves
 //             registers and shared memory (flash_common.cuh::fwd_q_tile,
-//             float32 FMA loops on the CUDA cores in both input types).
+//             float32 FMA loops on the CUDA cores in both input types). In
+//             bf16 a first walk takes each row's max, so that p is rounded
+//             to bf16 against the row max as the TPU kernel rounds it (one
+//             more q k^T product).
 //   backward, bfloat16 (mma_bwd_single_kernel): on the tensor cores, with
 //             the bodies of the multi-tile backward (flash_mma.cuh). Block x
 //             of head (b, h), 128 threads, first computes dk and dv of k/v
@@ -63,13 +66,15 @@
 
 namespace {
 
-// B1: the forward of one q tile (flash_common.cuh::fwd_q_tile)
+// B1: the forward of one q tile (flash_common.cuh::fwd_q_tile); in bf16 p
+// is rounded against the row max, taken in a first walk over the chunks
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
            int H, int Sq, int Skv, int causal, float scale) {
-  fwd_q_tile<T, D>(q, k, v, mask, o, lse, H, Sq, Skv, causal, scale);
+  fwd_q_tile<T, D, std::is_same<T, __nv_bfloat16>::value>(q, k, v, mask, o, lse, H, Sq, Skv,
+                                                           causal, scale);
 }
 
 // B2 in bf16 on the tensor cores: block blockIdx.x of head (blockIdx.z,

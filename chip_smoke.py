@@ -16,19 +16,27 @@ Phases:
    shapes (S16 D64, the small runs' ragged tile; S96 D16 padded; S200 D128
    with a fully masked row; S320 D32 causal), where ``flash_attention``
    with the default blocks must launch B1 and B2 and no multi-tile kernel;
-   time them (with their achieved TFLOP/s) beside their plain versions and
-   PyTorch's ``scaled_dot_product_attention`` (a yardstick only; the port
-   never calls it); the same for the multi-tile
+   bf16 B1 is held elementwise to one bf16 ulp of its plain version (p
+   rounded against the row max on both sides); time them (with their
+   achieved TFLOP/s) beside their plain versions and PyTorch's
+   ``scaled_dot_product_attention`` (a yardstick only; the port never calls
+   it), each as the mean of 20 launches queued back to back behind a
+   sleeping kernel between one pair of events, so that the host's enqueue
+   rate is not timed; the same for the multi-tile
    kernels (B3, B4, B5) at the long-sequence path's shape (B8 H16 S1024
    D64) and at four edge shapes (S384 with blocks of 128 and causal
    masking; S96 with blocks of 32 and D16, a ragged last tile; S256 D128
    with blocks of 128 and a fully masked row; S320 D32 with blocks of 64
    and causal masking), where ``flash_attention`` with those blocks must
-   launch B3-B5 and not B1/B2; the multi-tile timings with their achieved
-   TFLOP/s; each kernel's registers and spills as ``ptxas`` reports them
-   (the bf16 tensor-core kernels, B2-B5, may not spill at D64) and the
-   count of tensor-core (``HMMA``) instructions in each of them at every
-   head dim from ``cuobjdump --dump-sass`` (it must not be 0);
+   launch B3-B5 and not B1/B2 (float32 B4 and B5 within 1e-5 x max|ref|);
+   the multi-tile timings with their achieved TFLOP/s; each kernel's
+   registers and spills as ``ptxas`` reports them (the bf16 tensor-core
+   kernels, B2-B5, and the float32 B4 and B5 may not spill at D64), the
+   count of tensor-core (``HMMA``) instructions in each tensor-core kernel
+   at every head dim from ``cuobjdump --dump-sass`` (it must not be 0), and
+   the ``FFMA``, ``LDS`` and ``LDS.128`` counts of the float32 B4 and B5
+   and of each of their product loops (at D64 at least 8 ``FFMA`` per
+   shared-memory load in every product loop, and no ``HMMA``);
    then the solvers' vector kernels (B6, B7, B8) at the CG/Neumann path's
    length (the RoBERTa-large classifier's parameter count, padded to the
    ravel tile) and at a ragged length, timed beside their plain versions
@@ -57,11 +65,11 @@ when any phase fails.
 """
 
 import argparse
+import gc
 import json
 import math
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -120,21 +128,37 @@ def card_line():
         return f"not read ({e})"
 
 
+SLEEP_CYCLES = 50_000_000  # about 25 ms of the card's clock: longer than 20 calls' host work
+
+
 def time_ms(fn, reps=20, warmup=3):
-    """Median device time of ``fn`` over ``reps`` back-to-back launches."""
+    """Mean device time of one call of ``fn``: ``reps`` calls after
+    ``warmup`` ones, between one pair of events, queued behind a kernel that
+    sleeps while the host enqueues them, so that they run back to back on
+    the device and the host's enqueue rate is not what is timed."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for s, e in zip(starts, ends):
-        s.record()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
         fn()
-        e.record()
+    end.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+    return start.elapsed_time(end) / reps
+
+
+def _free():
+    """Return the memory of dropped objects to the card: ``Engine`` and each
+    ``Problem`` refer to each other, so they are freed by the cyclic
+    collector only, and ``empty_cache`` alone keeps their blocks."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _inputs(dtype, case, gen, shape=SHAPE):
@@ -157,9 +181,20 @@ def _err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at each element of ``x`` (8 significant bits): 2^(e-8)
+    for |x| = m 2^e with 0.5 <= m < 1, and at most the smallest normal's."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
 def _single_check(dtype, shape, case, gen, worst):
     """B1 and B2 against their plain versions on one input; B2 is compared
-    on the kernel's own o and lse. Returns True if all agree."""
+    on the kernel's own o and lse. In bf16, B1's o is held elementwise to
+    one bf16 ulp of the plain o: both round p against the row max, so only
+    the order of float32 sums differs. Returns True if all agree."""
     import torch
     from betty_tpu_torch.ops import flash_attention as fa
 
@@ -173,6 +208,14 @@ def _single_check(dtype, shape, case, gen, worst):
     scale_o = max(1.0, float(po.float().abs().max())) if dname == "bfloat16" else 1.0
     e_o, e_lse = _err(o, po), _err(lse, plse)
     ok_f = e_o <= tf * scale_o and e_lse <= tf * max(1.0, float(plse.abs().max()))
+    ulp_note = ""
+    if dname == "bfloat16":
+        diff = (o.float() - po.float()).abs()
+        in_ulps = diff / bf16_ulp(po)
+        over = int((in_ulps > 1.0).sum())
+        ok_f &= over == 0
+        ulp_note = (f" share of o differing {float((diff > 0).float().mean()):.3e}, max "
+                    f"{float(in_ulps.max()):.2f} bf16 ulp, {over} elements over 1 ulp;")
     if case == "masked_row":
         ok_f &= bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
     dq, dk, dv = fa._bwd_single(q, k, v, do, o, lse, mask, causal=causal, sm_scale=sm)
@@ -185,7 +228,7 @@ def _single_check(dtype, shape, case, gen, worst):
     worst["flash_single_bwd"] = max(worst["flash_single_bwd"], *(_err(a, b) for a, b in pairs))
     geo = "B{B} H{H} S{S} D{D}".format(**shape)
     log(f"[kernels] B1/B2 {geo} {dname:8s} {case:10s} fwd |o|err {e_o:.3e} |lse|err "
-        f"{e_lse:.3e} (tol {tf:g}{' x max|o|' if scale_o != 1.0 else ''}) "
+        f"{e_lse:.3e} (tol {tf:g}{' x max|o|' if scale_o != 1.0 else ''});{ulp_note} "
         f"bwd rel err {e_b:.3e} (tol {tb:g}) -> {'ok' if ok_f and ok_b else 'FAIL'}")
     return ok_f and ok_b
 
@@ -237,7 +280,7 @@ def kernel_phase():
             bad = _dispatch_check(dtype, shape, case, gen, None, SINGLE_KERNELS)
             if bad:
                 failures.append(bad)
-    torch.cuda.empty_cache()
+    _free()
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return worst
@@ -300,12 +343,16 @@ def _multi_check(dtype, shape, case, gen, worst):
     forward runs at the kernel's own 64-row tiles, so p is rounded against
     the same running max; B4 and B5 are compared on the kernel's own o and
     lse, with di = rowsum(o * do) in float32 as the backward computes it.
-    Tolerances as B1/B2's. Returns True if all agree."""
+    Tolerances as B1/B2's, but float32 B4 and B5 within 1e-5 x max|ref|:
+    they are exact float32 FMAs, in the plain loop's order. Returns True if
+    all agree."""
     import torch
     from betty_tpu_torch.ops import flash_attention as fa
 
     dname = str(dtype).split(".")[-1]
     tf, tb = TOL[dname]
+    if dname == "float32":
+        tb = FP32_MULTI_BWD_TOL
     q, k, v, do, mask, causal = _inputs(dtype, case, gen, shape)
     kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(shape["D"]))
     tiles = dict(block_q=KERNEL_TILE, block_kv=KERNEL_TILE)
@@ -362,7 +409,7 @@ def multi_kernel_phase():
             bad = _dispatch_check(dtype, shape, case, gen, block, MULTI_KERNELS)
             if bad:
                 failures.append(bad)
-    torch.cuda.empty_cache()
+    _free()
     if failures:
         raise AssertionError(f"multi-tile kernels disagree with their plain versions: {failures}")
     return worst
@@ -426,7 +473,7 @@ def multi_kernel_timings():
         log(f"[timing] flash_multi_bwd_dkv + flash_multi_bwd_dq {dname:8s} {t_bwd:.4f} ms "
             f"({7 * mm / t_bwd * 1e-9:.1f} TFLOP/s) against sdpa backward {l_bwd:.4f} ms")
         del q, k, v, do, o, lse, di, ql, kl, vl, ol, bwd_args
-        torch.cuda.empty_cache()
+        _free()
     return rows
 
 
@@ -438,7 +485,7 @@ def vector_phase():
     ragged one. Elementwise outputs agree within 1e-6 x max|ref| (the kernels
     contract a*b+c into one fused multiply-add, the plain versions round the
     product first); dots within 1e-5 x sum|a_i b_i| (the kernels sum in
-    another order). Times at the path's length, median of 20 launches."""
+    another order). Times at the path's length, as ``time_ms``."""
     import torch
     from betty_tpu_torch.ops import vector as vec
 
@@ -503,7 +550,7 @@ def vector_phase():
                     f"({'bytes' if t_bytes >= t_ops else 'operations'}); library: none "
                     "(no single PyTorch call computes it)")
         del a, b, c, d, x2, r2, px, pr
-        torch.cuda.empty_cache()
+        _free()
     if failures:
         raise AssertionError(f"vector kernels disagree with their plain versions: {failures}")
     return rows
@@ -581,6 +628,8 @@ def small_run_phase(hypergradient, seq_len=16, batch=4):
     log(f"[small] {hypergradient} S{seq_len} B{batch}: card vs CPU after 4+2 steps: max |param "
         f"diff| {err:.3e} (tol 1e-4); launches {launches}")
     assert err <= 1e-4, err
+    del engines
+    _free()
 
 
 def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_len=128,
@@ -662,7 +711,7 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
     if profile:
         profile_period(engine, unroll, tag)
     del engine
-    torch.cuda.empty_cache()
+    _free()
     return launches
 
 
@@ -729,7 +778,7 @@ def profile_period(engine, unroll, tag):
 KERNEL_SYMBOLS = {
     "fwd_kernel": "flash B1", "bwd_kernel": "flash B2", "mma_bwd_single_kernel": "flash B2",
     "multi_fwd_kernel": "flash B3", "mma_fwd_kernel": "flash B3",
-    "multi_bwd_dkv_kernel": "flash B4", "multi_bwd_dq_kernel": "flash B5",
+    "fp32_bwd_dkv_kernel": "flash B4", "fp32_bwd_dq_kernel": "flash B5",
     "mma_bwd_dkv_kernel": "flash B4", "mma_bwd_dq_kernel": "flash B5",
     "dot2_kernel": "vector (B6-B8)", "cg_step_kernel": "vector (B6-B8)",
     "neumann_step_kernel": "vector (B6-B8)", "sum_partials": "vector (B6-B8)",
@@ -756,12 +805,16 @@ REPLACES = {
 MMA_LIBS = {"flash_multi": ("mma_fwd_kernel", "mma_bwd_dkv_kernel", "mma_bwd_dq_kernel"),
             "flash_single": ("mma_bwd_single_kernel",)}
 MMA_KERNELS = tuple(k for kernels in MMA_LIBS.values() for k in kernels)
+# the float32 multi-tile backward on the CUDA cores (csrc/flash_fp32.cuh)
+FP32_KERNELS = ("fp32_bwd_dkv_kernel", "fp32_bwd_dq_kernel")
+FP32_MULTI_BWD_TOL = 1e-5  # relative to max|ref|
+MIN_FFMA_PER_LDS = 8
 
 
 def _kernel_label(symbol):
     """``name<args>`` from the mangled symbol of a kernel in a source's
     anonymous namespace, e.g. ``mma_bwd_dkv_kernel<64>`` or
-    ``multi_bwd_dq_kernel<float,64>``; the symbol itself when it is not
+    ``multi_fwd_kernel<float,64>``; the symbol itself when it is not
     one of those."""
     m = re.match(r"_ZN(\d+)_GLOBAL__N_", symbol)
     pos = m.end(1) + int(m.group(1)) if m else 0  # past the namespace's name
@@ -780,7 +833,8 @@ def _kernel_label(symbol):
 def ptxas_report(build_logs):
     """Each kernel's registers and spills as ``ptxas -v`` reported them in
     ``build_logs`` (``{library: nvcc output}``); raises if a tensor-core
-    kernel (``MMA_KERNELS``) spills at D64."""
+    kernel (``MMA_KERNELS``) or a float32 B4/B5 body (``FP32_KERNELS``)
+    spills at D64."""
     spilled = []
     for lib, text in build_logs.items():
         current = None
@@ -794,43 +848,92 @@ def ptxas_report(build_logs):
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if sp:
                 log(f"[setup] ptxas {lib} {current}: {line.strip()}")
-                if current.split("<")[0] in MMA_KERNELS and current.endswith("<64>") and (
-                        int(sp.group(1)) or int(sp.group(2))):
+                if current.split("<")[0] in MMA_KERNELS + FP32_KERNELS and current.endswith(
+                        "<64>") and (int(sp.group(1)) or int(sp.group(2))):
                     spilled.append(current)
             elif "registers" in line:
                 log(f"[setup] ptxas {lib} {current}: {line.split(':', 1)[-1].strip()}")
     if spilled:
-        raise AssertionError(f"tensor-core kernels spill at D64: {spilled}")
+        raise AssertionError(f"kernels spill at D64: {spilled}")
+
+
+SASS_INS = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _product_loops(ins):
+    """The innermost loops of a kernel's SASS (``ins``: ``(address, opcode,
+    operands)`` in order) that hold FFMA: ``[(first, last, FFMA, shared
+    loads, of which LDS.128)]``; a loop is the span of a backward branch."""
+    spans = []
+    for addr, op, args in ins:
+        m = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    inner = [a for a in spans if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in spans)]
+    loops = []
+    for lo, hi in inner:
+        body = [op for addr, op, _ in ins if lo <= addr <= hi]
+        ffma = sum(op.split(".")[0] == "FFMA" for op in body)
+        lds = sum(op.split(".")[0] == "LDS" for op in body)
+        if ffma:
+            loops.append((lo, hi, ffma, lds, sum(op == "LDS.128" for op in body)))
+    return loops
 
 
 def sass_report(lib_paths, head_dims):
-    """Count the tensor-core instructions (``HMMA``) of each tensor-core
-    kernel of ``MMA_LIBS`` (one per head dim in ``head_dims``) in its built
-    library's SASS (``lib_paths``: ``{library: path}``); raises if one is
-    missing or has none."""
+    """From each built library's SASS (``cuobjdump --dump-sass``;
+    ``lib_paths``: ``{library: path}``): the tensor-core instructions
+    (``HMMA``) of each tensor-core kernel of ``MMA_LIBS`` at every head dim
+    in ``head_dims``, which must not be 0; and the ``FFMA``, ``LDS`` (any
+    width) and ``LDS.128`` instructions of the float32 B4 and B5
+    (``FP32_KERNELS``), in all and in each product loop (an innermost loop
+    that holds FFMA), which at D64 must do at least ``MIN_FFMA_PER_LDS``
+    FFMA per shared-memory load, with no ``HMMA`` in the kernel."""
     tools = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
              "cuobjdump"]
     tool = next((t for t in tools if os.path.isfile(t)), "cuobjdump")
-    missing = []
+    bad = []
     for lib, kernels in MMA_LIBS.items():
         out = subprocess.run([tool, "--dump-sass", str(lib_paths[lib])], capture_output=True,
                              text=True, timeout=300)
         if out.returncode != 0:
             raise RuntimeError(f"cuobjdump failed ({out.returncode}): {out.stderr[-2000:]}")
-        counts, current = {}, None
+        code, current = {}, None
         for line in out.stdout.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 current = _kernel_label(m.group(1))
-                counts[current] = 0
-            elif current is not None and "HMMA" in line:
-                counts[current] += 1
-        for k, n in sorted(counts.items()):
-            log(f"[setup] sass {lib} {k}: {n} HMMA instructions")
-        missing += [f"{lib} {kernel}<{d}>" for kernel in kernels for d in head_dims
-                    if not counts.get(f"{kernel}<{d}>")]
-    if missing:
-        raise AssertionError(f"tensor-core kernels without tensor-core instructions: {missing}")
+                code[current] = []
+                continue
+            ins = SASS_INS.search(line) if current is not None else None
+            if ins:
+                code[current].append((int(ins.group(1), 16), ins.group(2), ins.group(3)))
+        for k, ins in sorted(code.items()):
+            ops = [op.split(".")[0] for _, op, _ in ins]
+            hmma = ops.count("HMMA")
+            if k.split("<")[0] not in FP32_KERNELS:
+                log(f"[setup] sass {lib} {k}: {hmma} HMMA instructions")
+                continue
+            n_lds128 = sum(op == "LDS.128" for _, op, _ in ins)
+            log(f"[setup] sass {lib} {k}: {ops.count('FFMA')} FFMA, {ops.count('LDS')} LDS of "
+                f"which {n_lds128} LDS.128, {hmma} HMMA")
+            loops = _product_loops(ins)
+            for lo, hi, ffma, lds, lds128 in loops:
+                log(f"[setup] sass {lib} {k}:   product loop {lo:#x}-{hi:#x}: {ffma} FFMA, "
+                    f"{lds} LDS of which {lds128} LDS.128 ({ffma / max(lds, 1):.2f} FFMA per "
+                    "shared load)")
+            if k.endswith("<64>"):
+                if hmma or not loops:
+                    bad.append(f"{lib} {k}: {hmma} HMMA, {len(loops)} product loops")
+                bad += [f"{lib} {k}: loop {lo:#x} at {ffma / max(lds, 1):.2f} FFMA per LDS"
+                        for lo, _, ffma, lds, _ in loops if ffma < MIN_FFMA_PER_LDS * lds]
+        bad += [f"{lib} {kernel}<{d}>: no HMMA" for kernel in kernels for d in head_dims
+                if not any(op.startswith("HMMA") for _, op, _ in code.get(f"{kernel}<{d}>", []))]
+        if lib == "flash_multi":
+            bad += [f"{lib} {kernel}<{d}>: not in the SASS" for kernel in FP32_KERNELS
+                    for d in head_dims if f"{kernel}<{d}>" not in code]
+    if bad:
+        raise AssertionError(f"kernels without the instructions of their design: {bad}")
 
 
 PHASES = ("kernels", "slice", "long")

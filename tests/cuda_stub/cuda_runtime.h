@@ -25,9 +25,14 @@ struct dim3 {
 extern const uint3 threadIdx, blockIdx;
 extern const dim3 blockDim, gridDim;
 
+struct float2 {
+  float x, y;
+};
 struct float4 {
   float x, y, z, w;
 };
+float2 make_float2(float, float);
+float4 make_float4(float, float, float, float);
 
 enum cudaError_t {
   cudaSuccess = 0,

@@ -85,7 +85,7 @@ def test_editing_a_header_changes_the_library_path(csrc_copy):
     assert sorted(p.name for p in _build.source_files("flash_single")) == [
         "flash_common.cuh", "flash_mma.cuh", "flash_single.cu"]
     assert sorted(p.name for p in _build.source_files("flash_multi")) == [
-        "flash_common.cuh", "flash_mma.cuh", "flash_multi.cu"]
+        "flash_common.cuh", "flash_fp32.cuh", "flash_mma.cuh", "flash_multi.cu"]
     assert [p.name for p in _build.source_files("vector_ops")] == ["vector_ops.cu"]
     before = {name: _build.library_path(name) for name in _build.sources()}
     assert before == {name: _build.library_path(name) for name in _build.sources()}
@@ -107,4 +107,17 @@ def test_editing_the_tensor_core_header_rebuilds_flash_multi_only(csrc_copy):
     after = {name: _build.library_path(name) for name in _build.sources()}
     assert after["flash_multi"] != before["flash_multi"]
     assert after["flash_single"] != before["flash_single"]
+    assert after["vector_ops"] == before["vector_ops"]
+
+
+def test_editing_the_fp32_header_rebuilds_flash_multi_only(csrc_copy):
+    """``flash_fp32.cuh`` (the float32 B4/B5 bodies) is included by
+    ``flash_multi.cu`` alone: editing it changes that library's path and
+    leaves ``flash_single``'s and ``vector_ops``'s."""
+    before = {name: _build.library_path(name) for name in _build.sources()}
+    header = csrc_copy / "flash_fp32.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.sources()}
+    assert after["flash_multi"] != before["flash_multi"]
+    assert after["flash_single"] == before["flash_single"]
     assert after["vector_ops"] == before["vector_ops"]

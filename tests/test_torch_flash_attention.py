@@ -201,6 +201,32 @@ def test_bf16_single_tile_backward_matches_jax_kernel(seq, dim, causal, pad):
         assert err <= 5e-3 * np.max(np.abs(ref)), (name, err)
 
 
+def test_bf16_single_tile_forward_rounds_p_against_the_row_max_as_jax():
+    """bf16 B1 must round p against each row's max, as JAX's
+    ``_fwd_single_kernel`` does: at S128 D64 with padded keys, the old
+    kernel's rounding points, p rounded against a running max over 64-key
+    chunks and rescaled (``_fwd_multi_plain`` with ``block_kv=64``), give an
+    o that differs from JAX's interpret-mode ``_fwd_single`` in more
+    elements than ``_fwd_single_plain``, which repeats JAX's points and
+    which the kernel now matches."""
+    seq, dim = 128, 64
+    rng = np.random.RandomState(21)
+    q, k, v = (rng.randn(B, H, seq, dim).astype(np.float32) for _ in range(3))
+    mask = np.ones((B, seq), bool)
+    mask[0, seq - 20:] = False
+    mask[1, seq // 3:] = False
+    kw = dict(causal=False, sm_scale=1.0 / np.sqrt(dim))
+    jo, _ = jfa._fwd_single(_bf16(q), _bf16(k), _bf16(v), jnp.asarray(mask), interpret=True,
+                            **kw)
+    ref = np.asarray(jo.astype(jnp.float32))
+    args = (*(_to_torch_bf16(x) for x in (q, k, v)), torch.tensor(mask))
+    row_max, _ = tfa._fwd_single_plain(*args, **kw)
+    running_max, _ = tfa._fwd_multi_plain(*args, block_q=seq, block_kv=64, **kw)
+    n_row = int(np.sum(row_max.float().numpy() != ref))
+    n_running = int(np.sum(running_max.float().numpy() != ref))
+    assert n_running > n_row, (n_running, n_row)
+
+
 @pytest.mark.parametrize("tiles", [(S, 32, 32), (1024, None, None)], ids=_tiles_id)
 def test_bf16_lse_matches_jax_multi_tile_kernel(tiles):
     """The plain bf16 B3 (``_fwd_multi_plain``) against JAX's interpret-mode

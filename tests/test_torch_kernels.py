@@ -90,12 +90,13 @@ BF16_SINGLE_CASES = {
 }
 
 
-def _bf16_inputs(b, h, s, d, mask_case, seed=11):
-    """q, k, v, do in bf16 and the kv mask on the card: "padded" cuts both
-    batch elements' keys, "masked_row" masks every key of batch element 1."""
+def _card_inputs(b, h, s, d, mask_case, seed=11, dtype=torch.bfloat16):
+    """q, k, v, do in ``dtype`` and the kv mask on the card: "padded" cuts
+    both batch elements' keys, "masked_row" masks every key of batch
+    element 1."""
     rng = np.random.RandomState(seed)
     q, k, v, do = (torch.tensor(rng.randn(b, h, s, d).astype(np.float32), device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     mask = np.ones((b, s), bool)
     if mask_case == "padded":
         mask[0, s - 20:] = False
@@ -137,7 +138,7 @@ def test_bf16_backward_kernels_match_plain_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
     b, h, s, d, block, mask_case, causal = BF16_BWD_CASES[case]
-    q, k, v, do, tm = _bf16_inputs(b, h, s, d, mask_case)
+    q, k, v, do, tm = _card_inputs(b, h, s, d, mask_case)
     kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
     o, lse = tfa._fwd_multi(q, k, v, tm, block_q=block, block_kv=block, **kw)
     di = (o.float() * do.float()).sum(-1)
@@ -164,7 +165,7 @@ def test_bf16_multi_tile_forward_kernel_matches_plain_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
     b, h, s, d, block, mask_case, causal = BF16_FWD_CASES[case]
-    q, k, v, do, tm = _bf16_inputs(b, h, s, d, mask_case, seed=13)
+    q, k, v, do, tm = _card_inputs(b, h, s, d, mask_case, seed=13)
     kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
     o, lse = tfa._fwd_multi(q, k, v, tm, block_q=block, block_kv=block, **kw)
     po, plse = tfa._fwd_multi_plain(q, k, v, tm, block_q=64, block_kv=64, **kw)
@@ -190,7 +191,7 @@ def test_bf16_single_tile_backward_kernel_matches_plain_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
     b, h, s, d, mask_case, causal = BF16_SINGLE_CASES[case]
-    q, k, v, do, tm = _bf16_inputs(b, h, s, d, mask_case, seed=17)
+    q, k, v, do, tm = _card_inputs(b, h, s, d, mask_case, seed=17)
     kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
     o, lse = tfa._fwd_single(q, k, v, tm, **kw)
     got = tfa._bwd_single(q, k, v, do, o, lse, tm, **kw)
@@ -200,6 +201,73 @@ def test_bf16_single_tile_backward_kernel_matches_plain_on_card(case):
         err = float((a.float() - ref.float()).abs().max())
         assert err <= 2e-2 * float(ref.float().abs().max()), (name, err)
     assert _launches_through_flash_attention(q, k, v, do, tm, causal, None) == SINGLE_LAUNCHES
+
+
+# float32 B4/B5 checks: every head dim, S200 (ragged: 3 x 64 + 8 and
+# 6 x 32 + 8 rows), each mask case
+FP32_BWD_CASES = {f"D{d}_{m}": (d, m) for d in tfa.KERNEL_HEAD_DIMS
+                  for m in ("all_true", "padded", "causal", "masked_row")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FP32_BWD_CASES))
+def test_fp32_backward_kernels_match_plain_on_card(case):
+    """float32 B4 and B5 (exact float32 FMAs on the CUDA cores) against
+    their plain versions on B3's own lse and di = rowsum(o * do) at S200,
+    whose last 64-row and 32-row tiles are ragged: within 1e-5 x max|ref|,
+    since only the order of float32 sums can differ. Gradients stay finite
+    and a fully masked row's are 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
+    d, mask_case = FP32_BWD_CASES[case]
+    s = 200
+    q, k, v, do, tm = _card_inputs(2, 2, s, d, "all_true" if mask_case == "causal" else mask_case,
+                                   seed=19, dtype=torch.float32)
+    kw = dict(causal=mask_case == "causal", sm_scale=1.0 / math.sqrt(d))
+    o, lse = tfa._fwd_multi(q, k, v, tm, block_q=s, block_kv=s, **kw)
+    di = (o * do).sum(-1)
+    got = (*tfa._bwd_dkv(q, k, v, do, lse, di, tm, **kw),
+           tfa._bwd_dq(q, k, v, do, lse, di, tm, **kw))
+    want = (*tfa._bwd_dkv_plain(q, k, v, do, lse, di, tm, **kw),
+            tfa._bwd_dq_plain(q, k, v, do, lse, di, tm, **kw))
+    torch.cuda.synchronize()
+    for name, a, ref in zip(("dk", "dv", "dq"), got, want):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all()), name
+        err = float((a - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (name, err)
+        if mask_case == "masked_row":
+            assert bool((a[1] == 0).all()), name
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each element of ``x``: 2^(e-8) for |x| = m 2^e,
+    0.5 <= m < 1."""
+    _, e = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+# the bf16 B1 one-ulp checks: the single-tile edges and the S128 path's width
+B1_ULP_CASES = dict(BF16_SINGLE_CASES, S128_D64_padded=(2, 2, 128, 64, "padded", False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(B1_ULP_CASES))
+def test_bf16_single_tile_forward_within_one_ulp_on_card(case):
+    """bf16 B1 rounds p to bf16 against the row max, as betty_tpu's
+    ``_fwd_single_kernel`` and the plain version do: its o is within one
+    bf16 ulp of the plain o, element by element (only the order of float32
+    sums differs), and lse within 1e-5 x max(1, max|lse|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
+    b, h, s, d, mask_case, causal = B1_ULP_CASES[case]
+    q, k, v, _, tm = _card_inputs(b, h, s, d, mask_case, seed=23)
+    kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
+    o, lse = tfa._fwd_single(q, k, v, tm, **kw)
+    po, plse = tfa._fwd_single_plain(q, k, v, tm, **kw)
+    torch.cuda.synchronize()
+    diff = (o.float() - po.float()).abs()
+    assert bool((diff <= _bf16_ulp(po)).all()), float((diff / _bf16_ulp(po)).max())
+    assert float((lse - plse).abs().max()) <= 1e-5 * max(1.0, float(plse.abs().max()))
 
 
 @pytest.mark.gpu
