@@ -1,8 +1,8 @@
 // Device code shared by the flash-attention kernels (flash_single.cu,
 // flash_multi.cu): tile geometry, bfloat16 conversions, tile loads, the
 // cp.async copies, the 16-lane reductions, the forward of one 64-row q tile
-// (the body of B1 and of float32 B3) and the s = q k^T, dp = do v^T
-// products of the float32 single-tile backward (B2).
+// (the body of float32 B1) and the s = q k^T, dp = do v^T products of the
+// float32 single-tile backward (B2).
 //
 // Layout: q, k, v, o, do of shape (B, H, S, D), row-major and contiguous;
 // lse and di of shape (B, H, S) in float32; the kv mask (B, Skv) bytes,
@@ -158,17 +158,11 @@ __device__ __forceinline__ void scores_and_dp(const float* Qs, const float* dOs,
   }
 }
 
-// Forward of the 64-row q tile blockIdx.x of head (blockIdx.z, blockIdx.y):
-// walks 64-row k/v chunks with an online softmax (running max m, sum l,
-// float32 accumulator) and writes o and lse for the tile's rows. Needs
-// (BQ + 2 BK) (D + 1) + BQ LP floats of dynamic shared memory.
-// ROW_MAX_FIRST (bf16 B1): a first walk over the chunks takes each row's max
-// of the masked scaled scores, so that p is computed, and rounded to the
-// input type, against the row max, as betty_tpu's _fwd_single_kernel rounds
-// it; the second walk then computes p, l and p v with alpha = 1. It costs
-// one more q k^T product. Without it (float32 B1 and B3), where p is not
-// rounded, the running max changes float32 rounding only.
-template <typename T, int D, bool ROW_MAX_FIRST>
+// Forward of the 64-row q tile blockIdx.x of head (blockIdx.z, blockIdx.y)
+// (float32 B1): walks 64-row k/v chunks with an online softmax (running max
+// m, sum l, float32 accumulator) and writes o and lse for the tile's rows.
+// Needs (BQ + 2 BK) (D + 1) + BQ LP floats of dynamic shared memory.
+template <typename T, int D>
 __device__ __forceinline__ void fwd_q_tile(const T* __restrict__ q, const T* __restrict__ k,
                                            const T* __restrict__ v,
                                            const uint8_t* __restrict__ mask,
@@ -198,9 +192,20 @@ __device__ __forceinline__ void fwd_q_tile(const T* __restrict__ q, const T* __r
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
   }
 
-  // the chunk's masked scaled scores of rows ty*4 + i, columns tx + 16 j:
-  // MASK_VALUE where masked, -inf past the sequence
-  auto chunk_scores = [&](int k0, float (&s)[4][4], bool (&allowed)[4][4]) {
+  // causal: chunks wholly above the tile's last row contribute nothing
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    __syncthreads();  // the previous chunk's reads of Ks, Vs, Ps are done
+    const int nk = min(BK, Skv - k0);
+    load_tile<T, D>(Ks, k + (bh * Skv + k0) * D, nk, tid);
+    load_tile<T, D>(Vs, v + (bh * Skv + k0) * D, nk, tid);
+    load_col_state(ms, mb, k0, nk, tid);
+    __syncthreads();
+
+    // the chunk's masked scaled scores of rows ty*4 + i, columns tx + 16 j:
+    // MASK_VALUE where masked, -inf past the sequence
+    float s[4][4];
+    bool allowed[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -224,50 +229,13 @@ __device__ __forceinline__ void fwd_q_tile(const T* __restrict__ q, const T* __r
         allowed[i][j] = st == 2 && (!causal || k0 + c <= q0 + ty * 4 + i);
         s[i][j] = st == 0 ? -INFINITY : (allowed[i][j] ? s[i][j] * scale : MASK_VALUE);
       }
-  };
-
-  // causal: chunks wholly above the tile's last row contribute nothing
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  if constexpr (ROW_MAX_FIRST) {
-    for (int k0 = 0; k0 < kv_end; k0 += BK) {
-      __syncthreads();  // the previous chunk's reads of Ks are done
-      const int nk = min(BK, Skv - k0);
-      load_tile<T, D>(Ks, k + (bh * Skv + k0) * D, nk, tid);
-      load_col_state(ms, mb, k0, nk, tid);
-      __syncthreads();
-      float s[4][4];
-      bool allowed[4][4];
-      chunk_scores(k0, s, allowed);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float rowmax = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) rowmax = fmaxf(rowmax, s[i][j]);
-        m[i] = fmaxf(m[i], reduce16_max(rowmax));
-      }
-    }
-  }
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous chunk's reads of Ks, Vs, Ps are done
-    const int nk = min(BK, Skv - k0);
-    load_tile<T, D>(Ks, k + (bh * Skv + k0) * D, nk, tid);
-    load_tile<T, D>(Vs, v + (bh * Skv + k0) * D, nk, tid);
-    load_col_state(ms, mb, k0, nk, tid);
-    __syncthreads();
-
-    float s[4][4];
-    bool allowed[4][4];
-    chunk_scores(k0, s, allowed);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float m_new = m[i], alpha = 1.f;
-      if constexpr (!ROW_MAX_FIRST) {
-        float rowmax = -INFINITY;
+      float rowmax = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) rowmax = fmaxf(rowmax, s[i][j]);
-        m_new = fmaxf(m[i], reduce16_max(rowmax));
-        alpha = expf(m[i] - m_new);
-      }
+      for (int j = 0; j < 4; ++j) rowmax = fmaxf(rowmax, s[i][j]);
+      const float m_new = fmaxf(m[i], reduce16_max(rowmax));
+      const float alpha = expf(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -276,14 +244,10 @@ __device__ __forceinline__ void fwd_q_tile(const T* __restrict__ q, const T* __r
         Ps[(ty * 4 + i) * LP + tx + 16 * j] = round_t<T>(p);
       }
       psum = reduce16_sum(psum);
-      if constexpr (ROW_MAX_FIRST) {
-        l[i] += psum;
-      } else {
-        l[i] = alpha * l[i] + psum;
-        m[i] = m_new;
+      l[i] = alpha * l[i] + psum;
+      m[i] = m_new;
 #pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
-      }
+      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
     }
     __syncthreads();
 
@@ -315,27 +279,6 @@ __device__ __forceinline__ void fwd_q_tile(const T* __restrict__ q, const T* __r
 template <int D>
 constexpr size_t fwd_smem_bytes() {
   return (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LP) * sizeof(float);
-}
-
-// the kernel signature of B1 and float32 B3
-template <typename T>
-using FwdKernel = void (*)(const T*, const T*, const T*, const uint8_t*, T*, float*, int, int,
-                           int, int, float);
-
-// one block per (64-row q tile, head, batch element)
-template <typename T, int D>
-cudaError_t launch_fwd_tiles(FwdKernel<T> kernel, const void* q, const void* k, const void* v,
-                             const uint8_t* mask, void* o, float* lse, int B, int H, int Sq,
-                             int Skv, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), mask, static_cast<T*>(o), lse, H,
-                                     Sq, Skv, causal, scale);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
-// Float32 per-block bodies of the multi-tile attention backward on Hopper's
-// CUDA cores (sm_90a), used by flash_multi.cu's float32 B4 and B5
-// (fp32_bwd_dkv_kernel, fp32_bwd_dq_kernel):
+// Float32 per-block bodies of the multi-tile attention on Hopper's CUDA
+// cores (sm_90a), used by flash_multi.cu's float32 B3, B4 and B5
+// (fp32_fwd_kernel, fp32_bwd_dkv_kernel, fp32_bwd_dq_kernel):
+//   fp32_fwd_q_tile  o and lse of one 64-row q tile, walking k/v chunks;
 //   fp32_dkv_chunk   dk and dv of one 64-row k/v chunk, walking q tiles;
 //   fp32_dq_tile     dq of one 64-row q tile, walking k/v chunks.
 // Exact float32: every product is a chain of fmaf in the order of the plain
@@ -9,8 +10,8 @@
 // The tensor cores would mean TF32, about three decimal digits, and the
 // float32 solver passes are held to 1e-4.
 //
-// What bounds them: at B8 H16 S1024 D64 four (B4) and three (B5) products
-// of 2 S^2 D flops per head against a few (S, D) tensors, so the CUDA
+// What bounds them: at B8 H16 S1024 D64 two (B3), four (B4) and three (B5)
+// products of 2 S^2 D flops per head against a few (S, D) tensors, so the CUDA
 // cores' FMA rate (67 TFLOP/s) if the operands come fast enough. An SM
 // issues four warp-wide FFMA a cycle and its shared memory serves 32
 // floats a cycle: a warp-wide LDS.128 takes 4 cycles however few distinct
@@ -44,8 +45,16 @@
 //     is computed. Shared memory at D64: 86.5 KB (B4) and 102 KB (B5), two
 //     blocks an SM. At D128 B4 runs 256 threads on 64-row q tiles through a
 //     1-stage ring (168.5 KB), so that dk and dv stay 8 x 8 a thread.
+//   * B3 (o, lse of a 64-row q tile, walking 64-row k/v chunks): threads
+//     [0, NS) compute s (8 x 8 a thread, 4 x 8 at D128) of chunk i, the
+//     others rescale O and add p V of chunk i - 1 (8 x 8), so that the two
+//     products overlap; p^T and the rows' alpha pass through shared memory
+//     ([k][q], stride 68: a warp's scalar stores hit 32 banks). Shared
+//     memory at D64: 102.5 KB (Q, two stages each of K and V, p^T), two
+//     blocks an SM.
 //   * p = 2^(s scale log2 e - lse log2 e) on the SFU (exp2_sfu), with a
-//     masked entry's exponent selected to -inf: no branch around the exp.
+//     masked entry's exponent selected to -inf: no branch around the exp
+//     (B3: 2^(s scale log2 e - m log2 e), m the running max).
 // Semantics of betty_tpu's _bwd_dkv_kernel / _bwd_dq_kernel, as the CUDA-core
 // loops they replace: p = exp(s scale - lse) selected to 0 where masked
 // (never multiplied: a fully masked row has lse = 0), ds = p (dp - di)
@@ -540,6 +549,199 @@ __device__ __forceinline__ void fp32_dq_tile(
     if (h == 1) store_rows_f32<D, G::NCG, LD, false>(Qs, nullptr, acc, rg, cg, BQ);
     __syncthreads();
     if (h == 0) store_rows_f32<D, G::NCG, D, true>(out, Qs, acc, rg, cg, nq);
+  }
+}
+
+// B3's geometry: NT threads, NS of them computing s and p (TM x 8 a thread:
+// 8 x 8 up to D64, 4 x 8 at D128, whose 256 threads keep the output at
+// 8 x 8 a thread), the other NT - NS owning the 64 x D output (8 x TD a
+// thread); k/v chunks of BK rows through a 2-stage ring
+template <int D>
+struct Fp32Fwd {
+  static constexpr int NT = D <= 64 ? 128 : 256;
+  static constexpr int NS = NT / 2;
+  static constexpr int TM = BQ * 8 / NS;  // q rows of a thread's score tile
+  static constexpr int SA = BQ / TM;      // their step
+  static constexpr int NCG = (NT - NS) / 8;  // column groups of the output
+  static constexpr int LP = BQ + 4;          // stride of the p^T tile, [k][q]
+  // Q; the ring's K, V; p^T; the rows' alpha (then l)
+  static constexpr size_t smem() {
+    return (size_t)(5 * BQ * fp32_ld<D>() + BK * LP + BQ) * sizeof(float);
+  }
+};
+
+// B3's body: o and lse of the 64-row q tile from row q0 of head bh, walking
+// the 64-row k/v chunks (up to the diagonal when causal) with an online
+// softmax. Q stays in shared memory; K, V and the column states come
+// through the ring. The two products have equal flops, and each gets half
+// the threads, one chunk apart: in step i threads [0, NS) compute
+// s = Q K^T of chunk i while threads [NS, NT) rescale their rows of O by
+// chunk i-1's alpha and add p V of chunk i-1; after a barrier the s role
+// takes each row's masked max over the 8 lanes that share the row, updates
+// m and its partial l, and writes p^T and alpha to shared memory for the
+// next step. mb: the batch element's kv mask (Skv bytes) or null. Runs in a
+// block of Fp32Fwd<D>::NT threads with Fp32Fwd<D>::smem() bytes of dynamic
+// shared memory at `smem`.
+template <int D>
+__device__ __forceinline__ void fp32_fwd_q_tile(const float* __restrict__ q,
+                                                const float* __restrict__ k,
+                                                const float* __restrict__ v,
+                                                const uint8_t* __restrict__ mb,
+                                                float* __restrict__ o, float* __restrict__ lse,
+                                                int Sq, int Skv, int causal, float scale, int q0,
+                                                size_t bh, float* smem) {
+  using G = Fp32Fwd<D>;
+  constexpr int NT = G::NT, NS = G::NS, TM = G::TM, SA = G::SA, LD = fp32_ld<D>(), LP = G::LP;
+  constexpr int TILE = BK * LD, TD = OutCols<D, G::NCG>::TD;
+  float* Qs = smem;
+  float* Ks = Qs + BQ * LD;    // ring: [2][TILE]
+  float* Vs = Ks + 2 * TILE;   // ring: [2][TILE]
+  float* Pt = Vs + 2 * TILE;   // [BK][LP]: p^T of the last chunk
+  float* row_s = Pt + BK * LP;  // [BQ]: each row's alpha of the last chunk, at the end l
+  __shared__ int ms[2][BK];     // ring: column states
+
+  const int tid = threadIdx.x;
+  const int nq = min(BQ, Sq - q0);
+  // causal: chunks wholly above the tile's last row contribute nothing
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int n_chunks = (kv_end + BK - 1) / BK;
+
+  auto load_rows = [&](float* dst, const float* src, int k0) {
+    cp_async_tile_f32<D, BK, NT>(dst, src + (bh * Skv + k0) * D, min(BK, Skv - k0), tid);
+  };
+
+  cp_async_tile_f32<D, BQ, NT>(Qs, q + (bh * Sq + q0) * D, nq, tid);
+  load_rows(Ks, k, 0);
+  cp_async_commit();
+  load_col_state(ms[0], mb, 0, min(BK, Skv), tid);
+
+  // the thread's role; in the s role its TM x 8 score tile (q rows
+  // tq + SA i, k/v columns tk + 8 j: the 8 lanes of a row are neighbours),
+  // in the other its 8 x TD output tile (q rows out_row(rg, .), columns of
+  // cg). Each role runs its own loop, so that the registers of one (s, m,
+  // l) are not live in the other's (O); the loops meet at named barriers
+  // 1 and 2 each step, 3 at the end.
+  const bool s_role = tid < NS;
+  const int t = s_role ? tid : tid - NS;
+
+  // step it: K of chunk it and V of chunk it - 1 have landed; p^T and
+  // alpha of chunk it - 1 are written; every thread is done with the stages
+  // that are loaded now. Returns the next chunk's column state of k/v row
+  // tid (threads [0, BK), all in the s role).
+  auto begin_step = [&](int it) {
+    cp_async_wait_all();
+    bar_sync(1, NT);
+    const int k_next = (it + 1) * BK;
+    int next_state = 0;
+    if (it + 1 < n_chunks) {
+      load_rows(Ks + ((it + 1) & 1) * TILE, k, k_next);
+      if (tid < BK && k_next + tid < Skv)
+        next_state = (mb == nullptr || mb[k_next + tid] != 0) ? 2 : 1;
+    }
+    if (it < n_chunks) load_rows(Vs + (it & 1) * TILE, v, it * BK);
+    cp_async_commit();
+    return next_state;
+  };
+
+  if (s_role) {
+    const int tq = t >> 3, tk = t & 7;
+    float m[TM], l[TM];  // the rows' max and the thread's part of l
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+    }
+    const float scale_log2 = scale * LOG2E;
+    for (int it = 0; it <= n_chunks; ++it) {
+      const int next_state = begin_step(it), k0 = it * BK;
+      float sc[TM][8];
+      if (it < n_chunks) fp32_product<D, TM, 8, SA>(Qs, Ks + (it & 1) * TILE, tq, tk, sc);
+      bar_sync(2, NT);  // the O role is done with p^T and alpha of chunk it - 1
+      if (it == n_chunks) break;
+      bool col_ok[8], in_seq[8];  // in registers first: no branch around a load per entry
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int state = ms[it & 1][tk + 8 * j];
+        col_ok[j] = state == 2;
+        in_seq[j] = state != 0;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = tq + SA * i;
+        bool allowed[8];
+        // the masked scaled scores' max: MASK_VALUE where masked, -inf past
+        // the sequence, over the 8 lanes of the row
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          allowed[j] = col_ok[j] & (!causal | (k0 + tk + 8 * j <= q0 + r));
+          mx = fmaxf(mx, allowed[j] ? sc[i][j] * scale : (in_seq[j] ? MASK_VALUE : -INFINITY));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float m_new = fmaxf(m[i], mx);  // finite: every chunk has a column of state >= 1
+        const float alpha = exp2_sfu((m[i] - m_new) * LOG2E);
+        const float m2 = m_new * LOG2E;
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          // p = exp(s scale - m), masked by an exponent of -inf (no branch)
+          const float p = exp2_sfu(allowed[j] ? fmaf(sc[i][j], scale_log2, -m2) : -INFINITY);
+          Pt[(tk + 8 * j) * LP + r] = p;
+          psum += p;
+        }
+        l[i] = alpha * l[i] + psum;
+        m[i] = m_new;
+        if (tk == 0) row_s[r] = alpha;
+      }
+      // read at the next step, after its first barrier; nobody reads this stage now
+      if (it + 1 < n_chunks && tid < BK) ms[(it + 1) & 1][tid] = next_state;
+    }
+    // past the last step's barrier 2 the O role no longer reads row_s
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      li += __shfl_xor_sync(0xffffffffu, li, 4);
+      const int r = tq + SA * i;
+      if (tk == 0) {
+        row_s[r] = li;
+        if (r < nq) lse[bh * Sq + q0 + r] = li == 0.f ? 0.f : m[i] + logf(li);
+      }
+    }
+    bar_sync(3, NT);  // the rows' l are written
+  } else {
+    const int rg = t / G::NCG, cg = t % G::NCG;
+    float acc[8][TD];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int c = 0; c < TD; ++c) acc[a][c] = 0.f;
+    for (int it = 0; it <= n_chunks; ++it) {
+      begin_step(it);
+      if (it > 0) {
+        // O = alpha O + p V of chunk it - 1
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          const float alpha = row_s[out_row(rg, a)];
+#pragma unroll
+          for (int c = 0; c < TD; ++c) acc[a][c] *= alpha;
+        }
+        fp32_outer<D, G::NCG, BK, LP, LD>(Pt, Vs + ((it - 1) & 1) * TILE, 0, rg, cg, acc);
+      }
+      bar_sync(2, NT);
+    }
+    bar_sync(3, NT);
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const float li = row_s[out_row(rg, a)];
+      const float l_safe = li == 0.f ? 1.f : li;
+#pragma unroll
+      for (int c = 0; c < TD; ++c) acc[a][c] = acc[a][c] / l_safe;
+    }
+    store_rows_f32<D, G::NCG, D, false>(o + (bh * Sq + q0) * D, nullptr, acc, rg, cg, nq);
   }
 }
 

@@ -5,8 +5,11 @@
 // an A operand;
 // and the per-block bodies built from them, shared by the kernels of
 // flash_multi.cu (B3 mma_fwd_kernel, B4 mma_bwd_dkv_kernel, B5
-// mma_bwd_dq_kernel) and flash_single.cu (B2 mma_bwd_single_kernel):
-//   mma_fwd_q_tile   o and lse of one 64-row q tile (online softmax);
+// mma_bwd_dq_kernel) and flash_single.cu (B1 mma_fwd_single_kernel, B2
+// mma_bwd_single_kernel):
+//   mma_fwd_q_tile         o and lse of one 64-row q tile (online softmax);
+//   mma_fwd_single_q_tile  the same for B1, p against the row max, taken in
+//                          a first walk;
 //   mma_dkv_chunk    dk and dv of one 64-row k/v chunk;
 //   mma_dq_tile      dq of one 64-row q tile.
 // Each body runs in a block of MMA_NT threads (4 warps, each owning 16 rows
@@ -171,6 +174,89 @@ __device__ __forceinline__ float row_dot(const __nv_bfloat16* a, const __nv_bflo
   return sum;
 }
 
+// the float32 values of a pair of bf16 (lo in the low half)
+__device__ __forceinline__ void bf16x2_to_f32(uint32_t w, float& lo, float& hi) {
+  const uint32_t a = w << 16, b = w & 0xffff0000u;
+  memcpy(&lo, &a, 4);
+  memcpy(&hi, &b, 4);
+}
+
+// sum_d a[d] b[d] over D bf16 values (16-byte aligned, in shared memory)
+// as one chain of fmaf, d ascending: the order of a SIMT float32 matrix
+// product, which the plain version's einsum runs on the card
+template <int D>
+__device__ __forceinline__ float dot_chain(const __nv_bfloat16* a, const __nv_bfloat16* b) {
+  const uint4* pa = reinterpret_cast<const uint4*>(a);
+  const uint4* pb = reinterpret_cast<const uint4*>(b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const uint4 wa = pa[i], wb = pb[i];
+    const uint32_t xa[4] = {wa.x, wa.y, wa.z, wa.w}, xb[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      float a0, a1, b0, b1;
+      bf16x2_to_f32(xa[w], a0, a1);
+      bf16x2_to_f32(xb[w], b0, b1);
+      s = fmaf(a0, b0, s);
+      s = fmaf(a1, b1, s);
+    }
+  }
+  return s;
+}
+
+// two such chains at once: s[0] of a0 and b0, s[1] of a1 and b1
+template <int D>
+__device__ __forceinline__ void dot_chain2(const __nv_bfloat16* a0, const __nv_bfloat16* b0,
+                                           const __nv_bfloat16* a1, const __nv_bfloat16* b1,
+                                           float (&s)[2]) {
+  const uint4* p[4] = {reinterpret_cast<const uint4*>(a0), reinterpret_cast<const uint4*>(b0),
+                       reinterpret_cast<const uint4*>(a1), reinterpret_cast<const uint4*>(b1)};
+  s[0] = s[1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    uint4 w[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) w[u] = p[u][i];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const uint32_t xa[4] = {w[2 * c].x, w[2 * c].y, w[2 * c].z, w[2 * c].w};
+      const uint32_t xb[4] = {w[2 * c + 1].x, w[2 * c + 1].y, w[2 * c + 1].z, w[2 * c + 1].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float f0, f1, g0, g1;
+        bf16x2_to_f32(xa[q], f0, f1);
+        bf16x2_to_f32(xb[q], g0, g1);
+        s[c] = fmaf(f0, g0, s[c]);
+        s[c] = fmaf(f1, g1, s[c]);
+      }
+    }
+  }
+}
+
+// float32 ulps of p from a bf16 rounding midpoint within which B1 takes p
+// again from the plain chain's s: the tensor-core s moved p by at most 36
+// ulps in an emulation of truncating tensor-core sums (randn inputs, D16 to
+// D128, S128 and S512; tests/test_torch_b1_rounding.py)
+constexpr int PFLIP_ULPS = 128;
+
+// the elements of o a pass of B1's third walk takes again: two a thread
+constexpr int FIX_MAX = 2 * MMA_NT;
+
+// B1 takes an o element again from the plain chain where |acc| <
+// O_FLAG sum_j p_j |v_jd|; elsewhere one bf16 ulp of acc is above 2^-18 of
+// that sum, and the emulated |acc_tc - acc_chain| stayed under 2^-20 of it
+constexpr float O_FLAG = 1.f / 1024.f;
+
+// true when rounding p to bf16 (nearest even: on the low 16 bits) could go
+// the other way for a p within PFLIP_ULPS float32 ulps of it
+__device__ __forceinline__ bool near_bf16_midpoint(float p) {
+  uint32_t b;
+  memcpy(&b, &p, 4);
+  const int low = (int)(b & 0xffffu) - 0x8000;
+  return low <= PFLIP_ULPS && low >= -PFLIP_ULPS;
+}
+
 // ---------------------------------------------------------------------------
 // per-block bodies
 // ---------------------------------------------------------------------------
@@ -188,6 +274,20 @@ inline bool mma_aligned(const void* const* in, int n_in, const void* const* out,
 template <int D>
 constexpr size_t mma_fwd_smem() {
   return (size_t)5 * BQ * tile_ld<D>() * sizeof(__nv_bfloat16);
+}
+
+// row stride (bf16 elements) of B1's p rows in shared memory: Skv rounded up
+// to whole chunks, plus 8, so that a quad's 4-byte stores of 8 rows fall in
+// 32 distinct banks
+__host__ __device__ constexpr int single_p_ld(int Skv) { return (Skv + BK - 1) / BK * BK + 8; }
+
+// the most keys B1 takes: its rows' p stay in shared memory (227 KB a block)
+constexpr int SINGLE_MAX_KV = 1024;
+
+// shared memory of mma_fwd_single_q_tile (B1): mma_fwd_smem and the rows' p
+template <int D>
+constexpr size_t mma_fwd_single_smem(int Skv) {
+  return mma_fwd_smem<D>() + (size_t)BQ * single_p_ld(Skv) * sizeof(__nv_bfloat16);
 }
 
 // shared memory of mma_dkv_chunk: K, V and two ring stages of Q, dO (and O
@@ -365,6 +465,7 @@ __device__ __forceinline__ void mma_fwd_q_tile(const __nv_bfloat16* __restrict__
     if (k_next < kv_end && tid < BK) ms[st ^ 1][tid] = next_state;
   }
 
+  const int last = st ^ 1;  // the stage of the last chunk
   float l_safe[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -384,6 +485,354 @@ __device__ __forceinline__ void mma_fwd_q_tile(const __nv_bfloat16* __restrict__
       const int row = q0 + r_lo + 8 * i;
       if (row < Sq) lse[bh * Sq + row] = l[i] == 0.f ? 0.f : m[i] + logf(l_safe[i]);
     }
+  }
+}
+
+// B1's body (betty_tpu's _fwd_single_kernel): o and lse of the 64-row q
+// tile from row q0 of head bh, with p rounded to bf16 against the max of
+// the whole row, as the single-tile TPU kernel rounds it and as the plain
+// version (_fwd_single_plain) does with float32 FMA chains. Warps, rows,
+// the ring, the s and p V products and the masking are mma_fwd_q_tile's
+// (kept apart from it: B3's register allocation sits at ptxas's
+// 128-register edge); the k/v chunks (up to the diagonal when causal) are walked twice:
+// first K alone, for each row's max m; then K and V for p = exp(s scale -
+// m), l and O += p V with alpha = 1.
+//
+// The tensor cores sum the 16 products of a k-step with truncation, in
+// another order than a chain of fmaf, so s and p V may differ from the
+// plain version's in their last bits (on an H100 44 % of s do); that is
+// harmless except where it flips a bf16 rounding, so three things are
+// taken again as the plain chains give them (dot_chain: d ascending):
+//   * the row max m, from which every p of the row is taken: in the first
+//     walk each lane recomputes its own max's score as the chain whenever
+//     the max moves (from the chunk in shared memory); the lanes within
+//     2^-12 of the row's tensor-core max give the row's m;
+//   * p: p = 2^(s scale log2 e - m log2 e) from the tensor-core s; where it
+//     lies within PFLIP_ULPS float32 ulps of a bf16 rounding midpoint, s is
+//     recomputed as the chain and p = expf(s scale - m), as torch.exp with
+//     s scale and the difference rounded apart; elsewhere the bf16 p is
+//     the plain one;
+//   * o: where |acc| < O_FLAG sum_j p_j |v_jd| (a fourth product, p |V|, on
+//     the tensor cores), a sum that nearly cancels, the element is listed;
+//     a third walk over the V chunks (the last two are still in the ring's
+//     stages) takes each listed element as the chain over its row's bf16 p,
+//     kept in shared memory (Ps), one element a thread.
+// A row with l = 0 gives o = 0 and lse = 0. Shared memory:
+// mma_fwd_single_smem<D>(Skv).
+template <int D>
+__device__ __forceinline__ void mma_fwd_single_q_tile(const __nv_bfloat16* __restrict__ q,
+                                                      const __nv_bfloat16* __restrict__ k,
+                                                      const __nv_bfloat16* __restrict__ v,
+                                                      const uint8_t* __restrict__ mb,
+                                                      __nv_bfloat16* __restrict__ o,
+                                                      float* __restrict__ lse, int Sq, int Skv,
+                                                      int causal, float scale, int q0, size_t bh,
+                                                      unsigned char* smem_raw) {
+  constexpr int TILE = BQ * tile_ld<D>(), KD = D / 16, LD = tile_ld<D>();
+  constexpr bool RESIDENT = D <= 64;  // Q fragments held in registers
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + TILE;      // ring: [2][TILE]
+  __nv_bfloat16* Vs = Ks + 2 * TILE;  // ring: [2][TILE]
+  __nv_bfloat16* Ps = Vs + 2 * TILE;  // the rows' bf16 p: [BQ][p_ld]
+  __shared__ int ms[2][BK];           // ring: column states
+  __shared__ float l_s[BQ];           // the rows' l (1 where 0)
+  __shared__ int fix_n;               // elements taken again: how many, and
+  __shared__ uint16_t fix_list[FIX_MAX];  // which (row << 8 | column)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nq = min(BQ, Sq - q0);
+  // causal: chunks wholly above the tile's last row contribute nothing
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int n = (kv_end + BK - 1) / BK, p_ld = single_p_ld(Skv);
+
+  // K (and with_v V) and the column states of chunk c into ring stage st;
+  // the states are computed now and stored by set_states after the step
+  auto load_chunk = [&](int st, int c, bool with_v) {
+    const int k0 = c * BK, nk = min(BK, Skv - k0);
+    cp_async_tile<D, MMA_NT>(Ks + st * TILE, k + (bh * Skv + k0) * D, nk, tid);
+    if (with_v) cp_async_tile<D, MMA_NT>(Vs + st * TILE, v + (bh * Skv + k0) * D, nk, tid);
+    cp_async_commit();
+    int state = 0;
+    if (tid < BK && k0 + tid < Skv) state = (mb == nullptr || mb[k0 + tid] != 0) ? 2 : 1;
+    return state;
+  };
+  // read at the next step, after its barrier; nobody reads that stage now
+  auto set_states = [&](int st, int state) {
+    if (tid < BK) ms[st][tid] = state;
+  };
+
+  cp_async_tile<D, MMA_NT>(Qs, q + (bh * Sq + q0) * D, nq, tid);
+  set_states(0, load_chunk(0, 0, false));
+  if (tid == 0) fix_n = 0;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int r_lo = warp * 16 + (lane >> 2), t2 = 2 * (lane & 3);
+  const uint32_t qs_u = smem_u32(Qs);
+  const uint32_t off_a = frag_off_a<D>(lane), off_nk = frag_off_nk<D>(lane);
+  uint32_t qf[RESIDENT ? KD : 1][4];
+  if constexpr (RESIDENT) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], qs_u + tile_off<D>(warp * 16, 16 * kk) + off_a);
+  }
+
+  // s = Q K^T of ring stage st: the warp's 16 q rows by 64 k/v columns;
+  // element e of n8 tile j is q row r_lo + 8 (e / 2), k/v column
+  // 8 j + t2 + e % 2, and `allowed` says whether it is attended
+  auto scores = [&](int st, int k0, float (&s)[BK / 8][4], bool (&allowed)[BK / 8][4]) {
+    const uint32_t ks_u = smem_u32(Ks + st * TILE);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (RESIDENT) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+      } else {
+        ldsm_x4(a, qs_u + tile_off<D>(warp * 16, 16 * kk) + off_a);
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        uint32_t bk[4];
+        ldsm_x4(bk, ks_u + tile_off<D>(16 * j, 16 * kk) + off_nk);
+        mma_bf16(s[2 * j], a, bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], a, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + t2 + (e & 1);
+        allowed[j][e] = ms[st][c] == 2 && (!causal || k0 + c <= q0 + r_lo + 8 * (e >> 1));
+      }
+  };
+
+  // first walk (K only): the thread's max of each of its rows of the masked
+  // scaled scores (MASK_VALUE where masked, -inf past the sequence) and,
+  // when it is an attended score, that score as the plain chain gives it,
+  // taken from the chunk in shared memory whenever the max moves
+  float own_max[2] = {-INFINITY, -INFINITY}, own_exact[2] = {-INFINITY, -INFINITY};
+  int st = 0;
+  for (int c = 0; c < n; ++c, st ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this chunk has landed; every warp is done with the other stage
+    // the next chunk, or the second walk's first with its V
+    const int next = c + 1 < n ? load_chunk(st ^ 1, c + 1, false) : load_chunk(st ^ 1, 0, true);
+    float s[BK / 8][4];
+    bool allowed[BK / 8][4];
+    scores(st, c * BK, s, allowed);
+    float cmax[2] = {-INFINITY, -INFINITY};
+    int ccol[2] = {0, 0};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + t2 + (e & 1), i = e >> 1;
+        const float x = allowed[j][e] ? __fmul_rn(s[j][e], scale)
+                                      : (c * BK + col < Skv ? MASK_VALUE : -INFINITY);
+        if (x > cmax[i]) {
+          cmax[i] = x;
+          ccol[i] = col;
+        }
+      }
+    const bool moved[2] = {cmax[0] > own_max[0], cmax[1] > own_max[1]};
+    if (moved[0] || moved[1]) {
+      // both rows' chains at once, so that their latencies overlap
+      float x[2];
+      dot_chain2<D>(Qs + r_lo * LD, Ks + st * TILE + ccol[0] * LD, Qs + (r_lo + 8) * LD,
+                    Ks + st * TILE + ccol[1] * LD, x);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (moved[i]) {
+          own_max[i] = cmax[i];
+          // an attended column's score is finite, above MASK_VALUE
+          own_exact[i] = cmax[i] > MASK_VALUE ? __fmul_rn(x[i], scale) : -INFINITY;
+        }
+    }
+    set_states(st ^ 1, next);
+  }
+
+  // the row max as the plain version's: the quad's max of the tensor-core
+  // scores, then the plain chain's of the lanes near it
+  float m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mt = fmaxf(own_max[i], __shfl_xor_sync(0xffffffffu, own_max[i], 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    float exact =
+        own_max[i] >= mt - fmaxf(1.f, fabsf(mt)) * (1.f / 4096.f) ? own_exact[i] : -INFINITY;
+    exact = fmaxf(exact, __shfl_xor_sync(0xffffffffu, exact, 1));
+    exact = fmaxf(exact, __shfl_xor_sync(0xffffffffu, exact, 2));
+    m[i] = exact == -INFINITY ? mt : exact;
+  }
+
+  // second walk (K and V): p, l, O += p V and the bound sum_j p_j |v_jd| of
+  // each element, the scale of its float32 rounding
+  const float scale_log2 = scale * LOG2E, m2[2] = {m[0] * LOG2E, m[1] * LOG2E};
+  float l[2] = {0.f, 0.f}, acc[D / 8][4], bnd[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = bnd[j][e] = 0.f;
+  for (int c = 0; c < n; ++c, st ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this chunk has landed; every warp is done with the other stage
+    const int next = c + 1 < n ? load_chunk(st ^ 1, c + 1, true) : 0;
+    const int k0 = c * BK;
+    float s[BK / 8][4];
+    bool allowed[BK / 8][4];
+    scores(st, k0, s, allowed);
+    // p = exp(s scale - m), zero where masked (an exponent of -inf); the p
+    // near a bf16 rounding midpoint (bit 4 j + e of `again`) are taken again
+    // from the plain chain's s, one a lane at a time
+    uint32_t again = 0;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            exp2_sfu(allowed[j][e] ? fmaf(s[j][e], scale_log2, -m2[e >> 1]) : -INFINITY);
+        if (allowed[j][e] && near_bf16_midpoint(p)) again |= 1u << (4 * j + e);
+        s[j][e] = p;
+      }
+    while (again) {
+      const int b = __ffs((int)again) - 1, i = (b & 3) >> 1;
+      again &= again - 1;
+      const int col = 8 * (b >> 2) + t2 + (b & 1);
+      const float x =
+          __fmul_rn(dot_chain<D>(Qs + (r_lo + 8 * i) * LD, Ks + st * TILE + col * LD), scale);
+      const float p = expf(__fsub_rn(x, i ? m[1] : m[0]));
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * j + e == b) s[j][e] = p;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += s[j][e];
+    // O += p V and the bound += p |V|, p rounded to bf16 in the A operand
+    const uint32_t vs_u = smem_u32(Vs + st * TILE);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * j], s[2 * j + 1]);
+      // the rows' bf16 p, for the o elements taken again at the end
+      uint32_t* prow = reinterpret_cast<uint32_t*>(Ps + r_lo * p_ld + k0 + 16 * j + t2);
+      prow[0] = pa[0];
+      prow[4 * p_ld] = pa[1];
+      prow[4] = pa[2];
+      prow[4 * p_ld + 4] = pa[3];
+#pragma unroll
+      for (int jd = 0; jd < D / 16; ++jd) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vs_u + tile_off<D>(16 * j, 16 * jd) + off_a);
+        mma_bf16(acc[2 * jd], pa, bv[0], bv[1]);
+        mma_bf16(acc[2 * jd + 1], pa, bv[2], bv[3]);
+        // |v|: the sign bits cleared
+        mma_bf16(bnd[2 * jd], pa, bv[0] & 0x7fff7fffu, bv[1] & 0x7fff7fffu);
+        mma_bf16(bnd[2 * jd + 1], pa, bv[2] & 0x7fff7fffu, bv[3] & 0x7fff7fffu);
+      }
+    }
+    if (c + 1 < n) set_states(st ^ 1, next);
+  }
+
+  const int last = st ^ 1;  // the stage of the last chunk
+  float l_safe[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l_safe[i] = l[i] == 0.f ? 1.f : l[i];
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r_lo + 8 * i;
+      l_s[r_lo + 8 * i] = l_safe[i];
+      if (row < Sq) lse[bh * Sq + row] = l[i] == 0.f ? 0.f : m[i] + logf(l_safe[i]);
+    }
+  }
+  // o; the elements whose sum nearly cancels (bit 4 j + e of `again`) are
+  // written again below from the plain chain
+  uint64_t again = 0;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    float out[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (fabsf(acc[j][e]) < bnd[j][e] * O_FLAG && q0 + r_lo + 8 * (e >> 1) < Sq)
+        again |= 1ull << (4 * j + e);
+      out[e] = acc[j][e] / l_safe[e >> 1];
+    }
+    store_acc<D>(o + bh * Sq * D, out, q0 + warp * 16, 8 * j, Sq, lane);
+  }
+  // in passes of up to FIX_MAX elements of the block, listed in fix_list:
+  // a third walk over the V chunks (through the ring's V stages) takes
+  // each listed element as the plain chain over its row's bf16 p (Ps), one
+  // element a thread
+  for (int pass = 0;; ++pass) {
+    if (pass > 0) {
+      __syncthreads();  // the last pass is done with the list
+      if (tid == 0) fix_n = 0;
+      __syncthreads();
+    }
+    while (again) {
+      const int b = __ffsll((long long)again) - 1, e = b & 3;
+      const int slot = atomicAdd(&fix_n, 1);
+      if (slot >= FIX_MAX) break;  // the rest wait for the next pass
+      again &= again - 1;
+      fix_list[slot] = (uint16_t)(((r_lo + 8 * (e >> 1)) << 8) | (8 * (b >> 2) + t2 + (e & 1)));
+    }
+    __syncthreads();  // the list, o, Ps and l_s are written
+    const int wanted = fix_n, listed = min(wanted, FIX_MAX);
+    // this thread's elements: slots tid and tid + MMA_NT
+    int fr[2], fc[2];
+    float fa[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int slot = tid + u * MMA_NT;
+      const int code = slot < listed ? fix_list[slot] : 0;
+      fr[u] = slot < listed ? code >> 8 : -1;
+      fc[u] = code & 0xff;
+    }
+    // the second walk left its last chunk in stage `last` and the one
+    // before in the other; with more than two chunks those before the last
+    // are loaded again, one at a time, into the other stage
+    for (int c = 0; c < (listed > 0 ? n : 0); ++c) {
+      const int k0 = c * BK;
+      const int vst = c == n - 1 ? last : last ^ 1;
+      if (n > 2 && c < n - 1) {
+        __syncthreads();  // every thread is done with the stage
+        cp_async_tile<D, MMA_NT>(Vs + vst * TILE, v + (bh * Skv + k0) * D, min(BK, Skv - k0),
+                                 tid);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();  // the chunk has landed
+      }
+      const int len = min(BK, kv_end - k0);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (fr[u] < 0) continue;
+        const __nv_bfloat16* prow = Ps + fr[u] * p_ld + k0;
+        const __nv_bfloat16* vcol = Vs + vst * TILE + fc[u];
+        float a = fa[u];
+#pragma unroll 16
+        for (int jj = 0; jj < len; ++jj)
+          a = fmaf(__bfloat162float(prow[jj]), __bfloat162float(vcol[jj * LD]), a);
+        fa[u] = a;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (fr[u] >= 0)
+        o[(bh * Sq + q0 + fr[u]) * D + fc[u]] = __float2bfloat16_rn(fa[u] / l_s[fr[u]]);
+    if (wanted <= FIX_MAX) break;
   }
 }
 

@@ -77,15 +77,15 @@
 //     tiles' A fragments stay in registers; at D128 they are loaded with
 //     ldmatrix at each use, and B4 computes s^T in two passes of 32 q
 //     columns, so that dK and dV (128 registers) fit __launch_bounds__(128).
-// float32 B4 and B5 (fp32_bwd_dkv_kernel, fp32_bwd_dq_kernel) run exact
-// float32 FMAs on the CUDA cores, on the per-block bodies of flash_fp32.cuh
-// (fp32_dkv_chunk, fp32_dq_tile): 128 threads (256 for B4 at D128), half
-// of them computing s and the other half dp, so that each product has a
-// register tile of 4 x 8 or 8 x 8 read with float4 shared-memory loads;
-// walked tiles through a 2-stage cp.async ring; tensor cores in float32
-// would mean TF32, which would break the float32 solver passes' 1e-4
-// parity. float32 B3 stays the CUDA-core FMA loop of flash_common.cuh
-// (fwd_q_tile, 256 threads).
+// float32 B3, B4 and B5 (fp32_fwd_kernel, fp32_bwd_dkv_kernel,
+// fp32_bwd_dq_kernel) run exact float32 FMAs on the CUDA cores, on the
+// per-block bodies of flash_fp32.cuh (fp32_fwd_q_tile, fp32_dkv_chunk,
+// fp32_dq_tile): 128 threads (256 for B3 and B4 at D128), half of them on
+// each product (B3: s of chunk i and O += p V of chunk i - 1; B4: s and
+// dv, dp and dk; B5: s and dp), so that each product has a register tile
+// of 4 x 8 or 8 x 8 read with float4 shared-memory loads; walked tiles
+// through a 2-stage cp.async ring; tensor cores in float32 would mean
+// TF32, which would break the float32 solver passes' 1e-4 parity.
 
 #include <type_traits>
 
@@ -95,13 +95,18 @@
 
 namespace {
 
-// B3 in float32: the forward of one q tile, as B1
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-multi_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Skv, int causal, float scale) {
-  fwd_q_tile<T, D, false>(q, k, v, mask, o, lse, H, Sq, Skv, causal, scale);
+// B3 in float32: o and lse of the 64-row q tile blockIdx.x of head
+// (blockIdx.z, blockIdx.y)
+template <int D>
+__global__ void __launch_bounds__(Fp32Fwd<D>::NT)
+fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                float* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Skv,
+                int causal, float scale) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  fp32_fwd_q_tile<D>(q, k, v, mask ? mask + (size_t)blockIdx.z * Skv : nullptr, o, lse, Sq, Skv,
+                     causal, scale, blockIdx.x * BQ, bh, smem_f32);
 }
 
 // B4 in float32: dk and dv of the 64-row k/v chunk blockIdx.x of head
@@ -246,8 +251,18 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
                        void* o, float* lse, int B, int H, int Sq, int Skv, int causal,
                        float scale, cudaStream_t stream) {
-  return launch_fwd_tiles<T, D>(multi_fwd_kernel<T, D>, q, k, v, mask, o, lse, B, H, Sq, Skv,
-                                causal, scale, stream);
+  static_assert(std::is_same<T, float>::value, "the CUDA-core forward is float32");
+  const void* ptrs[] = {q, k, v, o};
+  if (!fp32_aligned(ptrs, 4)) return cudaErrorMisalignedAddress;
+  const size_t smem = Fp32Fwd<D>::smem();  // D = 64: 102.5 KB
+  cudaError_t err = cudaFuncSetAttribute(
+      fp32_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  fp32_fwd_kernel<D><<<grid, Fp32Fwd<D>::NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
+      static_cast<T*>(o), lse, H, Sq, Skv, causal, scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -300,7 +315,7 @@ extern "C" int flash_multi_fwd(const void* q, const void* k, const void* v, cons
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    // the tensor-core kernel (mma_fwd_kernel); float32 keeps the FMA loop
+    // the tensor-core kernel (mma_fwd_kernel); float32 runs fp32_fwd_kernel
     DISPATCH_D(__nv_bfloat16, launch_fwd_mma, q, k, v, m, o, l, B, H, Sq, Skv, causal, scale, s)
   }
   DISPATCH_D(float, launch_fwd, q, k, v, m, o, l, B, H, Sq, Skv, causal, scale, s)

@@ -6,7 +6,8 @@
 //   flash_single_bwd  <- _bwd_single_kernel (B2, launched by _bwd_single)
 // and computes what they compute, for q, k, v of shape (B, H, S, D) on the
 // single-tile path (the sequence fits one block of the JAX dispatch, 512 by
-// default; the kernels themselves take any S):
+// default; the kernels themselves take any S, bfloat16 B1 up to
+// SINGLE_MAX_KV keys):
 //   forward:  o = softmax(q k^T * scale, masked) v, lse = m + log l per row;
 //             a fully masked row gives o = 0 and lse = 0.
 //   backward: di = rowsum(o * do) in the kernel, p = exp(s - lse),
@@ -19,14 +20,27 @@
 //
 // Design. The TPU kernel holds a whole (heads, S, S) score block in 16 MiB
 // of VMEM. A Hopper block has at most 227 KB of shared memory, so here:
-//   forward:  one block of 256 threads per (b, h, 64-row q tile); it walks
-//             64-row k/v chunks with an online softmax (running max m, sum
-//             l, float32 accumulator), so the score matrix never leaves
-//             registers and shared memory (flash_common.cuh::fwd_q_tile,
-//             float32 FMA loops on the CUDA cores in both input types). In
-//             bf16 a first walk takes each row's max, so that p is rounded
-//             to bf16 against the row max as the TPU kernel rounds it (one
-//             more q k^T product).
+//   forward, bfloat16 (mma_fwd_single_kernel): on the tensor cores, with
+//             the building blocks of bf16 B3 (flash_mma.cuh,
+//             mma_fwd_single_q_tile). One block of 128 threads per (b, h,
+//             64-row q tile) walks 64-row k/v chunks through a 2-stage
+//             cp.async ring twice: first K alone, for each row's max, then
+//             K and V for p = exp(s - m), l and O += p V with p rounded to
+//             bf16 against the row max, as the TPU kernel rounds it. The
+//             tensor cores sum s and p V with truncation, in another order
+//             than the plain version's float32 chains, and a last bit of s
+//             can flip a bf16 rounding of p, so the row max, each p near a
+//             bf16 rounding midpoint and each o element whose sum nearly
+//             cancels are taken again as the plain chains give them: o
+//             stays within one bf16 ulp of the plain o. The rows' bf16 p
+//             stay in shared memory for that, so B1 takes up to
+//             SINGLE_MAX_KV keys.
+//   forward, float32 (fwd_kernel): one block of 256 threads per (b, h,
+//             64-row q tile); it walks 64-row k/v chunks with an online
+//             softmax (running max m, sum l, float32 accumulator), so the
+//             score matrix never leaves registers and shared memory
+//             (flash_common.cuh::fwd_q_tile, float32 FMA loops on the CUDA
+//             cores).
 //   backward, bfloat16 (mma_bwd_single_kernel): on the tensor cores, with
 //             the bodies of the multi-tile backward (flash_mma.cuh). Block x
 //             of head (b, h), 128 threads, first computes dk and dv of k/v
@@ -66,15 +80,27 @@
 
 namespace {
 
-// B1: the forward of one q tile (flash_common.cuh::fwd_q_tile); in bf16 p
-// is rounded against the row max, taken in a first walk over the chunks
+// B1 in float32: the forward of one q tile (flash_common.cuh::fwd_q_tile)
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
            int H, int Sq, int Skv, int causal, float scale) {
-  fwd_q_tile<T, D, std::is_same<T, __nv_bfloat16>::value>(q, k, v, mask, o, lse, H, Sq, Skv,
-                                                           causal, scale);
+  fwd_q_tile<T, D>(q, k, v, mask, o, lse, H, Sq, Skv, causal, scale);
+}
+
+// B1 in bf16 on the tensor cores: o and lse of the 64-row q tile blockIdx.x
+// of head (blockIdx.z, blockIdx.y), p rounded against the row max
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+mma_fwd_single_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int Sq,
+                      int Skv, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  mma_fwd_single_q_tile<D>(q, k, v, mask ? mask + (size_t)blockIdx.z * Skv : nullptr, o, lse,
+                           Sq, Skv, causal, scale, blockIdx.x * BQ, bh, smem_raw);
 }
 
 // B2 in bf16 on the tensor cores: block blockIdx.x of head (blockIdx.z,
@@ -253,8 +279,35 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
                        void* o, float* lse, int B, int H, int Sq, int Skv, int causal,
                        float scale, cudaStream_t stream) {
-  return launch_fwd_tiles<T, D>(fwd_kernel<T, D>, q, k, v, mask, o, lse, B, H, Sq, Skv, causal,
-                                scale, stream);
+  const size_t smem = fwd_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  fwd_kernel<T, D><<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                               static_cast<const T*>(v), mask, static_cast<T*>(o),
+                                               lse, H, Sq, Skv, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const uint8_t* mask,
+                           void* o, float* lse, int B, int H, int Sq, int Skv, int causal,
+                           float scale, cudaStream_t stream) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core path is bf16");
+  const void* in[] = {q, k, v};
+  const void* out[] = {o};
+  if (!mma_aligned(in, 3, out, 1)) return cudaErrorMisalignedAddress;
+  if (Skv > SINGLE_MAX_KV) return cudaErrorInvalidValue;
+  const size_t smem = mma_fwd_single_smem<D>(Skv);  // D = 64, S = 128: 63.5 KB
+  cudaError_t err = cudaFuncSetAttribute(
+      mma_fwd_single_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  mma_fwd_single_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
+      static_cast<T*>(o), lse, H, Sq, Skv, causal, scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -302,7 +355,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // is_bf16: 0 = float32 inputs, 1 = bfloat16 inputs. mask: (B, Skv) bytes,
-// nonzero = attend, or null. Returns a cudaError_t (0 = launched).
+// nonzero = attend, or null. Returns a cudaError_t (0 = launched; bfloat16
+// takes Skv <= SINGLE_MAX_KV).
 extern "C" int flash_single_fwd(const void* q, const void* k, const void* v, const void* mask,
                                 void* o, void* lse, int B, int H, int Sq, int Skv, int D,
                                 int is_bf16, int causal, float scale, void* stream) {
@@ -310,7 +364,8 @@ extern "C" int flash_single_fwd(const void* q, const void* k, const void* v, con
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    DISPATCH_D(__nv_bfloat16, launch_fwd, q, k, v, m, o, l, B, H, Sq, Skv, causal, scale, s)
+    // the tensor-core kernel (mma_fwd_single_kernel); float32 keeps the FMA loop
+    DISPATCH_D(__nv_bfloat16, launch_fwd_mma, q, k, v, m, o, l, B, H, Sq, Skv, causal, scale, s)
   }
   DISPATCH_D(float, launch_fwd, q, k, v, m, o, l, B, H, Sq, Skv, causal, scale, s)
 }

@@ -10,7 +10,9 @@ path runs.
 
 * single tile: ``_fwd_single`` launches ``flash_single_fwd``
   (``csrc/flash_single.cu``), the port of ``_fwd_single_kernel`` (B1): o and
-  the per-row logsumexp ``lse`` of shape (B, H, S) in float32;
+  the per-row logsumexp ``lse`` of shape (B, H, S) in float32 (in bf16 on
+  the tensor cores, up to ``SINGLE_MAX_KV`` keys, in float32 on the CUDA
+  cores);
   ``_bwd_single`` launches ``flash_single_bwd``, the port of
   ``_bwd_single_kernel`` (B2): dq, dk, dv with ``di = rowsum(o * do)``
   computed in the kernel (in bf16 on the tensor cores with dq in
@@ -20,7 +22,7 @@ path runs.
   computes ``di`` once in PyTorch and feeds it to ``_bwd_dkv``
   (``flash_multi_bwd_dkv``, the port of ``_bwd_dkv_kernel``, B4) and
   ``_bwd_dq`` (``flash_multi_bwd_dq``, the port of ``_bwd_dq_kernel``, B5);
-  in bf16 all three run on the tensor cores.
+  in bf16 all three run on the tensor cores, in float32 on the CUDA cores.
   The kernels tile by 64 rows whatever the blocks are; the blocks choose the
   path and the plain versions' tiles.
 
@@ -60,6 +62,9 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 DEFAULT_BLOCK = 512
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the most keys the bf16 B1 kernel takes: it keeps its rows' rounded p in
+# shared memory (csrc/flash_mma.cuh, SINGLE_MAX_KV)
+SINGLE_MAX_KV = 1024
 
 
 def _lib(name):
@@ -268,6 +273,9 @@ def _fwd_single(q, k, v, kv_mask, *, causal, sm_scale):
     """B1: ``(o, lse)``; the kernel on CUDA, the plain version on the CPU."""
     if not _on_card(q, k, v, kv_mask):
         return _fwd_single_plain(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale)
+    if q.dtype == torch.bfloat16 and k.shape[2] > SINGLE_MAX_KV:
+        raise ValueError(f"flash_attention: the bf16 single-tile kernel takes at most "
+                         f"{SINGLE_MAX_KV} keys, got {k.shape[2]} (pass smaller blocks)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = _mask_bytes(kv_mask)
     o = torch.empty_like(q)

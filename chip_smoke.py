@@ -28,15 +28,17 @@ Phases:
    masking; S96 with blocks of 32 and D16, a ragged last tile; S256 D128
    with blocks of 128 and a fully masked row; S320 D32 with blocks of 64
    and causal masking), where ``flash_attention`` with those blocks must
-   launch B3-B5 and not B1/B2 (float32 B4 and B5 within 1e-5 x max|ref|);
+   launch B3-B5 and not B1/B2 (float32 B3 within 1e-5 on o and lse, B4
+   and B5 within 1e-5 x max|ref|);
    the multi-tile timings with their achieved TFLOP/s; each kernel's
    registers and spills as ``ptxas`` reports them (the bf16 tensor-core
-   kernels, B2-B5, and the float32 B4 and B5 may not spill at D64), the
-   count of tensor-core (``HMMA``) instructions in each tensor-core kernel
-   at every head dim from ``cuobjdump --dump-sass`` (it must not be 0), and
-   the ``FFMA``, ``LDS`` and ``LDS.128`` counts of the float32 B4 and B5
-   and of each of their product loops (at D64 at least 8 ``FFMA`` per
-   shared-memory load in every product loop, and no ``HMMA``);
+   kernels, B1-B5, and the float32 B3, B4 and B5 may not spill at D64),
+   the count of tensor-core (``HMMA``) instructions in each tensor-core
+   kernel at every head dim from ``cuobjdump --dump-sass`` (it must not be
+   0), and the ``FFMA``, ``LDS`` and ``LDS.128`` counts of the float32 B3,
+   B4 and B5 and of each of their product loops (at D64 at least 8
+   ``FFMA`` per shared-memory load in every product loop, and no
+   ``HMMA``);
    then the solvers' vector kernels (B6, B7, B8) at the CG/Neumann path's
    length (the RoBERTa-large classifier's parameter count, padded to the
    ravel tile) and at a ragged length, timed beside their plain versions
@@ -776,8 +778,9 @@ def profile_period(engine, unroll, tag):
 
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
 KERNEL_SYMBOLS = {
-    "fwd_kernel": "flash B1", "bwd_kernel": "flash B2", "mma_bwd_single_kernel": "flash B2",
-    "multi_fwd_kernel": "flash B3", "mma_fwd_kernel": "flash B3",
+    "fwd_kernel": "flash B1", "mma_fwd_single_kernel": "flash B1", "bwd_kernel": "flash B2",
+    "mma_bwd_single_kernel": "flash B2", "fp32_fwd_kernel": "flash B3",
+    "mma_fwd_kernel": "flash B3",
     "fp32_bwd_dkv_kernel": "flash B4", "fp32_bwd_dq_kernel": "flash B5",
     "mma_bwd_dkv_kernel": "flash B4", "mma_bwd_dq_kernel": "flash B5",
     "dot2_kernel": "vector (B6-B8)", "cg_step_kernel": "vector (B6-B8)",
@@ -803,10 +806,10 @@ REPLACES = {
 
 # the bf16 kernels that run on the tensor cores, by library
 MMA_LIBS = {"flash_multi": ("mma_fwd_kernel", "mma_bwd_dkv_kernel", "mma_bwd_dq_kernel"),
-            "flash_single": ("mma_bwd_single_kernel",)}
+            "flash_single": ("mma_fwd_single_kernel", "mma_bwd_single_kernel")}
 MMA_KERNELS = tuple(k for kernels in MMA_LIBS.values() for k in kernels)
-# the float32 multi-tile backward on the CUDA cores (csrc/flash_fp32.cuh)
-FP32_KERNELS = ("fp32_bwd_dkv_kernel", "fp32_bwd_dq_kernel")
+# the float32 multi-tile kernels on the CUDA cores (csrc/flash_fp32.cuh)
+FP32_KERNELS = ("fp32_fwd_kernel", "fp32_bwd_dkv_kernel", "fp32_bwd_dq_kernel")
 FP32_MULTI_BWD_TOL = 1e-5  # relative to max|ref|
 MIN_FFMA_PER_LDS = 8
 
@@ -833,7 +836,7 @@ def _kernel_label(symbol):
 def ptxas_report(build_logs):
     """Each kernel's registers and spills as ``ptxas -v`` reported them in
     ``build_logs`` (``{library: nvcc output}``); raises if a tensor-core
-    kernel (``MMA_KERNELS``) or a float32 B4/B5 body (``FP32_KERNELS``)
+    kernel (``MMA_KERNELS``) or a float32 B3-B5 body (``FP32_KERNELS``)
     spills at D64."""
     spilled = []
     for lib, text in build_logs.items():
@@ -885,7 +888,7 @@ def sass_report(lib_paths, head_dims):
     ``lib_paths``: ``{library: path}``): the tensor-core instructions
     (``HMMA``) of each tensor-core kernel of ``MMA_LIBS`` at every head dim
     in ``head_dims``, which must not be 0; and the ``FFMA``, ``LDS`` (any
-    width) and ``LDS.128`` instructions of the float32 B4 and B5
+    width) and ``LDS.128`` instructions of the float32 B3, B4 and B5
     (``FP32_KERNELS``), in all and in each product loop (an innermost loop
     that holds FFMA), which at D64 must do at least ``MIN_FFMA_PER_LDS``
     FFMA per shared-memory load, with no ``HMMA`` in the kernel."""

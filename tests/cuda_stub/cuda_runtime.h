@@ -25,6 +25,9 @@ struct dim3 {
 extern const uint3 threadIdx, blockIdx;
 extern const dim3 blockDim, gridDim;
 
+struct uint4 {
+  unsigned x, y, z, w;
+};
 struct float2 {
   float x, y;
 };
@@ -47,8 +50,14 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int);
 cudaError_t cudaGetLastError();
 
 void __syncthreads();
+void __syncwarp(unsigned mask = 0xffffffffu);
+float __fmul_rn(float, float);
+float __fsub_rn(float, float);
 float __shfl_xor_sync(unsigned, float, int);
 float __shfl_down_sync(unsigned, float, int);
 size_t __cvta_generic_to_shared(const void*);
+int __ffs(int);
+int atomicAdd(int*, int);
+int __ffsll(long long);
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }

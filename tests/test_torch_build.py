@@ -97,10 +97,10 @@ def test_editing_a_header_changes_the_library_path(csrc_copy):
     assert after["vector_ops"] == before["vector_ops"]
 
 
-def test_editing_the_tensor_core_header_rebuilds_flash_multi_only(csrc_copy):
-    """``flash_mma.cuh`` is included by both flash sources (the bf16 B2 of
-    ``flash_single.cu`` runs on its bodies too): editing it changes both
-    flash libraries' paths and leaves ``vector_ops``'s."""
+def test_editing_the_tensor_core_header_rebuilds_both_flash_libraries(csrc_copy):
+    """``flash_mma.cuh`` is included by both flash sources (the bf16 B1 and
+    B2 of ``flash_single.cu`` run on its bodies too): editing it changes
+    both flash libraries' paths and leaves ``vector_ops``'s."""
     before = {name: _build.library_path(name) for name in _build.sources()}
     header = csrc_copy / "flash_mma.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -111,7 +111,7 @@ def test_editing_the_tensor_core_header_rebuilds_flash_multi_only(csrc_copy):
 
 
 def test_editing_the_fp32_header_rebuilds_flash_multi_only(csrc_copy):
-    """``flash_fp32.cuh`` (the float32 B4/B5 bodies) is included by
+    """``flash_fp32.cuh`` (the float32 B3-B5 bodies) is included by
     ``flash_multi.cu`` alone: editing it changes that library's path and
     leaves ``flash_single``'s and ``vector_ops``'s."""
     before = {name: _build.library_path(name) for name in _build.sources()}

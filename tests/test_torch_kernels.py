@@ -203,28 +203,48 @@ def test_bf16_single_tile_backward_kernel_matches_plain_on_card(case):
     assert _launches_through_flash_attention(q, k, v, do, tm, causal, None) == SINGLE_LAUNCHES
 
 
-# float32 B4/B5 checks: every head dim, S200 (ragged: 3 x 64 + 8 and
-# 6 x 32 + 8 rows), each mask case
-FP32_BWD_CASES = {f"D{d}_{m}": (d, m) for d in tfa.KERNEL_HEAD_DIMS
-                  for m in ("all_true", "padded", "causal", "masked_row")}
+MASK_CASES = ("all_true", "padded", "causal", "masked_row")
+# float32 B3-B5 checks: every head dim at S200 (ragged: 3 x 64 + 8 and
+# 6 x 32 + 8 rows), each mask case; and Sq != Skv: (d, mask case, Sq, Skv)
+FP32_MULTI_CASES = dict({f"D{d}_{m}": (d, m, 200, 200) for d in tfa.KERNEL_HEAD_DIMS
+                         for m in MASK_CASES},
+                        Sq136_Skv264_D64_padded=(64, "padded", 136, 264),
+                        Sq264_Skv136_D32_causal=(32, "causal", 264, 136))
+
+
+def _card_qkv(b, h, sq, skv, d, mask_case, seed, dtype):
+    """q, do of Sq rows, k, v of Skv rows and the (b, Skv) kv mask on the
+    card, as ``_card_inputs``."""
+    q, _, _, do, _ = _card_inputs(b, h, sq, d, "all_true", seed=seed, dtype=dtype)
+    _, k, v, _, tm = _card_inputs(b, h, skv, d, mask_case, seed=seed + 1, dtype=dtype)
+    return q, k, v, do, tm
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", sorted(FP32_BWD_CASES))
+@pytest.mark.parametrize("case", sorted(FP32_MULTI_CASES))
 def test_fp32_backward_kernels_match_plain_on_card(case):
-    """float32 B4 and B5 (exact float32 FMAs on the CUDA cores) against
-    their plain versions on B3's own lse and di = rowsum(o * do) at S200,
-    whose last 64-row and 32-row tiles are ragged: within 1e-5 x max|ref|,
-    since only the order of float32 sums can differ. Gradients stay finite
-    and a fully masked row's are 0."""
+    """float32 B3 (flash_fp32.cuh's forward) against its plain version at
+    the kernel's 64-row tiles: o within 1e-5 x max(1, max|o|), lse within
+    1e-5 x max(1, max|lse|), a fully masked row's o and lse 0. Then float32
+    B4 and B5 (exact float32 FMAs on the CUDA cores) against their plain
+    versions on B3's own lse and di = rowsum(o * do): within 1e-5 x
+    max|ref|, since only the order of float32 sums can differ. At S200 the
+    last 64-row and 32-row tiles are ragged. Gradients stay finite and a
+    fully masked row's are 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
-    d, mask_case = FP32_BWD_CASES[case]
-    s = 200
-    q, k, v, do, tm = _card_inputs(2, 2, s, d, "all_true" if mask_case == "causal" else mask_case,
-                                   seed=19, dtype=torch.float32)
+    d, mask_case, sq, skv = FP32_MULTI_CASES[case]
+    q, k, v, do, tm = _card_qkv(2, 2, sq, skv, d,
+                                "all_true" if mask_case == "causal" else mask_case, 19,
+                                torch.float32)
     kw = dict(causal=mask_case == "causal", sm_scale=1.0 / math.sqrt(d))
-    o, lse = tfa._fwd_multi(q, k, v, tm, block_q=s, block_kv=s, **kw)
+    o, lse = tfa._fwd_multi(q, k, v, tm, block_q=64, block_kv=64, **kw)
+    po, plse = tfa._fwd_multi_plain(q, k, v, tm, block_q=64, block_kv=64, **kw)
+    torch.cuda.synchronize()
+    assert float((o - po).abs().max()) <= 1e-5 * max(1.0, float(po.abs().max()))
+    assert float((lse - plse).abs().max()) <= 1e-5 * max(1.0, float(plse.abs().max()))
+    if mask_case == "masked_row":
+        assert bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
     di = (o * do).sum(-1)
     got = (*tfa._bwd_dkv(q, k, v, do, lse, di, tm, **kw),
            tfa._bwd_dq(q, k, v, do, lse, di, tm, **kw))
@@ -246,21 +266,31 @@ def _bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-# the bf16 B1 one-ulp checks: the single-tile edges and the S128 path's width
-B1_ULP_CASES = dict(BF16_SINGLE_CASES, S128_D64_padded=(2, 2, 128, 64, "padded", False))
+# the bf16 B1 one-ulp checks: every head dim x mask case at S200, the
+# single-tile edges, the S128 path's width, and Sq != Skv:
+# (b, h, Sq, Skv, d, kv mask, causal)
+B1_ULP_CASES = dict(
+    {f"S200_D{d}_{m}": (2, 2, 200, 200, d, "all_true" if m == "causal" else m, m == "causal")
+     for d in tfa.KERNEL_HEAD_DIMS for m in MASK_CASES},
+    **{name: (b, h, s, s, d, m, c) for name, (b, h, s, d, m, c) in BF16_SINGLE_CASES.items()},
+    S128_D64_padded=(2, 2, 128, 128, 64, "padded", False),
+    Sq96_Skv320_D64_padded=(2, 2, 96, 320, 64, "padded", False),
+    Sq320_Skv96_D128_causal=(2, 2, 320, 96, 128, "all_true", True))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(B1_ULP_CASES))
 def test_bf16_single_tile_forward_within_one_ulp_on_card(case):
-    """bf16 B1 rounds p to bf16 against the row max, as betty_tpu's
-    ``_fwd_single_kernel`` and the plain version do: its o is within one
-    bf16 ulp of the plain o, element by element (only the order of float32
-    sums differs), and lse within 1e-5 x max(1, max|lse|)."""
+    """bf16 B1 (the tensor-core forward) rounds p to bf16 against the row
+    max, as betty_tpu's ``_fwd_single_kernel`` and the plain version do:
+    its o is within one bf16 ulp of the plain o, element by element (the
+    kernel takes the row max, p near a bf16 rounding midpoint and o that
+    nearly cancels from the plain version's float32 chains), and lse within
+    1e-5 x max(1, max|lse|); a fully masked row gives o = 0 and lse = 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
-    b, h, s, d, mask_case, causal = B1_ULP_CASES[case]
-    q, k, v, _, tm = _card_inputs(b, h, s, d, mask_case, seed=23)
+    b, h, sq, skv, d, mask_case, causal = B1_ULP_CASES[case]
+    q, k, v, _, tm = _card_qkv(b, h, sq, skv, d, mask_case, 23, torch.bfloat16)
     kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
     o, lse = tfa._fwd_single(q, k, v, tm, **kw)
     po, plse = tfa._fwd_single_plain(q, k, v, tm, **kw)
@@ -268,6 +298,8 @@ def test_bf16_single_tile_forward_within_one_ulp_on_card(case):
     diff = (o.float() - po.float()).abs()
     assert bool((diff <= _bf16_ulp(po)).all()), float((diff / _bf16_ulp(po)).max())
     assert float((lse - plse).abs().max()) <= 1e-5 * max(1.0, float(plse.abs().max()))
+    if mask_case == "masked_row":
+        assert bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
 
 
 @pytest.mark.gpu
