@@ -1,9 +1,14 @@
-// Float32 per-block bodies of the multi-tile attention on Hopper's CUDA
-// cores (sm_90a), used by flash_multi.cu's float32 B3, B4 and B5
-// (fp32_fwd_kernel, fp32_bwd_dkv_kernel, fp32_bwd_dq_kernel):
-//   fp32_fwd_q_tile  o and lse of one 64-row q tile, walking k/v chunks;
-//   fp32_dkv_chunk   dk and dv of one 64-row k/v chunk, walking q tiles;
-//   fp32_dq_tile     dq of one 64-row q tile, walking k/v chunks.
+// Float32 per-block bodies of the flash attention on Hopper's CUDA cores
+// (sm_90a), the bodies of every float32 flash kernel:
+//   fp32_fwd_q_tile  o and lse of one 64-row q tile, walking k/v chunks
+//                    (B3 fp32_fwd_kernel in flash_multi.cu);
+//   fp32_fwd_single_q_tile  the same for B1 (fp32_fwd_single_kernel in
+//                    flash_single.cu), 128 keys a chunk, every thread on
+//                    each product in turn;
+//   fp32_dkv_chunk   dk and dv of one 64-row k/v chunk, walking q tiles
+//                    (B4 fp32_bwd_dkv_kernel; B2 fp32_bwd_single_kernel);
+//   fp32_dq_tile     dq of one 64-row q tile, walking k/v chunks (B5
+//                    fp32_bwd_dq_kernel; B2 after its dk/dv part).
 // Exact float32: every product is a chain of fmaf in the order of the plain
 // loop (d ascending for s and dp, the walked rows ascending for the
 // outputs; B5's dq as two such chains at D64, added at the end), no TF32.
@@ -52,11 +57,26 @@
 //     ([k][q], stride 68: a warp's scalar stores hit 32 banks). Shared
 //     memory at D64: 102.5 KB (Q, two stages each of K and V, p^T), two
 //     blocks an SM.
+//   * B1 (o, lse of a 64-row q tile over up to 128 keys on the single-tile
+//     path): one chunk of 128 keys, so the roles of B3 would not overlap;
+//     instead every thread computes an 8 x 8 tile of s (the 16 lanes of a
+//     row reduce its max), writes p^T into K's tile, then an 8 x 8 tile of
+//     O over half the keys at D64, the halves added at the end. K's group
+//     of copies lands first, V's while s is computed. Shared memory at D64:
+//     85.5 KB (Q, K, V), two blocks an SM.
+//   * B2 runs B4's body and then B5's in one block, with DI_FROM_O: di =
+//     rowsum(o * do) is summed in the kernel, one float32 chain a row, d
+//     ascending (fp32_row_dot), so that both parts see the same di. B4's
+//     ring then carries each walked tile's o beside Q and dO (D64: 103.5
+//     KB, still two blocks an SM; D128: 201.5 KB); B5's body copies its own
+//     tile's o into the ring stage that the walk fills last (D64: 102.25
+//     KB). At D128 the block has B4's 256 threads and B5's body runs on the
+//     first 128, meeting at a named barrier of 128 (NTB).
 //   * p = 2^(s scale log2 e - lse log2 e) on the SFU (exp2_sfu), with a
 //     masked entry's exponent selected to -inf: no branch around the exp
 //     (B3: 2^(s scale log2 e - m log2 e), m the running max).
-// Semantics of betty_tpu's _bwd_dkv_kernel / _bwd_dq_kernel, as the CUDA-core
-// loops they replace: p = exp(s scale - lse) selected to 0 where masked
+// Semantics of betty_tpu's _bwd_dkv_kernel / _bwd_dq_kernel /
+// _bwd_single_kernel: p = exp(s scale - lse) selected to 0 where masked
 // (never multiplied: a fully masked row has lse = 0), ds = p (dp - di)
 // scale, column states 0/1/2 (load_col_state), whole tiles above the
 // diagonal skipped when causal, a ragged last tile zero-filled with its
@@ -121,10 +141,10 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
-// acc[i][j] = sum_d A[ra + SA i][d] Bm[rb + 8j][d], d ascending (one fmaf a
-// step, as the plain loop), over tiles of stride fp32_ld<D>(): TN + TM
+// acc[i][j] = sum_d A[ra + SA i][d] Bm[rb + SB j][d], d ascending (one fmaf
+// a step, as the plain loop), over tiles of stride fp32_ld<D>(): TN + TM
 // LDS.128 for 4 TM TN FFMA a step of four d
-template <int D, int TM, int TN, int SA>
+template <int D, int TM, int TN, int SA, int SB = 8>
 __device__ __forceinline__ void fp32_product(const float* A, const float* Bm, int ra, int rb,
                                              float (&acc)[TM][TN]) {
   constexpr int LD = fp32_ld<D>();
@@ -136,7 +156,7 @@ __device__ __forceinline__ void fp32_product(const float* A, const float* Bm, in
   for (int d = 0; d < D; d += 4) {
     float4 b[TN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = lds4(Bm + (rb + 8 * j) * LD + d);
+    for (int j = 0; j < TN; ++j) b[j] = lds4(Bm + (rb + SB * j) * LD + d);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const float4 a = lds4(A + (ra + SA * i) * LD + d);
@@ -234,6 +254,22 @@ inline bool fp32_aligned(const void* const* p, int n) {
   return true;
 }
 
+// sum_d a[d] b[d] over D floats of shared memory, d ascending, one fmaf a
+// step: di = rowsum(o * do) of one row, the same chain wherever it is taken
+template <int D>
+__device__ __forceinline__ float fp32_row_dot(const float* a, const float* b) {
+  float sum = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    const float4 x = lds4(a + d), y = lds4(b + d);
+    sum = fmaf(x.x, y.x, sum);
+    sum = fmaf(x.y, y.y, sum);
+    sum = fmaf(x.z, y.z, sum);
+    sum = fmaf(x.w, y.w, sum);
+  }
+  return sum;
+}
+
 // B4's geometry: q tiles of QT rows, NT threads (NH for s and dv, NH for
 // dp and dk), STAGES ring stages
 template <int D>
@@ -245,10 +281,11 @@ struct Fp32Dkv {
   static constexpr int SA = QT / 4;    // q-row step of a thread's 4 x 8 score tile
   static constexpr int NCG = NH / 8;   // column groups of dk and dv
   static constexpr int LS = BK + 8;    // stride of the P and dS tiles, [q][k]
-  // K, V; the ring's Q, dO, lse, di; P and dS
-  static constexpr size_t smem() {
+  // K, V; the ring's Q, dO, lse, di; P and dS; with DI_FROM_O the ring's O
+  static constexpr size_t smem(bool di_from_o) {
     return (size_t)(2 * BK * fp32_ld<D>() + STAGES * (2 * QT * fp32_ld<D>() + 2 * QT) +
-                    2 * QT * LS) * sizeof(float);
+                    2 * QT * LS + (di_from_o ? STAGES * QT * fp32_ld<D>() : 0)) *
+           sizeof(float);
   }
 };
 
@@ -265,9 +302,10 @@ struct Fp32Dq {
   static constexpr int LX = BQ + 4;        // stride of the dp^T / dS^T tile, [k][q]
   // dp^T and dS^T go in the V stage just read when a row of it is as long
   static constexpr bool X_IN_V = KT * fp32_ld<D>() >= KT * LX;
-  // Q, dO; the ring's K, V; dS^T unless in V
-  static constexpr size_t smem() {
-    return (size_t)(2 * BQ * fp32_ld<D>() + 2 * 2 * KT * fp32_ld<D>() + (X_IN_V ? 0 : KT * LX)) *
+  // Q, dO; the ring's K, V; dS^T unless in V; with DI_FROM_O the rows' di
+  static constexpr size_t smem(bool di_from_o) {
+    return (size_t)(2 * BQ * fp32_ld<D>() + 2 * 2 * KT * fp32_ld<D>() + (X_IN_V ? 0 : KT * LX) +
+                    (di_from_o ? BQ : 0)) *
            sizeof(float);
   }
 };
@@ -278,15 +316,19 @@ struct Fp32Dq {
 // lse and di come through the ring. Threads [0, NH) compute s (4 x 8 a
 // thread), p into shared memory, then dv += p^T dO (8 x 8); threads
 // [NH, NT) compute dp, then ds from p into shared memory, then
-// dk += ds^T Q. mb: the batch element's kv mask (Skv bytes) or null. Runs
-// in a block of Fp32Dkv<D>::NT threads with Fp32Dkv<D>::smem() bytes of
+// dk += ds^T Q. di = rowsum(o * do) of each q tile is read from `di`, or
+// with DI_FROM_O (B2) summed here from the o and dO tiles, which the ring
+// then carries, by the dp role's first QT threads while the s role takes
+// p. mb: the batch element's kv mask (Skv bytes) or null. Runs in a block
+// of Fp32Dkv<D>::NT threads with Fp32Dkv<D>::smem(DI_FROM_O) bytes of
 // dynamic shared memory at `smem`.
-template <int D>
+template <int D, bool DI_FROM_O>
 __device__ __forceinline__ void fp32_dkv_chunk(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-    const uint8_t* __restrict__ mb, float* __restrict__ dk, float* __restrict__ dv, int Sq,
-    int Skv, int causal, float scale, int k0, size_t bh, float* smem) {
+    const float* __restrict__ dout, const float* __restrict__ o, const float* __restrict__ lse,
+    const float* __restrict__ di, const uint8_t* __restrict__ mb, float* __restrict__ dk,
+    float* __restrict__ dv, int Sq, int Skv, int causal, float scale, int k0, size_t bh,
+    float* smem) {
   using G = Fp32Dkv<D>;
   constexpr int QT = G::QT, NT = G::NT, NH = G::NH, LD = fp32_ld<D>(), LS = G::LS;
   constexpr int TILE = QT * LD, TD = OutCols<D, G::NCG>::TD;
@@ -298,6 +340,7 @@ __device__ __forceinline__ void fp32_dkv_chunk(
   float* di_s = lse_s + G::STAGES * QT;   // ring: [STAGES][QT]
   float* Ps = di_s + G::STAGES * QT;      // [QT][LS]
   float* dSs = Ps + QT * LS;              // [QT][LS]
+  float* Os = dSs + QT * LS;              // ring: [STAGES][TILE], with DI_FROM_O
   __shared__ int ms[BK];
 
   const int tid = threadIdx.x;
@@ -305,12 +348,15 @@ __device__ __forceinline__ void fp32_dkv_chunk(
   // causal: q tiles wholly above the chunk's first column see none of it
   const int q_begin = causal ? (k0 / QT) * QT : 0;
 
-  // Q, dO, lse and di of the q tile from row q0 into ring stage st
+  // Q, dO (and O), lse and di (unless summed here) of the q tile from row
+  // q0 into ring stage st
   auto load_q_tile = [&](int st, int q0) {
     const int nq = min(QT, Sq - q0);
     cp_async_tile_f32<D, QT, NT>(Qs + st * TILE, q + (bh * Sq + q0) * D, nq, tid);
     cp_async_tile_f32<D, QT, NT>(dOs + st * TILE, dout + (bh * Sq + q0) * D, nq, tid);
-    if (tid < 2 * QT) {
+    if constexpr (DI_FROM_O)
+      cp_async_tile_f32<D, QT, NT>(Os + st * TILE, o + (bh * Sq + q0) * D, nq, tid);
+    if (tid < (DI_FROM_O ? 1 : 2) * QT) {
       const int r = tid % QT;
       const float* src = (tid < QT ? lse : di) + bh * Sq + q0;
       float* dst = (tid < QT ? lse_s : di_s) + st * QT;
@@ -374,8 +420,12 @@ __device__ __forceinline__ void fp32_dkv_chunk(
           Ps[r * LS + c] = exp2_sfu(allowed ? fmaf(sc[i][j], scale_log2, -lse2) : -INFINITY);
         }
       }
+    } else if constexpr (DI_FROM_O) {
+      // di of the tile's row t (zero past the sequence: O and dO are
+      // zero-filled there), read by the dp role after the barrier
+      if (t < QT) di_s[st * QT + t] = fp32_row_dot<D>(Os + st * TILE + t * LD, dOt + t * LD);
     }
-    __syncthreads();  // P is written
+    __syncthreads();  // P (and di) is written
     if (!s_role) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -412,23 +462,33 @@ __device__ __forceinline__ void fp32_dkv_chunk(
 // compute s and p (8 x 8 a thread), threads [NH, NT) dp; each role passes
 // half its columns to the other through shared memory and turns the other
 // half into ds^T there; then every thread takes dq += ds K over its part
-// of the chunk's rows. Runs in a block of Fp32Dq<D>::NT threads with
-// Fp32Dq<D>::smem() bytes of dynamic shared memory at `smem`.
-template <int D>
+// of the chunk's rows. di is read from `di`, or with DI_FROM_O (B2) summed
+// here from the tile's o (copied into ring stage 1 before the walk loads
+// it) and dO. Runs on threads [0, Fp32Dq<D>::NT) of a block of NTB threads
+// (the others take no part: with NTB > NT its barriers are a named barrier
+// of NT threads) with Fp32Dq<D>::smem(DI_FROM_O) bytes of dynamic shared
+// memory at `smem`.
+template <int D, bool DI_FROM_O, int NTB = Fp32Dq<D>::NT>
 __device__ __forceinline__ void fp32_dq_tile(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-    const uint8_t* __restrict__ mb, float* __restrict__ dq, int Sq, int Skv, int causal,
-    float scale, int q0, size_t bh, float* smem) {
+    const float* __restrict__ dout, const float* __restrict__ o, const float* __restrict__ lse,
+    const float* __restrict__ di, const uint8_t* __restrict__ mb, float* __restrict__ dq,
+    int Sq, int Skv, int causal, float scale, int q0, size_t bh, float* smem) {
   using G = Fp32Dq<D>;
   constexpr int KT = G::KT, NT = G::NT, NH = G::NH, LD = fp32_ld<D>(), LX = G::LX;
   constexpr int TILE = KT * LD, TD = OutCols<D, G::NCG>::TD, KP = KT / G::KS;
+  static_assert(NTB >= NT && BQ == KT, "the o tile fits a ring stage");
   float* Qs = smem;
   float* dOs = Qs + BQ * LD;
   float* Ks = dOs + BQ * LD;   // ring: [2][TILE]
   float* Vs = Ks + 2 * TILE;   // ring: [2][TILE]
   float* Xs = Vs + 2 * TILE;   // [KT][LX], unless X_IN_V
+  float* di_s = Xs + (G::X_IN_V ? 0 : KT * LX);  // [BQ], with DI_FROM_O
   __shared__ int ms[2][KT];    // ring: column states
+  auto sync = [] {
+    if constexpr (NTB == NT) __syncthreads();
+    else bar_sync(1, NT);
+  };
 
   const int tid = threadIdx.x;
   const int nq = min(BQ, Sq - q0);
@@ -444,6 +504,7 @@ __device__ __forceinline__ void fp32_dq_tile(
 
   cp_async_tile_f32<D, BQ, NT>(Qs, q + (bh * Sq + q0) * D, nq, tid);
   cp_async_tile_f32<D, BQ, NT>(dOs, dout + (bh * Sq + q0) * D, nq, tid);
+  if constexpr (DI_FROM_O) cp_async_tile_f32<D, BQ, NT>(Ks + TILE, o + (bh * Sq + q0) * D, nq, tid);
   if (kv_end > 0) load_kv_chunk(0, 0);
   cp_async_commit();
   load_col_state<KT>(ms[0], mb, 0, min(KT, Skv), tid);
@@ -460,7 +521,7 @@ __device__ __forceinline__ void fp32_dq_tile(
   for (int i = 0; i < 8; ++i) {
     const int row = q0 + tq + 8 * i;
     lse2[i] = s_role && row < Sq ? lse[bh * Sq + row] * LOG2E : 0.f;
-    di_r[i] = row < Sq ? di[bh * Sq + row] : 0.f;
+    if constexpr (!DI_FROM_O) di_r[i] = row < Sq ? di[bh * Sq + row] : 0.f;
   }
   float acc[8][TD];
 #pragma unroll
@@ -468,13 +529,21 @@ __device__ __forceinline__ void fp32_dq_tile(
 #pragma unroll
     for (int c = 0; c < TD; ++c) acc[a][c] = 0.f;
   cp_async_wait_all();
-  __syncthreads();
+  sync();
+  if constexpr (DI_FROM_O) {
+    // di of row tid (zero past the sequence: O and dO are zero-filled
+    // there), before the walk loads stage 1
+    if (tid < BQ) di_s[tid] = fp32_row_dot<D>(Ks + TILE + tid * LD, dOs + tid * LD);
+    sync();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) di_r[i] = di_s[tq + 8 * i];
+  }
 
   const float scale_log2 = scale * LOG2E;
   int st = 0;
   for (int k0 = 0; k0 < kv_end; k0 += KT, st ^= 1) {
     cp_async_wait_all();
-    __syncthreads();  // this chunk has landed; every thread is done with the last one
+    sync();  // this chunk has landed; every thread is done with the last one
     const int k_next = k0 + KT;
     int next_state = 0;  // the next chunk's column state of k/v row tid
     if (k_next < kv_end) {
@@ -509,7 +578,7 @@ __device__ __forceinline__ void fp32_dq_tile(
     // ds = p (dp - di) scale, half the columns by each role: the s role
     // passes p of columns j >= 4 and takes dp of j < 4, the dp role the
     // other way round; X holds ds^T when done
-    __syncthreads();  // every thread is done reading V, where X may lie
+    sync();  // every thread is done reading V, where X may lie
     auto x_at = [&](int i, int j) { return X + (tk + 8 * j) * LX + tq + 8 * i; };
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -518,7 +587,7 @@ __device__ __forceinline__ void fp32_dq_tile(
         if (s_role) *x_at(i, j + 4) = sc[i][j + 4];
         else *x_at(i, j) = sc[i][j];
       }
-    __syncthreads();  // the passed halves are written
+    sync();  // the passed halves are written
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -531,7 +600,7 @@ __device__ __forceinline__ void fp32_dq_tile(
           *x = *x * (sc[i][j + 4] - di_r[i]) * scale;
         }
       }
-    __syncthreads();  // ds^T is written
+    sync();  // ds^T is written
 
     // dq += ds K over rows [h KP, (h + 1) KP) of the chunk
     fp32_outer<D, G::NCG, KP, LX, LD>(X, Kt, h * KP, rg, cg, acc);
@@ -545,9 +614,9 @@ __device__ __forceinline__ void fp32_dq_tile(
   } else {
     // dq = part 0 + part 1, through the Q tile (no longer read)
     static_assert(G::KS == 2, "two parts");
-    __syncthreads();
+    sync();
     if (h == 1) store_rows_f32<D, G::NCG, LD, false>(Qs, nullptr, acc, rg, cg, BQ);
-    __syncthreads();
+    sync();
     if (h == 0) store_rows_f32<D, G::NCG, D, true>(out, Qs, acc, rg, cg, nq);
   }
 }
@@ -742,6 +811,192 @@ __device__ __forceinline__ void fp32_fwd_q_tile(const float* __restrict__ q,
       for (int c = 0; c < TD; ++c) acc[a][c] = acc[a][c] / l_safe;
     }
     store_rows_f32<D, G::NCG, D, false>(o + (bh * Sq + q0) * D, nullptr, acc, rg, cg, nq);
+  }
+}
+
+// B1's geometry: 128 threads, each holding an 8 x 8 tile of the 64 x KC
+// scores of a chunk of KC = 128 keys (q rows tq + 8 i, keys tk + 16 j: the
+// 16 lanes of a row are one half warp), then an 8 x TD tile of O, whose
+// keys are split in KS parts (two at D64, so that each thread holds 8 x 8)
+// added at the end
+template <int D>
+struct Fp32Fwd1 {
+  static constexpr int NT = 128;
+  static constexpr int KC = 128;                 // keys of a chunk
+  static constexpr int KS = D == 64 ? 2 : 1;
+  static constexpr int NCG = NT / KS / 8;        // column groups of the output
+  static constexpr int LP = BQ + 4;              // stride of the p^T tile, [k][q]
+  // p^T goes in K's tile when a row of it is as long
+  static constexpr bool P_IN_K = fp32_ld<D>() >= LP;
+  // Q, K, V of a chunk; p^T unless in K; the rows' alpha and l; with more
+  // than one chunk (multi) the KS parts of O between chunks
+  static constexpr size_t smem(bool multi) {
+    return (size_t)((BQ + 2 * KC) * fp32_ld<D>() + (P_IN_K ? 0 : KC * LP) + 2 * BQ +
+                    (multi ? KS * BQ * fp32_ld<D>() : 0)) *
+           sizeof(float);
+  }
+};
+
+// B1's body in float32: o and lse of the 64-row q tile from row q0 of head
+// bh, in chunks of KC keys (up to the diagonal when causal). Each chunk's
+// two products take all the threads in turn: s = Q K^T while V is still
+// landing, each row's masked max over the 16 lanes that share it, p into
+// shared memory as p^T (in K's tile, read by then), then O = alpha O + p V.
+// Up to KC keys (the single-tile path at S128) that is one chunk, so the
+// max is the row's, as the TPU kernel takes it, and nothing is rescaled;
+// past KC the chunks are summed with the online softmax, which in float32
+// (p is never rounded) gives the same o and lse up to rounding, and each
+// thread keeps its part of O in shared memory between chunks, so that O's
+// registers are not live while s is computed. mb: the batch element's kv
+// mask (Skv bytes) or null. Runs in a block of Fp32Fwd1<D>::NT threads with
+// Fp32Fwd1<D>::smem(Skv > KC) bytes of dynamic shared memory at `smem`.
+template <int D>
+__device__ __forceinline__ void fp32_fwd_single_q_tile(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ mb, float* __restrict__ o, float* __restrict__ lse, int Sq,
+    int Skv, int causal, float scale, int q0, size_t bh, float* smem) {
+  using G = Fp32Fwd1<D>;
+  using C = OutCols<D, G::NCG>;
+  constexpr int NT = G::NT, KC = G::KC, LD = fp32_ld<D>(), LP = G::LP;
+  constexpr int TD = C::TD, KP = KC / G::KS;
+  float* Qs = smem;
+  float* Ks = Qs + BQ * LD;                     // [KC][LD]
+  float* Vs = Ks + KC * LD;                     // [KC][LD]
+  float* Pt = G::P_IN_K ? Ks : Vs + KC * LD;    // [KC][LP]: p^T of the chunk
+  float* alpha_s = Vs + KC * LD + (G::P_IN_K ? 0 : KC * LP);  // [BQ]
+  float* l_s = alpha_s + BQ;                    // [BQ]
+  float* Op = l_s + BQ;                         // [KS][BQ][LD], with more than one chunk
+  __shared__ int ms[KC];
+
+  const int tid = threadIdx.x;
+  const int nq = min(BQ, Sq - q0);
+  // causal: keys past the tile's last row contribute nothing
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  // the thread's 8 x 8 score tile (q rows tq + 8 i, keys tk + 16 j), its
+  // part h of a chunk's keys and its 8 x TD tile of O (q rows out_row(rg,
+  // .), columns of cg)
+  const int tq = tid >> 4, tk = tid & 15;
+  const int h = tid / (NT / G::KS), u = tid % (NT / G::KS), rg = u / G::NCG, cg = u % G::NCG;
+  float* Oh = Op + h * BQ * LD;
+
+  float m[8], l[8];  // the rows' max and the thread's part of l
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  const float scale_log2 = scale * LOG2E;
+  float acc[8][TD];  // defined in each chunk's O step: not live while s is computed
+
+  cp_async_tile_f32<D, BQ, NT>(Qs, q + (bh * Sq + q0) * D, nq, tid);
+  int k0 = 0;
+  do {  // kv_end > 0: at least one chunk
+    const int nk = min(KC, Skv - k0);
+    if (k0 > 0) __syncthreads();  // every thread is done with the last chunk's K, V, p^T
+    cp_async_tile_f32<D, KC, NT>(Ks, k + (bh * Skv + k0) * D, nk, tid);
+    cp_async_commit();
+    cp_async_tile_f32<D, KC, NT>(Vs, v + (bh * Skv + k0) * D, nk, tid);
+    cp_async_commit();
+    load_col_state<KC>(ms, mb, k0, nk, tid);
+    cp_async_wait<1>();  // Q and K have landed; V may still be in flight
+    __syncthreads();
+
+    float sc[8][8];
+    fp32_product<D, 8, 8, 8, 16>(Qs, Ks, tq, tk, sc);
+    bool col_ok[8], in_seq[8];  // in registers first: no branch around a load per entry
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int state = ms[tk + 16 * j];
+      col_ok[j] = state == 2;
+      in_seq[j] = state != 0;
+    }
+    float alpha[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = tq + 8 * i;
+      bool allowed[8];
+      // the masked scaled scores' max: MASK_VALUE where masked, -inf past
+      // the sequence, over the 16 lanes of the row
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        allowed[j] = col_ok[j] & (!causal | (k0 + tk + 16 * j <= q0 + r));
+        mx = fmaxf(mx, allowed[j] ? sc[i][j] * scale : (in_seq[j] ? MASK_VALUE : -INFINITY));
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);  // finite: every chunk has a column of state >= 1
+      alpha[i] = exp2_sfu((m[i] - m_new) * LOG2E);
+      const float m2 = m_new * LOG2E;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // p = exp(s scale - m), masked by an exponent of -inf (no branch)
+        sc[i][j] = exp2_sfu(allowed[j] ? fmaf(sc[i][j], scale_log2, -m2) : -INFINITY);
+        psum += sc[i][j];
+      }
+      l[i] = alpha[i] * l[i] + psum;
+      m[i] = m_new;
+    }
+    if constexpr (G::P_IN_K) __syncthreads();  // every thread is done reading K
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = tq + 8 * i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Pt[(tk + 16 * j) * LP + r] = sc[i][j];
+      if (tk == 0) alpha_s[r] = alpha[i];
+    }
+    cp_async_wait_all();
+    __syncthreads();  // V has landed; p^T and alpha are written
+
+    // O = alpha O + p V over keys [h KP, (h + 1) KP) of the chunk; the
+    // thread's part of O from the last chunk is its own elements of Oh
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int row = out_row(rg, a);
+      const float al = alpha_s[row];
+#pragma unroll
+      for (int mm = 0; mm < TD / C::VEC; ++mm) {
+        float w[C::VEC];
+        if (k0 > 0) lds_vec<C::VEC>(w, Oh + row * LD + C::col(cg, mm * C::VEC));
+#pragma unroll
+        for (int e = 0; e < C::VEC; ++e) acc[a][mm * C::VEC + e] = k0 > 0 ? w[e] * al : 0.f;
+      }
+    }
+    fp32_outer<D, G::NCG, KP, LP, LD>(Pt, Vs, h * KP, rg, cg, acc);
+    k0 += KC;
+    if (k0 < kv_end) store_rows_f32<D, G::NCG, LD, false>(Oh, nullptr, acc, rg, cg, BQ);
+  } while (k0 < kv_end);
+
+  // l of each row over its 16 lanes; lse
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int r = tq + 8 * i;
+    if (tk == 0) {
+      l_s[r] = li;
+      if (r < nq) lse[bh * Sq + q0 + r] = li == 0.f ? 0.f : m[i] + logf(li);
+    }
+  }
+  __syncthreads();  // the rows' l are written; every thread is done with Q
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const float li = l_s[out_row(rg, a)];
+    const float l_safe = li == 0.f ? 1.f : li;
+#pragma unroll
+    for (int c = 0; c < TD; ++c) acc[a][c] = acc[a][c] / l_safe;
+  }
+  float* out = o + (bh * Sq + q0) * D;
+  if constexpr (G::KS == 1) {
+    store_rows_f32<D, G::NCG, D, false>(out, nullptr, acc, rg, cg, nq);
+  } else {
+    // o = part 0 + part 1, through the Q tile (no longer read)
+    static_assert(G::KS == 2, "two parts");
+    if (h == 1) store_rows_f32<D, G::NCG, LD, false>(Qs, nullptr, acc, rg, cg, BQ);
+    __syncthreads();
+    if (h == 0) store_rows_f32<D, G::NCG, D, true>(out, Qs, acc, rg, cg, nq);
   }
 }
 

@@ -80,7 +80,7 @@
 // float32 B3, B4 and B5 (fp32_fwd_kernel, fp32_bwd_dkv_kernel,
 // fp32_bwd_dq_kernel) run exact float32 FMAs on the CUDA cores, on the
 // per-block bodies of flash_fp32.cuh (fp32_fwd_q_tile, fp32_dkv_chunk,
-// fp32_dq_tile): 128 threads (256 for B3 and B4 at D128), half of them on
+// fp32_dq_tile, the last two shared with float32 B2): 128 threads (256 for B3 and B4 at D128), half of them on
 // each product (B3: s of chunk i and O += p V of chunk i - 1; B4: s and
 // dv, dp and dk; B5: s and dp), so that each product has a register tile
 // of 4 x 8 or 8 x 8 read with float4 shared-memory loads; walked tiles
@@ -120,8 +120,9 @@ fp32_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ dv, int H, int Sq, int Skv, int causal, float scale) {
   extern __shared__ __align__(16) float smem_f32[];
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  fp32_dkv_chunk<D>(q, k, v, dout, lse, di, mask ? mask + (size_t)blockIdx.z * Skv : nullptr,
-                    dk, dv, Sq, Skv, causal, scale, blockIdx.x * BK, bh, smem_f32);
+  fp32_dkv_chunk<D, false>(q, k, v, dout, nullptr, lse, di,
+                           mask ? mask + (size_t)blockIdx.z * Skv : nullptr, dk, dv, Sq, Skv,
+                           causal, scale, blockIdx.x * BK, bh, smem_f32);
 }
 
 // B5 in float32: dq of the 64-row q tile blockIdx.x of head (blockIdx.z,
@@ -135,8 +136,9 @@ fp32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    int Skv, int causal, float scale) {
   extern __shared__ __align__(16) float smem_f32[];
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  fp32_dq_tile<D>(q, k, v, dout, lse, di, mask ? mask + (size_t)blockIdx.z * Skv : nullptr, dq,
-                  Sq, Skv, causal, scale, blockIdx.x * BQ, bh, smem_f32);
+  fp32_dq_tile<D, false>(q, k, v, dout, nullptr, lse, di,
+                         mask ? mask + (size_t)blockIdx.z * Skv : nullptr, dq, Sq, Skv, causal,
+                         scale, blockIdx.x * BQ, bh, smem_f32);
 }
 
 // B3 in bf16 on the tensor cores: o and lse of the 64-row q tile blockIdx.x
@@ -273,7 +275,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   static_assert(std::is_same<T, float>::value, "the CUDA-core backward is float32");
   const void* ptrs[] = {q, k, v, dout, dk, dv};
   if (!fp32_aligned(ptrs, 6)) return cudaErrorMisalignedAddress;
-  const size_t smem = Fp32Dkv<D>::smem();  // D = 64: 86.5 KB, over the 48 KB default
+  const size_t smem = Fp32Dkv<D>::smem(false);  // D = 64: 86.5 KB, over the 48 KB default
   cudaError_t err = cudaFuncSetAttribute(
       fp32_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -292,7 +294,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   static_assert(std::is_same<T, float>::value, "the CUDA-core backward is float32");
   const void* ptrs[] = {q, k, v, dout, dq};
   if (!fp32_aligned(ptrs, 5)) return cudaErrorMisalignedAddress;
-  const size_t smem = Fp32Dq<D>::smem();  // D = 64: 102 KB
+  const size_t smem = Fp32Dq<D>::smem(false);  // D = 64: 102 KB
   cudaError_t err = cudaFuncSetAttribute(
       fp32_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

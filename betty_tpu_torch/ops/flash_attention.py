@@ -12,11 +12,11 @@ path runs.
   (``csrc/flash_single.cu``), the port of ``_fwd_single_kernel`` (B1): o and
   the per-row logsumexp ``lse`` of shape (B, H, S) in float32 (in bf16 on
   the tensor cores, up to ``SINGLE_MAX_KV`` keys, in float32 on the CUDA
-  cores);
+  cores, on the body of float32 B3);
   ``_bwd_single`` launches ``flash_single_bwd``, the port of
   ``_bwd_single_kernel`` (B2): dq, dk, dv with ``di = rowsum(o * do)``
-  computed in the kernel (in bf16 on the tensor cores with dq in
-  registers, in float32 with a float32 dq scratch).
+  computed in the kernel, on the bodies of B4 and B5 (in bf16 on the
+  tensor cores, in float32 on the CUDA cores), each output written once.
 * multi-tile: ``_fwd_multi`` launches ``flash_multi_fwd``
   (``csrc/flash_multi.cu``), the port of ``_fwd_kernel`` (B3); the backward
   computes ``di`` once in PyTorch and feeds it to ``_bwd_dkv``
@@ -74,7 +74,7 @@ def _lib(name):
     signatures = {
         "flash_single": {
             "flash_single_fwd": ([p] * 6 + [i] * 7 + [f, p], i),
-            "flash_single_bwd": ([p] * 11 + [i] * 7 + [f, p], i),
+            "flash_single_bwd": ([p] * 10 + [i] * 7 + [f, p], i),
         },
         "flash_multi": {
             "flash_multi_fwd": ([p] * 6 + [i] * 7 + [f, p], i),
@@ -299,12 +299,9 @@ def _bwd_single(q, k, v, do, o, lse, kv_mask, *, causal, sm_scale):
     o, lse = o.contiguous(), lse.to(torch.float32).contiguous()
     mask = _mask_bytes(kv_mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # the float32 kernel's dq partial sums; the bf16 kernel keeps dq in registers
-    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-              if q.dtype == torch.float32 and k.shape[2] > 64 else None)
     err = _lib("flash_single").flash_single_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(o), _ptr(lse), _ptr(mask), _ptr(dq),
-        _ptr(dk), _ptr(dv), _ptr(dq_acc), *_dims(q, k, causal, sm_scale))
+        _ptr(dk), _ptr(dv), *_dims(q, k, causal, sm_scale))
     _check(err, "flash_single_bwd")
     _bwd_single.launches += 1
     return dq, dk, dv

@@ -247,6 +247,59 @@ def test_bf16_lse_matches_jax_multi_tile_kernel(tiles):
     assert np.all(tlse.numpy()[1] == 0.0) and np.all(to.float().numpy()[1] == 0.0)
 
 
+def _fp32_unequal_inputs(sq, skv, dim, seed):
+    """float32 q, do of ``sq`` rows, k, v of ``skv`` rows, and a kv mask with
+    batch 0's last 20 keys masked and every key of batch 1 masked."""
+    rng = np.random.RandomState(seed)
+    q, do = (rng.randn(B, H, sq, dim).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, H, skv, dim).astype(np.float32) for _ in range(2))
+    mask = np.ones((B, skv), bool)
+    mask[0, skv - 20:] = False
+    mask[1, :] = False
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("sq,skv", [(96, 160), (160, 96)])
+def test_fp32_single_tile_forward_matches_jax_kernel_at_unequal_lengths(sq, skv):
+    """The plain float32 B1 against JAX's interpret-mode ``_fwd_single`` at
+    Sq != Skv, D32, with a fully masked row (o = 0, lse = 0): within 1e-5,
+    causal and not."""
+    q, k, v, _, mask = _fp32_unequal_inputs(sq, skv, 32, 14)
+    for causal in (False, True):
+        kw = dict(causal=causal, sm_scale=1.0 / np.sqrt(32))
+        jo, jlse = jfa._fwd_single(*(jnp.asarray(x) for x in (q, k, v, mask)), interpret=True,
+                                   **kw)
+        to, tlse = tfa._fwd_single_plain(*(torch.tensor(x) for x in (q, k, v, mask)), **kw)
+        assert np.max(np.abs(to.numpy() - np.asarray(jo))) <= 1e-5
+        assert np.max(np.abs(tlse.numpy() - np.asarray(jlse)[..., 0])) <= 1e-5
+        assert np.all(to.numpy()[1] == 0.0) and np.all(tlse.numpy()[1] == 0.0)
+
+
+@pytest.mark.parametrize("sq,skv", [(96, 160), (160, 96)])
+def test_fp32_single_tile_backward_matches_jax_kernel_at_unequal_lengths(sq, skv):
+    """The plain float32 B2 (``_bwd_single_plain``, what
+    ``fp32_bwd_single_kernel`` repeats with its grid of max(Sq, Skv) / 64
+    blocks, parts past a sequence skipped) against JAX's interpret-mode
+    ``_bwd_single`` on JAX's own o and lse, at Sq != Skv, D32, with a fully
+    masked row, causal and not: within 1e-5 x max|ref|; the masked row's
+    gradients are 0."""
+    q, k, v, do, mask = _fp32_unequal_inputs(sq, skv, 32, 15)
+    for causal in (False, True):
+        kw = dict(causal=causal, sm_scale=1.0 / np.sqrt(32))
+        jq, jk, jv, jdo, jm = (jnp.asarray(x) for x in (q, k, v, do, mask))
+        jo, jlse = jfa._fwd_single(jq, jk, jv, jm, interpret=True, **kw)
+        jgrads = jfa._bwd_single(jq, jk, jv, jdo, jo, jlse, jm, interpret=True, **kw)
+        tgrads = tfa._bwd_single_plain(
+            *(torch.tensor(x) for x in (q, k, v, do)), torch.tensor(np.asarray(jo)),
+            torch.tensor(np.asarray(jlse)[..., 0]), torch.tensor(mask), **kw)
+        for name, got, want in zip(("dq", "dk", "dv"), tgrads, jgrads):
+            ref = np.asarray(want)
+            assert got.dtype == torch.float32 and got.shape == ref.shape, name
+            err = np.max(np.abs(got.numpy() - ref))
+            assert err <= 1e-5 * np.max(np.abs(ref)), (name, causal, err)
+            assert np.all(got.numpy()[1] == 0.0), name
+
+
 def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
     """Single-tile and multi-tile paths alike."""
     tfa.reset_launch_counts()

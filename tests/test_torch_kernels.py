@@ -259,6 +259,53 @@ def test_fp32_backward_kernels_match_plain_on_card(case):
             assert bool((a[1] == 0).all()), name
 
 
+# float32 B1/B2 checks (default blocks, single tile): every head dim x mask
+# case at S96 (B1 in one chunk of 128 keys) and S200 (two chunks; a ragged
+# last 64-row tile), and Sq != Skv either way: (d, mask case, Sq, Skv)
+FP32_SINGLE_CASES = dict({f"S{s}_D{d}_{m}": (d, m, s, s) for s in (96, 200)
+                          for d in tfa.KERNEL_HEAD_DIMS for m in MASK_CASES},
+                         Sq96_Skv160_D32_masked_row=(32, "masked_row", 96, 160),
+                         Sq200_Skv72_D64_causal=(64, "causal", 200, 72))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FP32_SINGLE_CASES))
+def test_fp32_single_tile_kernels_match_plain_on_card(case):
+    """float32 B1 (on B3's body) against ``_fwd_single_plain``: o within
+    1e-5 x max(1, max|o|), lse within 1e-5 x max(1, max|lse|). float32 B2
+    (B4's body, then B5's, di summed in the kernel) against
+    ``_bwd_single_plain`` on B1's own o and lse: within 1e-5 x max|ref|,
+    since only the order of float32 sums differs. A fully masked row's o,
+    lse and gradients are 0; gradients are finite; ``flash_attention`` with
+    the default blocks launches B1 and B2 once each and no multi-tile
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full comparison there")
+    d, mask_case, sq, skv = FP32_SINGLE_CASES[case]
+    q, k, v, do, tm = _card_qkv(2, 2, sq, skv, d,
+                                "all_true" if mask_case == "causal" else mask_case, 29,
+                                torch.float32)
+    kw = dict(causal=mask_case == "causal", sm_scale=1.0 / math.sqrt(d))
+    o, lse = tfa._fwd_single(q, k, v, tm, **kw)
+    po, plse = tfa._fwd_single_plain(q, k, v, tm, **kw)
+    torch.cuda.synchronize()
+    assert float((o - po).abs().max()) <= 1e-5 * max(1.0, float(po.abs().max()))
+    assert float((lse - plse).abs().max()) <= 1e-5 * max(1.0, float(plse.abs().max()))
+    if mask_case == "masked_row":
+        assert bool((o[1] == 0).all()) and bool((lse[1] == 0).all())
+    got = tfa._bwd_single(q, k, v, do, o, lse, tm, **kw)
+    want = tfa._bwd_single_plain(q, k, v, do, o, lse, tm, **kw)
+    torch.cuda.synchronize()
+    for name, a, ref in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all()), name
+        err = float((a - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (name, err)
+        if mask_case == "masked_row":
+            assert bool((a[1] == 0).all()), name
+    assert _launches_through_flash_attention(q, k, v, do, tm, kw["causal"],
+                                             None) == SINGLE_LAUNCHES
+
+
 def _bf16_ulp(x):
     """One bf16 ulp at each element of ``x``: 2^(e-8) for |x| = m 2^e,
     0.5 <= m < 1."""
