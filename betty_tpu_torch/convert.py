@@ -6,7 +6,11 @@ JAX package, after ``np.asarray``) and return the params dict of the port's
 ``TransformerClassifier`` / ``MetaWeightNet``. flax ``Dense`` kernels are
 ``(in, out)`` and ``nn.Linear`` weights ``(out, in)``, so they are
 transposed; the attention kernels keep their shapes; LayerNorm ``scale``
-becomes ``weight``.
+becomes ``weight``. ``from_flax_resnet`` takes a ``ResNet``'s variables
+(``params`` and ``batch_stats``) and returns the port's params and
+batch_stats dicts: conv kernels ``(kh, kw, in, out)`` become ``(out, in,
+kh, kw)``, BatchNorm ``scale``/``bias``/``mean``/``var`` become
+``weight``/``bias``/``running_mean``/``running_var``.
 """
 
 import numpy as np
@@ -55,3 +59,39 @@ def from_flax_mwn(params, device="cpu", dtype=torch.float32):
     _dense(out, "dense0", params["Dense_0"], device, dtype)
     _dense(out, "dense1", params["Dense_1"], device, dtype)
     return out
+
+
+def _conv(out, prefix, p, device, dtype):
+    out[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)), device,
+                                 dtype)
+
+
+def _batchnorm(params, stats, prefix, p, s, device, dtype):
+    params[f"{prefix}.weight"] = _t(p["scale"], device, dtype)
+    params[f"{prefix}.bias"] = _t(p["bias"], device, dtype)
+    stats[f"{prefix}.running_mean"] = _t(s["mean"], device, dtype)
+    stats[f"{prefix}.running_var"] = _t(s["var"], device, dtype)
+
+
+def from_flax_resnet(variables, device="cpu", dtype=torch.float32):
+    """flax ``ResNet`` variables -> the port's ``(params, batch_stats)``.
+
+    The flax tree is ``Conv_0, BatchNorm_0, BasicBlock_0.., Dense_0``; a
+    block is ``Conv_0, BatchNorm_0, Conv_1, BatchNorm_1`` and, where it
+    projects its residual, ``Conv_2, BatchNorm_2``."""
+    p, s = variables["params"], variables["batch_stats"]
+    params, stats = {}, {}
+    _conv(params, "conv", p["Conv_0"], device, dtype)
+    _batchnorm(params, stats, "bn", p["BatchNorm_0"], s["BatchNorm_0"], device, dtype)
+    depth = sum(1 for k in p if k.startswith("BasicBlock_"))
+    names = (("Conv_0", "BatchNorm_0", "conv0", "bn0"), ("Conv_1", "BatchNorm_1", "conv1", "bn1"),
+             ("Conv_2", "BatchNorm_2", "proj", "proj_bn"))
+    for i in range(depth):
+        bp, bs = p[f"BasicBlock_{i}"], s[f"BasicBlock_{i}"]
+        for conv, norm, conv_name, norm_name in names:
+            if conv in bp:
+                _conv(params, f"blocks.{i}.{conv_name}", bp[conv], device, dtype)
+                _batchnorm(params, stats, f"blocks.{i}.{norm_name}", bp[norm], bs[norm], device,
+                           dtype)
+    _dense(params, "head", p["Dense_0"], device, dtype)
+    return params, stats

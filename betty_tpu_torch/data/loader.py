@@ -5,6 +5,8 @@ The shuffle of each epoch is ``np.random.RandomState(seed + epoch)
 .permutation(n)``, the JAX loader's, so both packages serve the same
 batches. With ``device`` set (``True`` for ``"cuda"``, or a device) the
 arrays are moved to the device once and batches are gathered there.
+``postprocess(batch)`` is applied to every batch served: subclasses
+override it for augmentation.
 """
 
 import numpy as np
@@ -43,6 +45,10 @@ class ArrayLoader:
             return np.random.RandomState(self.seed + epoch).permutation(self.n)
         return np.arange(self.n)
 
+    def postprocess(self, batch):
+        """Hook for subclasses (augmentation, ...), applied to every batch."""
+        return batch
+
     def __iter__(self):
         order = self._epoch_order(self.epoch)
         if self.device is not None:
@@ -51,4 +57,4 @@ class ArrayLoader:
         for i in range(0, end, self.batch_size):
             idx = order[i:i + self.batch_size]
             batch = tuple(a[idx] for a in self.arrays)
-            yield batch[0] if len(batch) == 1 else batch
+            yield self.postprocess(batch[0] if len(batch) == 1 else batch)

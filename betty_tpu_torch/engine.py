@@ -18,7 +18,7 @@ import torch
 from betty_tpu_torch.configs import EngineConfig
 from betty_tpu_torch.logging import logger
 from betty_tpu_torch.misc.early_stopping import EarlyStopping
-from betty_tpu_torch.utils import log_from_loss_dict
+from betty_tpu_torch.utils import log_from_loss_dict, require_device
 
 
 class Engine:
@@ -59,9 +59,7 @@ class Engine:
 
     def configure_systems(self):
         """One device; a CUDA device must exist (no fallback to the CPU)."""
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Engine: device 'cuda' requested but no CUDA device is "
-                               "available; pass device='cpu' to run on the CPU")
+        require_device(self.device, "Engine")
 
     def initialize(self):
         self.parse_config()

@@ -37,7 +37,7 @@ def _solver(name):
     if name in _LATER and name not in jvp_fn_mapping:
         raise NotImplementedError(
             f"hypergradient solver {name!r} is not ported yet: it comes in a later "
-            "slice of the port, after the ResNet-32/Meta-Weight-Net slice")
+            "slice of the port (ROADMAP.md §A.3)")
     assert name in jvp_fn_mapping, f"Unknown hypergradient solver {name!r}"
     return jvp_fn_mapping[name]
 

@@ -1,0 +1,108 @@
+"""CIFAR ResNet (ResNet-32 for Meta-Weight-Net).
+
+Counterpart of ``betty_tpu/models/resnet.py`` (``BasicBlock``, ``ResNet``,
+``ResNet32``): inputs are NHWC images as in the JAX package, so one loader
+feeds both; the model views them as NCHW (a permute, no copy) for cuDNN.
+Convolutions pad as flax's ``"SAME"``: a stride-2 3x3 convolution of an
+even input pads 0 before and 1 after (``padding=1`` would shift every
+output), stride 1 pads 1 on both sides, the 1x1 projections not at all.
+BatchNorm is ``models/batchnorm.py``'s: running statistics come back
+through ``updates``, never written in place.
+
+Initialization draws flax's distributions from an explicit
+``torch.Generator``: ``lecun_normal`` with fan-in kh*kw*in for the
+convolutions and fan-in 64 for the head, BatchNorm scale 1 and bias 0,
+running mean 0 and variance 1. ``betty_tpu_torch.convert.from_flax_resnet``
+carries the JAX package's weights over. ``ResNetV1``/``ResNet50`` and
+``WideResNet`` are not ported yet.
+"""
+
+from typing import Sequence
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from betty_tpu_torch.models.batchnorm import BatchNorm
+from betty_tpu_torch.models.init import lecun_normal_
+
+
+def _same_pads(size: int, kernel: int, stride: int):
+    """(before, after) padding of flax's ``"SAME"`` along one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv(features, (k, k), (s, s), use_bias=False)`` on NCHW."""
+
+    def __init__(self, in_features, features, kernel, stride=1, device=None, generator=None):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(features, in_features, kernel, kernel,
+                                               device=device))
+        lecun_normal_(self.weight, fan_in=in_features * kernel * kernel, generator=generator)
+
+    def forward(self, x):
+        k = self.weight.shape[-1]
+        ph = _same_pads(x.shape[2], k, self.stride)
+        pw = _same_pads(x.shape[3], k, self.stride)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            return F.conv2d(x, self.weight, stride=self.stride, padding=(ph[0], pw[0]))
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, self.weight, stride=self.stride)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, in_features, filters, stride=1, device=None, generator=None):
+        super().__init__()
+        self.conv0 = Conv(in_features, filters, 3, stride, device, generator)
+        self.bn0 = BatchNorm(filters, device=device)
+        self.conv1 = Conv(filters, filters, 3, 1, device, generator)
+        self.bn1 = BatchNorm(filters, device=device)
+        self.proj = self.proj_bn = None
+        if stride != 1 or in_features != filters:
+            self.proj = Conv(in_features, filters, 1, stride, device, generator)
+            self.proj_bn = BatchNorm(filters, device=device)
+
+    def forward(self, x, train=True, updates=None):
+        y = F.relu(self.bn0(self.conv0(x), train, updates))
+        y = self.bn1(self.conv1(y), train, updates)
+        residual = x
+        if self.proj is not None:
+            residual = self.proj_bn(self.proj(x), train, updates)
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """Pre-2015-style CIFAR ResNet: 3 stages of n blocks, widths 16/32/64."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (5, 5, 5), num_classes: int = 10,
+                 width: int = 16, in_channels: int = 3, device=None, seed: int = 0):
+        super().__init__()
+        gen = torch.Generator(device=device if device is not None else "cpu").manual_seed(seed)
+        self.conv = Conv(in_channels, width, 3, 1, device, gen)
+        self.bn = BatchNorm(width, device=device)
+        blocks, features = [], width
+        for stage, n_blocks in enumerate(stage_sizes):
+            filters = width * 2 ** stage
+            for block in range(n_blocks):
+                stride = 2 if stage > 0 and block == 0 else 1
+                blocks.append(BasicBlock(features, filters, stride, device, gen))
+                features = filters
+        self.blocks = nn.ModuleList(blocks)
+        self.head = nn.Linear(features, num_classes, device=device)
+        lecun_normal_(self.head.weight, fan_in=features, generator=gen)
+        nn.init.zeros_(self.head.bias)
+
+    def forward(self, x, train: bool = True, rngs=None, updates=None):
+        """``x``: (N, H, W, C) images; returns (N, num_classes) logits."""
+        x = F.relu(self.bn(self.conv(x.permute(0, 3, 1, 2)), train, updates))
+        for block in self.blocks:
+            x = block(x, train, updates)
+        return self.head(x.mean(dim=(2, 3)))
+
+
+def ResNet32(num_classes: int = 10, device=None, seed: int = 0) -> ResNet:
+    return ResNet(stage_sizes=(5, 5, 5), num_classes=num_classes, device=device, seed=seed)

@@ -10,8 +10,9 @@ with the trainable parameters under ``variables["params"]``: a flat dict
 from parameter name to tensor. :func:`from_torch` wraps an ``nn.Module``
 whose ``forward`` takes ``train`` and ``rngs`` keyword arguments; ``apply``
 runs it on the given params dict through ``torch.func.functional_call``, so
-gradients flow to whatever tensors the caller passes. :func:`from_fn` wraps
-a plain ``apply_fn(params, *args)``.
+gradients flow to whatever tensors the caller passes; buffers (BatchNorm's
+running statistics) become the mutable ``"batch_stats"`` collection.
+:func:`from_fn` wraps a plain ``apply_fn(params, *args)``.
 
 ``rngs`` maps a collection name (``"dropout"``) to an integer seed; a module
 draws its random numbers from a ``torch.Generator`` seeded with it, so two
@@ -51,19 +52,41 @@ class FunctionalModule:
 def from_torch(module: nn.Module, rng_names: Sequence[str] = ("dropout",)) -> FunctionalModule:
     """Wrap an ``nn.Module`` (counterpart of ``betty_tpu.module.from_flax``).
 
-    The initial params dict holds the module's own parameters, detached; the
-    module must have no buffers (batch statistics are not ported in this
-    slice)."""
-    if any(True for _ in module.buffers()):
-        raise NotImplementedError("from_torch: modules with buffers are not ported yet")
+    The initial params dict holds the module's own parameters, detached.
+    A module with buffers gets them as a mutable ``"batch_stats"``
+    collection (flat dict from buffer name to tensor), and its ``forward``
+    takes an ``updates`` keyword: ``apply(..., mutable=("batch_stats",))``
+    passes a dict there, into which a train-mode forward puts the new
+    value of a buffer under ``(submodule, buffer name)`` instead of writing
+    it in place (``models/batchnorm.py``), and returns ``(out,
+    {"batch_stats": new})``. Buffers it does not update keep their
+    values."""
     params = {name: p.detach() for name, p in module.named_parameters()}
+    buffers = {name: b.detach() for name, b in module.named_buffers()}
+    prefixes = {m: f"{name}." if name else "" for name, m in module.named_modules()}
 
     def apply_fn(variables, *args, train=True, rngs=None, mutable=(), **kwargs):
-        out = torch.func.functional_call(
-            module, variables["params"], args, {**kwargs, "train": train, "rngs": rngs})
-        return (out, {}) if mutable else out
+        kwargs = {**kwargs, "train": train, "rngs": rngs}
+        tensors = variables["params"]
+        updates = None
+        if buffers:
+            stats = variables["batch_stats"]
+            tensors = {**tensors, **stats}
+            updates = kwargs["updates"] = {} if "batch_stats" in mutable else None
+        out = torch.func.functional_call(module, tensors, args, kwargs)
+        if not mutable:
+            return out
+        if updates is None:
+            return out, {}
+        new = dict(stats)
+        for (owner, name), value in updates.items():
+            new[prefixes[owner] + name] = value
+        return out, {"batch_stats": new}
 
-    return FunctionalModule(apply_fn, {"params": params}, rng_names=rng_names)
+    if not buffers:
+        return FunctionalModule(apply_fn, {"params": params}, rng_names=rng_names)
+    return FunctionalModule(apply_fn, {"params": params, "batch_stats": buffers},
+                            mutable_collections=("batch_stats",), rng_names=rng_names)
 
 
 def from_fn(apply_fn: Callable, params) -> FunctionalModule:

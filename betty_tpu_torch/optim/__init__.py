@@ -17,10 +17,13 @@ optax does, and puts ``eps`` outside the square root. ``adam_moments``
 returns the raw moments, the layout SAMA's preconditioner reads. Both
 ``adam`` and ``adamw`` have ``kind="adam"``.
 
-A ``schedule`` gives the learning rate of each step from ``sched_step``.
-Per-parameter groups (``grouped()``) are not ported in this slice.
+A ``schedule`` gives the learning rate of each step from ``sched_step``;
+``step_lr``, ``cosine_lr``, ``lambda_lr`` and ``multistep_lr`` build the
+JAX package's schedules (torch ``lr_scheduler`` counterparts).
+Per-parameter groups (``grouped()``) are not ported yet.
 """
 
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -119,3 +122,38 @@ def adamw(lr: float, betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-
     """torch.optim.AdamW-equivalent (decoupled weight decay)."""
     return Optimizer("adam", lr, betas=betas, eps=eps, weight_decay=weight_decay,
                      decoupled=True, schedule=schedule)
+
+
+# ---- LR schedules (``betty_tpu/optim/__init__.py``): step -> learning rate ----
+
+def step_lr(lr: float, step_size: int, gamma: float = 0.1) -> Callable:
+    def schedule(step):
+        return lr * gamma ** (step // step_size)
+
+    return schedule
+
+
+def cosine_lr(lr: float, total_steps: int, min_lr: float = 0.0) -> Callable:
+    def schedule(step):
+        frac = min(step / max(total_steps, 1), 1.0)
+        return min_lr + 0.5 * (lr - min_lr) * (1 + math.cos(math.pi * frac))
+
+    return schedule
+
+
+def lambda_lr(lr: float, lr_lambda: Callable) -> Callable:
+    def schedule(step):
+        return lr * lr_lambda(step)
+
+    return schedule
+
+
+def multistep_lr(lr: float, milestones, gamma: float = 0.1) -> Callable:
+    """torch ``MultiStepLR``: multiply by ``gamma`` at each milestone step
+    (the MWN example's ``--lr_milestones``)."""
+    ms = tuple(int(m) for m in milestones)
+
+    def schedule(step):
+        return lr * gamma ** sum(step >= m for m in ms)
+
+    return schedule

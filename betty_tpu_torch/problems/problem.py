@@ -360,12 +360,15 @@ class Problem(abc.ABC):
             names = self.module_fn.rng_names
             rngs = {name: step_seed if i == 0 else utils.fold_rng_name(step_seed, name)
                     for i, name in enumerate(names)}
+        # only the first forward of the problem's own loss keeps its mutated
+        # collections (running statistics update once per step); the others
+        # run in the same mode without computing them
         mutable = self.module_fn.mutable_collections if self._training else ()
-        if mutable:
+        if (mutable and _ACTIVE_CAPTURE == self._name
+                and self._name not in _CAPTURED_MUTATIONS):
             out, mutated = self.module_fn.apply(variables, *args, train=self._training,
                                                 rngs=rngs, mutable=mutable, **kwargs)
-            if _ACTIVE_CAPTURE == self._name and self._name not in _CAPTURED_MUTATIONS:
-                _CAPTURED_MUTATIONS[self._name] = mutated
+            _CAPTURED_MUTATIONS[self._name] = mutated
             return out
         return self.module_fn.apply(variables, *args, train=self._training, rngs=rngs,
                                     mutable=(), **kwargs)

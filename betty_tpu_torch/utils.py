@@ -13,6 +13,16 @@ import numpy as np
 import torch
 
 
+def require_device(device, who: str) -> torch.device:
+    """``torch.device(device)``; raises if it is a CUDA device and there is
+    no card (no entry point falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device 'cuda' requested but no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    return device
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over trees of the same structure."""
     if isinstance(tree, dict):

@@ -3,6 +3,7 @@
     python3 chip_smoke.py                          # every phase (needs one card)
     python3 chip_smoke.py --phases kernels         # build and check the kernels only
     python3 chip_smoke.py --phases kernels,long    # ... and the S1024 runs
+    python3 chip_smoke.py --phases kernels,mwn     # ... and the ResNet-32 MWN runs
 
 Phases:
 
@@ -56,6 +57,19 @@ Phases:
    the CPU (the multi-tile path); then SAMA reweighting of the RoBERTa-large
    encoder at B8 S1024 with ``--flash``: two meta-periods and one more
    under the profiler (flash device time split by input dtype).
+5. mwn: the Meta-Weight-Net flagship (``examples/learning_to_reweight.py``),
+   which runs no kernel of the port (cuDNN convolutions and BatchNorm, as
+   the JAX package's are XLA's): a small run (a 3-block ResNet, B8, 3 darts
+   meta-periods, then 2 CG periods whose HVPs go forward-over-reverse
+   through BatchNorm) on the card against the CPU from the same weights,
+   in float64 within 1e-9 and in float32 at four weight seeds (reported:
+   a ReLU input within rounding of 0 may take the other branch on one
+   side); then the example's defaults (ResNet-32 at B128, MWN, darts,
+   unroll 1, fp32, data on the device): 3 warm-up and 20 timed
+   meta-periods (median and quartiles of s/meta-period, peak memory, no
+   launch of the port's kernels) and one under the profiler (busy and
+   idle share, device time by op class, launches); ``--baseline`` for 5
+   steps; ``entry()`` on the card against the CPU within 1e-5.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -714,9 +728,10 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
     return launches
 
 
-def profile_period(engine, unroll, tag):
+def profile_period(engine, unroll, tag, classify=None):
     """One more meta-period under ``torch.profiler``: device time by kernel
-    class, the flash kernels' split by input dtype, and the device's idle
+    class (``classify(kernel name)``, by default the port's own kernels and
+    matmuls), the flash kernels' split by input dtype, and the device's idle
     share over the period's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -754,7 +769,7 @@ def profile_period(engine, unroll, tag):
 
     by_kind, by_dtype = {}, {}
     for t, c, name in kernels:
-        k = kind(name)
+        k = (classify or kind)(name)
         by_kind[k] = by_kind.get(k, 0.0) + t
         if k.startswith("flash"):
             # the tensor-core kernels (mma_*) take bf16, the others their type argument
@@ -771,6 +786,251 @@ def profile_period(engine, unroll, tag):
         log(f"{tag} [profile]   {k} {dt}: {t:.2f} ms over {c} launches")
     for t, c, name in sorted(kernels, reverse=True)[:15]:
         log(f"{tag} [profile]   {t:9.2f} ms  x{c:<6d} {name[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "launches": sum(c for _, c, _ in kernels),
+            "by_kind": by_kind}
+
+
+# ---------------------------------------------------------------------------
+# mwn: the Meta-Weight-Net flagship (ResNet-32 with BatchNorm under an MLP
+# reweighter, darts, unroll 1, fp32), which runs no kernel of the port: its
+# convolutions and BatchNorm are cuDNN's through torch.nn.functional, as the
+# JAX package's are XLA's
+# ---------------------------------------------------------------------------
+
+RESNET32_PARAMS = 466_906
+MWN_SMALL_ARGV = ["--batch_size", "8", "--stage_sizes", "1,1,1", "--train_size", "256",
+                  "--meta_size", "64", "--train_iters", "3"]
+
+
+def _mwn_tree_err(a_states, b_states):
+    """Largest |difference| over both problems' params and batch_stats."""
+    err = 0.0
+    for name, a in a_states.items():
+        b = b_states[name]
+        for coll in ("params", "extra"):
+            ta, tb = a[coll], b[coll]
+            if coll == "extra":
+                ta, tb = ta.get("batch_stats", {}), tb.get("batch_stats", {})
+            assert set(ta) == set(tb)
+            err = max([err] + [float((ta[k].cpu() - tb[k].cpu()).abs().max()) for k in ta])
+    return err
+
+
+def mwn_small_phase(dtype_name="float64", seed=0):
+    """A small MWN run (a 3-block ResNet, B8) on the card and on the CPU
+    from the same weights (the ResNet's from ``seed``), in ``dtype_name``:
+    3 darts meta-periods, then 2 CG periods (3 iterations, ``hvp_mode``
+    "jvp", so that BatchNorm goes through forward-over-reverse). Returns
+    the largest difference of both problems' params and batch_stats after
+    each part. In float32 a ReLU input within rounding of 0 may take the
+    other branch on one side, which changes that step's gradient
+    discontinuously, so only the float64 run is held to a bound (1e-9)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from betty_tpu_torch.examples import learning_to_reweight as ex
+    from betty_tpu_torch.models import ResNet
+    from betty_tpu_torch.utils import tree_map
+
+    dtype = getattr(torch, dtype_name)
+    engines = {dev: ex.build_engine(ex.parse_args(MWN_SMALL_ARGV + ["--device", dev]))
+               for dev in ("cpu", "cuda")}
+    cpu = engines["cpu"]
+    cpu.states["classifier"]["params"] = {
+        k: t.detach() for k, t in ResNet((1, 1, 1), seed=seed).named_parameters()}
+    cpu.states = tree_map(
+        lambda t: t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t, cpu.states)
+    engines["cuda"].states = tree_map(lambda t: t.to("cuda") if torch.is_tensor(t) else t,
+                                      cpu.states)
+    for eng in engines.values():
+        for prob in eng.problems:
+            for loader in prob.train_data_loader:
+                loader.arrays = (loader.arrays[0].astype(np.dtype(dtype_name)),
+                                 *loader.arrays[1:])
+    errs = []
+    for solver in ("darts", "cg"):
+        for eng in engines.values():
+            if solver == "cg":
+                eng.classifier._config = dataclasses.replace(eng.classifier.config, type="cg",
+                                                             cg_iterations=3)
+                eng.train_iters = 2
+            eng.run()
+        torch.cuda.synchronize()
+        errs.append(_mwn_tree_err(cpu.states, engines["cuda"].states))
+    counts = [(e.classifier.count, e.reweight.count) for e in engines.values()]
+    finite = all(bool(torch.isfinite(t).all()) for s in engines["cuda"].states.values()
+                 for t in (*s["params"].values(), *s["extra"].get("batch_stats", {}).values()))
+    held = dtype_name == "float64"
+    log(f"[mwn small] 3-block ResNet B8 {dtype_name} seed {seed}, card vs CPU: max |param or "
+        f"batch_stats diff| {errs[0]:.3e} after 3 darts periods, {errs[1]:.3e} after 2 more CG "
+        f"periods ({'tol 1e-9' if held else 'reported'}); counts {counts}; finite {finite}")
+    assert counts == [(5, 5), (5, 5)] and finite, (counts, finite)
+    if held:
+        assert max(errs) <= 1e-9, errs
+    del engines, cpu
+    _free()
+    return errs
+
+
+def _op_class(name):
+    """Op class of a CUDA kernel by its name, for the MWN profile."""
+    n = name.lower()
+    if "batch_norm" in n or "batchnorm" in n or re.search(r"\bbn_", n):
+        return "BatchNorm"
+    if any(w in n for w in ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit_gemm",
+                            "cudnn")):
+        return "convolution"
+    if any(w in n for w in ("gemm", "gemv", "cublas", "cutlass", "matmul", "dot_kernel")):
+        return "matmul"
+    if "elementwise" in n or "unrolled" in n or "foreach" in n:
+        return "elementwise"
+    if "reduce" in n:
+        return "reduction"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    return "other"
+
+
+def _wrap_periods(engine):
+    """Record the host clock after each reweight step (or, single-level,
+    each classifier step), device synchronised; returns the list."""
+    import torch
+
+    ends = []
+    prob = getattr(engine, "reweight", engine.classifier)
+    orig = prob.one_step_descent
+
+    def record(*a, **kw):
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        ends.append(time.time())
+        return out
+
+    prob.one_step_descent = record
+    return ends
+
+
+def _quartiles(xs):
+    xs = sorted(xs)
+    q = lambda f: xs[min(len(xs) - 1, int(round(f * (len(xs) - 1))))]  # noqa: E731
+    return q(0.25), q(0.5), q(0.75)
+
+
+def mwn_slice_phase(warmup=3, steady=20):
+    """The example's defaults on the card (ResNet-32, B128, MWN 100 hidden,
+    darts, unroll 1, fp32, SGD/Adam) with the data on the device:
+    ``warmup`` meta-periods, then ``steady`` timed ones (median and spread
+    of s/meta-period), then one under the profiler (busy and idle share,
+    device time by op class, launches); peak memory. No kernel of the port
+    may launch."""
+    import torch
+    from betty_tpu_torch.examples import learning_to_reweight as ex
+    from betty_tpu_torch.ops import flash_attention as fa
+    from betty_tpu_torch.ops import vector as vec
+
+    tag = "[mwn slice]"
+    argv = ["--device_data", "--device", "cuda", "--train_iters", str(warmup + steady)]
+    t0 = time.time()
+    engine = ex.build_engine(ex.parse_args(argv))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in engine.states["classifier"]["params"].values())
+    log(f"{tag} argv: {' '.join(argv)} (defaults otherwise); build_engine "
+        f"{time.time() - t0:.1f} s; classifier parameters {n_params}")
+    assert n_params == RESNET32_PARAMS, n_params
+    ends = _wrap_periods(engine)
+    rw_before = {k: t.clone() for k, t in engine.states["reweight"]["params"].items()}
+    stats_before = {k: t.clone()
+                    for k, t in engine.states["classifier"]["extra"]["batch_stats"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fa.reset_launch_counts()
+    vec.reset_launch_counts()
+    t0 = time.time()
+    engine.run()
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ours = {**{k: f.launches for k, f in fa.KERNELS.items()},
+            **{k: getattr(vec, k).launches for k in VECTOR_KERNELS}}
+    periods = [b - a for a, b in zip([t0] + ends, ends)]
+    q1, med, q3 = _quartiles(periods[warmup:])
+    log(f"{tag} meta-period seconds {periods}")
+    log(f"{tag} steady s/meta-period over {steady} periods after {warmup}: median {med:.6f}, "
+        f"quartiles {q1:.6f} / {q3:.6f} (IQR {q3 - q1:.6f}), min {min(periods[warmup:]):.6f}, "
+        f"max {max(periods[warmup:]):.6f}; warm-up {periods[:warmup]}; run {elapsed:.3f} s")
+    log(f"{tag} max_memory_allocated {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB allocated "
+        f"when the run started); launches of the port's kernels {ours}")
+    counts = (engine.classifier.count, engine.reweight.count)
+    assert counts == (warmup + steady,) * 2, counts
+    assert all(n == 0 for n in ours.values()), ours
+    assert any(not torch.equal(rw_before[k], t)
+               for k, t in engine.states["reweight"]["params"].items()), "reweight did not move"
+    stats = engine.states["classifier"]["extra"]["batch_stats"]
+    assert any(not torch.equal(stats_before[k], t) for k, t in stats.items())
+    assert all(bool(torch.isfinite(t).all()) for s in engine.states.values()
+               for t in (*s["params"].values(), *s["extra"].get("batch_stats", {}).values()))
+    prof = profile_period(engine, 1, tag, classify=_op_class)
+    assert prof is not None and prof["busy_ms"] > 0, "no device time in the profiled period"
+    del engine
+    _free()
+
+
+def mwn_baseline_phase(steps=5):
+    """``--baseline`` (the classifier alone, plain mean loss) for ``steps``
+    steps at the defaults on the card."""
+    import torch
+    from betty_tpu_torch.examples import learning_to_reweight as ex
+
+    engine = ex.build_engine(ex.parse_args(["--baseline", "--device_data", "--device", "cuda",
+                                            "--train_iters", str(steps)]))
+    ends = _wrap_periods(engine)
+    before = {k: t.clone() for k, t in engine.states["classifier"]["params"].items()}
+    t0 = time.time()
+    engine.run()
+    steps_s = [b - a for a, b in zip([t0] + ends, ends)]
+    log(f"[mwn baseline] {steps} classifier steps at B128: seconds {steps_s}")
+    assert engine.classifier.count == steps and list(engine.states) == ["classifier"]
+    params = engine.states["classifier"]["params"]
+    assert all(bool(torch.isfinite(t).all()) for t in params.values())
+    assert any(not torch.equal(before[k], t) for k, t in params.items())
+    del engine
+    _free()
+
+
+def mwn_entry_phase():
+    """``betty_tpu_torch.entry.entry()`` on the card against the CPU from
+    the same weights, on its own zero batch and on a random one: losses
+    within 1e-5 relative."""
+    import torch
+    from betty_tpu_torch.entry import entry
+    from betty_tpu_torch.utils import tree_map
+
+    step_cpu, args_cpu = entry("cpu")
+    step_gpu, _ = entry()
+    gen = torch.Generator().manual_seed(0)
+    batches = [args_cpu[2:], (torch.randn(32, 32, 32, 3, generator=gen),
+                              torch.randint(0, 10, (32,), generator=gen))]
+    errs = []
+    for images, labels in batches:
+        want = step_cpu(*args_cpu[:2], images, labels)
+        got = step_gpu(*tree_map(lambda t: t.cuda(), (*args_cpu[:2], images, labels)))
+        assert bool(torch.isfinite(got)), got
+        errs.append(abs(float(got) - float(want)) / max(abs(float(want)), 1e-30))
+        log(f"[mwn entry] loss card {float(got):.8f} CPU {float(want):.8f} (relative "
+            f"difference {errs[-1]:.3e}, tol 1e-5)")
+    assert max(errs) <= 1e-5, errs
+
+
+def mwn_phase():
+    t0 = time.time()
+    mwn_small_phase("float64")
+    for seed in range(4):
+        mwn_small_phase("float32", seed)
+    mwn_slice_phase()
+    mwn_baseline_phase()
+    mwn_entry_phase()
+    log(f"[mwn] phase done in {time.time() - t0:.1f} s")
 
 
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
@@ -938,7 +1198,7 @@ def sass_report(lib_paths, head_dims):
         raise AssertionError(f"kernels without the instructions of their design: {bad}")
 
 
-PHASES = ("kernels", "slice", "long")
+PHASES = ("kernels", "slice", "long", "mwn")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -968,7 +1228,8 @@ def _flash_row(name, worst, rows, launches):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="kernels (always run), slice (S128 runs), long (S1024 runs)")
+                    help="kernels (always run), slice (S128 runs), long (S1024 runs), mwn "
+                         "(ResNet-32 Meta-Weight-Net)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -1022,6 +1283,8 @@ def main(argv=None):
         small_run_phase("sama", seq_len=1024, batch=2)
         sama = slice_phase("sama", expected=SAMA_S1024, seq_len=1024, batch=8)
         launches.update({k: sama[k] for k in MULTI_KERNELS})
+    if "mwn" in phases:
+        mwn_phase()
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

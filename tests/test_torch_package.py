@@ -13,11 +13,13 @@ import torch
 from betty_tpu.data import ArrayLoader as JArrayLoader
 from betty_tpu_torch import Config, Engine, EngineConfig
 from betty_tpu_torch.data import ArrayLoader
+from betty_tpu_torch.entry import entry
 from betty_tpu_torch.examples import bert_data_reweighting as tex
+from betty_tpu_torch.examples import learning_to_reweight as mwn
 from betty_tpu_torch.hypergradient import _solver, cg, neumann
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "betty_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "betty_tpu", "examples", "mwn_data", "vision_data")
 
 
 def _imports(path):
@@ -33,7 +35,9 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
     files = sorted((ROOT / "betty_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     for new in ("ops/vector.py", "ops/_build.py", "hypergradient/hvp.py", "hypergradient/cg.py",
-                "hypergradient/neumann.py", "examples/logistic_regression_hpo.py"):
+                "hypergradient/neumann.py", "examples/logistic_regression_hpo.py",
+                "models/batchnorm.py", "models/resnet.py", "examples/learning_to_reweight.py",
+                "examples/mwn_data.py", "examples/vision_data.py", "entry.py"):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -57,6 +61,11 @@ def test_unported_options_raise():
                                "2", flag])
         with pytest.raises(NotImplementedError):
             tex.build_engine(args)
+    for flags, section in ((["--checkpoint_dir", "ckpt"], "§A.4"), (["--compile_blocks"], "§A.2"),
+                           (["--strategy", "fsdp"], "§A.7")):
+        args = mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1", *flags])
+        with pytest.raises(NotImplementedError, match=section):
+            mwn.build_engine(args)
 
 
 def test_engine_defaults_to_cuda():
@@ -65,6 +74,12 @@ def test_engine_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(problems=[], config=EngineConfig(train_iters=1))
     assert tex.parse_args([]).device == "cuda"
+    assert mwn.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mwn.build_engine(mwn.parse_args(["--stage_sizes", "1,1,1", "--train_size", "8",
+                                         "--meta_size", "8", "--batch_size", "4"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
 
 
 @pytest.mark.parametrize("device", [False, "cpu"])
