@@ -8,14 +8,19 @@ fields have no meaning and are accepted but inert:
   scaling; ``"fp16"`` is treated as ``"bf16"``), ``retain_graph``,
   ``allow_unused`` and ``shard_rules``.
 * ``EngineConfig``: ``backend``, ``mesh_shape``, ``autoshard_data``,
-  ``donate_state``, ``compile_cache_dir``, ``rng_impl``, ``block_periods``
-  and ``profile_dir``. ``strategy`` must be ``"default"``.
+  ``compile_cache_dir``, ``rng_impl`` and ``profile_dir``; ``donate_state``
+  has no counterpart, since a compiled block's graph updates its static
+  state tensors in place. ``strategy`` must be ``"default"``.
+
+``compile_blocks=True`` runs the steady schedule as compiled blocks
+(``betty_tpu_torch/compile.py``: on CUDA one graph replay a meta-period);
+``block_periods`` is the periods a block (0: the JAX package's automatic
+size, the validation cadence over the period, at most 32).
 
 ``Config.hvp_mode`` other than ``"jvp"``/``"vjp"`` raises, as the JAX
 package's ``make_hvp`` does. Options of the JAX package that the port does
-not have yet raise when set: ``Config.remat``,
-``EngineConfig.compile_blocks``, any other ``strategy``, and engine
-checkpointing (``checkpoint_step > 0`` or ``auto_resume``).
+not have yet raise when set: ``Config.remat``, any other ``strategy``, and
+engine checkpointing (``checkpoint_step > 0`` or ``auto_resume``).
 """
 
 from dataclasses import dataclass
@@ -110,9 +115,6 @@ class EngineConfig:
     auto_resume: bool = False
 
     def __post_init__(self):
-        if self.compile_blocks:
-            raise NotImplementedError(
-                "EngineConfig.compile_blocks: compiled blocks are not ported yet")
         if self.strategy != "default":
             raise NotImplementedError(
                 f"EngineConfig.strategy={self.strategy!r}: the port runs on one card "

@@ -1,13 +1,16 @@
 """Engine: dependency-graph parsing and the training-loop driver.
 
-Counterpart of ``betty_tpu/engine.py`` in driver mode. The graph mechanics
+Counterpart of ``betty_tpu/engine.py``. The graph mechanics
 (``find_paths`` DFS, leaf detection, name-attribute injection, the step
 recursion driven from the leaves) keep the reference's semantics;
 ``configure_systems`` only chooses the device: ``"cuda"`` unless the caller
 passes another. States live in ``engine.states`` (name -> state dict).
+``EngineConfig(compile_blocks=True)`` runs the steady schedule as compiled
+blocks (``run_compiled``, ``betty_tpu_torch/compile.py``): on CUDA one
+graph replay a meta-period.
 
-Not ported in this slice: compiled blocks, meshes and strategies other than
-one device, profiling, and engine checkpoints.
+Not ported yet: meshes and strategies other than one device, profiling,
+and engine checkpoints.
 """
 
 import time
@@ -42,6 +45,7 @@ class Engine:
         self._roll_back = False
 
         self.states: Dict[str, dict] = {}
+        self.block_runner = None
 
         self.initialize()
 
@@ -175,18 +179,99 @@ class Engine:
             leaf.step(global_step=self.global_step)
 
     def run(self):
+        if self.config.compile_blocks:
+            return self.run_compiled()
+        return self._run_driver()
+
+    def _run_driver(self):
         self.train()
         for _ in range(1, self.train_iters + 1):
             self.global_step += 1
             self.train_step()
-            if self.maybe_validate():
+            if self.maybe_validate(window=1):
                 break
         self.cleanup()
 
-    def maybe_validate(self) -> bool:
-        """Validation on the ``valid_step`` cadence; True when early stopping
-        fires."""
-        if not (self.do_validation() and self.global_step % self.valid_step == 0):
+    def run_compiled(self):
+        """Compiled-block training loop (``betty_tpu/engine.py``'s
+        ``run_compiled``): driver mode until the schedule reaches the
+        simulator's steady phase and every problem is past its warm-up, then
+        blocks of K periods (``compile.BlockRunner``), then the remainder in
+        driver mode. Numerically equal to driver mode. The last runner is
+        kept as ``block_runner``."""
+        from betty_tpu_torch.compile import BlockRunner
+
+        try:
+            probe = BlockRunner(self, schedule_only=True)
+        except RuntimeError as e:
+            # no periodic, causally complete block boundary for this
+            # schedule: driver mode computes the same numbers
+            self.logger.info(f"[compile_blocks] falling back to driver mode: {e}")
+            return self._run_driver()
+        self.train()
+        it = 0
+        stopped = False
+
+        def steady():
+            return probe.live_phase() == probe.initial_phase and all(
+                p.warmup_steps == 0 or p._count > p.warmup_steps for p in self.problems)
+
+        while it < self.train_iters and not steady():
+            it += 1
+            self.global_step += 1
+            self.train_step()
+            if self.maybe_validate(window=1):
+                stopped = True
+                break
+
+        # a block spans at most one validation boundary, so validation and
+        # early stopping see what driver mode sees
+        remaining = self.train_iters - it
+        cadence = max(1, self.valid_step if self.do_validation() else remaining)
+        K = self.config.block_periods
+        if K <= 0:
+            K = min(max(1, min(cadence, max(remaining, 1), 512) // probe.period), 32)
+        else:
+            K = max(1, min(K, max(1, cadence // probe.period)))
+        if probe.period > cadence:
+            self.logger.info(
+                f"[compile_blocks] schedule period {probe.period} exceeds the validation "
+                f"cadence {cadence}: boundary actions run once per period (coarsened cadence)")
+        period = probe.period * K
+        runner = None
+        if not stopped and remaining >= period:
+            runner = self.block_runner = BlockRunner(self, periods=K)
+        elif not stopped:
+            self.logger.info(
+                f"[compile_blocks] no blocks dispatched: {remaining} iterations remain after "
+                f"the {it}-iteration warmup prefix, below the block size {period}")
+
+        while not stopped and it + period <= self.train_iters:
+            last_loss = runner.run_block()
+            it += period
+            self.global_step += period
+            for p in self.problems:
+                if p.log_step > 0 and p.name in last_loss:
+                    p.log(last_loss[p.name], self.global_step)
+            if self.maybe_validate(window=period):
+                stopped = True
+
+        # the remainder runs in driver mode, from the blocks' roll-back caches
+        if runner is not None:
+            runner.finalize()
+        if not stopped:
+            for _ in range(self.train_iters - it):
+                self.global_step += 1
+                self.train_step()
+                if self.maybe_validate(window=1):
+                    break
+        self.cleanup()
+
+    def maybe_validate(self, window: int = 1) -> bool:
+        """Validation on the ``valid_step`` cadence; a window of W means the
+        global step just advanced by W iterations, and a multiple of
+        ``valid_step`` inside it triggers. True when early stopping fires."""
+        if not (self.do_validation() and self.global_step % self.valid_step < window):
             return False
         self.eval()
         validation_stats = self.validation() or {}

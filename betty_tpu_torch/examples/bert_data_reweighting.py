@@ -13,9 +13,10 @@ to the classifier, whose config chooses the hypergradient solver.
 
     python -m betty_tpu_torch.examples.bert_data_reweighting --model large --flash
 
-Weights are random, made from a seed. Not ported yet: real SST-2
-(``--data-dir``), HuggingFace checkpoints (``--hf_model``), ``--remat``,
-``--compile_blocks`` and strategies other than one device.
+Weights are random, made from a seed. ``--compile_blocks`` runs the steady
+schedule as compiled blocks (on CUDA one graph replay a meta-period). Not
+ported yet: real SST-2 (``--data-dir``), HuggingFace checkpoints
+(``--hf_model``), ``--remat`` and strategies other than one device.
 """
 
 import argparse
@@ -149,7 +150,8 @@ def parse_args(argv=None):
                    help="attention through the CUDA kernels (darts/sama only)")
     p.add_argument("--remat", action="store_true", help="not ported yet: raises")
     p.add_argument("--dropout", type=float, default=0.1)
-    p.add_argument("--compile_blocks", action="store_true", help="not ported yet: raises")
+    p.add_argument("--compile_blocks", action="store_true",
+                   help="compiled blocks: one CUDA graph replay a meta-period")
     p.add_argument("--device_data", action="store_true",
                    help="keep the datasets on the device and gather batches there")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")

@@ -17,9 +17,10 @@ training, and ``--retrain`` samples the kept set by them.
         --batch_size 8 --train_size 64 --meta_size 32 --train_iters 4
 
 ``--stage_sizes`` cuts the depth (``1,1,1`` is a 3-block ResNet).
-Not ported yet: ``--checkpoint_dir`` (ROADMAP.md §A.4),
-``--compile_blocks`` (§A.2) and strategies other than one device (§A.7);
-each raises.
+``--compile_blocks`` runs the steady schedule as compiled blocks (on CUDA
+one graph replay a meta-period; with ``--device_data`` the batches are
+gathered inside the graph). Not ported yet: ``--checkpoint_dir`` (ROADMAP.md
+§A.4) and strategies other than one device (§A.7); each raises.
 """
 
 import argparse
@@ -55,6 +56,9 @@ class BatchLoader(ArrayLoader):
         super().__init__(x, np.asarray(y, np.int64), batch_size=batch_size, seed=seed,
                          drop_last=drop_last, device=device)
         self.augment = augment
+        # without augmentation postprocess passes batches through, so compiled
+        # blocks may gather them on the device
+        self.postprocess_is_identity = not augment
         self._aug_rng = np.random.RandomState(seed + 77)
 
     def postprocess(self, batch):
@@ -146,9 +150,6 @@ def _check_ported(args):
     if args.checkpoint_dir:
         raise NotImplementedError("--checkpoint_dir: engine checkpoints are not ported yet "
                                   "(ROADMAP.md §A.4)")
-    if args.compile_blocks:
-        raise NotImplementedError("--compile_blocks: compiled blocks are not ported yet "
-                                  "(ROADMAP.md §A.2)")
     if args.strategy != "default":
         raise NotImplementedError(f"--strategy {args.strategy}: the port runs on one card "
                                   "(ROADMAP.md §A.7)")
@@ -190,7 +191,8 @@ def build_engine(args):
     classifier_opt = optim.sgd(lr=args.lr, momentum=args.momentum,
                                weight_decay=args.weight_decay, nesterov=True,
                                schedule=make_schedule(args))
-    engine_config = EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step)
+    engine_config = EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step,
+                                 compile_blocks=args.compile_blocks)
 
     if args.baseline or args.retrain:
         # one problem, no dependency edges, plain mean cross-entropy
@@ -276,7 +278,8 @@ def parse_args(argv=None):
     p.add_argument("--lr_schedule", action="store_true")
     p.add_argument("--lr_milestones", type=str, default=None,
                    help="comma-separated steps of a MultiStepLR, e.g. '10000,13000'")
-    p.add_argument("--compile_blocks", action="store_true", help="not ported yet: raises")
+    p.add_argument("--compile_blocks", action="store_true",
+                   help="compiled blocks: one CUDA graph replay a meta-period")
     p.add_argument("--device_data", action="store_true",
                    help="keep the datasets on the device and gather batches there")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")

@@ -5,7 +5,8 @@ learns a per-parameter weight-decay vector; the inner problem fits logistic
 regression under that penalty. The solver is cg, darts or neumann, with
 ``unroll_steps=100``, the inner weights reset to zero at the start of each
 unroll (``on_inner_loop_start``) and the outer weights clamped to at least
-1e-8 after each step (``param_callback``).
+1e-8 after each step (``param_callback``). ``--compile_blocks`` runs it as
+compiled blocks.
 
     python -m betty_tpu_torch.examples.logistic_regression_hpo --solver cg --device cpu
 """
@@ -90,7 +91,7 @@ def build_engine(args, inner_config=None):
         config=inner_config,
     )
     engine = Engine(
-        config=EngineConfig(train_iters=args.train_iters),
+        config=EngineConfig(train_iters=args.train_iters, compile_blocks=args.compile_blocks),
         problems=[outer, inner],
         dependencies={"u2l": {outer: [inner]}, "l2u": {inner: [outer]}},
         device=device,
@@ -114,6 +115,8 @@ def parse_args(argv=None):
     p.add_argument("--dim", type=int, default=20)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_step", type=int, default=-1)
+    p.add_argument("--compile_blocks", action="store_true",
+                   help="compiled blocks: one CUDA graph replay a meta-period")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     return p.parse_args(argv)
 

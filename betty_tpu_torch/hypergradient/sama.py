@@ -7,7 +7,7 @@ the best-response-Jacobian product."""
 import torch
 
 from betty_tpu_torch.hypergradient.darts import central_difference
-from betty_tpu_torch.utils import tree_map
+from betty_tpu_torch.utils import tree_leaves, tree_map
 
 
 def precondition(vector, curr, curr_state):
@@ -29,7 +29,7 @@ def precondition_adam(vector, curr, curr_state):
     assert last_grad is not None, (
         "SAMA requires last_grad state; is curr's config.type == 'sama'?")
     b1, b2 = opt.betas
-    lr = opt.schedule(curr_state["sched_step"]) if opt.schedule is not None else opt.lr
+    lr = opt.lr_at(curr_state["sched_step"], tree_leaves(vector)[0])
     eps = opt.eps
 
     def precond_leaf(v, m, n, lg):

@@ -16,8 +16,8 @@ with flax ``MultiHeadDotProductAttention``'s attention dropout (one keep
 mask over (query, key), broadcast across batch and heads, 1/keep scaling).
 
 Dropout draws its masks from a ``torch.Generator`` seeded with
-``rngs["dropout"]``, so a forward repeated with the same seed draws the same
-masks. ``remat`` / ``remat_policy`` and ``make_pipelined_transformer`` are
+``rngs["dropout"]`` (``utils.seeded_generator``), so a forward repeated
+with the same seed draws the same masks. ``remat`` / ``remat_policy`` and ``make_pipelined_transformer`` are
 not ported yet.
 """
 
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from betty_tpu_torch.models.init import lecun_normal_, normal_
 from betty_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from betty_tpu_torch.utils import seeded_generator
 
 
 def _linear(d_in, d_out, device, generator):
@@ -154,7 +155,7 @@ class TransformerClassifier(nn.Module):
             if not rngs or "dropout" not in rngs:
                 raise ValueError("TransformerClassifier: train-mode dropout needs "
                                  "rngs={'dropout': seed}")
-            generator = torch.Generator(device=x.device).manual_seed(rngs["dropout"])
+            generator = seeded_generator(rngs["dropout"], x.device)
         x = _dropout(x, self.dropout, generator)
         for block in self.blocks:
             x = block(x, kv_mask=pad_mask, generator=generator)

@@ -13,7 +13,12 @@ reproduces its optax chain step for step:
 
 ``scale_by_adam`` keeps raw (not bias-corrected) moments ``mu``/``nu`` and
 a step count, bias-corrects with ``1 - beta**count`` computed in float32 as
-optax does, and puts ``eps`` outside the square root. ``adam_moments``
+optax does, and puts ``eps`` outside the square root. The bias corrections
+and a scheduled learning rate are computed on the host and enter the step
+as 0-d device tensors (``utils.step_scalar``): on CUDA a division by a
+Python number multiplies by its reciprocal, a division by a tensor
+divides as optax does, and a compiled block refreshes them before every
+replay of its captured period. ``adam_moments``
 returns the raw moments, the layout SAMA's preconditioner reads. Both
 ``adam`` and ``adamw`` have ``kind="adam"``.
 
@@ -29,7 +34,9 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from betty_tpu_torch.utils import tree_map, tree_zeros_like
+import functools
+
+from betty_tpu_torch.utils import step_scalar, tree_leaves, tree_map, tree_zeros_like
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -61,9 +68,11 @@ class Optimizer:
             return {"trace": tree_zeros_like(params)}
         return {}
 
-    def _lr(self, sched_step):
+    def lr_at(self, sched_step, like):
+        """The learning rate of step ``sched_step``: the constant ``lr``, or
+        the schedule's value as a 0-d tensor like ``like``."""
         if self.schedule is not None and sched_step is not None:
-            return self.schedule(sched_step)
+            return step_scalar(self.schedule, sched_step, like)
         return self.lr
 
     def update(self, grads, opt_state, params, sched_step=None):
@@ -76,7 +85,9 @@ class Optimizer:
             mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, u, opt_state["mu"])
             nu = tree_map(lambda g, n: (1 - b2) * (g * g) + b2 * n, u, opt_state["nu"])
             count = opt_state["count"] + 1
-            bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+            like = tree_leaves(mu)[0]
+            bc1 = step_scalar(functools.partial(_bias_correction, b1), count, like)
+            bc2 = step_scalar(functools.partial(_bias_correction, b2), count, like)
             eps = self.eps
             u = tree_map(lambda m, n: (m / bc1) / (torch.sqrt(n / bc2) + eps), mu, nu)
             if wd and self.decoupled:
@@ -92,7 +103,7 @@ class Optimizer:
                 trace = tree_map(lambda g, t: g + mom * t, u, opt_state["trace"])
                 u = tree_map(lambda g, t: g + mom * t, u, trace) if self.nesterov else trace
                 new_state = {"trace": trace}
-        lr = self._lr(sched_step)
+        lr = self.lr_at(sched_step, tree_leaves(u)[0])
         updates = tree_map(lambda x: -x * lr, u)
         return updates, new_state
 

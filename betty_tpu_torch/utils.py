@@ -108,11 +108,91 @@ def clip_by_global_norm(tree, max_norm):
 
 def fold_in(seed: int, data: int) -> int:
     """Derive a new 63-bit seed from ``seed`` and ``data`` (the counterpart of
-    ``jax.random.fold_in`` for integer seeds; a splitmix64 round)."""
-    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E5) & 0xFFFFFFFFFFFFFFFF
+    ``jax.random.fold_in`` for integer seeds; a splitmix64 round). Folding a
+    :class:`StepSeed` gives a ``StepSeed`` that remembers the fold."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(data) + 0x632BE59BD9B4E5) & 0xFFFFFFFFFFFFFFFF
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
+    z = (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
+    if isinstance(seed, StepSeed):
+        return StepSeed(z, seed.base, seed.n, seed.chain + (int(data),))
+    return z
+
+
+class StepSeed(int):
+    """A seed ``fold_in(base, n)`` folded further by ``chain``, which keeps
+    that derivation: ``at(m)`` is the seed the same folds give at count
+    ``m``. Compiled blocks hand each event's update such a seed, so the
+    seeds a captured period draws can be derived again for every later
+    period without running it."""
+
+    def __new__(cls, value, base, n, chain=()):
+        seed = int.__new__(cls, value)
+        seed.base, seed.n, seed.chain = base, n, chain
+        return seed
+
+    @classmethod
+    def make(cls, base: int, n: int) -> "StepSeed":
+        return cls(fold_in(base, n), base, n)
+
+    def at(self, n: int) -> int:
+        seed = fold_in(self.base, n)
+        for data in self.chain:
+            seed = fold_in(seed, data)
+        return seed
+
+
+# ---------------------------------------------------------------------------
+# Per-step host values. A step reads a few values from the host: its
+# scheduled learning rate, Adam's bias corrections and the seeds of its
+# dropout generators. Driver mode makes them here for every step; a
+# compiled block (``betty_tpu_torch/compile.py``) installs a recorder that
+# serves them from static device buffers and generators it reseeds before
+# every replay of its captured period.
+# ---------------------------------------------------------------------------
+
+_STEP_VALUES = None
+
+
+class step_values:
+    """Scope in which ``step_scalar`` and ``seeded_generator`` go to
+    ``recorder`` (``.scalar(fn, n, dtype, device)`` and
+    ``.generator(seed, device)``)."""
+
+    def __init__(self, recorder):
+        self.recorder = recorder
+
+    def __enter__(self):
+        global _STEP_VALUES
+        self._saved = _STEP_VALUES
+        _STEP_VALUES = self.recorder
+        return self.recorder
+
+    def __exit__(self, *exc):
+        global _STEP_VALUES
+        _STEP_VALUES = self._saved
+        return False
+
+
+def step_scalar(fn, n: int, like: torch.Tensor) -> torch.Tensor:
+    """``fn(n)``, a per-step value computed on the host from the integer
+    ``n`` (a scheduler step, an optimizer count), as a 0-d tensor of
+    ``like``'s floating dtype (at least float32) on ``like``'s device. A
+    0-d device tensor, not a Python number: on CUDA, ``tensor / number``
+    multiplies by the reciprocal, while ``tensor / tensor`` divides as optax
+    does, and a captured period reads the value from device memory."""
+    dtype = torch.promote_types(like.dtype, torch.float32)
+    if _STEP_VALUES is not None:
+        return _STEP_VALUES.scalar(fn, n, dtype, like.device)
+    return torch.full((), float(fn(n)), dtype=dtype, device=like.device)
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (a module's
+    dropout stream for one forward)."""
+    if _STEP_VALUES is not None:
+        return _STEP_VALUES.generator(seed, device)
+    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def fold_rng_name(seed: int, name: str) -> int:

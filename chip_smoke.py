@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases kernels         # build and check the kernels only
     python3 chip_smoke.py --phases kernels,long    # ... and the S1024 runs
     python3 chip_smoke.py --phases kernels,mwn     # ... and the ResNet-32 MWN runs
+    python3 chip_smoke.py --phases kernels,compiled  # ... and compiled blocks (CUDA graphs)
 
 Phases:
 
@@ -70,6 +71,22 @@ Phases:
    launch of the port's kernels) and one under the profiler (busy and
    idle share, device time by op class, launches); ``--baseline`` for 5
    steps; ``entry()`` on the card against the CPU within 1e-5.
+6. compiled: compiled blocks (``betty_tpu_torch/compile.py``: one CUDA
+   graph replay a meta-period) against driver mode on the card. Driver-mode
+   Adam against optax's float32 arithmetic (bias corrections as 0-d device
+   tensors: no element may differ; as Python numbers, reported). Small runs,
+   compiled and twice in driver mode from the same weights, each with an
+   LR schedule that changes within the run and one replay a period (3 or
+   more): SAMA at S16 (dropout 0.1, Adam, B1/B2 in the graph), SAMA at
+   S1024 (B3-B5), CG and Neumann with the fused vector loops (B6-B8), the
+   3-block MWN in float64; compiled within the driver-vs-driver spread
+   (bit for bit where it is 0), one capture and one replay a period, each
+   kernel's launches recorded in the graph equal to driver mode's a
+   period, fresh dropout seeds every replay. Then the MWN flagship
+   (ResNet-32 B128, driver, compiled, compiled, driver; 3 + 20 timed
+   periods and a profiled one each) and S128 SAMA ``--flash`` (driver,
+   then compiled: a first period, 2 timed and a profiled one): period,
+   device busy and idle share, launches, capture time, peak memory.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -743,6 +760,15 @@ def profile_period(engine, unroll, tag, classify=None):
         engine.run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
+    return profile_report(prof, wall_ms, tag, classify)
+
+
+def profile_report(prof, wall_ms, tag, classify=None):
+    """Device time by kernel class of a finished ``torch.profiler`` run over
+    ``wall_ms`` of wall time (``profile_period``'s report); None when the
+    profiler recorded no device time."""
+    import torch
+
     kernels = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -777,6 +803,10 @@ def profile_period(engine, unroll, tag, classify=None):
             key = (k, "bf16" if bf16 else "fp32")
             prev = by_dtype.get(key, (0.0, 0))
             by_dtype[key] = (prev[0] + t, prev[1] + c)
+    counts = {}
+    for _, c, name in kernels:
+        if own(name):
+            counts[KERNEL_SYMBOLS[own(name)]] = counts.get(KERNEL_SYMBOLS[own(name)], 0) + c
     log(f"{tag} [profile] profiled meta-period: wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}, "
         f"{sum(c for _, c, _ in kernels)} kernel launches")
@@ -787,7 +817,7 @@ def profile_period(engine, unroll, tag, classify=None):
     for t, c, name in sorted(kernels, reverse=True)[:15]:
         log(f"{tag} [profile]   {t:9.2f} ms  x{c:<6d} {name[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "launches": sum(c for _, c, _ in kernels),
-            "by_kind": by_kind}
+            "by_kind": by_kind, "own_launches": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -1033,6 +1063,364 @@ def mwn_phase():
     log(f"[mwn] phase done in {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# compiled: compiled blocks (betty_tpu_torch/compile.py), one CUDA graph
+# replay a meta-period, against driver mode on the same card
+# ---------------------------------------------------------------------------
+
+
+def adam_rounding_check(n=1 << 20):
+    """Driver-mode Adam on the card against optax's arithmetic (numpy
+    float32, every operation rounded once): the port's update, whose bias
+    corrections are 0-d device tensors, and the same expression with them
+    as Python numbers, which CUDA divides by as products with their
+    reciprocals. The divisions themselves (m / bc1, n / bc2) are held: none
+    of the port's may differ; the whole update is reported (it also holds
+    the card's square root). Returns the counts by Adam count."""
+    import numpy as np
+    import torch
+    from betty_tpu_torch import optim
+
+    rs = np.random.RandomState(0)
+    g, p = (rs.randn(n).astype(np.float32) for _ in range(2))
+    mu = (0.1 * rs.randn(n)).astype(np.float32)
+    nu = (0.01 * rs.rand(n)).astype(np.float32)
+    b1, b2, eps, lr = 0.9, 0.999, 1e-8, 1e-3
+    out = {}
+    for count in (1, 10, 1000):
+        f = np.float32
+        m1 = f(1 - b1) * g + f(b1) * mu
+        n1 = f(1 - b2) * (g * g) + f(b2) * nu
+        bc1 = f(1.0) - f(b1) ** f(count)
+        bc2 = f(1.0) - f(b2) ** f(count)
+        want = -((m1 / bc1) / (np.sqrt(n1 / bc2) + f(eps))) * f(lr)
+        cuda = {k: torch.from_numpy(v).cuda() for k, v in (("g", g), ("p", p), ("mu", mu),
+                                                            ("nu", nu))}
+        opt = optim.adam(lr=lr)
+        upd, _ = opt.update({"w": cuda["g"]}, {"count": count - 1, "mu": {"w": cuda["mu"]},
+                                               "nu": {"w": cuda["nu"]}}, {"w": cuda["p"]})
+        m_t = (1 - b1) * cuda["g"] + b1 * cuda["mu"]
+        n_t = (1 - b2) * (cuda["g"] * cuda["g"]) + b2 * cuda["nu"]
+        old = -((m_t / float(bc1)) / (torch.sqrt(n_t / float(bc2)) + eps)) * lr
+
+        def differ(a, b):
+            return int((a.cpu().numpy() != b).sum())
+
+        bct = [torch.full((), float(b), device="cuda") for b in (bc1, bc2)]
+        div = {"tensor": differ(m_t / bct[0], m1 / bc1) + differ(n_t / bct[1], n1 / bc2),
+               "number": differ(m_t / float(bc1), m1 / bc1) + differ(n_t / float(bc2), n1 / bc2)}
+        out[count] = (div["tensor"], div["number"], differ(upd["w"], want), differ(old, want))
+        log(f"[compiled] Adam on the card against optax's float32 arithmetic, count {count}: "
+            f"m / bc1 and n / bc2 differ in {div['tensor']} of {2 * n} elements with the bias "
+            f"corrections as 0-d device tensors (the port), {div['number']} as Python numbers "
+            f"(a product with the reciprocal on CUDA); the whole update in {out[count][2]} / "
+            f"{out[count][3]} of {n}")
+    assert all(v[0] == 0 for v in out.values()), out
+    return out
+
+
+def _state_err(a_states, b_states):
+    """Largest |difference| over every tensor of two engines' states (inf
+    where either holds a NaN); the integer leaves must be equal."""
+    import torch
+    from betty_tpu_torch.compile import _paths
+
+    err = 0.0
+    for name, a in a_states.items():
+        pa, pb = dict(_paths(a)), dict(_paths(b_states[name]))
+        assert set(pa) == set(pb), name
+        for k, x in pa.items():
+            if torch.is_tensor(x):
+                d = (x.double() - pb[k].double().to(x.device)).abs()
+                err = max(err, float(torch.nan_to_num(d, nan=math.inf).max()))
+            else:
+                assert x == pb[k], (name, k, x, pb[k])
+    return err
+
+
+class _CaptureWatch:
+    """Reads the launch counters around each capture (the launches recorded
+    into the graph, which every replay repeats) and the values the runner
+    writes before each period."""
+
+    def __init__(self, counters):
+        from betty_tpu_torch import compile as comp
+
+        self.comp, self.counters = comp, counters
+        self.per_replay, self.written = {}, []
+        self._capture, self._write = comp.BlockRunner._capture, comp._Slots.write
+
+    def __enter__(self):
+        watch = self
+
+        def capture(runner, collected):
+            before = {k: c.launches for k, c in watch.counters.items()}
+            watch._capture(runner, collected)
+            watch.per_replay = {k: c.launches - before[k] for k, c in watch.counters.items()}
+
+        def write(slots, r):
+            out = watch._write(slots, r)
+            watch.written.append(out)
+            return out
+
+        self.comp.BlockRunner._capture, self.comp._Slots.write = capture, write
+        return self
+
+    def __exit__(self, *exc):
+        self.comp.BlockRunner._capture, self.comp._Slots.write = self._capture, self._write
+        return False
+
+
+COMPILED_SMALL = {  # name: (bert example argv, solver, periods); SAMA gathers its batches
+    # on the device inside the graph, CG and Neumann copy host batches in
+    "sama S16": (["--seq_len", "16", "--flash", "--device_data"], "sama", 4),
+    "sama S1024": (["--seq_len", "1024", "--flash", "--batch_size", "2", "--device_data"],
+                   "sama", 3),
+    "cg": ([], "cg", 3),
+    "neumann": ([], "neumann", 3),
+}
+
+
+def _compiled_small_engine(name, compiled):
+    import torch
+    from betty_tpu_torch import optim
+    from betty_tpu_torch.utils import tree_map
+
+    if name == "mwn f64":
+        from betty_tpu_torch.examples import learning_to_reweight as ex
+
+        argv = MWN_SMALL_ARGV + ["--device", "cuda", "--train_iters", "4", "--lr_milestones",
+                                 "2", "--device_data"]
+        engine = ex.build_engine(ex.parse_args(argv + (["--compile_blocks"] if compiled
+                                                       else [])))
+        engine.states = tree_map(lambda t: t.double() if torch.is_tensor(t)
+                                 and t.is_floating_point() else t, engine.states)
+        for prob in engine.problems:
+            for loader in prob.train_data_loader:
+                loader.arrays = (loader.arrays[0].double(), *loader.arrays[1:])
+        periods, hypergradient = 4, "mwn"
+    else:
+        from betty_tpu_torch.examples import bert_data_reweighting as ex
+
+        extra, hypergradient, periods = COMPILED_SMALL[name]
+        argv = SMALL_ARGV + ["--hypergradient", hypergradient, "--device", "cuda"]
+        flags = iter(extra)
+        for flag in flags:
+            if flag in ("--flash", "--device_data"):
+                argv.append(flag)
+            else:
+                argv[argv.index(flag) + 1] = next(flags)
+        argv[argv.index("--dropout") + 1] = "0.1"
+        argv[argv.index("--train_iters") + 1] = str(2 * periods)
+        engine = ex.build_engine(ex.parse_args(argv + (["--compile_blocks"] if compiled
+                                                       else [])),
+                                 **SOLVER_CONFIG[hypergradient])
+        # a learning rate that changes within the run: a per-step value
+        engine.classifier.optimizer.schedule = optim.step_lr(2e-5, step_size=3, gamma=0.5)
+    engine.config.block_periods = 1
+    return engine, hypergradient, periods
+
+
+def compiled_small_phase(name):
+    """A small run compiled (one replay a period) against driver mode, both
+    on the card from the same weights, and driver mode against itself (the
+    spread that cuDNN's or cuBLAS's choices may leave): compiled must be
+    within that spread (bit for bit where it is 0). Holds the runner's
+    counts (one capture, one replay a period, no driver fallback), each
+    kernel's launches a replay against driver mode's a period, and that the
+    dropout seeds of consecutive replays differ."""
+    import torch
+
+    # cuDNN's default convolution algorithms sum with atomics: two float64
+    # driver runs of the MWN differ by about 4e-15, more or less from run to
+    # run, so that run takes the deterministic ones and is held bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = name == "mwn f64"
+    runs = {}
+    for label in ("driver", "driver again", "compiled"):
+        engine, hypergradient, periods = _compiled_small_engine(name, label == "compiled")
+        reset, counters = _counters("sama" if hypergradient == "mwn" else hypergradient)
+        with _CaptureWatch(counters) as watch:
+            reset()
+            engine.run()
+            torch.cuda.synchronize()
+        runs[label] = (engine, {k: c.launches for k, c in counters.items()}, watch)
+    torch.backends.cudnn.deterministic = deterministic
+    (driver, d_launch, _), (again, _, _), (comp, _, watch) = (runs[k] for k in runs)
+    spread = _state_err(driver.states, again.states)
+    err = _state_err(driver.states, comp.states)
+    runner = comp.block_runner
+    seeds = [w[2] for w in watch.written]
+    fresh = all(a != b for r in range(len(seeds) - 1) for a, b in zip(seeds[r], seeds[r + 1]))
+    log(f"[compiled small] {name} ({'device' if runner.fastpath else 'host'} loaders): "
+        f"compiled vs driver max |state diff| {err:.3e}, driver vs "
+        f"driver {spread:.3e} (tolerance: that spread; cuDNN deterministic "
+        f"{name == 'mwn f64'}); captures {runner.captures}, replays "
+        f"{runner.replays} of {periods} periods, capture {runner.capture_seconds:.2f} s; "
+        f"launches a replay {watch.per_replay}, driver {d_launch} over {periods} periods; "
+        f"{len(seeds[0]) if seeds else 0} dropout generators a period, fresh seeds every "
+        f"replay: {fresh}")
+    assert err <= spread, (err, spread)
+    assert runner.captures == 1 and runner.replays == runner.periods_run == periods
+    assert all(watch.per_replay[k] * periods == d_launch[k] for k in d_launch), \
+        (watch.per_replay, d_launch)
+    if hypergradient != "mwn":
+        used = _used(hypergradient, 1024 if "1024" in name else 16, d_launch)
+        assert all((d_launch[k] > 0) == (k in used) for k in d_launch), d_launch
+        assert seeds and fresh
+    del runs, driver, again, comp, runner
+    _free()
+    return err, spread
+
+
+def _timed_run(engine, unroll, periods, tag, classify=None):
+    """Run ``periods`` meta-periods, the host clock read (device
+    synchronised) at the end of each, the last one under the profiler.
+    Returns ``(seconds of each period, profile report, peak GiB)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ends, prof = [], {}
+    validate = engine.maybe_validate
+
+    def hook(window=1):
+        stop = validate(window)
+        if engine.global_step % unroll == 0:
+            torch.cuda.synchronize()
+            ends.append(time.time())
+            if len(ends) == periods - 1:
+                prof["p"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof["p"].__enter__()
+                prof["t0"] = time.time()
+            elif len(ends) == periods:
+                prof["p"].__exit__(None, None, None)
+        return stop
+
+    engine.maybe_validate = hook
+    engine.train_iters = unroll * periods
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    seconds = [b - a for a, b in zip([t0] + ends, ends)]
+    report = profile_report(prof["p"], (ends[-1] - prof["t0"]) * 1e3, tag, classify)
+    return seconds, report, peak
+
+
+def _cell_line(tag, seconds, report, peak, skip):
+    steady = seconds[skip:-1]
+    q1, med, q3 = _quartiles(steady)
+    busy = report["busy_ms"] if report else float("nan")
+    wall = report["wall_ms"] if report else float("nan")
+    log(f"{tag} s/meta-period {seconds}; steady (periods {skip + 1}..{len(seconds) - 1}) "
+        f"median {med:.6f} quartiles {q1:.6f} / {q3:.6f}; profiled period wall {wall:.1f} ms "
+        f"busy {busy:.1f} ms idle share {1 - busy / wall:.3f}; kernel launches "
+        f"{report['launches'] if report else 'not read'}; peak {peak:.3f} GiB")
+    return {"median": med, "q1": q1, "q3": q3, "busy_ms": busy, "wall_ms": wall,
+            "peak_gib": peak}
+
+
+def compiled_mwn_cell(warmup=3, steady=20):
+    """The MWN flagship (ResNet-32 B128, darts, unroll 1, fp32, data on the
+    device), driver mode and compiled blocks (one replay a period) in
+    turns: driver, compiled, compiled, driver; ``warmup`` + ``steady``
+    timed periods and one profiled each."""
+    import torch
+    from betty_tpu_torch.examples import learning_to_reweight as ex
+
+    out, finals = {}, {}
+    for i, mode in enumerate(("driver", "compiled", "compiled", "driver")):
+        argv = ["--device_data", "--device", "cuda"] + (["--compile_blocks"]
+                                                        if mode == "compiled" else [])
+        engine = ex.build_engine(ex.parse_args(argv))
+        engine.config.block_periods = 1
+        tag = f"[compiled mwn {mode} {i}]"
+        seconds, report, peak = _timed_run(engine, 1, warmup + steady + 1, tag, _op_class)
+        out.setdefault(mode, []).append(_cell_line(tag, seconds, report, peak, warmup))
+        if mode == "compiled":
+            r = engine.block_runner
+            log(f"{tag} captures {r.captures}, replays {r.replays}, capture (two warm-up "
+                f"periods and the capture) {r.capture_seconds:.3f} s")
+            assert r.captures == 1 and r.replays == warmup + steady + 1
+        assert engine.classifier.count == warmup + steady + 1
+        assert all(bool(torch.isfinite(t).all()) for s in engine.states.values()
+                   for t in s["params"].values())
+        finals.setdefault(mode, []).append({n: {k: t.cpu() for k, t in s["params"].items()}
+                                            for n, s in engine.states.items()})
+        del engine
+        _free()
+    diff = {f"{a} {i} vs {b} {j}": _state_err(finals[a][i], finals[b][j])
+            for a, i, b, j in (("driver", 0, "driver", 1), ("compiled", 0, "compiled", 1),
+                               ("driver", 0, "compiled", 0))}
+    log(f"[compiled mwn] max |param diff| after {warmup + steady + 1} periods: {diff} "
+        "(reported: cuDNN may choose other algorithms from run to run)")
+    return out
+
+
+def compiled_sama_cell():
+    """SAMA reweighting of the RoBERTa-large encoder at B32 S128 with
+    ``--flash`` (the north star), driver mode and then compiled blocks: a
+    first period (for compiled blocks: the warm-up periods and the
+    capture), 2 timed ones and a profiled one each. B1/B2 launches a replay must
+    equal driver mode's a period."""
+    import torch
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+
+    unroll = 5
+    argv = ["--model", "large", "--hypergradient", "sama", "--precision", "bf16",
+            "--solver_precision", "fp32", "--unroll_steps", str(unroll), "--batch_size", "32",
+            "--seq_len", "128", "--device_data", "--train_size", "2048", "--meta_size", "512",
+            "--device", "cuda", "--flash"]
+    out, finals = {}, {}
+    for mode, periods in (("driver", 4), ("compiled", 4)):
+        tag = f"[compiled sama S128 {mode}]"
+        engine = ex.build_engine(ex.parse_args(argv + (["--compile_blocks"]
+                                                       if mode == "compiled" else [])))
+        engine.config.block_periods = 1
+        reset, counters = _counters("sama")
+        with _CaptureWatch(counters) as watch:
+            reset()
+            seconds, report, peak = _timed_run(engine, unroll, periods, tag)
+        launches = {k: c.launches for k, c in counters.items()}
+        out[mode] = _cell_line(tag, seconds, report, peak, 1)
+        per_period = {k: v // periods for k, v in launches.items()}
+        if mode == "compiled":
+            r = engine.block_runner
+            per_period = watch.per_replay
+            log(f"{tag} captures {r.captures}, replays {r.replays}, capture (two warm-up "
+                f"periods and the capture) {r.capture_seconds:.3f} s; launches a replay "
+                f"{watch.per_replay}; in the profiled replay "
+                f"{report['own_launches'] if report else 'not read'}")
+            assert r.captures == 1 and r.replays == periods
+        else:
+            assert launches == {k: v * periods // 2 for k, v in SAMA_S128.items()}, launches
+        out[mode]["launches"] = per_period
+        assert per_period == {k: v // 2 for k, v in SAMA_S128.items()}, per_period
+        assert engine.classifier.count == unroll * periods
+        assert all(bool(torch.isfinite(t).all()) for s in engine.states.values()
+                   for t in s["params"].values())
+        finals[mode] = {n: {k: t.cpu() for k, t in s["params"].items()}
+                        for n, s in engine.states.items()}
+        del engine
+        _free()
+    out["param_diff"] = _state_err(finals["driver"], finals["compiled"])
+    log(f"[compiled sama S128] compiled vs driver after 4 periods: max |param diff| "
+        f"{out['param_diff']:.3e} (reported)")
+    return out
+
+
+def compiled_phase():
+    t0 = time.time()
+    adam_rounding_check()
+    for name in list(COMPILED_SMALL) + ["mwn f64"]:
+        compiled_small_phase(name)
+    compiled_mwn_cell()
+    compiled_sama_cell()
+    log(f"[compiled] phase done in {time.time() - t0:.1f} s")
+
+
+
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
 KERNEL_SYMBOLS = {
     "fp32_fwd_single_kernel": "flash B1", "mma_fwd_single_kernel": "flash B1",
@@ -1198,7 +1586,7 @@ def sass_report(lib_paths, head_dims):
         raise AssertionError(f"kernels without the instructions of their design: {bad}")
 
 
-PHASES = ("kernels", "slice", "long", "mwn")
+PHASES = ("kernels", "slice", "long", "mwn", "compiled")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -1229,7 +1617,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="kernels (always run), slice (S128 runs), long (S1024 runs), mwn "
-                         "(ResNet-32 Meta-Weight-Net)")
+                         "(ResNet-32 Meta-Weight-Net), compiled (compiled blocks against "
+                         "driver mode)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -1285,6 +1674,8 @@ def main(argv=None):
         launches.update({k: sama[k] for k in MULTI_KERNELS})
     if "mwn" in phases:
         mwn_phase()
+    if "compiled" in phases:
+        compiled_phase()
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
     for new in ("ops/vector.py", "ops/_build.py", "hypergradient/hvp.py", "hypergradient/cg.py",
                 "hypergradient/neumann.py", "examples/logistic_regression_hpo.py",
                 "models/batchnorm.py", "models/resnet.py", "examples/learning_to_reweight.py",
-                "examples/mwn_data.py", "examples/vision_data.py", "entry.py"):
+                "examples/mwn_data.py", "examples/vision_data.py", "entry.py", "compile.py"):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -45,8 +45,7 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="compile"):
-        EngineConfig(compile_blocks=True)
+    assert EngineConfig(compile_blocks=True).compile_blocks  # ported: accepted
     with pytest.raises(NotImplementedError, match="strategy"):
         EngineConfig(strategy="fsdp")
     with pytest.raises(NotImplementedError, match="remat"):
@@ -56,16 +55,18 @@ def test_unported_options_raise():
         _solver("reinforce")
     with pytest.raises(ValueError, match="hvp_mode"):
         Config(hvp_mode="forward")
-    for flag in ("--remat", "--compile_blocks"):
-        args = tex.parse_args(["--device", "cpu", "--dim", "16", "--depth", "1", "--heads",
-                               "2", flag])
-        with pytest.raises(NotImplementedError):
-            tex.build_engine(args)
-    for flags, section in ((["--checkpoint_dir", "ckpt"], "§A.4"), (["--compile_blocks"], "§A.2"),
+    small = ["--device", "cpu", "--dim", "16", "--depth", "1", "--heads", "2"]
+    with pytest.raises(NotImplementedError):
+        tex.build_engine(tex.parse_args(small + ["--remat"]))
+    for flags, section in ((["--checkpoint_dir", "ckpt"], "§A.4"),
                            (["--strategy", "fsdp"], "§A.7")):
         args = mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1", *flags])
         with pytest.raises(NotImplementedError, match=section):
             mwn.build_engine(args)
+    # compiled blocks are ported: both examples build an engine with them
+    assert tex.build_engine(tex.parse_args(small + ["--compile_blocks"])).config.compile_blocks
+    assert mwn.build_engine(mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1",
+                                            "--compile_blocks"])).config.compile_blocks
 
 
 def test_engine_defaults_to_cuda():
