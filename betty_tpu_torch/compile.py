@@ -22,17 +22,27 @@ refreshes static inputs: the period's batch index rows (one int64 device
 buffer per problem, filled from pinned memory) or, for loaders with host
 code, the batches themselves; the per-step scalars (scheduled learning
 rates, Adam's bias corrections); and the seeds of the dropout generators,
-a pool registered with the graph and reseeded before each replay. Each of
+a pool registered with the graph and reseeded before each replay (the
+reinforce solver's direction generator joins the same pool). Each of
 those values is a function of an integer (a count, a scheduler step) that
 advances by a constant every period; the warm-up periods give each its
 advance, and the capture is checked against them. A capture that fails
 raises: nothing falls back to driver mode.
 
+An ``IterativeProblem`` child under a ``first_order=False`` parent is
+replayed inside the period as in driver mode: the period records the
+child's state at its ``inner_loop_start`` event and the batches its later
+events take, and hands them to the parent's event as ``itd_data``
+(``betty_tpu/compile.py``'s ``itd_start``/``itd_batches``). The schedule
+only starts a block where every such unroll lies wholly inside it. On the
+card the replay and its double backward are captured with the rest of the
+period and read the state the graph owns.
+
 On the CPU (tests) the runner runs the same period function eagerly each
 period, fed from the same static buffers and generator pool, and checks
 the values each step reads against the ones it wrote.
 
-Not ported: ``IterativeProblem`` (ITD) replays inside blocks and meshes.
+Not ported: meshes.
 """
 
 from dataclasses import dataclass, field, replace
@@ -45,7 +55,8 @@ import torch
 from betty_tpu_torch import utils
 from betty_tpu_torch.data.loader import ArrayLoader
 from betty_tpu_torch.problems import problem as problem_mod
-from betty_tpu_torch.problems.problem import Problem, _CtxBinding
+from betty_tpu_torch.problems.iterative import unroll_data
+from betty_tpu_torch.problems.problem import Problem, _CtxBinding, itd_child
 from betty_tpu_torch.utils import StepSeed
 
 # ---------------------------------------------------------------------------
@@ -148,8 +159,7 @@ class _Simulator:
                 return False
             # ITD parents replay their children's batches since the unroll
             # start: the whole unroll must sit inside the block
-            if any(hasattr(c, "replay_unroll") and not c._first_order
-                   and c.name not in started for c in p.children):
+            if any(itd_child(c) and c.name not in started for c in p.children):
                 return False
             if e.inner_loop_start:
                 started.add(e.name)
@@ -459,6 +469,7 @@ class BlockRunner:
                     and type(p).get_batch is Problem.get_batch
                     and not p.is_implemented("epoch_callback")):
                 self.fastpath[name] = dl[0]
+        self.itd_names = {name for name, p in self.problems.items() if itd_child(p)}
         self.on_card = engine.device.type == "cuda"
         self.captures = 0
         self.replays = 0
@@ -718,6 +729,9 @@ class BlockRunner:
         cache = dict(cache)
         valid = dict(self._valid)
         taken = {name: 0 for name in batches}
+        # ITD children: each unroll's start state, the count before its first
+        # micro-step, and the batches taken since
+        itd_start, itd_batches = {}, {}
         for seg in self.segments:
             p = self.problems[seg.name]
             for ev in seg.events:
@@ -726,6 +740,11 @@ class BlockRunner:
                     if p._roll_back:
                         cache[p.name] = states[p.name]
                         valid[p.name] = True
+                    if p.name in self.itd_names:
+                        # after the hook, as driver mode records it
+                        itd_start[p.name] = (states[p.name],
+                                             counts0[p.name] + ev.count_offset - 1)
+                        itd_batches[p.name] = []
                 if ev.rollback_recover:
                     if valid[p.name]:
                         states = {**states, p.name: cache[p.name]}
@@ -736,10 +755,14 @@ class BlockRunner:
                     batch = batches[p.name][taken[p.name]]
                     taken[p.name] += 1
                     cur_batches[p.name] = batch
+                    if p.name in self.itd_names and not ev.rollback_recover:
+                        itd_batches.setdefault(p.name, []).append(batch)
                 path_batches = {q.name: cur_batches[q.name] for q in p._path_intermediates()}
+                itd_data = {c.name: unroll_data(*itd_start[c.name], itd_batches[c.name])
+                            for c in p.children if c.name in self.itd_names}
                 rng = StepSeed.make(p._rng_seed, counts0[p.name] + ev.count_offset)
                 upd = p._get_update_fn(ev.apply_update, ev.advance_sched)
-                states, last_loss[p.name] = upd(states, batch, path_batches, {}, rng)
+                states, last_loss[p.name] = upd(states, batch, path_batches, itd_data, rng)
         live = {name: cache[name] for name, ok in valid.items() if ok}
         return states, live, last_loss
 

@@ -8,9 +8,12 @@ fields have no meaning and are accepted but inert:
   scaling; ``"fp16"`` is treated as ``"bf16"``), ``retain_graph``,
   ``allow_unused`` and ``shard_rules``.
 * ``EngineConfig``: ``backend``, ``mesh_shape``, ``autoshard_data``,
-  ``compile_cache_dir``, ``rng_impl`` and ``profile_dir``; ``donate_state``
-  has no counterpart, since a compiled block's graph updates its static
-  state tensors in place. ``strategy`` must be ``"default"``.
+  ``compile_cache_dir`` and ``rng_impl``; ``donate_state`` has no
+  counterpart, since a compiled block's graph updates its static state
+  tensors in place. ``strategy`` must be ``"default"``.
+
+``EngineConfig.profile_dir`` writes a ``torch.profiler`` trace of the run
+there (``Engine._profiler``).
 
 ``compile_blocks=True`` runs the steady schedule as compiled blocks
 (``betty_tpu_torch/compile.py``: on CUDA one graph replay a meta-period);

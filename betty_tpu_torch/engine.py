@@ -7,12 +7,18 @@ recursion driven from the leaves) keep the reference's semantics;
 passes another. States live in ``engine.states`` (name -> state dict).
 ``EngineConfig(compile_blocks=True)`` runs the steady schedule as compiled
 blocks (``run_compiled``, ``betty_tpu_torch/compile.py``): on CUDA one
-graph replay a meta-period.
+graph replay a meta-period. ``EngineConfig(profile_dir=...)`` records the
+training loop under ``torch.profiler`` (the host's ops, and the card's
+kernels on CUDA) and writes its trace there as
+``<host>_<pid>.<ns>.pt.trace.json``, over the span JAX's
+``start_trace``/``stop_trace`` cover: the driver loop, or the whole of
+``run_compiled`` after its schedule probe (warm-up, capture and replays).
 
-Not ported yet: meshes and strategies other than one device, profiling,
-and engine checkpoints.
+Not ported yet: meshes and strategies other than one device, and engine
+checkpoints.
 """
 
+import contextlib
 import time
 from typing import Dict, List, Optional
 
@@ -183,13 +189,26 @@ class Engine:
             return self.run_compiled()
         return self._run_driver()
 
+    def _profiler(self):
+        """The trace of ``EngineConfig.profile_dir``, or no profiler."""
+        if not self.config.profile_dir:
+            return contextlib.nullcontext()
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(self.config.profile_dir))
+
     def _run_driver(self):
         self.train()
-        for _ in range(1, self.train_iters + 1):
-            self.global_step += 1
-            self.train_step()
-            if self.maybe_validate(window=1):
-                break
+        with self._profiler():
+            for _ in range(1, self.train_iters + 1):
+                self.global_step += 1
+                self.train_step()
+                if self.maybe_validate(window=1):
+                    break
         self.cleanup()
 
     def run_compiled(self):
@@ -209,6 +228,14 @@ class Engine:
             self.logger.info(f"[compile_blocks] falling back to driver mode: {e}")
             return self._run_driver()
         self.train()
+        with self._profiler():
+            self._run_blocks(probe)
+        self.cleanup()
+
+    def _run_blocks(self, probe):
+        """``run_compiled``'s loop: driver warm-up, blocks, driver remainder."""
+        from betty_tpu_torch.compile import BlockRunner
+
         it = 0
         stopped = False
 
@@ -265,7 +292,6 @@ class Engine:
                 self.train_step()
                 if self.maybe_validate(window=1):
                     break
-        self.cleanup()
 
     def maybe_validate(self, window: int = 1) -> bool:
         """Validation on the ``valid_step`` cadence; a window of W means the

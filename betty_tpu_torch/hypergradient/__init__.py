@@ -7,8 +7,7 @@ one solver per edge ``(curr=path[i], prev=path[i+1])``. Solvers get the
 context dict and evaluate losses on perturbed copies; no parameter is
 perturbed in place.
 
-Registered: ``darts``, ``sama``, ``cg`` and ``neumann``. ``reinforce``
-is not ported yet and raises.
+Registered: ``darts``, ``sama``, ``cg``, ``neumann`` and ``reinforce``.
 """
 
 from betty_tpu_torch.utils import tree_add, grad
@@ -16,6 +15,7 @@ from betty_tpu_torch.utils import tree_add, grad
 from .cg import cg
 from .darts import darts
 from .neumann import neumann
+from .reinforce import reinforce
 from .sama import sama
 
 jvp_fn_mapping = {
@@ -23,9 +23,8 @@ jvp_fn_mapping = {
     "sama": sama,
     "neumann": neumann,
     "cg": cg,
+    "reinforce": reinforce,
 }
-
-_LATER = ("reinforce",)
 
 
 def register_solver(name: str, fn):
@@ -34,10 +33,6 @@ def register_solver(name: str, fn):
 
 
 def _solver(name):
-    if name in _LATER and name not in jvp_fn_mapping:
-        raise NotImplementedError(
-            f"hypergradient solver {name!r} is not ported yet: it comes in a later "
-            "slice of the port (ROADMAP.md §A.3)")
     assert name in jvp_fn_mapping, f"Unknown hypergradient solver {name!r}"
     return jvp_fn_mapping[name]
 

@@ -1,12 +1,25 @@
 """Flash attention: hand-written CUDA kernels for Hopper, their plain
 PyTorch versions, and the autograd function around them.
 
-Counterpart of ``betty_tpu/ops/flash_attention.py``, with its dispatch:
-``block_q``/``block_kv`` default to ``min(512, S)``; the single-tile path
-runs iff ``Sq <= block_q and Skv <= block_kv``, in the forward and in the
-backward alike; otherwise each sequence must divide by its block (the same
-``ValueError`` as JAX's ``_blocks``, on every device) and the multi-tile
-path runs.
+Counterpart of ``betty_tpu/ops/flash_attention.py``, with its dispatch
+(``fwd_blocks``, ``bwd_blocks``): ``block_q``/``block_kv`` default to
+``min(512, S)``; the single-tile path runs iff ``Sq <= block_q and Skv <=
+block_kv`` and JAX's VMEM feasibility rule finds a head block whose
+working set fits (``_fwd_block_h``, ``_bwd_block_h``, ``_pick_block_h``,
+``VMEM_BUDGET``: plain integer arithmetic on the shapes, copied here);
+where it finds none, the blocks fall back to ``_clamp_blocks``' (the
+largest divisors of the sequences up to 512) and the multi-tile path runs.
+The forward and the backward each decide by their own rule, as in JAX:
+at D64 in bf16 with Sq = Skv the forward takes one tile up to 1,191 keys,
+the backward up to 825. Otherwise each sequence must divide by its block
+(the same ``ValueError`` as JAX's ``_blocks``, on every device) and the
+multi-tile path runs.
+
+One window differs on the card only: bf16 B1 takes at most
+``SINGLE_MAX_KV`` = 1024 keys, so where JAX's forward takes one tile of
+more keys (1,025 to 1,191 at D64) a CUDA tensor takes B3 at the clamped
+blocks; the CPU plain version keeps JAX's single tile. The backward never
+takes one tile of that many keys.
 
 * single tile: ``_fwd_single`` launches ``flash_single_fwd``
   (``csrc/flash_single.cu``), the port of ``_fwd_single_kernel`` (B1): o and
@@ -25,11 +38,6 @@ path runs.
   in bf16 all three run on the tensor cores, in float32 on the CUDA cores.
   The kernels tile by 64 rows whatever the blocks are; the blocks choose the
   path and the plain versions' tiles.
-
-JAX's VMEM feasibility test (``_pick_block_h``) and its fallback blocks
-(``_clamp_blocks``) have no counterpart: they exist because a TPU program
-holds a whole (heads, S, S) score block in VMEM, while the CUDA single-tile
-kernels walk 64-row tiles and take every sequence that fits the blocks.
 
 On a CPU tensor each wrapper computes its kernel's plain version (``*_plain``
 below), which repeats the kernel's arithmetic: products in the input dtype
@@ -219,13 +227,68 @@ def _blocks(seq, block, what):
     return block
 
 
-def _multi_tile_blocks(Sq, Skv, block_q, block_kv):
-    """JAX's dispatch: None for the single-tile path (B1/B2), iff the
-    sequences fit their blocks; else the multi-tile path's checked blocks
-    (B3-B5)."""
+# JAX's single-tile feasibility rule (``betty_tpu/ops/flash_attention.py``):
+# a TPU program holds every score-sized temporary of its head block in VMEM
+VMEM_BUDGET = (16 * 2**20) * 3 // 4
+
+
+def _pick_block_h(H, Sq, Skv, D, itemsize, n_io, n_scores):
+    """Largest divisor of H whose single-tile working set fits
+    ``VMEM_BUDGET``, or None when one head does not fit."""
+    per_head = n_scores * Sq * Skv * 4 + 2 * n_io * max(Sq, Skv) * D * itemsize
+    best = None
+    for bh in range(1, H + 1):
+        if H % bh == 0 and bh * per_head <= VMEM_BUDGET:
+            best = bh
+    return best
+
+
+def _fwd_block_h(q_shape, Skv, itemsize):
+    """Head block of the single-tile forward (live scores: s, p)."""
+    _, H, Sq, D = q_shape
+    return _pick_block_h(H, Sq, Skv, D, itemsize, n_io=4, n_scores=2)
+
+
+def _bwd_block_h(q_shape, Skv, itemsize):
+    """Head block of the single-tile backward (live scores: s, p, dp, ds)."""
+    _, H, Sq, D = q_shape
+    return _pick_block_h(H, Sq, Skv, D, itemsize, n_io=8, n_scores=4)
+
+
+def _largest_divisor_block(seq, cap):
+    """Largest divisor of ``seq`` that is at most ``cap``."""
+    for b in range(min(cap, seq), 0, -1):
+        if seq % b == 0:
+            return b
+    return 1
+
+
+def _clamp_blocks(Sq, Skv, block_q, block_kv):
+    """The multi-tile blocks where the requested single tile does not fit:
+    the largest divisors of the sequences up to 512."""
+    return (_largest_divisor_block(Sq, min(block_q, 512)),
+            _largest_divisor_block(Skv, min(block_kv, 512)))
+
+
+def _plan(q_shape, Skv, itemsize, block_q, block_kv, block_h):
+    Sq = q_shape[2]
     if Sq <= block_q and Skv <= block_kv:
-        return None
+        if block_h(q_shape, Skv, itemsize) is not None:
+            return None
+        block_q, block_kv = _clamp_blocks(Sq, Skv, block_q, block_kv)
     return _blocks(Sq, block_q, "flash_attention q"), _blocks(Skv, block_kv, "flash_attention kv")
+
+
+def fwd_blocks(q_shape, Skv, itemsize, block_q, block_kv):
+    """JAX's forward dispatch: None for the single tile (B1), else the
+    multi-tile blocks (B3)."""
+    return _plan(q_shape, Skv, itemsize, block_q, block_kv, _fwd_block_h)
+
+
+def bwd_blocks(q_shape, Skv, itemsize, block_q, block_kv):
+    """JAX's backward dispatch: None for the single tile (B2), else the
+    multi-tile blocks (B4, B5)."""
+    return _plan(q_shape, Skv, itemsize, block_q, block_kv, _bwd_block_h)
 
 
 def _on_card(q, k, v, kv_mask):
@@ -275,7 +338,8 @@ def _fwd_single(q, k, v, kv_mask, *, causal, sm_scale):
         return _fwd_single_plain(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale)
     if q.dtype == torch.bfloat16 and k.shape[2] > SINGLE_MAX_KV:
         raise ValueError(f"flash_attention: the bf16 single-tile kernel takes at most "
-                         f"{SINGLE_MAX_KV} keys, got {k.shape[2]} (pass smaller blocks)")
+                         f"{SINGLE_MAX_KV} keys, got {k.shape[2]} (flash_attention takes "
+                         "the multi-tile kernels there)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = _mask_bytes(kv_mask)
     o = torch.empty_like(q)
@@ -388,7 +452,12 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, kv_mask, causal, sm_scale, block_q, block_kv):
-        blocks = _multi_tile_blocks(q.shape[2], k.shape[2], block_q, block_kv)
+        Sq, Skv = q.shape[2], k.shape[2]
+        blocks = fwd_blocks(q.shape, Skv, q.element_size(), block_q, block_kv)
+        if (blocks is None and q.device.type == "cuda" and q.dtype == torch.bfloat16
+                and Skv > SINGLE_MAX_KV):
+            # past bf16 B1's 1,024 keys: B3 at the clamped blocks
+            blocks = _clamp_blocks(Sq, Skv, block_q, block_kv)
         if blocks is None:
             return _fwd_single(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale)
         return _fwd_multi(q, k, v, kv_mask, causal=causal, sm_scale=sm_scale,
@@ -408,7 +477,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, kv_mask, o, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
-        if _multi_tile_blocks(q.shape[2], k.shape[2], ctx.block_q, ctx.block_kv) is None:
+        if bwd_blocks(q.shape, k.shape[2], q.element_size(), ctx.block_q, ctx.block_kv) is None:
             dq, dk, dv = _bwd_single(q, k, v, do, o, lse, kv_mask, **kw)
         else:
             di = (_acc(o) * _acc(do)).sum(-1)
@@ -426,9 +495,11 @@ def flash_attention(q, k, v, kv_mask=None, *, causal=False, sm_scale=None, block
     bool, True where keys are valid; query rows are not masked. ``causal``:
     lower-triangular masking. ``sm_scale`` defaults to ``1/sqrt(head_dim)``.
     ``block_q`` / ``block_kv``: JAX's tile sizes, default ``min(512, seq)``;
-    sequences within them take the single-tile kernels (B1/B2), others must
-    divide by them and take the multi-tile kernels (B3-B5). Reverse-mode
-    differentiable only.
+    sequences within them take the single-tile kernels (B1/B2) where JAX's
+    feasibility rule lets them (``fwd_blocks``, ``bwd_blocks``), else the
+    multi-tile kernels (B3-B5) at the clamped blocks; longer sequences must
+    divide by their blocks and take B3-B5. Reverse-mode differentiable
+    only.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

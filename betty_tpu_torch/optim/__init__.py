@@ -12,8 +12,9 @@ reproduces its optax chain step for step:
   scale(-lr)
 
 ``scale_by_adam`` keeps raw (not bias-corrected) moments ``mu``/``nu`` and
-a step count, bias-corrects with ``1 - beta**count`` computed in float32 as
-optax does, and puts ``eps`` outside the square root. The bias corrections
+a step count, bias-corrects with ``1 - beta**count`` computed in the
+moments' precision as optax does (float32; float64 for float64 moments),
+and puts ``eps`` outside the square root. The bias corrections
 and a scheduled learning rate are computed on the host and enter the step
 as 0-d device tensors (``utils.step_scalar``): on CUDA a division by a
 Python number multiplies by its reciprocal, a division by a tensor
@@ -39,9 +40,10 @@ import functools
 from betty_tpu_torch.utils import step_scalar, tree_leaves, tree_map, tree_zeros_like
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """``1 - decay**count`` rounded as optax computes it in float32."""
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+def _bias_correction(decay: float, count: int, dtype=np.float32) -> float:
+    """``1 - decay**count`` rounded as optax computes it: in float32, or in
+    float64 for float64 moments (JAX with x64)."""
+    return float(dtype(1.0) - dtype(decay) ** dtype(count))
 
 
 class Optimizer:
@@ -86,8 +88,9 @@ class Optimizer:
             nu = tree_map(lambda g, n: (1 - b2) * (g * g) + b2 * n, u, opt_state["nu"])
             count = opt_state["count"] + 1
             like = tree_leaves(mu)[0]
-            bc1 = step_scalar(functools.partial(_bias_correction, b1), count, like)
-            bc2 = step_scalar(functools.partial(_bias_correction, b2), count, like)
+            dt = np.float64 if like.dtype == torch.float64 else np.float32
+            bc1 = step_scalar(functools.partial(_bias_correction, b1, dtype=dt), count, like)
+            bc2 = step_scalar(functools.partial(_bias_correction, b2, dtype=dt), count, like)
             eps = self.eps
             u = tree_map(lambda m, n: (m / bc1) / (torch.sqrt(n / bc2) + eps), mu, nu)
             if wd and self.decoupled:

@@ -16,8 +16,14 @@ whatever parameter tensors the context holds.
 Per-step randomness is an integer seed folded from the problem's name and
 its step count; modules seed a ``torch.Generator`` with it.
 
-Not ported in this slice: ITD children (``IterativeProblem``), parameter
-groups, and problem checkpoints (``state_dict``/``load_state_dict``).
+A child that is an ``IterativeProblem`` under a parent with
+``Config(first_order=False)`` is differentiated through its unroll: the
+parent's update gets the child's recorded unroll as ``itd_data`` and
+replaces the child's parameters in its loss by the replay
+(``problems/iterative.py``).
+
+Not ported yet: parameter groups and problem checkpoints
+(``state_dict``/``load_state_dict``).
 """
 
 import abc
@@ -96,6 +102,12 @@ class _CtxBinding:
         global _TRACE_CTX, _ACTIVE_CAPTURE, _TRACE_RNG, _TRACE_RNG_CALLS
         _TRACE_CTX, _ACTIVE_CAPTURE, _TRACE_RNG, _TRACE_RNG_CALLS = self._saved
         return False
+
+
+def itd_child(problem) -> bool:
+    """True for an ``IterativeProblem`` whose parents differentiate through
+    its unroll (they set ``first_order=False``)."""
+    return hasattr(problem, "replay_unroll") and not problem._first_order
 
 
 def ctx_replace(ctx, name, params):
@@ -280,11 +292,15 @@ class Problem(abc.ABC):
 
         first_order = [problem.config.first_order for problem in self._parents]
         self._first_order = all(first_order) if first_order else False
-        if self._parents and not self._first_order and self.logger is not None:
+        if (self._parents and not self._first_order and not hasattr(self, "replay_unroll")
+                and self.logger is not None):
+            # second-order gradients flow only through an IterativeProblem's replay
             self.logger.warning(
-                f"Problem {self._name!r}: a parent sets first_order=False; iterative "
-                "differentiation (IterativeProblem) is not ported, so gradients "
-                "through this problem's updates are NOT computed.")
+                f"Problem {self._name!r}: a parent sets first_order=False "
+                "but this child is not an IterativeProblem — ITD gradients "
+                "through its updates are NOT computed. Use IterativeProblem "
+                "for iterative differentiation, or first_order=True with an "
+                "implicit solver (darts/cg/neumann/sama).")
 
         if self.is_implemented("configure_train_data_loader"):
             self.train_data_loader = self.configure_train_data_loader()
@@ -425,6 +441,10 @@ class Problem(abc.ABC):
         from betty_tpu_torch.hypergradient import compute_path_grads
 
         problem = self
+        # ITD children: the parent's gradient flows through their unrolled
+        # updates by a differentiable replay (problems/iterative.py)
+        itd_children = [c for c in self._children if itd_child(c)]
+        itd_names = {c.name for c in itd_children}
         # one backward pass serves the direct gradient and every path's
         # starting vector v = d(loss)/d(child params), unless a precision
         # split (bf16 step, fp32 solver) needs a separate fp32 evaluation
@@ -435,8 +455,10 @@ class Problem(abc.ABC):
                 path_children[path[1].name] = path[1]
         reduced_precision = problem.precision in ("fp16", "bf16") or any(
             ch.precision in ("fp16", "bf16") for ch in path_children.values())
-        joint_v = has_paths and not (
-            reduced_precision and problem._config.solver_precision == "fp32")
+        joint_v = (has_paths
+                   and not (reduced_precision and problem._config.solver_precision == "fp32")
+                   # a replay would shadow the child-params substitution
+                   and not (set(path_children) & itd_names))
 
         def update(states, batch, path_batches, itd_data, rng):
             ctx = {name: {"params": s["params"], "extra": s["extra"]}
@@ -447,6 +469,8 @@ class Problem(abc.ABC):
                 c = ctx_replace(ctx, problem._name, own_params)
                 for name, cp in child_params.items():
                     c = ctx_replace(c, name, cp)
+                for ch in itd_children:
+                    c = ctx_replace(c, ch.name, ch.replay_unroll(c, itd_data[ch.name], rng))
                 loss, loss_dict, mutated = problem.eval_loss(c, batch, rng=rng, capture=True)
                 return loss / gas, (loss_dict, mutated)
 
@@ -558,9 +582,11 @@ class Problem(abc.ABC):
 
         apply_update = self._count % self.gas == 0
         path_batches = {p.name: p.cur_batch for p in self._path_intermediates()}
+        itd_data = {c.name: c.get_unroll_data() for c in self._children if itd_child(c)}
         rng = fold_in(self._rng_seed, self._count)
         update_fn = self._get_update_fn(apply_update, advance_sched)
-        new_states, loss_dict = update_fn(self._engine.states, batch, path_batches, {}, rng)
+        new_states, loss_dict = update_fn(self._engine.states, batch, path_batches, itd_data,
+                                          rng)
         self._engine.states = new_states
         return loss_dict
 

@@ -230,23 +230,38 @@ def log_from_loss_dict(loss_dict) -> str:
     return " || ".join(outputs)
 
 
-def value_and_grad(fn, *args, argnums=(0,), has_aux=False):
+def _differentiable(x):
+    """``x`` itself if it is already part of a graph, else a leaf that
+    requires grad (a constant has no graph to cut)."""
+    return x if x.requires_grad else x.detach().requires_grad_(True)
+
+
+def value_and_grad(fn, *args, argnums=(0,), has_aux=False, create_graph=False):
     """Reverse-mode gradient of a scalar function of trees of tensors, in the
     shape of ``jax.value_and_grad``: returns ``(value, grads)`` or, with
     ``has_aux``, ``((value, aux), grads)``; ``grads`` is one tree for an int
     ``argnums`` and a tuple of trees otherwise. Leaves the value does not
-    depend on get zero gradients; value and aux come back detached."""
+    depend on get zero gradients; value and aux come back detached.
+
+    With ``create_graph`` the graph is kept, for a derivative of the
+    gradients themselves (iterative differentiation,
+    ``problems/iterative.py``): an argument that is already part of a graph
+    is not detached, the gradients are taken with ``create_graph=True``,
+    and value, aux and gradients stay differentiable functions of whatever
+    the arguments and ``fn`` depend on."""
     single = isinstance(argnums, int)
     nums = (argnums,) if single else tuple(argnums)
     args = list(args)
+    leaf = _differentiable if create_graph else (lambda x: x.detach().requires_grad_(True))
     for i in nums:
-        args[i] = tree_map(lambda x: x.detach().requires_grad_(True), args[i])
+        args[i] = tree_map(leaf, args[i])
     with torch.enable_grad():
         out = fn(*args)
         value, aux = out if has_aux else (out, None)
         leaves = [x for i in nums for x in tree_leaves(args[i])]
         if value.requires_grad and leaves:
-            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+            grads = torch.autograd.grad(value, leaves, allow_unused=True,
+                                        create_graph=create_graph)
         else:
             grads = [None] * len(leaves)
     flat = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
@@ -257,6 +272,8 @@ def value_and_grad(fn, *args, argnums=(0,), has_aux=False):
         trees.append(tree_map(lambda _x: next(it), args[i]))
         pos += n
     grads_out = trees[0] if single else tuple(trees)
+    if create_graph:
+        return ((value, aux), grads_out) if has_aux else (value, grads_out)
     value = value.detach()
     if has_aux:
         aux = tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor) else x, aux)

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels,long    # ... and the S1024 runs
     python3 chip_smoke.py --phases kernels,mwn     # ... and the ResNet-32 MWN runs
     python3 chip_smoke.py --phases kernels,compiled  # ... and compiled blocks (CUDA graphs)
+    python3 chip_smoke.py --phases kernels,itd     # ... and ITD / reinforce on the MWN flagship
 
 Phases:
 
@@ -31,7 +32,10 @@ Phases:
    with blocks of 128 and a fully masked row; S320 D32 with blocks of 64
    and causal masking), where ``flash_attention`` with those blocks must
    launch B3-B5 and not B1/B2 (every float32 kernel within 1e-5: o and lse
-   absolutely, gradients relative to max|ref|);
+   absolutely, gradients relative to max|ref|); then blocks equal to the
+   sequence past JAX's single-tile feasibility rule (S1024 and S1152 at
+   D64 in bf16, S2048, S1024 in fp32), where each direction must launch
+   what the rule (and bf16 B1's 1,024 keys) chooses;
    the multi-tile timings with their achieved TFLOP/s; each kernel's
    registers and spills as ``ptxas`` reports them (the bf16 tensor-core
    kernels and the float32 kernels, B1-B5 each, may not spill at D64),
@@ -87,6 +91,20 @@ Phases:
    periods and a profiled one each) and S128 SAMA ``--flash`` (driver,
    then compiled: a first period, 2 timed and a profiled one): period,
    device busy and idle share, launches, capture time, peak memory.
+7. itd: iterative differentiation (``IterativeProblem`` under a
+   ``first_order=False`` reweighter) and the ``reinforce`` solver on the MWN
+   example, built from its engine's pieces (``mwn_variant``). Small float64
+   runs (3-block ResNet, B8, cuDNN deterministic; ITD at unroll 1 and 3,
+   reinforce) on the card against the CPU from the same weights within
+   1e-9 (reinforce with host-drawn directions on both sides), and compiled
+   against driver mode on the card bit for bit (reinforce with its own
+   generator in the graph's pool: fresh directions every replay); an
+   ``EngineConfig.profile_dir`` trace in both modes; then the flagship's
+   defaults (ResNet-32 B128, fp32, a MultiStepLR at 10000/13000) as ITD at
+   unroll 1 and 5 and as reinforce (4 samples), driver mode then compiled:
+   3 + 20 timed periods and a profiled one each (period, busy, idle share,
+   launches, peak memory, capture), the two modes' parameters, losses and
+   norms, finite losses, no launch of the port's kernels.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -125,6 +143,20 @@ EDGE_SHAPES = [(2, 4, 384, 64, 128, "causal"), (2, 4, 96, 16, 32, "padded"),
 SINGLE_EDGE_SHAPES = [(2, 4, 16, 64, "all_true"), (2, 4, 96, 16, "padded"),
                       (2, 4, 200, 128, "masked_row"), (2, 4, 320, 32, "causal")]
 KERNEL_TILE = 64  # rows per tile of the CUDA flash kernels
+# JAX's single-tile feasibility rule at blocks equal to the sequence: (B, H,
+# S, D, dtype name, kernels flash_attention launches). At D64 the bf16
+# forward takes one tile up to 1,191 keys (bf16 B1 up to 1,024: past it the
+# card takes B3) and the backward up to 825; fp32 forward up to 1,132
+FEASIBILITY_SHAPES = [
+    (1, 4, 1024, 64, "bfloat16", ("flash_single_fwd", "flash_multi_bwd_dkv",
+                                  "flash_multi_bwd_dq")),
+    (1, 4, 1152, 64, "bfloat16", ("flash_multi_fwd", "flash_multi_bwd_dkv",
+                                  "flash_multi_bwd_dq")),
+    (1, 4, 2048, 64, "bfloat16", ("flash_multi_fwd", "flash_multi_bwd_dkv",
+                                  "flash_multi_bwd_dq")),
+    (1, 4, 1024, 64, "float32", ("flash_single_fwd", "flash_multi_bwd_dkv",
+                                 "flash_multi_bwd_dq")),
+]
 
 
 def roberta_large_params(vocab=50265, max_len=128, d=1024, depth=24, classes=2):
@@ -421,7 +453,10 @@ def multi_kernel_phase():
     """B3-B5 at the long-sequence path's shape for both dtypes and the four
     mask cases, then at the edge shapes; there ``flash_attention`` with the
     edge's blocks must launch B3, B4 and B5 once each and neither B1 nor B2.
-    Returns the largest absolute error of each kernel."""
+    Then blocks equal to sequences past JAX's single-tile feasibility rule
+    (``FEASIBILITY_SHAPES``): each direction launches what the rule and
+    bf16 B1's key limit choose. Returns the largest absolute error of each
+    kernel."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -439,6 +474,11 @@ def multi_kernel_phase():
             bad = _dispatch_check(dtype, shape, case, gen, block, MULTI_KERNELS)
             if bad:
                 failures.append(bad)
+    for B, H, S, D, dname, want in FEASIBILITY_SHAPES:
+        bad = _dispatch_check(getattr(torch, dname), dict(B=B, H=H, S=S, D=D), "padded", gen, S,
+                              want)
+        if bad:
+            failures.append(bad)
     _free()
     if failures:
         raise AssertionError(f"multi-tile kernels disagree with their plain versions: {failures}")
@@ -1421,6 +1461,266 @@ def compiled_phase():
 
 
 
+# ---------------------------------------------------------------------------
+# itd: iterative differentiation (IterativeProblem) and the reinforce solver
+# on the MWN flagship, in driver mode and inside compiled blocks
+# ---------------------------------------------------------------------------
+
+
+def mwn_variant(argv, variant):
+    """The MWN example's engine (``build_engine`` on ``argv``) rebuilt from
+    its own pieces through the public API as ``variant``: "itd" (the
+    classifier an ``IterativeProblem`` carrying ``Classifier.training_step``
+    and the reweighter ``Config(first_order=False)``: its meta-gradient is
+    the exact derivative through the classifier's SGD steps, Meta-Weight-
+    Net's own) or "reinforce" (both problems' ``Config(type="reinforce")``,
+    4 samples by default)."""
+    import dataclasses
+
+    import betty_tpu_torch
+    from betty_tpu_torch.examples import learning_to_reweight as ex
+
+    base = ex.build_engine(ex.parse_args(argv))
+    clf, rw = base.classifier, base.reweight
+    if variant == "itd":
+        class ITDClassifier(betty_tpu_torch.IterativeProblem):
+            training_step = ex.Classifier.training_step
+
+        clf_cls, clf_cfg = ITDClassifier, clf.config
+        rw_cfg = dataclasses.replace(rw.config, first_order=False)
+    elif variant == "reinforce":
+        clf_cls = ex.Classifier
+        clf_cfg = dataclasses.replace(clf.config, type="reinforce")
+        rw_cfg = dataclasses.replace(rw.config, type="reinforce")
+    else:
+        raise ValueError(variant)
+    classifier = clf_cls(name="classifier", module=clf.module_fn, optimizer=clf.optimizer,
+                         train_data_loader=clf.train_data_loader[0], config=clf_cfg)
+    reweight = ex.Reweight(name="reweight", module=rw.module_fn, optimizer=rw.optimizer,
+                           train_data_loader=rw.train_data_loader[0], config=rw_cfg)
+    engine = ex.MWNEngine(config=base.config, problems=[reweight, classifier],
+                          dependencies={"u2l": {reweight: [classifier]},
+                                        "l2u": {classifier: [reweight]}},
+                          device=base.device)
+    engine.test_data = base.test_data
+    return engine
+
+
+def _injected_directions(rng, i, like):
+    """reinforce's directions drawn on the host from the step's seed, the
+    same on every device (the solver's own generator draws differently on
+    the CPU and on the card)."""
+    import numpy as np
+    import torch
+    from betty_tpu_torch.utils import fold_in
+
+    r = np.random.RandomState(fold_in(rng, i) % 2**32)
+    return {k: torch.from_numpy(r.standard_normal(tuple(x.shape))).to(x.device, x.dtype)
+            for k, x in like.items()}
+
+
+ITD_SMALL = (("itd", 1), ("itd", 3), ("reinforce", 1))  # (variant, unroll_steps)
+ITD_FULL = (("itd", 1), ("itd", 5), ("reinforce", 1))
+ITD_PERIODS = 4
+
+
+def _itd_small_engine(variant, unroll, device, compiled, states=None):
+    """The small MWN (3-block ResNet, B8, data on the device) as ``variant``
+    in float64, ``ITD_PERIODS`` meta-periods, an LR milestone inside the
+    run, one replay a period; ``states`` (CPU tensors) replace its own."""
+    import torch
+    from betty_tpu_torch.utils import tree_map
+
+    argv = MWN_SMALL_ARGV + ["--device", device, "--unroll_steps", str(unroll), "--train_iters",
+                             str(ITD_PERIODS * unroll), "--lr_milestones", "2", "--device_data"]
+    engine = mwn_variant(argv + (["--compile_blocks"] if compiled else []), variant)
+    engine.config.block_periods = 1
+    if states is None:
+        states = tree_map(lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point()
+                          else t, engine.states)
+    engine.states = tree_map(lambda t: t.to(device) if torch.is_tensor(t) else t, states)
+    for prob in engine.problems:
+        for loader in prob.train_data_loader:
+            loader.arrays = (loader.arrays[0].double(), *loader.arrays[1:])
+    return engine
+
+
+def itd_small_phase(variant, unroll):
+    """The small float64 MWN as ``variant``: the card against the CPU from
+    the same weights (reinforce with host-drawn directions on both sides),
+    within 1e-9; then compiled blocks against driver mode on the card, bit
+    for bit (reinforce with its own generator, which joins the graph's
+    pool: fresh directions every replay, driver mode's). cuDNN runs its
+    deterministic algorithms."""
+    import functools
+
+    import torch
+    from betty_tpu_torch.hypergradient import jvp_fn_mapping, reinforce
+
+    tag = f"[itd small] {variant} unroll {unroll}"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    own = jvp_fn_mapping["reinforce"]
+    try:
+        jvp_fn_mapping["reinforce"] = functools.partial(reinforce,
+                                                        directions=_injected_directions)
+        cpu = _itd_small_engine(variant, unroll, "cpu", False)
+        states = cpu.states
+        for label, device in (("cpu", "cpu"), ("card", "cuda")):
+            engine = _itd_small_engine(variant, unroll, device, False, states)
+            engine.run()
+            runs[label] = engine
+        jvp_fn_mapping["reinforce"] = own
+        if variant == "reinforce":
+            runs["driver"] = _itd_small_engine(variant, unroll, "cuda", False, states)
+            runs["driver"].run()
+        else:
+            runs["driver"] = runs["card"]
+        with _CaptureWatch({}) as watch:
+            runs["compiled"] = _itd_small_engine(variant, unroll, "cuda", True, states)
+            runs["compiled"].run()
+        torch.cuda.synchronize()
+    finally:
+        jvp_fn_mapping["reinforce"] = own
+        torch.backends.cudnn.deterministic = deterministic
+    card_err = _mwn_tree_err(runs["cpu"].states, runs["card"].states)
+    comp_err = _state_err(runs["driver"].states, runs["compiled"].states)
+    runner = runs["compiled"].block_runner
+    seeds = [w[2] for w in watch.written]
+    fresh = all(a != b for r in range(len(seeds) - 1) for a, b in zip(seeds[r], seeds[r + 1]))
+    counts = {k: (e.classifier.count, e.reweight.count) for k, e in runs.items()}
+    moved = _mwn_tree_err(states, runs["card"].states)
+    finite = all(bool(torch.isfinite(t).all()) for e in runs.values() for s in e.states.values()
+                 for t in s["params"].values())
+    log(f"{tag}: card vs CPU max |param or batch_stats diff| {card_err:.3e} (tol 1e-9; moved "
+        f"{moved:.3e}); compiled vs driver on the card max |state diff| {comp_err:.3e} (bit for "
+        f"bit); captures {runner.captures}, replays {runner.replays} of {runner.periods_run} "
+        f"periods, capture {runner.capture_seconds:.2f} s; generators a period "
+        f"{len(seeds[0]) if seeds else 0}, fresh seeds every replay {fresh}; counts {counts}; "
+        f"finite {finite}")
+    want = (ITD_PERIODS * unroll, ITD_PERIODS)
+    assert all(c == want for c in counts.values()), counts
+    assert finite and moved > 0 and card_err <= 1e-9 and comp_err == 0.0, (card_err, comp_err)
+    assert runner.captures == 1 and runner.replays == runner.periods_run >= ITD_PERIODS - 1
+    assert runner.itd_names == ({"classifier"} if variant == "itd" else set())
+    if variant == "reinforce":
+        assert seeds and len(seeds[0]) == 1 and fresh, seeds
+    del runs, cpu, runner
+    _free()
+    return card_err, comp_err
+
+
+def _fixed_losses(engine):
+    """Both problems' losses at the engine's parameters on fixed batches
+    (the first ``batch_size`` rows of each loader's arrays), no graph."""
+    import torch
+
+    ctx = {n: {"params": s["params"], "extra": s["extra"]} for n, s in engine.states.items()}
+    out = {}
+    with torch.no_grad():
+        for p in engine.problems:
+            ld = p.train_data_loader[0]
+            batch = tuple(torch.as_tensor(a[:ld.batch_size]).to(engine.device)
+                          for a in ld.arrays)
+            out[p.name] = float(p.eval_loss(ctx, batch)[0])
+    return out
+
+
+def _param_norm(states, name):
+    import torch
+
+    return float(torch.sqrt(sum((t.double() ** 2).sum() for t in states[name]["params"].values())))
+
+
+def itd_full_cell(variant, unroll, warmup=3, steady=20):
+    """The flagship's defaults (ResNet-32 B128, fp32, TF32 off, SGD 0.1
+    nesterov with weight decay 5e-4 under a MultiStepLR at the reference's
+    milestones 10000 and 13000, Adam 1e-5, data on the device) as
+    ``variant`` at ``unroll``: driver mode, then compiled blocks (one replay
+    a period), ``warmup`` + ``steady`` timed periods and one profiled each.
+    Reports the period, busy and idle share, launches, peak memory, the
+    capture, and the parameters' difference between the modes with both
+    runs' loss and parameter norms (float32 cuDNN is not repeatable)."""
+    import torch
+    from betty_tpu_torch.ops import flash_attention as fa
+    from betty_tpu_torch.ops import vector as vec
+
+    argv = ["--device_data", "--device", "cuda", "--unroll_steps", str(unroll),
+            "--lr_milestones", "10000,13000"]
+    periods = warmup + steady + 1
+    out, finals = {}, {}
+    for mode in ("driver", "compiled"):
+        tag = f"[itd full] {variant} unroll {unroll} {mode}"
+        engine = mwn_variant(argv + (["--compile_blocks"] if mode == "compiled" else []),
+                             variant)
+        engine.config.block_periods = 1
+        fa.reset_launch_counts()
+        vec.reset_launch_counts()
+        seconds, report, peak = _timed_run(engine, unroll, periods, tag, _op_class)
+        ours = {**{k: f.launches for k, f in fa.KERNELS.items()},
+                **{k: getattr(vec, k).launches for k in VECTOR_KERNELS}}
+        out[mode] = _cell_line(tag, seconds, report, peak, warmup)
+        if mode == "compiled":
+            r = engine.block_runner
+            out[mode]["capture_s"] = r.capture_seconds
+            log(f"{tag} captures {r.captures}, replays {r.replays}, capture (two warm-up "
+                f"periods and the capture) {r.capture_seconds:.3f} s; ITD problems in the "
+                f"period {sorted(r.itd_names)}")
+            assert r.captures == 1 and r.replays == periods
+        losses = _fixed_losses(engine)
+        norms = {n: _param_norm(engine.states, n) for n in engine.states}
+        out[mode].update(losses=losses, norms=norms)
+        log(f"{tag} losses on fixed batches {losses}; parameter norms {norms}; launches of "
+            f"the port's kernels {ours}")
+        assert engine.classifier.count == unroll * periods and engine.reweight.count == periods
+        assert all(math.isfinite(v) for v in losses.values()), losses
+        assert all(n == 0 for n in ours.values()), ours
+        assert all(bool(torch.isfinite(t).all()) for s in engine.states.values()
+                   for t in s["params"].values())
+        finals[mode] = {n: {k: t.cpu() for k, t in s["params"].items()}
+                        for n, s in engine.states.items()}
+        del engine
+        _free()
+    out["param_diff"] = _state_err(finals["driver"], finals["compiled"])
+    log(f"[itd full] {variant} unroll {unroll}: compiled vs driver after {periods} periods: max "
+        f"|param diff| {out['param_diff']:.3e} (reported: float32 cuDNN is not repeatable)")
+    return out
+
+
+def itd_profile_dir_check():
+    """``EngineConfig.profile_dir`` on the card: the small MWN as ITD, in
+    driver mode and compiled, each writes a trace that holds the card's
+    kernels."""
+    import glob
+    import shutil
+
+    for mode in ("driver", "compiled"):
+        path = os.path.join(ROOT, "build", "itd_trace", mode)
+        shutil.rmtree(path, ignore_errors=True)
+        engine = _itd_small_engine("itd", 1, "cuda", mode == "compiled")
+        engine.config.profile_dir = path
+        engine.run()
+        files = glob.glob(os.path.join(path, "*.pt.trace.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        kernels = text.count('"cat": "kernel"')
+        log(f"[itd profile_dir] {mode}: {len(files)} trace file(s) in build/itd_trace/{mode}, "
+            f"{len(text)} bytes, {kernels} kernel events")
+        assert len(files) == 1 and kernels > 0, (files, kernels)
+        del engine
+        _free()
+
+
+def itd_phase():
+    t0 = time.time()
+    for variant, unroll in ITD_SMALL:
+        itd_small_phase(variant, unroll)
+    itd_profile_dir_check()
+    for variant, unroll in ITD_FULL:
+        itd_full_cell(variant, unroll)
+    log(f"[itd] phase done in {time.time() - t0:.1f} s")
+
+
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
 KERNEL_SYMBOLS = {
     "fp32_fwd_single_kernel": "flash B1", "mma_fwd_single_kernel": "flash B1",
@@ -1586,7 +1886,7 @@ def sass_report(lib_paths, head_dims):
         raise AssertionError(f"kernels without the instructions of their design: {bad}")
 
 
-PHASES = ("kernels", "slice", "long", "mwn", "compiled")
+PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -1618,7 +1918,8 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="kernels (always run), slice (S128 runs), long (S1024 runs), mwn "
                          "(ResNet-32 Meta-Weight-Net), compiled (compiled blocks against "
-                         "driver mode)")
+                         "driver mode), itd (iterative differentiation and reinforce on the "
+                         "MWN flagship)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -1676,6 +1977,8 @@ def main(argv=None):
         mwn_phase()
     if "compiled" in phases:
         compiled_phase()
+    if "itd" in phases:
+        itd_phase()
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

@@ -4,9 +4,10 @@ driver mode and against the JAX package's compiled blocks, on the CPU.
 * The schedule: the port's ``_Simulator`` and ``compress`` give JAX's
   events, period, initial phase and segments on the same graphs.
 * The loader cursor API gives JAX's index rows across an epoch rollover.
-* The cases of ``tests/test_compile.py`` (ITD and meshes aside) on the
+* The cases of ``tests/test_compile.py`` (meshes aside) on the
   logistic-regression HPO program: port compiled equals port driver bit
-  for bit and is within 1e-6 of JAX compiled.
+  for bit and is within 1e-6 of JAX compiled; the ITD MAML case of
+  ``test_block_itd_maml`` likewise.
 * Small reweighting runs (transformer SAMA with dropout and Adam, a
   3-block ResNet MWN with a step schedule): compiled equals driver bit for
   bit, and the seeds, bias corrections and learning rates the runner
@@ -21,10 +22,12 @@ import pytest
 import torch
 
 import betty_tpu
+import betty_tpu_torch
 from betty_tpu import compile as jcompile
 from betty_tpu.data import ArrayLoader as JArrayLoader
 from betty_tpu.module import from_fn as jfrom_fn
-from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, utils
+from betty_tpu_torch import (Config, Engine, EngineConfig, ImplicitProblem, IterativeProblem,
+                             optim, utils)
 from betty_tpu_torch import compile as tcompile
 from betty_tpu_torch.data import ArrayLoader
 from betty_tpu_torch.examples import bert_data_reweighting as tex
@@ -32,6 +35,17 @@ from betty_tpu_torch.examples import learning_to_reweight as mwn
 from betty_tpu_torch.examples import logistic_regression_hpo as lr
 from betty_tpu_torch.module import from_fn
 from fixtures import make_engine
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread: the test workers share the machine's cores, and
+    small ops spread over every core wait for all of them (a hundred times
+    slower on a loaded machine)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 # ---------------------------------------------------------------------------
 # the schedule
@@ -198,6 +212,86 @@ def test_compiled_blocks_equal_driver_and_jax(case):
         assert err <= 1e-6, (name, err)
 
 
+class _JMeta(betty_tpu.ImplicitProblem):
+    def training_step(self, batch):
+        return 0.5 * jnp.sum((self.adapt.params["w"] - batch) ** 2)
+
+
+class _JAdapt(betty_tpu.IterativeProblem):
+    def training_step(self, batch):
+        return 0.5 * jnp.sum((self.module() - batch) ** 2)
+
+    def on_inner_loop_start(self):
+        self.set_params({"w": self.meta.params["w"]})
+
+    def unroll_init(self, start_params):
+        return {"w": self.meta.params["w"]}
+
+
+class _TMeta(ImplicitProblem):
+    def training_step(self, batch):
+        return 0.5 * torch.sum((self.adapt.params["w"] - batch) ** 2)
+
+
+class _TAdapt(IterativeProblem):
+    def training_step(self, batch):
+        return 0.5 * torch.sum((self.module() - batch) ** 2)
+
+    def on_inner_loop_start(self):
+        self.set_params({"w": self.meta.params["w"]})
+
+    def unroll_init(self, start_params):
+        return {"w": self.meta.params["w"]}
+
+
+@pytest.mark.parametrize("case", ["plain", "rollback_gas2"])
+def test_block_itd_maml_equals_driver_and_jax(case):
+    """``tests/test_compile.py::test_block_itd_maml``: an IterativeProblem
+    (MAML, the inner init coupled to the meta parameters) under a
+    first_order=False parent, compiled: equal to driver mode bit for bit
+    and within 1e-6 of JAX's compiled run; also with roll_back, two
+    accumulated micro-batches a step, momentum and two inner batches."""
+    D, STEPS = 4, 3
+    rng = np.random.RandomState(5)
+    t_in, t_out, th0 = (rng.randn(D).astype(np.float32) for _ in range(3))
+    gas, roll_back = (2, True) if case == "rollback_gas2" else (1, False)
+    momentum = 0.9 if roll_back else 0.0
+    inner_data = [t_in, t_out] if roll_back else [t_in]
+
+    def build(side, compiled):
+        if side == "jax":
+            M, A, ff, arr, pkg, kw = _JMeta, _JAdapt, jfrom_fn, jnp.asarray, betty_tpu, {}
+        else:
+            M, A, ff, arr = _TMeta, _TAdapt, from_fn, torch.as_tensor
+            pkg, kw = betty_tpu_torch, {"device": "cpu"}
+        meta = M("meta", module=ff(lambda p: p["w"], {"w": arr(th0)}),
+                 optimizer=pkg.optim.sgd(lr=0.5), train_data_loader=[arr(t_out)],
+                 config=pkg.Config(first_order=False))
+        adapt = A("adapt", module=ff(lambda p: p["w"], {"w": arr(np.zeros(D, np.float32))}),
+                  optimizer=pkg.optim.sgd(lr=0.1, momentum=momentum),
+                  train_data_loader=[arr(t) for t in inner_data],
+                  config=pkg.Config(unroll_steps=STEPS, gradient_accumulation=gas))
+        engine = pkg.Engine(config=pkg.EngineConfig(train_iters=4 * STEPS * gas,
+                                                    compile_blocks=compiled,
+                                                    roll_back=roll_back),
+                            problems=[meta, adapt],
+                            dependencies={"u2l": {meta: [adapt]}, "l2u": {adapt: [meta]}}, **kw)
+        engine.run()
+        return engine
+
+    driver, compiled = build("torch", False), build("torch", True)
+    assert compiled.block_runner.periods_run == 4 and compiled.block_runner.itd_names == {"adapt"}
+    for name in ("meta", "adapt"):
+        assert torch.equal(driver.states[name]["params"]["w"],
+                           compiled.states[name]["params"]["w"]), name
+    jeng = build("jax", True)
+    for name in ("meta", "adapt"):
+        err = np.max(np.abs(compiled.states[name]["params"]["w"].numpy()
+                            - np.asarray(jeng.states[name]["params"]["w"])))
+        assert err <= 1e-6, (name, err)
+    assert not torch.equal(compiled.states["meta"]["params"]["w"], torch.as_tensor(th0))
+
+
 def test_compiled_blocks_validation_call_count_matches_driver():
     calls = []
 
@@ -333,6 +427,57 @@ def test_mwn_run_compiled_equals_driver():
             b = dict(tcompile._paths(compiled.states[name][coll]))
             assert set(a) == set(b)
             assert all(torch.equal(a[k], b[k]) for k in a), (name, coll)
+
+
+@pytest.mark.parametrize("variant,unroll", [("itd", 1), ("itd", 3), ("reinforce", 1)])
+def test_mwn_itd_and_reinforce_runs_compiled_equal_driver(variant, unroll):
+    """The MWN program (3-block ResNet, BatchNorm, a MultiStepLR milestone
+    inside the run) differentiated through the classifier's unroll
+    (``IterativeProblem``) or reweighted by ``reinforce``, built as
+    ``chip_smoke.py`` builds them: compiled equals driver bit for bit,
+    running statistics included, and the ITD replay runs inside the
+    period."""
+    import chip_smoke
+
+    argv = ["--device", "cpu", "--stage_sizes", "1,1,1", "--batch_size", "8",
+            "--train_size", "64", "--meta_size", "32", "--train_iters", str(4 * unroll),
+            "--unroll_steps", str(unroll), "--lr_milestones", "2", "--device_data"]
+    engines = [chip_smoke.mwn_variant(argv + extra, variant) for extra in
+               ([], ["--compile_blocks"])]
+    for engine in engines:
+        engine.config.block_periods = 1
+        engine.run()
+    driver, compiled = engines
+    runner = compiled.block_runner
+    assert runner.periods_run == 4 and runner.itd_names == (
+        {"classifier"} if variant == "itd" else set())
+    assert (compiled.classifier.count, compiled.reweight.count) == (4 * unroll, 4)
+    for name in ("classifier", "reweight"):
+        for coll in ("params", "extra"):
+            a = dict(tcompile._paths(driver.states[name][coll]))
+            b = dict(tcompile._paths(compiled.states[name][coll]))
+            assert set(a) == set(b)
+            assert all(torch.equal(a[k], b[k]) for k in a), (name, coll)
+
+
+@pytest.mark.parametrize("compiled", [False, True], ids=["driver", "compiled"])
+def test_profile_dir_writes_a_trace(tmp_path, compiled):
+    """``EngineConfig.profile_dir``: the run is recorded under
+    ``torch.profiler`` and its trace lands there, in driver mode and
+    around the compiled blocks alike."""
+    import json
+
+    engine, _, inner = _port_engine(Config(unroll_steps=5),
+                                    EngineConfig(train_iters=20, compile_blocks=compiled,
+                                                 profile_dir=str(tmp_path / "trace")))
+    engine.run()
+    assert inner.count == 20
+    assert (engine.block_runner is not None) == compiled
+    files = sorted((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "aten::mm" in names or "aten::matmul" in names or "aten::mv" in names, sorted(names)[:40]
 
 
 def test_compiled_blocks_do_not_fall_back_on_a_failing_period(monkeypatch):

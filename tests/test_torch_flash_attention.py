@@ -338,6 +338,86 @@ def test_dispatch_is_jax_single_tile_predicate(tiles, path, monkeypatch):
         path == "single")
 
 
+def _jax_blocks(q, Skv, bq, bkv, block_h):
+    """The blocks JAX's ``_fwd`` / ``_flash_bwd`` run: None for the single
+    tile, else the multi-tile blocks (a ValueError where they do not
+    divide)."""
+    Sq = q.shape[2]
+    if jfa._single_tile(Sq, Skv, bq, bkv):
+        if block_h(q, Skv) is not None:
+            return None
+        bq, bkv = jfa._clamp_blocks(Sq, Skv, bq, bkv)
+    return jfa._blocks(Sq, bq, "flash_attention q"), jfa._blocks(Skv, bkv, "flash_attention kv")
+
+
+def _plan_or_error(fn, *args):
+    try:
+        return fn(*args)
+    except ValueError as e:
+        return str(e)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dispatch_follows_jax_feasibility_rule(dtype):
+    """``fwd_blocks`` / ``bwd_blocks`` choose what JAX's forward and
+    backward choose (single tile, clamped blocks, or the requested ones)
+    for every shape of a grid across the VMEM budget's edges, each
+    direction by its own rule."""
+    itemsize = np.dtype(jnp.bfloat16 if dtype == "bfloat16" else np.float32).itemsize
+    checked = set()
+    for H in (1, 16):
+        for D in (16, 64, 128):
+            for sq in (128, 512, 768, 816, 826, 1024, 1152, 1184, 1192, 2048):
+                for skv in (sq, 640):
+                    for bq, bkv in ((sq, skv), (min(512, sq), min(512, skv)), (2048, 2048)):
+                        q = jax.ShapeDtypeStruct((2, H, sq, D), jnp.dtype(dtype))
+                        for ours, theirs in ((tfa.fwd_blocks, jfa._fwd_block_h),
+                                             (tfa.bwd_blocks, jfa._bwd_block_h)):
+                            got = _plan_or_error(ours, q.shape, skv, itemsize, bq, bkv)
+                            want = _plan_or_error(_jax_blocks, q, skv, bq, bkv, theirs)
+                            assert got == want, (q.shape, skv, bq, bkv, ours.__name__)
+                            checked.add("single" if got is None else "error"
+                                        if isinstance(got, str) else "multi")
+    assert checked == {"single", "multi", "error"}
+
+
+# sequences with blocks equal to them, past the backward's single tile:
+# (S, kernels the CPU path runs forward then backward)
+FEASIBILITY = [(1024, ["_fwd_single", "_bwd_dkv", "_bwd_dq"]),
+               (1152, ["_fwd_single", "_bwd_dkv", "_bwd_dq"]),
+               (2048, ["_fwd_multi", "_bwd_dkv", "_bwd_dq"])]
+
+
+@pytest.mark.parametrize("seq,path", FEASIBILITY, ids=[f"S{s}" for s, _ in FEASIBILITY])
+def test_blocks_past_the_single_tile_rule_match_jax(seq, path, monkeypatch):
+    """float32 at D16 with ``block_q = block_kv = S``: JAX's forward keeps
+    one tile up to 1,222 keys, its backward up to 855, and past them each
+    runs the multi-tile kernels at the clamped blocks (512, or 384 at
+    S1152). The port takes the same kernels (the CPU plain versions) and
+    returns JAX's o and gradients, padded keys and causal masking."""
+    calls = []
+    for name in ("_fwd_single", "_bwd_single", "_fwd_multi", "_bwd_dkv", "_bwd_dq"):
+        def spy(*a, _orig=getattr(tfa, name), _name=name, **kw):
+            calls.append(_name)
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(tfa, name, spy)
+    q, k, v, w, mask = _inputs(9, pad=True, S=seq)
+    jo, jg = _jax_run(q, k, v, w, mask, True, (seq, seq))
+    to, tg = _torch_run(tfa.flash_attention, q, k, v, w, mask, True, block_q=seq,
+                        block_kv=seq)
+    assert calls == path
+    assert np.max(np.abs(to - jo)) < 1e-5
+    for a, b in zip(tg, jg):
+        assert np.max(np.abs(a - b)) <= 1e-4 * max(np.max(np.abs(b)), 1e-6)
+
+
+def test_bf16_blocks_of_2048_run_jax_clamped_blocks():
+    """bf16 at S2048 with blocks of 2048 (past every single-tile rule): o is
+    JAX's, computed on the 512 blocks JAX falls back to."""
+    _check_bf16_forward(2048, 2048, 2048)
+
+
 def test_long_sequence_on_cuda_path_raises():
     """A sequence that does not divide by its block raises JAX's own
     ValueError, on the CPU and on any other device, before any kernel is

@@ -2,7 +2,8 @@
 against the JAX package's ``examples/learning_to_reweight/main.py``.
 
 * The whole program (darts, SAMA, CG, Neumann, ``--baseline``,
-  ``--retrain``) from the same weights on the same batches, in float64
+  ``--retrain``, and iterative differentiation through the classifier's
+  step, ``itd``) from the same weights on the same batches, in float64
   (``torch_mwn_impl.py``, in a subprocess): after 4 + 4 steps both
   problems' params and batch_stats within 1e-8 (measured 3.4e-10).
 * The data path: the same splits, corruptions, crops and loaded arrays
@@ -67,7 +68,7 @@ def _load_jax_states(jeng, teng):
             _numpy(jeng.states["reweight"]["params"]))
 
 
-CASES = ("darts", "sama", "cg", "neumann", "baseline", "retrain")
+CASES = ("darts", "sama", "cg", "neumann", "baseline", "retrain", "itd")
 
 
 @pytest.fixture(scope="module")

@@ -16,7 +16,7 @@ from betty_tpu_torch.data import ArrayLoader
 from betty_tpu_torch.entry import entry
 from betty_tpu_torch.examples import bert_data_reweighting as tex
 from betty_tpu_torch.examples import learning_to_reweight as mwn
-from betty_tpu_torch.hypergradient import _solver, cg, neumann
+from betty_tpu_torch.hypergradient import _solver, cg, neumann, reinforce
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "betty_tpu", "examples", "mwn_data", "vision_data")
@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
     for new in ("ops/vector.py", "ops/_build.py", "hypergradient/hvp.py", "hypergradient/cg.py",
                 "hypergradient/neumann.py", "examples/logistic_regression_hpo.py",
                 "models/batchnorm.py", "models/resnet.py", "examples/learning_to_reweight.py",
-                "examples/mwn_data.py", "examples/vision_data.py", "entry.py", "compile.py"):
+                "examples/mwn_data.py", "examples/vision_data.py", "entry.py", "compile.py",
+                "problems/iterative.py", "hypergradient/reinforce.py"):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -51,8 +52,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="remat"):
         Config(remat=True)
     assert _solver("cg") is cg and _solver("neumann") is neumann
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _solver("reinforce")
+    assert _solver("reinforce") is reinforce  # ported
     with pytest.raises(ValueError, match="hvp_mode"):
         Config(hvp_mode="forward")
     small = ["--device", "cpu", "--dim", "16", "--depth", "1", "--heads", "2"]

@@ -2,7 +2,11 @@
 float64 from the same weights on the same batches: a 3-block ResNet
 (stage sizes 1/1/1, substituted for ResNet-32 on both sides here), batch 8.
 After 4 classifier and 4 reweight steps (unroll 1) both problems' params
-and batch_stats must agree within TOL.
+and batch_stats must agree within TOL. The ``itd`` case is the program
+differentiated through the classifier's SGD step: the classifier an
+``IterativeProblem`` carrying the example's ``Classifier.training_step``,
+the reweighter ``first_order=False``, built on either side from the
+example's engine (``itd_variant``).
 
 Run as a subprocess by test_torch_mwn.py (float64 JAX must not leak into
 the float32 test process). float64, because in float32 a ReLU whose input
@@ -43,6 +47,7 @@ CASES = {
     "neumann": ["--solver", "neumann", "--neumann_iterations", "3"],
     "baseline": ["--baseline"],
     "retrain": ["--retrain"],
+    "itd": ["--solver", "darts"],
 }
 
 
@@ -68,6 +73,26 @@ def _f64_loaders(problems):
             dl.arrays = (np.asarray(dl.arrays[0], np.float64),) + tuple(dl.arrays[1:])
 
 
+def itd_variant(engine, pkg, engine_cls, classifier_cls, reweight_cls, **kw):
+    """``engine`` rebuilt from its own pieces with the classifier an
+    ``IterativeProblem`` carrying ``classifier_cls.training_step`` and the
+    reweighter ``first_order=False`` (``pkg``: betty_tpu or the port)."""
+    import dataclasses
+
+    class ITDClassifier(pkg.IterativeProblem):
+        training_step = classifier_cls.training_step
+
+    clf, rw = engine.classifier, engine.reweight
+    classifier = ITDClassifier(name="classifier", module=clf.module_fn, optimizer=clf.optimizer,
+                               train_data_loader=clf.train_data_loader[0], config=clf.config)
+    reweight = reweight_cls(name="reweight", module=rw.module_fn, optimizer=rw.optimizer,
+                            train_data_loader=rw.train_data_loader[0],
+                            config=dataclasses.replace(rw.config, first_order=False))
+    return engine_cls(config=engine.config, problems=[reweight, classifier],
+                      dependencies={"u2l": {reweight: [classifier]},
+                                    "l2u": {classifier: [reweight]}}, **kw)
+
+
 def resnet_state(jstate):
     return convert.from_flax_resnet(
         jax.tree_util.tree_map(np.asarray, {"params": jstate["params"],
@@ -84,9 +109,16 @@ def run_case(jmod, case, workdir):
                  labels=rng.randint(0, 10, 48).astype(np.int32))
         argv += ["--reweight_path", path]
     jeng = jmod.build_engine(jmod.parse_args(argv))
+    teng = tex.build_engine(tex.parse_args(argv + ["--device", "cpu", "--stage_sizes", "1,1,1"]))
+    if case == "itd":
+        import betty_tpu
+        import betty_tpu_torch
+
+        jeng = itd_variant(jeng, betty_tpu, jmod.MWNEngine, jmod.Classifier, jmod.Reweight)
+        teng = itd_variant(teng, betty_tpu_torch, tex.MWNEngine, tex.Classifier, tex.Reweight,
+                           device="cpu")
     jeng.states = _f64_jax(jeng.states)
     _f64_loaders(jeng.problems)
-    teng = tex.build_engine(tex.parse_args(argv + ["--device", "cpu", "--stage_sizes", "1,1,1"]))
     teng.states = tree_map(lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point()
                            else t, teng.states)
     _f64_loaders(teng.problems)
