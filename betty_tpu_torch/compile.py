@@ -42,6 +42,13 @@ On the CPU (tests) the runner runs the same period function eagerly each
 period, fed from the same static buffers and generator pool, and checks
 the values each step reads against the ones it wrote.
 
+Between blocks the engine's states are the runner's live state (on the
+card the static tensors), and ``live_caches`` hands out the roll-back
+caches the blocks carry, so a checkpoint saved there (``checkpoint.py``)
+holds the live state. A run resumed from it builds a new runner, which
+captures a new graph; its per-step values and seeds derive from the
+restored counts and integer leaves, as every period's do.
+
 Not ported: meshes.
 """
 
@@ -475,6 +482,7 @@ class BlockRunner:
         self.replays = 0
         self.periods_run = 0
         self.capture_seconds = None
+        self.finalized = False
         self._slots = None
         self._graph = None
         self._last_rows = {}
@@ -706,17 +714,28 @@ class BlockRunner:
             p.train_data_iterator[0] = ld.iter_from(epoch, served)
         return loss
 
+    @property
+    def live(self) -> bool:
+        """True between blocks: the roll-back caches are the runner's."""
+        return self.periods_run > 0 and not self.finalized
+
+    def live_caches(self):
+        """The valid roll-back caches the blocks carry, by problem, with
+        their integer leaves; the blocks go on."""
+        _, cache_ints = self._host_ints(self.periods_run - 1)
+        return {name: _with_ints(self._cache[name], {
+                    k[1:]: v for k, v in cache_ints.items() if k[0] == name})
+                for name, valid in self._valid.items() if valid}
+
     def finalize(self):
         """Hand the roll-back caches back to the problems, for the driver
         mode that follows the blocks."""
         if self.periods_run == 0:
             return
-        _, cache_ints = self._host_ints(self.periods_run - 1)
-        for name, valid in self._valid.items():
-            p = self.problems[name]
-            p._state_cache = (_with_ints(self._cache[name], {
-                k[1:]: v for k, v in cache_ints.items() if k[0] == name})
-                if valid else None)
+        caches = self.live_caches()
+        for name in self._valid:
+            self.problems[name]._state_cache = caches.get(name)
+        self.finalized = True
 
     # -- the period function -------------------------------------------------
     def _period(self, states, cache, batches, counts0):

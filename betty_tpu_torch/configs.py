@@ -20,10 +20,15 @@ there (``Engine._profiler``).
 ``block_periods`` is the periods a block (0: the JAX package's automatic
 size, the validation cadence over the period, at most 32).
 
+``Config.remat`` recomputes the problem's direct loss in the backward
+(``Problem.build_update_fn``). ``checkpoint_dir`` / ``checkpoint_step`` /
+``auto_resume`` are the engine's checkpoints (``betty_tpu_torch/checkpoint.py``):
+a save every ``checkpoint_step`` global steps, and a run that starts from
+the checkpoint in ``checkpoint_dir`` when one is there.
+
 ``Config.hvp_mode`` other than ``"jvp"``/``"vjp"`` raises, as the JAX
-package's ``make_hvp`` does. Options of the JAX package that the port does
-not have yet raise when set: ``Config.remat``, any other ``strategy``, and
-engine checkpointing (``checkpoint_step > 0`` or ``auto_resume``).
+package's ``make_hvp`` does. A ``strategy`` other than ``"default"`` raises:
+the port runs on one card.
 """
 
 from dataclasses import dataclass
@@ -79,9 +84,6 @@ class Config:
     shard_rules: Optional[Tuple] = None
 
     def __post_init__(self):
-        if self.remat:
-            raise NotImplementedError(
-                "Config.remat: activation rematerialization is not ported yet")
         if self.hvp_mode not in ("jvp", "vjp"):
             raise ValueError(f"hvp_mode must be 'jvp' or 'vjp', got {self.hvp_mode!r}")
 
@@ -121,6 +123,4 @@ class EngineConfig:
         if self.strategy != "default":
             raise NotImplementedError(
                 f"EngineConfig.strategy={self.strategy!r}: the port runs on one card "
-                "(strategy='default')")
-        if self.checkpoint_step > 0 or self.auto_resume:
-            raise NotImplementedError("engine checkpointing is not ported yet")
+                "(strategy='default'; ROADMAP.md §A.7)")

@@ -32,12 +32,14 @@ def _layernorm(out, prefix, p, device, dtype):
 
 
 def from_flax_transformer(params, device="cpu", dtype=torch.float32):
-    """flax ``TransformerClassifier`` params -> the port's params dict."""
+    """flax ``TransformerClassifier`` params -> the port's params dict (with
+    ``remat=True`` flax names the blocks ``CheckpointEncoderBlock_i``)."""
     out = {"embed.weight": _t(params["Embed_0"]["embedding"], device, dtype),
            "pos_embedding": _t(params["pos_embedding"], device, dtype)}
-    depth = sum(1 for k in params if k.startswith("EncoderBlock_"))
+    block = "CheckpointEncoderBlock_" if "CheckpointEncoderBlock_0" in params else "EncoderBlock_"
+    depth = sum(1 for k in params if k.startswith(block))
     for i in range(depth):
-        blk = params[f"EncoderBlock_{i}"]
+        blk = params[f"{block}{i}"]
         pre = f"blocks.{i}"
         _layernorm(out, f"{pre}.ln1", blk["LayerNorm_0"], device, dtype)
         attn = blk["MultiHeadDotProductAttention_0"]

@@ -14,11 +14,21 @@ kernels on CUDA) and writes its trace there as
 ``start_trace``/``stop_trace`` cover: the driver loop, or the whole of
 ``run_compiled`` after its schedule probe (warm-up, capture and replays).
 
-Not ported yet: meshes and strategies other than one device, and engine
-checkpoints.
+Engine checkpoints (``betty_tpu_torch/checkpoint.py``): ``save_checkpoint``
+/ ``load_checkpoint``; ``EngineConfig(checkpoint_step=N, checkpoint_dir=...)``
+saves every N global steps from ``maybe_validate_checkpoint``, the one
+hook of both loops (eval, validation, log, train, early stop, checkpoint);
+``EngineConfig(auto_resume=True)`` starts ``run()`` from the checkpoint in
+``checkpoint_dir`` when there is one, ``train_iters`` being the run's total.
+A resumed run equals the uninterrupted one bit for bit, in driver mode and
+compiled (a block never spans two checkpoint boundaries, and a save between
+blocks reads the runner's live state).
+
+Not ported yet: meshes and strategies other than one device.
 """
 
 import contextlib
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -185,6 +195,7 @@ class Engine:
             leaf.step(global_step=self.global_step)
 
     def run(self):
+        self.maybe_auto_resume()
         if self.config.compile_blocks:
             return self.run_compiled()
         return self._run_driver()
@@ -207,7 +218,7 @@ class Engine:
             for _ in range(1, self.train_iters + 1):
                 self.global_step += 1
                 self.train_step()
-                if self.maybe_validate(window=1):
+                if self.maybe_validate_checkpoint(window=1):
                     break
         self.cleanup()
 
@@ -247,14 +258,17 @@ class Engine:
             it += 1
             self.global_step += 1
             self.train_step()
-            if self.maybe_validate(window=1):
+            if self.maybe_validate_checkpoint(window=1):
                 stopped = True
                 break
 
-        # a block spans at most one validation boundary, so validation and
-        # early stopping see what driver mode sees
+        # a block spans at most one validation or checkpoint boundary, so
+        # validation, early stopping and checkpoints see what driver mode sees
         remaining = self.train_iters - it
-        cadence = max(1, self.valid_step if self.do_validation() else remaining)
+        cadence = self.valid_step if self.do_validation() else remaining
+        if self.config.checkpoint_step > 0 and self.config.checkpoint_dir:
+            cadence = min(cadence, self.config.checkpoint_step)
+        cadence = max(1, cadence)
         K = self.config.block_periods
         if K <= 0:
             K = min(max(1, min(cadence, max(remaining, 1), 512) // probe.period), 32)
@@ -262,8 +276,9 @@ class Engine:
             K = max(1, min(K, max(1, cadence // probe.period)))
         if probe.period > cadence:
             self.logger.info(
-                f"[compile_blocks] schedule period {probe.period} exceeds the validation "
-                f"cadence {cadence}: boundary actions run once per period (coarsened cadence)")
+                f"[compile_blocks] schedule period {probe.period} exceeds the "
+                f"validation/checkpoint cadence {cadence}: boundary actions run once per "
+                "period (coarsened cadence)")
         period = probe.period * K
         runner = None
         if not stopped and remaining >= period:
@@ -280,7 +295,7 @@ class Engine:
             for p in self.problems:
                 if p.log_step > 0 and p.name in last_loss:
                     p.log(last_loss[p.name], self.global_step)
-            if self.maybe_validate(window=period):
+            if self.maybe_validate_checkpoint(window=period):
                 stopped = True
 
         # the remainder runs in driver mode, from the blocks' roll-back caches
@@ -290,25 +305,58 @@ class Engine:
             for _ in range(self.train_iters - it):
                 self.global_step += 1
                 self.train_step()
-                if self.maybe_validate(window=1):
+                if self.maybe_validate_checkpoint(window=1):
                     break
 
-    def maybe_validate(self, window: int = 1) -> bool:
-        """Validation on the ``valid_step`` cadence; a window of W means the
-        global step just advanced by W iterations, and a multiple of
-        ``valid_step`` inside it triggers. True when early stopping fires."""
-        if not (self.do_validation() and self.global_step % self.valid_step < window):
-            return False
-        self.eval()
-        validation_stats = self.validation() or {}
-        self.logger.info(f"[Validation] [Global Step {self.global_step}] "
-                         f"{log_from_loss_dict(validation_stats)}")
-        self.logger.log(validation_stats, tag="validation", step=self.global_step)
-        self.train()
-        if self.early_stopping is not None and self.early_stopping(validation_stats):
-            self.logger.info("Early stopping is executed!")
-            return True
-        return False
+    def maybe_auto_resume(self):
+        """With ``EngineConfig(auto_resume=True)``, restore the checkpoint in
+        ``checkpoint_dir`` if one is there (before the first step only);
+        ``train_iters`` is the total target of the run, so only the
+        remainder runs."""
+        if not (self.config.auto_resume and self.config.checkpoint_dir
+                and self.global_step == 0
+                and os.path.exists(os.path.join(self.config.checkpoint_dir, "meta.json"))):
+            return
+        self.load_checkpoint(self.config.checkpoint_dir)
+        self.train_iters = max(0, self.train_iters - self.global_step)
+        self.logger.info(f"[auto_resume] restored global step {self.global_step} from "
+                         f"{self.config.checkpoint_dir}; {self.train_iters} iterations remain")
+
+    def maybe_validate_checkpoint(self, window: int = 1) -> bool:
+        """Validation on the ``valid_step`` cadence and a checkpoint on the
+        ``checkpoint_step`` one, in that order, for both loops; a window of
+        W means the global step just advanced by W iterations, and a
+        multiple of the cadence inside it triggers. True when early
+        stopping fires."""
+        stop = False
+        if self.do_validation() and self.global_step % self.valid_step < window:
+            self.eval()
+            validation_stats = self.validation() or {}
+            self.logger.info(f"[Validation] [Global Step {self.global_step}] "
+                             f"{log_from_loss_dict(validation_stats)}")
+            self.logger.log(validation_stats, tag="validation", step=self.global_step)
+            self.train()
+            if self.early_stopping is not None and self.early_stopping(validation_stats):
+                self.logger.info("Early stopping is executed!")
+                stop = True
+        if (self.config.checkpoint_step > 0 and self.config.checkpoint_dir is not None
+                and self.global_step % self.config.checkpoint_step < window):
+            self.save_checkpoint(self.config.checkpoint_dir)
+        return stop
+
+    def save_checkpoint(self, path: str):
+        """Every problem's state and the host counters into ``path``
+        (``checkpoint.save_engine_state``)."""
+        from betty_tpu_torch.checkpoint import save_engine_state
+
+        save_engine_state(self, path)
+
+    def load_checkpoint(self, path: str):
+        """The state and counters of the checkpoint in ``path``
+        (``checkpoint.restore_engine_state``)."""
+        from betty_tpu_torch.checkpoint import restore_engine_state
+
+        restore_engine_state(self, path)
 
     def train(self):
         for problem in self.problems:

@@ -14,9 +14,16 @@ to the classifier, whose config chooses the hypergradient solver.
     python -m betty_tpu_torch.examples.bert_data_reweighting --model large --flash
 
 Weights are random, made from a seed. ``--compile_blocks`` runs the steady
-schedule as compiled blocks (on CUDA one graph replay a meta-period). Not
-ported yet: real SST-2 (``--data-dir``), HuggingFace checkpoints
-(``--hf_model``), ``--remat`` and strategies other than one device.
+schedule as compiled blocks (on CUDA one graph replay a meta-period).
+``--remat`` recomputes each encoder block in the backward, under
+``--remat_policy`` ``full`` (with ``--flash`` the flash kernel's residuals
+are kept and B1/B3 is not replayed), ``minimal`` (everything replayed, the
+flash forward included) or ``dots`` (matmul outputs kept); see
+``models/transformer.py``. ``--checkpoint_dir`` saves an engine checkpoint
+whenever the dev accuracy improves (``SST2Engine.validation``; the
+synthetic data has no dev split, so set ``engine.dev_data``). Not ported
+yet: real SST-2 (``--data-dir``), HuggingFace checkpoints (``--hf_model``)
+and strategies other than one device.
 """
 
 import argparse
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 
 from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
 from betty_tpu_torch.data import ArrayLoader
+from betty_tpu_torch.examples.vision_data import problem_accuracy
 from betty_tpu_torch.models import MetaWeightNet, TransformerClassifier, roberta_large_config
 from betty_tpu_torch.module import from_torch
 
@@ -70,6 +78,27 @@ class Classifier(ImplicitProblem):
         return torch.sum(weight * ce) / torch.clamp(torch.sum(weight), min=1e-8)
 
 
+class SST2Engine(Engine):
+    """Dev-accuracy validation (when a dev set exists), saving a checkpoint
+    into ``checkpoint_dir`` on each improvement."""
+
+    dev_data = None
+    checkpoint_dir = None
+    eval_batch = 256
+    best_acc = -1.0
+
+    def validation(self):
+        if self.dev_data is None:
+            return {}
+        x, y = self.dev_data
+        acc = problem_accuracy(self.classifier, x, y, batch=self.eval_batch)
+        if acc > self.best_acc:
+            self.best_acc = acc
+            if self.checkpoint_dir:
+                self.save_checkpoint(self.checkpoint_dir)
+        return {"acc": acc, "best_acc": self.best_acc}
+
+
 def build_engine(args, **solver_config):
     vocab = 1000 if args.model == "small" else 50265
     device = torch.device(args.device)
@@ -80,16 +109,16 @@ def build_engine(args, **solver_config):
     if args.flash and args.hypergradient in ("cg", "neumann"):
         raise ValueError("--flash runs reverse-mode-only kernels; CG/Neumann need the "
                          "plain attention — drop --flash or use darts/sama")
-    if args.remat:
-        raise NotImplementedError("--remat: rematerialization is not ported yet")
-
+    policy = None if args.remat_policy == "full" else args.remat_policy
     if args.model == "large":
         model = roberta_large_config(max_len=args.seq_len, use_flash=args.flash,
-                                     dropout=args.dropout, device=device, seed=0)
+                                     dropout=args.dropout, remat=args.remat,
+                                     remat_policy=policy, device=device, seed=0)
     else:
         model = TransformerClassifier(vocab_size=vocab, max_len=args.seq_len, dim=args.dim,
                                       depth=args.depth, heads=args.heads, use_flash=args.flash,
-                                      dropout=args.dropout, device=device, seed=0)
+                                      dropout=args.dropout, remat=args.remat,
+                                      remat_policy=policy, device=device, seed=0)
     gen = torch.Generator(device=device).manual_seed(1)
     mwn = MetaWeightNet(device=device, generator=gen)
     loader_device = device if args.device_data else False
@@ -113,13 +142,15 @@ def build_engine(args, **solver_config):
                       precision=args.precision, solver_precision=args.solver_precision,
                       log_step=args.log_step, **solver_config),
     )
-    return Engine(
+    engine = SST2Engine(
         config=EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step,
                             strategy=args.strategy, compile_blocks=args.compile_blocks),
         problems=[reweight, classifier],
         dependencies={"u2l": {reweight: [classifier]}, "l2u": {classifier: [reweight]}},
         device=device,
     )
+    engine.checkpoint_dir = args.checkpoint_dir
+    return engine
 
 
 def parse_args(argv=None):
@@ -148,13 +179,21 @@ def parse_args(argv=None):
     p.add_argument("--log_step", type=int, default=-1)
     p.add_argument("--flash", action="store_true",
                    help="attention through the CUDA kernels (darts/sama only)")
-    p.add_argument("--remat", action="store_true", help="not ported yet: raises")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the encoder blocks in the backward (torch.utils.checkpoint)")
+    p.add_argument("--remat_policy", default="full", choices=["full", "minimal", "dots"],
+                   help="with --remat: 'full' recomputes each block (with --flash the flash "
+                        "residuals are kept, so B1/B3 is not replayed); 'minimal' recomputes "
+                        "everything, the flash forward included; 'dots' keeps every matmul "
+                        "output and recomputes the elementwise math")
     p.add_argument("--dropout", type=float, default=0.1)
     p.add_argument("--compile_blocks", action="store_true",
                    help="compiled blocks: one CUDA graph replay a meta-period")
     p.add_argument("--device_data", action="store_true",
                    help="keep the datasets on the device and gather batches there")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="save an engine checkpoint on validation improvement")
     return p.parse_args(argv)
 
 

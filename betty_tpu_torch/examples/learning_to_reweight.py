@@ -19,8 +19,11 @@ training, and ``--retrain`` samples the kept set by them.
 ``--stage_sizes`` cuts the depth (``1,1,1`` is a 3-block ResNet).
 ``--compile_blocks`` runs the steady schedule as compiled blocks (on CUDA
 one graph replay a meta-period; with ``--device_data`` the batches are
-gathered inside the graph). Not ported yet: ``--checkpoint_dir`` (ROADMAP.md
-§A.4) and strategies other than one device (§A.7); each raises.
+gathered inside the graph). ``--checkpoint_dir`` saves an engine
+checkpoint whenever the test accuracy improves (``MWNEngine.validation``,
+with ``--data-dir``); ``Engine.load_checkpoint`` reads it back. Not ported
+yet: strategies other than one device (ROADMAP.md §A.7); ``--strategy``
+raises.
 """
 
 import argparse
@@ -111,9 +114,11 @@ class BaselineClassifier(ImplicitProblem):
 
 
 class MWNEngine(Engine):
-    """Engine whose validation is test accuracy (when a test set exists)."""
+    """Engine whose validation is test accuracy (when a test set exists),
+    saving a checkpoint into ``checkpoint_dir`` on each improvement."""
 
     test_data = None
+    checkpoint_dir = None
     eval_batch = 512
     best_acc = -1.0
 
@@ -122,7 +127,10 @@ class MWNEngine(Engine):
             return {}
         x, y = self.test_data
         acc = problem_accuracy(self.classifier, x, y, batch=self.eval_batch)
-        self.best_acc = max(self.best_acc, acc)
+        if acc > self.best_acc:
+            self.best_acc = acc
+            if self.checkpoint_dir:
+                self.save_checkpoint(self.checkpoint_dir)
         return {"acc": acc, "best_acc": self.best_acc}
 
 
@@ -147,9 +155,6 @@ def solver_kwargs(args):
 
 
 def _check_ported(args):
-    if args.checkpoint_dir:
-        raise NotImplementedError("--checkpoint_dir: engine checkpoints are not ported yet "
-                                  "(ROADMAP.md §A.4)")
     if args.strategy != "default":
         raise NotImplementedError(f"--strategy {args.strategy}: the port runs on one card "
                                   "(ROADMAP.md §A.7)")
@@ -203,6 +208,7 @@ def build_engine(args):
         engine = MWNEngine(config=engine_config, problems=[classifier],
                            dependencies={"u2l": {}, "l2u": {}}, device=device)
         engine.test_data = test_data
+        engine.checkpoint_dir = args.checkpoint_dir
         return engine
 
     mwn = MetaWeightNet(device=device, generator=torch.Generator(device=device).manual_seed(1))
@@ -221,6 +227,7 @@ def build_engine(args):
         dependencies={"u2l": {reweight: [classifier]}, "l2u": {classifier: [reweight]}},
         device=device)
     engine.test_data = test_data
+    engine.checkpoint_dir = args.checkpoint_dir
     # the kept training set and its base-array indices, for --export_weights
     engine.train_set = (x_train, y_train, idx_train)
     return engine
@@ -302,7 +309,8 @@ def parse_args(argv=None):
                    help="npz with weights/indexes/labels (see --export_weights)")
     p.add_argument("--export_weights", type=str, default=None,
                    help="after bilevel training, save the per-example weights npz")
-    p.add_argument("--checkpoint_dir", type=str, default=None, help="not ported yet: raises")
+    p.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="save an engine checkpoint on validation improvement")
     p.add_argument("--train_size", type=int, default=4096)
     p.add_argument("--meta_size", type=int, default=1024)
     return p.parse_args(argv)

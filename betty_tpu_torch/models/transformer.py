@@ -15,19 +15,60 @@ dropout, as in the JAX package's flash path;
 with flax ``MultiHeadDotProductAttention``'s attention dropout (one keep
 mask over (query, key), broadcast across batch and heads, 1/keep scaling).
 
-Dropout draws its masks from a ``torch.Generator`` seeded with
-``rngs["dropout"]`` (``utils.seeded_generator``), so a forward repeated
-with the same seed draws the same masks. ``remat`` / ``remat_policy`` and ``make_pipelined_transformer`` are
-not ported yet.
+Dropout draws its masks from ``torch.Generator``s (``utils.seeded_generator``):
+the embedding dropout from one seeded with ``rngs["dropout"]``, block i's
+from its own, seeded with ``fold_in(rngs["dropout"], i + 1)`` and made
+inside the block. A forward repeated with the same seed draws the same
+masks, and so does a block recomputed in the backward.
+
+``remat=True`` recomputes each encoder block in the backward
+(``torch.utils.checkpoint``, non-reentrant), the counterpart of JAX's
+``nn.remat`` per block, with ``remat_policy``:
+
+* ``None`` without flash: the whole block is recomputed (blanket).
+* ``None`` with flash: selective. The flash kernel's residuals (q, k, v, o,
+  lse) are kept and LayerNorm, the projections and the MLP are recomputed,
+  so the backward never replays B1/B3 (JAX's
+  ``flash_attention.remat_policy()``). Route: the block is split by hand
+  into two checkpointed segments around the attention call (LayerNorm and
+  the q/k/v projections; the output projection, residuals, LayerNorm and
+  MLP), and the flash call between them keeps its own residuals. A flash
+  kernel launched through ctypes inside an ``autograd.Function`` is
+  invisible to a selective-checkpoint policy, so naming it there is not
+  an option without registering it as a custom op.
+* ``"minimal"``: the whole block, flash included, is recomputed: the
+  backward replays B1 or B3 once per block.
+* ``"dots"``: every matmul output (``mm``, ``addmm``, ``bmm``, ``baddbmm``)
+  is kept and the elementwise math recomputed
+  (``torch.utils.checkpoint.create_selective_checkpoint_contexts``, JAX's
+  ``checkpoint_dots``); with flash on the split segments, so the flash
+  residuals are kept too (JAX's ``save_from_both_policies``). Without
+  flash at S512 this keeps the (B, H, S, S) scores of every layer: it does
+  not fit where the blanket policy does.
+
+Inside a ``torch.func`` transform (the CG and Neumann HVPs with
+``hvp_mode="jvp"``) the blocks keep their activations: ``torch.func``
+does not take the saved-tensor hooks that ``torch.utils.checkpoint``
+installs. Anything else raises ``ValueError``, as JAX's model does. Since each
+block's dropout generator is made from its seed inside the recomputed
+function, remat on and off draw the same masks and compute the same
+numbers (inside a compiled block the recompute takes its own generators
+of the reseeded pool). ``make_pipelined_transformer`` is not ported yet.
 """
+
+import functools
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from betty_tpu_torch.models.init import lecun_normal_, normal_
 from betty_tpu_torch.ops.flash_attention import flash_attention, reference_attention
-from betty_tpu_torch.utils import seeded_generator
+from betty_tpu_torch.utils import fold_in, seeded_generator
+
+REMAT_POLICIES = (None, "minimal", "dots")
 
 
 def _linear(d_in, d_out, device, generator):
@@ -96,20 +137,62 @@ class FlashSelfAttention(nn.Module):
     def forward(self, x, kv_mask=None, generator=None):
         """``generator``: the dropout stream in train mode, None in eval."""
         q, k, v = self.query(x), self.key(x), self.value(x)
+        return self.out(self.attend(q, k, v, kv_mask, generator))
+
+    def attend(self, q, k, v, kv_mask=None, generator=None):
+        """The attention of projected ``(B, H, L, Dh)`` q, k, v, before the
+        output projection."""
         if self.use_flash:
-            o = flash_attention(q, k, v, kv_mask, causal=self.causal, block_q=self.block_q,
-                                block_kv=self.block_kv)
-        else:
-            o = reference_attention(q, k, v, kv_mask, causal=self.causal,
-                                    dropout_rate=self.dropout, generator=generator)
-        return self.out(o)
+            return flash_attention(q, k, v, kv_mask, causal=self.causal, block_q=self.block_q,
+                                   block_kv=self.block_kv)
+        return reference_attention(q, k, v, kv_mask, causal=self.causal,
+                                   dropout_rate=self.dropout, generator=generator)
+
+
+_MATMULS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+            torch.ops.aten.baddbmm)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: keep matmul outputs."""
+    if func._overloadpacket in _MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, dots, *args):
+    """``fn(*args)`` recomputed in the backward; with ``dots`` its matmul
+    outputs are kept. The default generators' states are not saved: the
+    blocks draw from their own seeded generators."""
+    kw = {}
+    if dots:
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _in_functorch() -> bool:
+    """True inside a ``torch.func`` transform (the CG and Neumann HVPs with
+    ``hvp_mode="jvp"``), whose saved-tensor hooks ``torch.utils.checkpoint``
+    cannot install: the blocks keep their activations there."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
+def _generator(seed, device):
+    return None if seed is None else seeded_generator(seed, device)
 
 
 class EncoderBlock(nn.Module):
+    """Pre-LN encoder block. ``remat``: None (keep every activation),
+    ``"blanket"`` (recompute the block), ``"split"`` (recompute the two
+    segments around the attention call, whose residuals are kept); ``dots``
+    keeps the matmul outputs of what is recomputed."""
+
     def __init__(self, dim, heads, mlp_ratio=4, dropout=0.1, use_flash=False, device=None,
-                 generator=None):
+                 generator=None, remat=None, dots=False):
         super().__init__()
         self.dropout = dropout
+        self.remat, self.dots = remat, dots
         self.ln1 = nn.LayerNorm(dim, eps=1e-6, device=device)
         self.attn = FlashSelfAttention(heads, dim, use_flash=use_flash, dropout=dropout,
                                        device=device, generator=generator)
@@ -117,9 +200,53 @@ class EncoderBlock(nn.Module):
         self.fc1 = _linear(dim, dim * mlp_ratio, device, generator)
         self.fc2 = _linear(dim * mlp_ratio, dim, device, generator)
 
-    def forward(self, x, kv_mask=None, generator=None):
-        y = self.attn(self.ln1(x), kv_mask=kv_mask, generator=generator)
-        x = x + _dropout(y, self.dropout, generator)
+    def forward(self, x, kv_mask=None, seed=None, o=None, segment=None):
+        """``seed``: the block's dropout seed in train mode, None in eval.
+        ``segment`` ("block", "qkv" or "tail", with ``o`` the attention's
+        output) runs that part alone: what a recompute calls."""
+        if segment == "block":
+            return self._block(x, kv_mask, seed)
+        if segment == "qkv":
+            return self._qkv(x)
+        if segment == "tail":
+            return self._tail(x, o, seed)
+        if self.remat is None or not torch.is_grad_enabled() or _in_functorch():
+            return self._block(x, kv_mask, seed)
+        if self.remat == "blanket":
+            return self._recomputed("block", x, kv_mask, seed)
+        q, k, v = self._recomputed("qkv", x)
+        o = self.attn.attend(q, k, v, kv_mask)
+        return self._recomputed("tail", x, seed=seed, o=o)
+
+    def _recomputed(self, segment, x, kv_mask=None, seed=None, o=None):
+        """``segment`` of this block, recomputed in the backward. The
+        block's parameters are inputs of the recomputed function, bound by
+        ``functional_call``: the backward runs after the caller's own
+        ``functional_call`` (``module.from_torch``) has put the module's
+        parameters back, so it must bind the tensors of the forward again."""
+        def run(params, x, kv_mask, o):
+            return torch.func.functional_call(
+                self, params, (x,), {"kv_mask": kv_mask, "seed": seed, "o": o,
+                                     "segment": segment})
+
+        return _checkpoint(run, self.dots, dict(self.named_parameters()), x, kv_mask, o)
+
+    def _qkv(self, x):
+        y = self.ln1(x)
+        return self.attn.query(y), self.attn.key(y), self.attn.value(y)
+
+    def _block(self, x, kv_mask, seed):
+        generator = _generator(seed, x.device)
+        o = self.attn.attend(*self._qkv(x), kv_mask, generator)
+        return self._residuals(x, o, generator)
+
+    def _tail(self, x, o, seed):
+        return self._residuals(x, o, _generator(seed, x.device))
+
+    def _residuals(self, x, o, generator):
+        """Output projection, both residual branches and the MLP; the
+        attention's own dropout (plain path) drew from ``generator`` first."""
+        x = x + _dropout(self.attn.out(o), self.dropout, generator)
         y = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
         return x + _dropout(y, self.dropout, generator)
 
@@ -129,8 +256,14 @@ class TransformerClassifier(nn.Module):
                  num_classes=2, dropout=0.1, pad_id=1, use_flash=False, remat=False,
                  remat_policy=None, device=None, seed=0):
         super().__init__()
-        if remat or remat_policy is not None:
-            raise NotImplementedError("TransformerClassifier: remat is not ported yet")
+        block_remat = None
+        if remat:
+            if remat_policy not in REMAT_POLICIES:
+                raise ValueError(
+                    f"remat_policy={remat_policy!r}: expected None (blanket), 'minimal' "
+                    "(blanket even for flash residuals) or 'dots' (save matmul outputs)")
+            block_remat = "split" if use_flash and remat_policy != "minimal" else "blanket"
+        self.remat, self.remat_policy = remat, remat_policy
         gen = torch.Generator(device=device if device is not None else "cpu").manual_seed(seed)
         self.dropout = dropout
         self.pad_id = pad_id
@@ -140,7 +273,7 @@ class TransformerClassifier(nn.Module):
         normal_(self.pos_embedding, 0.02, generator=gen)
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, heads, dropout=dropout, use_flash=use_flash, device=device,
-                         generator=gen)
+                         generator=gen, remat=block_remat, dots=remat_policy == "dots")
             for _ in range(depth))
         self.ln_f = nn.LayerNorm(dim, eps=1e-6, device=device)
         self.pool = _linear(dim, dim, device, gen)
@@ -150,15 +283,15 @@ class TransformerClassifier(nn.Module):
         L = input_ids.shape[1]
         pad_mask = input_ids != self.pad_id  # (B, L)
         x = self.embed(input_ids) + self.pos_embedding[:, :L]
-        generator = None
+        seed = None
         if train and self.dropout > 0.0:
             if not rngs or "dropout" not in rngs:
                 raise ValueError("TransformerClassifier: train-mode dropout needs "
                                  "rngs={'dropout': seed}")
-            generator = seeded_generator(rngs["dropout"], x.device)
-        x = _dropout(x, self.dropout, generator)
-        for block in self.blocks:
-            x = block(x, kv_mask=pad_mask, generator=generator)
+            seed = rngs["dropout"]
+        x = _dropout(x, self.dropout, _generator(seed, x.device))
+        for i, block in enumerate(self.blocks):
+            x = block(x, kv_mask=pad_mask, seed=None if seed is None else fold_in(seed, i + 1))
         x = self.ln_f(x)
         # masked mean pool
         denom = torch.clamp(pad_mask.sum(dim=1, keepdim=True), min=1)

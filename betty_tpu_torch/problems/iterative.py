@@ -27,6 +27,11 @@ to return the initial inner parameters as a function of other problems'
 parameters in the bound context (e.g. ``return self.outer.params``), so
 the gradient reaches the meta-initialization.
 
+An engine checkpoint taken mid-unroll saves the recorded start state and
+batches (``checkpoint.py``); the restore puts them back with
+``_pending_unroll_reset`` off, so the parent's replay in the resumed run
+is the uninterrupted run's.
+
 Note: differentiating through Adam at zero second moment gives NaN (the
 derivative of sqrt at 0); use SGD inner optimizers, as is standard for
 MAML.

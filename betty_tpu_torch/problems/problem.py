@@ -22,8 +22,14 @@ parent's update gets the child's recorded unroll as ``itd_data`` and
 replaces the child's parameters in its loss by the replay
 (``problems/iterative.py``).
 
-Not ported yet: parameter groups and problem checkpoints
-(``state_dict``/``load_state_dict``).
+``Config(remat=True)`` recomputes the problem's direct loss in the
+backward (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``) instead
+of keeping its activations; the numbers do not change.
+``state_dict``/``load_state_dict`` hand the state out as host tensors and
+put one back (the engine's checkpoints, ``checkpoint.py``, save every
+problem's).
+
+Not ported yet: parameter groups.
 """
 
 import abc
@@ -125,6 +131,21 @@ def _collect_cross_ctx(post_ctx, base_ctx, own_name):
         return {}
     return {name: entry for name, entry in post_ctx.items()
             if name != own_name and entry is not base_ctx.get(name)}
+
+
+def _rematerialized(fn):
+    """``fn`` with its activations recomputed in the backward
+    (``jax.checkpoint``'s counterpart). The default generators' states are
+    not saved: every random draw of a loss comes from a generator seeded
+    inside it (``utils.seeded_generator``), so the recompute draws the same
+    values, and inside a compiled block it takes its own generators of the
+    pool, reseeded alike."""
+    from torch.utils.checkpoint import checkpoint
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return wrapped
 
 
 class _ModuleProxy:
@@ -474,6 +495,9 @@ class Problem(abc.ABC):
                 loss, loss_dict, mutated = problem.eval_loss(c, batch, rng=rng, capture=True)
                 return loss / gas, (loss_dict, mutated)
 
+            if problem._config.remat:
+                direct_loss = _rematerialized(direct_loss)
+
             child_args = ({name: ctx[name]["params"] for name in path_children}
                           if joint_v else {})
             (_, (loss_dict, mutated)), grad_out = value_and_grad(
@@ -705,6 +729,22 @@ class Problem(abc.ABC):
 
     def gradient_accumulation_boundary(self) -> bool:
         return bool(self._count % self.gas == 0)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """This problem's whole state as host tensors (copies); integer leaves
+        (Adam's ``count``, ``sched_step``) stay integers."""
+        from betty_tpu_torch.checkpoint import to_host
+
+        return to_host(self.state)
+
+    def load_state_dict(self, state_dict):
+        """Put a state from :meth:`state_dict` back, each tensor on the
+        device and in the dtype of the one it replaces. A state of another
+        structure or shape raises ``ValueError`` naming both."""
+        from betty_tpu_torch.checkpoint import restore_like
+
+        self.state = restore_like(self.state, state_dict,
+                                  f"load_state_dict for problem {self._name!r}")
 
     def log(self, stats, global_step):
         loss_log = log_from_loss_dict(stats)

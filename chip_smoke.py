@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases kernels,mwn     # ... and the ResNet-32 MWN runs
     python3 chip_smoke.py --phases kernels,compiled  # ... and compiled blocks (CUDA graphs)
     python3 chip_smoke.py --phases kernels,itd     # ... and ITD / reinforce on the MWN flagship
+    python3 chip_smoke.py --phases kernels,checkpoint,remat  # ... checkpoints and remat
 
 Phases:
 
@@ -87,7 +88,7 @@ Phases:
    (bit for bit where it is 0), one capture and one replay a period, each
    kernel's launches recorded in the graph equal to driver mode's a
    period, fresh dropout seeds every replay. Then the MWN flagship
-   (ResNet-32 B128, driver, compiled, compiled, driver; 3 + 20 timed
+   (ResNet-32 B128, driver, compiled, compiled, driver; 3 + 10 timed
    periods and a profiled one each) and S128 SAMA ``--flash`` (driver,
    then compiled: a first period, 2 timed and a profiled one): period,
    device busy and idle share, launches, capture time, peak memory.
@@ -102,9 +103,35 @@ Phases:
    ``EngineConfig.profile_dir`` trace in both modes; then the flagship's
    defaults (ResNet-32 B128, fp32, a MultiStepLR at 10000/13000) as ITD at
    unroll 1 and 5 and as reinforce (4 samples), driver mode then compiled:
-   3 + 20 timed periods and a profiled one each (period, busy, idle share,
+   3 + 8 timed periods and a profiled one each (period, busy, idle share,
    launches, peak memory, capture), the two modes' parameters, losses and
    norms, finite losses, no launch of the port's kernels.
+8. checkpoint: engine checkpoints (``betty_tpu_torch/checkpoint.py``)
+   resumed by a fresh engine through ``auto_resume``. Small float64 MWN
+   runs (3-block ResNet, B8, cuDNN deterministic), darts under roll-back
+   and ITD, both at unroll 3 with the cut mid-unroll (a live roll-back
+   cache; one recorded ITD batch), in driver mode and compiled: the resumed
+   state equals the uninterrupted run's bit for bit. The north star (S128
+   SAMA ``--flash``, compiled): one period, a checkpoint at its block
+   boundary, and a fresh engine resumed to two periods (a new capture),
+   parameters bit for bit against two uninterrupted periods; the
+   checkpoint's bytes, the seconds to save and to restore, the memory held
+   and peak while saving. The MWN flagship (ResNet-32 B128, float32,
+   compiled) with cuDNN deterministic, 16 periods uninterrupted against 8
+   + 8 resumed, compared on fixed-batch losses (equal); beside it 16
+   periods with cuDNN's default algorithms: what determinism costs the
+   period and the device time.
+9. remat: rematerialized encoder blocks (``models/transformer.py``). SAMA
+   ``--flash`` at B8 S1024 in driver mode with remat off, "full" (the
+   flash residuals kept) and "minimal" (everything replayed): 4 periods
+   each (the first warm-up, the last profiled: the card's kernels), peak
+   memory (inside the optimizer steps and elsewhere), the launches
+   of B3-B5 a period held exactly (216, 144, 144 off and under "full";
+   under "minimal" 360 B3, one replay a block backward), and the
+   parameters against remat off; S128 SAMA ``--flash --remat`` in driver
+   mode and compiled (B1/B2 a period as without remat, the parameters of
+   the two modes); "dots" on the plain attention at S128, 2 periods and
+   peak.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -789,13 +816,16 @@ def profile_period(engine, unroll, tag, classify=None):
     """One more meta-period under ``torch.profiler``: device time by kernel
     class (``classify(kernel name)``, by default the port's own kernels and
     matmuls), the flash kernels' split by input dtype, and the device's idle
-    share over the period's wall time."""
+    share over the period's wall time. The profiler records the card's
+    kernels only: the report reads nothing else, and the host's ops of a
+    driver-mode period (several hundred thousand) cost the host seconds to
+    record and to sort."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     engine.train_iters = unroll
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         engine.run()
         torch.cuda.synchronize()
@@ -1313,30 +1343,36 @@ def compiled_small_phase(name):
     return err, spread
 
 
-def _timed_run(engine, unroll, periods, tag, classify=None):
+def _timed_run(engine, unroll, periods, tag, classify=None, profiled="all"):
     """Run ``periods`` meta-periods, the host clock read (device
-    synchronised) at the end of each, the last one under the profiler.
-    Returns ``(seconds of each period, profile report, peak GiB)``."""
+    synchronised) at the end of each, the last one under the profiler
+    (``profiled``: "all" host ops and the card's kernels, "card" the
+    kernels alone, whose trace the host processes faster; None: no
+    profile). Returns ``(seconds of each period, profile report or None,
+    peak GiB)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    activities = {"all": [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  "card": [ProfilerActivity.CUDA]}.get(profiled)
+
     ends, prof = [], {}
-    validate = engine.maybe_validate
+    validate = engine.maybe_validate_checkpoint
 
     def hook(window=1):
         stop = validate(window)
         if engine.global_step % unroll == 0:
             torch.cuda.synchronize()
             ends.append(time.time())
-            if len(ends) == periods - 1:
-                prof["p"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if len(ends) == periods - 1 and activities:
+                prof["p"] = profile(activities=activities)
                 prof["p"].__enter__()
                 prof["t0"] = time.time()
-            elif len(ends) == periods:
+            elif len(ends) == periods and activities:
                 prof["p"].__exit__(None, None, None)
         return stop
 
-    engine.maybe_validate = hook
+    engine.maybe_validate_checkpoint = hook
     engine.train_iters = unroll * periods
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1344,7 +1380,9 @@ def _timed_run(engine, unroll, periods, tag, classify=None):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     seconds = [b - a for a, b in zip([t0] + ends, ends)]
-    report = profile_report(prof["p"], (ends[-1] - prof["t0"]) * 1e3, tag, classify)
+    report = None
+    if activities:
+        report = profile_report(prof["p"], (ends[-1] - prof["t0"]) * 1e3, tag, classify)
     return seconds, report, peak
 
 
@@ -1361,7 +1399,7 @@ def _cell_line(tag, seconds, report, peak, skip):
             "peak_gib": peak}
 
 
-def compiled_mwn_cell(warmup=3, steady=20):
+def compiled_mwn_cell(warmup=3, steady=10):
     """The MWN flagship (ResNet-32 B128, darts, unroll 1, fp32, data on the
     device), driver mode and compiled blocks (one replay a period) in
     turns: driver, compiled, compiled, driver; ``warmup`` + ``steady``
@@ -1467,14 +1505,15 @@ def compiled_phase():
 # ---------------------------------------------------------------------------
 
 
-def mwn_variant(argv, variant):
+def mwn_variant(argv, variant, engine_config=None):
     """The MWN example's engine (``build_engine`` on ``argv``) rebuilt from
     its own pieces through the public API as ``variant``: "itd" (the
     classifier an ``IterativeProblem`` carrying ``Classifier.training_step``
     and the reweighter ``Config(first_order=False)``: its meta-gradient is
     the exact derivative through the classifier's SGD steps, Meta-Weight-
-    Net's own) or "reinforce" (both problems' ``Config(type="reinforce")``,
-    4 samples by default)."""
+    Net's own), "reinforce" (both problems' ``Config(type="reinforce")``,
+    4 samples by default) or "darts" (the example's own problems), under
+    ``engine_config`` (default: the example's)."""
     import dataclasses
 
     import betty_tpu_torch
@@ -1492,13 +1531,15 @@ def mwn_variant(argv, variant):
         clf_cls = ex.Classifier
         clf_cfg = dataclasses.replace(clf.config, type="reinforce")
         rw_cfg = dataclasses.replace(rw.config, type="reinforce")
+    elif variant == "darts":
+        clf_cls, clf_cfg, rw_cfg = ex.Classifier, clf.config, rw.config
     else:
         raise ValueError(variant)
     classifier = clf_cls(name="classifier", module=clf.module_fn, optimizer=clf.optimizer,
                          train_data_loader=clf.train_data_loader[0], config=clf_cfg)
     reweight = ex.Reweight(name="reweight", module=rw.module_fn, optimizer=rw.optimizer,
                            train_data_loader=rw.train_data_loader[0], config=rw_cfg)
-    engine = ex.MWNEngine(config=base.config, problems=[reweight, classifier],
+    engine = ex.MWNEngine(config=engine_config or base.config, problems=[reweight, classifier],
                           dependencies={"u2l": {reweight: [classifier]},
                                         "l2u": {classifier: [reweight]}},
                           device=base.device)
@@ -1633,7 +1674,7 @@ def _param_norm(states, name):
     return float(torch.sqrt(sum((t.double() ** 2).sum() for t in states[name]["params"].values())))
 
 
-def itd_full_cell(variant, unroll, warmup=3, steady=20):
+def itd_full_cell(variant, unroll, warmup=3, steady=8):
     """The flagship's defaults (ResNet-32 B128, fp32, TF32 off, SGD 0.1
     nesterov with weight decay 5e-4 under a MultiStepLR at the reference's
     milestones 10000 and 13000, Adam 1e-5, data on the device) as
@@ -1719,6 +1760,379 @@ def itd_phase():
     for variant, unroll in ITD_FULL:
         itd_full_cell(variant, unroll)
     log(f"[itd] phase done in {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# checkpoint: engine checkpoints and auto_resume (betty_tpu_torch/checkpoint.py)
+# in driver mode and around compiled blocks
+# ---------------------------------------------------------------------------
+
+CKPT_SMALL = (("darts", 3), ("itd", 3))  # (variant, unroll_steps): darts under roll_back
+CKPT_CUT, CKPT_TOTAL = 7, 12  # 7 = 2 x 3 + 1: the cut is mid-unroll
+# the north star's argv (RoBERTa-large at B32 S128, SAMA, bf16 steps, fp32
+# solver passes, unroll 5, dropout 0.1, data on the device)
+SAMA_S128_ARGV = ["--model", "large", "--hypergradient", "sama", "--precision", "bf16",
+                  "--solver_precision", "fp32", "--unroll_steps", "5", "--batch_size", "32",
+                  "--seq_len", "128", "--device_data", "--train_size", "2048",
+                  "--meta_size", "512", "--device", "cuda"]
+
+
+def _ckpt_small_engine(variant, unroll, compiled, iters, path=None, auto=False, device="cuda"):
+    """The small MWN (3-block ResNet, B8, data on the device, a MultiStepLR
+    milestone after the cut) in float64 as ``variant`` ("darts" under
+    ``roll_back``, or "itd"), ``iters`` iterations; with ``path`` it saves
+    every ``CKPT_CUT`` steps there, with ``auto`` it starts from there."""
+    import torch
+    from betty_tpu_torch import EngineConfig
+    from betty_tpu_torch.utils import tree_map
+
+    argv = MWN_SMALL_ARGV + ["--device", device, "--unroll_steps", str(unroll),
+                             "--lr_milestones", "9", "--device_data"]
+    config = EngineConfig(train_iters=iters, valid_step=0, roll_back=variant == "darts",
+                          compile_blocks=compiled, checkpoint_dir=path,
+                          checkpoint_step=CKPT_CUT if path else 0, auto_resume=auto)
+    engine = mwn_variant(argv, variant, config)
+    engine.states = tree_map(lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point()
+                             else t, engine.states)
+    for prob in engine.problems:
+        for loader in prob.train_data_loader:
+            loader.arrays = (loader.arrays[0].double(), *loader.arrays[1:])
+    return engine
+
+
+def checkpoint_small_phase(variant, unroll, compiled, device="cuda"):
+    """The small float64 MWN as ``variant``, cut at ``CKPT_CUT`` (mid-unroll:
+    darts with a live roll-back cache, ITD with one recorded batch), saved,
+    and resumed by a fresh engine through ``auto_resume`` to ``CKPT_TOTAL``:
+    params, batch statistics and optimizer state equal the uninterrupted
+    run's bit for bit. cuDNN runs its deterministic algorithms."""
+    import tempfile
+
+    import torch
+
+    mode = "compiled" if compiled else "driver"
+    tag = f"[checkpoint small] {variant} unroll {unroll} {mode}"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as path:
+            full = _ckpt_small_engine(variant, unroll, compiled, CKPT_TOTAL, device=device)
+            full.run()
+            _ckpt_small_engine(variant, unroll, compiled, CKPT_CUT, path, device=device).run()
+            with open(os.path.join(path, "meta.json")) as f:
+                meta = json.load(f)
+            resumed = _ckpt_small_engine(variant, unroll, compiled, CKPT_TOTAL, path, True,
+                                         device=device)
+            resumed.run()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    err = _state_err(full.states, resumed.states)
+    counts = (resumed.classifier.count, resumed.reweight.count)
+    runner = resumed.block_runner
+    log(f"{tag}: cut at {meta['global_step']} (roll-back caches {meta['rollback_cached']}, "
+        f"unroll recorded {meta.get('unroll_recorded', {})}); resumed vs uninterrupted max "
+        f"|state diff| {err:.3e} (bit for bit); counts {counts}; resumed blocks "
+        f"{runner.periods_run if runner else 0} periods")
+    assert meta["global_step"] == CKPT_CUT and counts == (CKPT_TOTAL, CKPT_TOTAL // unroll)
+    if variant == "darts":
+        assert meta["rollback_cached"] == ["classifier"], meta
+    else:
+        assert meta["unroll_recorded"] == {"classifier": CKPT_CUT % unroll}, meta
+    if compiled:
+        assert runner.periods_run >= 1 and full.block_runner.periods_run >= 1
+    assert err == 0.0, err
+    del full, resumed, runner
+    _free()
+    return err
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _timed_io(engine, name, record):
+    """Wrap ``engine.<name>`` (save or load) to record its seconds (device
+    synchronised), the memory it held and the peak while it ran."""
+    import torch
+
+    orig = getattr(engine, name)
+
+    def timed(path):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        orig(path)
+        torch.cuda.synchronize()
+        record[name] = {"s": time.perf_counter() - t0, "held_gib": held / 2**30,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    setattr(engine, name, timed)
+
+
+def sama_checkpoint_cell(periods=2, cut=1):
+    """The north star compiled (``--flash``): ``periods`` meta-periods
+    uninterrupted; then ``cut`` periods that save at their block boundary
+    and stop, and a fresh engine resumed by ``auto_resume`` to ``periods``
+    (a new runner: warm-up and capture). Parameters and the integer leaves
+    equal bit for bit. Reports the checkpoint's bytes, the seconds to save
+    and to restore, and the memory held and peak while saving."""
+    import tempfile
+
+    import torch
+    from betty_tpu_torch.compile import _ints
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+
+    unroll = 5
+    finals, io = {}, {}
+    with tempfile.TemporaryDirectory() as path:
+        for label, iters in (("uninterrupted", periods * unroll), ("cut", cut * unroll),
+                             ("resumed", periods * unroll)):
+            engine = ex.build_engine(ex.parse_args(
+                SAMA_S128_ARGV + ["--flash", "--compile_blocks", "--train_iters", str(iters)]))
+            if label != "uninterrupted":
+                engine.config.checkpoint_dir = path
+                engine.config.checkpoint_step = cut * unroll
+                engine.config.auto_resume = label == "resumed"
+                _timed_io(engine, "save_checkpoint" if label == "cut" else "load_checkpoint", io)
+            t0 = time.time()
+            engine.run()
+            torch.cuda.synchronize()
+            r = engine.block_runner
+            log(f"[checkpoint sama S128] {label}: {engine.global_step} iterations in "
+                f"{time.time() - t0:.2f} s, {r.periods_run} periods in blocks, captures "
+                f"{r.captures}, capture {r.capture_seconds:.2f} s")
+            if label == "cut":
+                io["bytes"] = _dir_bytes(path)
+                io["files"] = sorted(os.listdir(path))
+            assert engine.classifier.count == iters
+            assert r.captures == (engine.device.type == "cuda")
+            finals[label] = {n: {"params": {k: t.cpu() for k, t in s["params"].items()},
+                                 "ints": _ints(s)}
+                             for n, s in engine.states.items()}
+            del engine, r
+            _free()
+    err = _state_err({n: f["params"] for n, f in finals["uninterrupted"].items()},
+                     {n: f["params"] for n, f in finals["resumed"].items()})
+    ints_equal = all(finals["uninterrupted"][n]["ints"] == finals["resumed"][n]["ints"]
+                     for n in finals["resumed"])
+    save, load = io["save_checkpoint"], io["load_checkpoint"]
+    log(f"[checkpoint sama S128] checkpoint at {cut * unroll}: {io['bytes']} bytes on disk "
+        f"({io['bytes'] / 2**30:.3f} GiB; {io['files']}); save {save['s']:.3f} s (held "
+        f"{save['held_gib']:.2f} GiB, peak while saving {save['peak_gib']:.2f} GiB); restore "
+        f"{load['s']:.3f} s (peak {load['peak_gib']:.2f} GiB); resumed vs uninterrupted after "
+        f"{periods} periods: max |param diff| {err:.3e} (bit for bit), integer leaves equal "
+        f"{ints_equal}")
+    assert err == 0.0 and ints_equal, (err, ints_equal)
+    return {"bytes": io["bytes"], "save_s": save["s"], "restore_s": load["s"],
+            "save_peak_gib": save["peak_gib"], "err": err}
+
+
+def mwn_checkpoint_cell(periods=16, cut=8, warmup=3):
+    """The MWN flagship (ResNet-32 B128, float32, compiled, one replay a
+    period) with ``cudnn.deterministic``: ``periods`` uninterrupted, then
+    ``cut`` saved and resumed to ``periods`` by ``auto_resume``; the two are
+    compared on fixed-batch losses (and parameters). Beside them the same
+    ``periods`` with cuDNN's default algorithms: the period and device time
+    that determinism costs."""
+    import tempfile
+
+    import torch
+    from betty_tpu_torch.examples import learning_to_reweight as ex
+
+    argv = ["--device_data", "--device", "cuda", "--compile_blocks"]
+    deterministic = torch.backends.cudnn.deterministic
+    out, finals, losses = {}, {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as path:
+            for label, det in (("deterministic", True), ("cut", True), ("resumed", True),
+                               ("default", False)):
+                torch.backends.cudnn.deterministic = det
+                engine = ex.build_engine(ex.parse_args(argv))
+                engine.config.block_periods = 1
+                tag = f"[checkpoint mwn] {label} (cudnn.deterministic {det})"
+                if label in ("cut", "resumed"):
+                    engine.config.checkpoint_dir, engine.config.checkpoint_step = path, cut
+                    engine.config.auto_resume = label == "resumed"
+                    engine.train_iters = cut if label == "cut" else periods
+                    engine.run()
+                    torch.cuda.synchronize()
+                else:
+                    seconds, report, peak = _timed_run(engine, 1, periods, tag, _op_class)
+                    out[label] = _cell_line(tag, seconds, report, peak, warmup)
+                assert engine.classifier.count == (cut if label == "cut" else periods)
+                losses[label] = _fixed_losses(engine)
+                finals[label] = {n: {k: t.cpu() for k, t in s["params"].items()}
+                                 for n, s in engine.states.items()}
+                del engine
+                _free()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    resumed_err = _state_err(finals["deterministic"], finals["resumed"])
+    default_err = _state_err(finals["deterministic"], finals["default"])
+    loss_diff = {n: abs(losses["deterministic"][n] - losses["resumed"][n])
+                 for n in losses["resumed"]}
+    det, dflt = out["deterministic"], out["default"]
+    log(f"[checkpoint mwn] fixed-batch losses uninterrupted {losses['deterministic']}, resumed "
+        f"{losses['resumed']} (|diff| {loss_diff}), default cuDNN {losses['default']}; max "
+        f"|param diff| resumed {resumed_err:.3e}, default vs deterministic {default_err:.3e}")
+    log(f"[checkpoint mwn] what cudnn.deterministic costs the compiled period: median "
+        f"{det['median']:.6f} s against {dflt['median']:.6f} s ({det['median'] / dflt['median']:.3f}x), "
+        f"busy {det['busy_ms']:.2f} ms against {dflt['busy_ms']:.2f} ms")
+    assert all(math.isfinite(v) for ls in losses.values() for v in ls.values()), losses
+    assert all(d == 0.0 for d in loss_diff.values()), loss_diff
+    out.update(resumed_err=resumed_err, default_err=default_err, losses=losses)
+    return out
+
+
+def checkpoint_phase():
+    t0 = time.time()
+    for variant, unroll in CKPT_SMALL:
+        for compiled in (False, True):
+            checkpoint_small_phase(variant, unroll, compiled)
+    sama_checkpoint_cell()
+    mwn_checkpoint_cell()
+    log(f"[checkpoint] phase done in {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# remat: activation rematerialization of the encoder blocks
+# (models/transformer.py) on the RoBERTa-large paths
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = {"off": [], "full": ["--remat"],
+                  "minimal": ["--remat", "--remat_policy", "minimal"]}
+DEPTH, FORWARDS, BACKWARDS = 24, 9, 6  # encoder blocks; encoder passes a SAMA period
+
+
+def remat_expected(policy):
+    """Launches of B3/B4/B5 a SAMA period at S1024: one B3 a block of every
+    forward, one B4 and one B5 a block of every backward; under "minimal"
+    each block's backward replays its forward, B3 included."""
+    b3 = DEPTH * (FORWARDS + (BACKWARDS if policy == "minimal" else 0))
+    return {"flash_single_fwd": 0, "flash_single_bwd": 0, "flash_multi_fwd": b3,
+            "flash_multi_bwd_dkv": DEPTH * BACKWARDS, "flash_multi_bwd_dq": DEPTH * BACKWARDS}
+
+
+def _peak_split(engine):
+    """Record the peak of device memory inside the classifier's optimizer
+    steps (``step``) and elsewhere (``rest``: the forward and backward
+    passes and the reweight step), in GiB, by resetting the peak counter
+    around each step; the run's overall peak is the larger of the two and
+    what the counter reads at its end."""
+    import torch
+
+    rec = {"step": 0.0, "rest": 0.0}
+    problem = engine.classifier
+    orig = problem._apply_optimizer
+
+    def step(*args, **kwargs):
+        rec["rest"] = max(rec["rest"], torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        out = orig(*args, **kwargs)
+        rec["step"] = max(rec["step"], torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    problem._apply_optimizer = step
+    return rec
+
+
+def remat_long_cell(periods=4):
+    """SAMA ``--flash`` at B8 S1024 in driver mode with remat off, "full"
+    (the flash residuals kept) and "minimal" (everything replayed):
+    ``periods`` meta-periods (the first warm-up, the last profiled), the
+    period, peak memory, the launches of B3-B5 a period (exact), and the
+    parameters against remat off after the same periods."""
+    import torch
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+
+    argv = SAMA_S128_ARGV + ["--flash", "--seq_len", "1024", "--batch_size", "8"]
+    out, finals = {}, {}
+    for policy, flags in REMAT_POLICIES.items():
+        tag = f"[remat S1024] {policy}"
+        engine = ex.build_engine(ex.parse_args(argv + flags))
+        reset, counters = _counters("sama")
+        split = _peak_split(engine)
+        reset()
+        seconds, report, peak = _timed_run(engine, 5, periods, tag, profiled="card")
+        peak = max(peak, *split.values())
+        launches = {k: c.launches for k, c in counters.items()}
+        per_period = {k: v // periods for k, v in launches.items()}
+        out[policy] = _cell_line(tag, seconds, report, peak, 1)
+        out[policy].update(launches=per_period, peak_split=split)
+        log(f"{tag} launches a period {per_period} (expected {remat_expected(policy)}); peak "
+            f"{peak:.3f} GiB: {split['step']:.3f} inside the classifier's optimizer steps, "
+            f"{split['rest']:.3f} elsewhere (forward and backward passes, the reweight step)")
+        assert launches == {k: v * periods for k, v in remat_expected(policy).items()}, launches
+        assert all(bool(torch.isfinite(t).all()) for s in engine.states.values()
+                   for t in s["params"].values())
+        finals[policy] = {n: {k: t.cpu() for k, t in s["params"].items()}
+                          for n, s in engine.states.items()}
+        del engine
+        _free()
+    for policy in ("full", "minimal"):
+        out[policy]["param_diff"] = _state_err(finals["off"], finals[policy])
+    log(f"[remat S1024] max |param diff| against remat off after {periods} periods: full "
+        f"{out['full']['param_diff']:.3e}, minimal {out['minimal']['param_diff']:.3e} "
+        "(bit for bit expected)")
+    return out
+
+
+def remat_s128_cell(periods=3):
+    """S128 SAMA ``--flash --remat`` ("full": the flash residuals kept),
+    driver mode then compiled, ``periods`` meta-periods each (the first
+    warm-up or capture, the last profiled): period, peak, launches, and the
+    parameters of the two modes; then "dots" on the plain attention (no
+    ``--flash``): ``2`` periods and peak."""
+    import torch
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+
+    out, finals = {}, {}
+    for mode in ("driver", "compiled"):
+        tag = f"[remat S128] full {mode}"
+        engine = ex.build_engine(ex.parse_args(
+            SAMA_S128_ARGV + ["--flash", "--remat"] + (["--compile_blocks"]
+                                                      if mode == "compiled" else [])))
+        engine.config.block_periods = 1
+        reset, counters = _counters("sama")
+        with _CaptureWatch(counters) as watch:
+            reset()
+            seconds, report, peak = _timed_run(engine, 5, periods, tag,
+                                               profiled="all" if mode == "compiled" else None)
+        launches = {k: c.launches for k, c in counters.items()}
+        out[mode] = _cell_line(tag, seconds, report, peak, 1)
+        per_period = watch.per_replay if mode == "compiled" else \
+            {k: v // periods for k, v in launches.items()}
+        log(f"{tag} launches a period {per_period}"
+            + (f"; captures {engine.block_runner.captures}, capture "
+               f"{engine.block_runner.capture_seconds:.2f} s" if mode == "compiled" else ""))
+        assert per_period == {k: v // 2 for k, v in SAMA_S128.items()}, per_period
+        finals[mode] = {n: {k: t.cpu() for k, t in s["params"].items()}
+                        for n, s in engine.states.items()}
+        del engine
+        _free()
+    out["param_diff"] = _state_err(finals["driver"], finals["compiled"])
+    log(f"[remat S128] compiled vs driver after {periods} periods: max |param diff| "
+        f"{out['param_diff']:.3e}")
+    tag = "[remat S128] dots, plain attention"
+    engine = ex.build_engine(ex.parse_args(SAMA_S128_ARGV + ["--remat", "--remat_policy",
+                                                             "dots"]))
+    seconds, report, peak = _timed_run(engine, 5, 2, tag, profiled=None)
+    out["dots"] = {"seconds": seconds, "peak_gib": peak}
+    log(f"{tag}: s/meta-period {seconds} (the first includes warm-up); peak {peak:.3f} GiB")
+    assert all(bool(torch.isfinite(t).all()) for s in engine.states.values()
+               for t in s["params"].values())
+    del engine
+    _free()
+    return out
+
+
+def remat_phase():
+    t0 = time.time()
+    remat_long_cell()
+    remat_s128_cell()
+    log(f"[remat] phase done in {time.time() - t0:.1f} s")
 
 
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
@@ -1886,7 +2300,7 @@ def sass_report(lib_paths, head_dims):
         raise AssertionError(f"kernels without the instructions of their design: {bad}")
 
 
-PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd")
+PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -1919,7 +2333,8 @@ def main(argv=None):
                     help="kernels (always run), slice (S128 runs), long (S1024 runs), mwn "
                          "(ResNet-32 Meta-Weight-Net), compiled (compiled blocks against "
                          "driver mode), itd (iterative differentiation and reinforce on the "
-                         "MWN flagship)")
+                         "MWN flagship), checkpoint (engine checkpoints and auto_resume), "
+                         "remat (rematerialized encoder blocks)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -1979,6 +2394,10 @@ def main(argv=None):
         compiled_phase()
     if "itd" in phases:
         itd_phase()
+    if "checkpoint" in phases:
+        checkpoint_phase()
+    if "remat" in phases:
+        remat_phase()
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

@@ -1,5 +1,6 @@
 """Boundaries of the port: it imports no JAX and nothing of betty_tpu,
-options it does not port raise instead of running something else, its
+options it does not port raise instead of running something else (and the
+ported ones are accepted), its
 entry points default to CUDA, and its loader serves the JAX loader's
 batches."""
 
@@ -38,31 +39,45 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
                 "hypergradient/neumann.py", "examples/logistic_regression_hpo.py",
                 "models/batchnorm.py", "models/resnet.py", "examples/learning_to_reweight.py",
                 "examples/mwn_data.py", "examples/vision_data.py", "entry.py", "compile.py",
-                "problems/iterative.py", "hypergradient/reinforce.py"):
+                "problems/iterative.py", "hypergradient/reinforce.py", "checkpoint.py"):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     assert EngineConfig(compile_blocks=True).compile_blocks  # ported: accepted
-    with pytest.raises(NotImplementedError, match="strategy"):
+    with pytest.raises(NotImplementedError, match="§A.7"):
         EngineConfig(strategy="fsdp")
-    with pytest.raises(NotImplementedError, match="remat"):
-        Config(remat=True)
+    # ported: rematerialization and engine checkpoints are accepted
+    assert Config(remat=True).remat
+    cfg = EngineConfig(checkpoint_step=5, checkpoint_dir="ckpt", auto_resume=True)
+    assert (cfg.checkpoint_step, cfg.auto_resume) == (5, True)
     assert _solver("cg") is cg and _solver("neumann") is neumann
     assert _solver("reinforce") is reinforce  # ported
     with pytest.raises(ValueError, match="hvp_mode"):
         Config(hvp_mode="forward")
     small = ["--device", "cpu", "--dim", "16", "--depth", "1", "--heads", "2"]
-    with pytest.raises(NotImplementedError):
-        tex.build_engine(tex.parse_args(small + ["--remat"]))
-    for flags, section in ((["--checkpoint_dir", "ckpt"], "§A.4"),
-                           (["--strategy", "fsdp"], "§A.7")):
-        args = mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1", *flags])
-        with pytest.raises(NotImplementedError, match=section):
-            mwn.build_engine(args)
+    built = []
+
+    class Recorded(tex.TransformerClassifier):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            built.append((self.remat, self.remat_policy))
+
+    monkeypatch.setattr(tex, "TransformerClassifier", Recorded)
+    for policy in ("full", "minimal", "dots"):
+        tex.build_engine(tex.parse_args(small + ["--flash", "--remat", "--remat_policy", policy]))
+    assert built == [(True, None), (True, "minimal"), (True, "dots")]
+    args = mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1",
+                           "--checkpoint_dir", "ckpt"])
+    assert mwn.build_engine(args).checkpoint_dir == "ckpt"
+    assert tex.build_engine(tex.parse_args(small + ["--checkpoint_dir", "ckpt"])) \
+        .checkpoint_dir == "ckpt"
+    args = mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1", "--strategy", "fsdp"])
+    with pytest.raises(NotImplementedError, match="§A.7"):
+        mwn.build_engine(args)
     # compiled blocks are ported: both examples build an engine with them
     assert tex.build_engine(tex.parse_args(small + ["--compile_blocks"])).config.compile_blocks
     assert mwn.build_engine(mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1",

@@ -107,8 +107,13 @@ def test_dropout_replays_with_the_same_seed():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        TransformerClassifier(vocab_size=VOCAB, dim=DIM, depth=1, heads=HEADS, remat=True)
+    # remat is ported (tests/test_torch_remat.py): accepted, and a policy
+    # JAX does not know raises JAX's ValueError
+    model = TransformerClassifier(vocab_size=VOCAB, dim=DIM, depth=1, heads=HEADS, remat=True)
+    assert model.remat and model.remat_policy is None
+    with pytest.raises(ValueError, match="remat_policy"):
+        TransformerClassifier(vocab_size=VOCAB, dim=DIM, depth=1, heads=HEADS, remat=True,
+                              remat_policy="everything")
 
 
 def _attention_pair(rate, heads=2, dim=16, seq=8):
