@@ -10,11 +10,15 @@ becomes ``weight``. ``from_flax_resnet`` takes a ``ResNet``'s variables
 (``params`` and ``batch_stats``) and returns the port's params and
 batch_stats dicts: conv kernels ``(kh, kw, in, out)`` become ``(out, in,
 kh, kw)``, BatchNorm ``scale``/``bias``/``mean``/``var`` become
-``weight``/``bias``/``running_mean``/``running_var``.
+``weight``/``bias``/``running_mean``/``running_var``. ``from_flax_darts``
+does the same for the DARTS supernet and evaluation network, mapping
+flax's auto-names onto the port's module names, and ``from_flax_alphas``
+carries the architecture logits.
 """
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _t(x, device, dtype):
@@ -97,3 +101,70 @@ def from_flax_resnet(variables, device="cpu", dtype=torch.float32):
                            dtype)
     _dense(params, "head", p["Dense_0"], device, dtype)
     return params, stats
+
+
+def _flax_name(module):
+    """flax's class name of a port module: ``Dense`` for a linear layer, the
+    module's own class name where it holds parameters or buffers, and None
+    where it holds neither (a pool, an identity skip: flax has no module
+    there)."""
+    if isinstance(module, nn.Linear):
+        return "Dense"
+    if next(module.parameters(), None) is None and next(module.buffers(), None) is None:
+        return None
+    return type(module).__name__
+
+
+def _flax_children(module, prefix):
+    """``(port prefix, child)`` in registration order, through lists."""
+    for name, child in module.named_children():
+        if isinstance(child, (nn.ModuleList, nn.ModuleDict)):
+            yield from _flax_children(child, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", child
+
+
+def _from_flax_tree(module, prefix, p, s, params, stats, device, dtype):
+    """Fill ``params``/``stats`` for ``module``'s children from the flax
+    subtrees ``p`` (params) and ``s`` (batch_stats). flax names a compact
+    module's submodules ``<Class>_<i>`` in the order it creates them, which
+    the port's modules register theirs in."""
+    counts = {}
+    for path, child in _flax_children(module, prefix):
+        kind = _flax_name(child)
+        if kind is None:
+            continue
+        name = f"{kind}_{counts.get(kind, 0)}"
+        counts[kind] = counts.get(kind, 0) + 1
+        cp, cs = p.get(name, {}), s.get(name, {})
+        if kind == "Conv":
+            _conv(params, path, cp, device, dtype)
+        elif kind == "Dense":
+            _dense(params, path, cp, device, dtype)
+        elif kind == "BatchNorm":
+            if child.weight is not None:
+                params[f"{path}.weight"] = _t(cp["scale"], device, dtype)
+                params[f"{path}.bias"] = _t(cp["bias"], device, dtype)
+            stats[f"{path}.running_mean"] = _t(cs["mean"], device, dtype)
+            stats[f"{path}.running_var"] = _t(cs["var"], device, dtype)
+        else:
+            _from_flax_tree(child, f"{path}.", cp, cs, params, stats, device, dtype)
+
+
+def from_flax_darts(variables, net, device="cpu", dtype=torch.float32):
+    """flax ``DARTSNetwork`` / ``DARTSEvalNetwork`` variables -> the port's
+    ``(params, batch_stats)`` for ``net``, the port's network of the same
+    configuration (its modules give the flax auto-names, e.g.
+    ``Cell_2/MixedOp_5/SepConv_1/Conv_3`` -> ``cells.2.ops.5.sep_conv_5x5.pw1``).
+    HWIO kernels, depthwise ``(k, k, 1, C)`` included, become OIHW; the
+    search's BatchNorms without scale and bias have running statistics
+    only."""
+    params, stats = {}, {}
+    _from_flax_tree(net, "", variables["params"], variables.get("batch_stats", {}), params,
+                    stats, device, dtype)
+    return params, stats
+
+
+def from_flax_alphas(alphas, device="cpu", dtype=torch.float32):
+    """The JAX arch problem's ``{"normal", "reduce"}`` logits as tensors."""
+    return {k: _t(alphas[k], device, dtype) for k in ("normal", "reduce")}

@@ -10,6 +10,9 @@ by ``(module, buffer name)``; ``betty_tpu_torch.module.from_torch`` returns
 them as the ``"batch_stats"`` collection. (``F.batch_norm`` with running
 tensors in train mode would update them in place, with the unbiased
 variance.)
+
+``affine=False`` (flax ``use_scale=False, use_bias=False``, the DARTS
+search's BatchNorms) has no weight and no bias parameter.
 """
 
 import torch
@@ -18,12 +21,15 @@ import torch.nn.functional as F
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5, device=None):
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5, device=None,
+                 affine: bool = True):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.weight = self.bias = None
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features, device=device))
+            self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 

@@ -3,9 +3,10 @@
 Counterpart of ``betty_tpu/models/resnet.py`` (``BasicBlock``, ``ResNet``,
 ``ResNet32``): inputs are NHWC images as in the JAX package, so one loader
 feeds both; the model views them as NCHW (a permute, no copy) for cuDNN.
-Convolutions pad as flax's ``"SAME"``: a stride-2 3x3 convolution of an
-even input pads 0 before and 1 after (``padding=1`` would shift every
-output), stride 1 pads 1 on both sides, the 1x1 projections not at all.
+Convolutions pad as flax's ``"SAME"`` (``models/layers.py::Conv``): a
+stride-2 3x3 convolution of an even input pads 0 before and 1 after
+(``padding=1`` would shift every output), stride 1 pads 1 on both sides,
+the 1x1 projections not at all.
 BatchNorm is ``models/batchnorm.py``'s: running statistics come back
 through ``updates``, never written in place.
 
@@ -25,33 +26,7 @@ import torch.nn.functional as F
 
 from betty_tpu_torch.models.batchnorm import BatchNorm
 from betty_tpu_torch.models.init import lecun_normal_
-
-
-def _same_pads(size: int, kernel: int, stride: int):
-    """(before, after) padding of flax's ``"SAME"`` along one axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
-class Conv(nn.Module):
-    """flax ``nn.Conv(features, (k, k), (s, s), use_bias=False)`` on NCHW."""
-
-    def __init__(self, in_features, features, kernel, stride=1, device=None, generator=None):
-        super().__init__()
-        self.stride = stride
-        self.weight = nn.Parameter(torch.empty(features, in_features, kernel, kernel,
-                                               device=device))
-        lecun_normal_(self.weight, fan_in=in_features * kernel * kernel, generator=generator)
-
-    def forward(self, x):
-        k = self.weight.shape[-1]
-        ph = _same_pads(x.shape[2], k, self.stride)
-        pw = _same_pads(x.shape[3], k, self.stride)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, stride=self.stride, padding=(ph[0], pw[0]))
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, stride=self.stride)
+from betty_tpu_torch.models.layers import Conv
 
 
 class BasicBlock(nn.Module):

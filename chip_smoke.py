@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases kernels,compiled  # ... and compiled blocks (CUDA graphs)
     python3 chip_smoke.py --phases kernels,itd     # ... and ITD / reinforce on the MWN flagship
     python3 chip_smoke.py --phases kernels,checkpoint,remat  # ... checkpoints and remat
+    python3 chip_smoke.py --phases kernels,nas     # ... DARTS search and its evaluation phase
 
 Phases:
 
@@ -132,6 +133,24 @@ Phases:
    mode and compiled (B1/B2 a period as without remat, the parameters of
    the two modes); "dots" on the plain attention at S128, 2 periods and
    peak.
+
+10. nas: DARTS architecture search (``examples/neural_architecture_search.py``)
+   and its evaluation phase (``examples/nas_eval.py``), which launch no
+   kernel of the port (cuDNN and PyTorch convolutions, pools, BatchNorm).
+   Small float64 runs (cuDNN deterministic): the search at C4 L3 B8 for 4
+   meta-periods under roll-back and the evaluation phase (DARTS_V2 C4 L4
+   B8, auxiliary head, cutout, drop-path 0, 4 steps) on the card against
+   the CPU from the same weights within 1e-9, and compiled against driver
+   mode on the card bit for bit. Then the search at the published DARTS
+   width (C16 L8 B64, float32, TF32 off; 1,401 leaves and 929 BatchNorms
+   held), driver mode then compiled: 3 + 8 timed periods and a profiled
+   one each (period, busy, idle, launches, device time by op class, peak
+   memory, capture), fixed-batch losses of the first periods within 1e-3
+   between the modes, a genotype of 8 + 8 edges, 0 launches of B1-B8; and
+   the evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2 C36 L20
+   B96, auxiliary 0.4, drop-path 0.2, cutout 16, grad clip 5) in both
+   modes, 3 + 8 timed steps and a profiled one. Each of its lines carries
+   the card's name and power limit.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -2135,6 +2154,251 @@ def remat_phase():
     log(f"[remat] phase done in {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# nas: DARTS neural architecture search (examples/neural_architecture_search.py)
+# and its evaluation phase (examples/nas_eval.py), which run no kernel of the
+# port: cuDNN convolutions (depthwise, dilated, pointwise), pools and BatchNorm
+# ---------------------------------------------------------------------------
+
+NAS_SMALL_SEARCH = ["--channels", "4", "--layers", "3", "--batch_size", "8", "--train_size",
+                    "32", "--valid_step", "1000"]
+NAS_SMALL_EVAL = ["--init_channels", "4", "--layers", "4", "--batch_size", "8", "--train_size",
+                  "32", "--epochs", "1", "--auxiliary", "--cutout", "--drop_path_prob", "0.0",
+                  "--valid_every_epochs", "100"]
+NAS_PERIODS = 4
+NAS_SEARCH_LEAVES = 1_401  # 1,399 of the supernet at C16 L8 and the two alphas
+NAS_SEARCH_BATCHNORMS = 929
+
+
+def _nas_engine(example, argv, device, compiled, states=None, dtype=None):
+    """A NAS example's engine on ``device``; ``states`` (CPU tensors)
+    replace its own and ``dtype`` casts states and images."""
+    import numpy as np
+    import torch
+    from betty_tpu_torch.utils import tree_map
+
+    engine = example.build_engine(example.parse_args(
+        argv + ["--device", device] + (["--compile_blocks"] if compiled else [])))
+    engine.config.block_periods = 1
+    if states is not None:
+        engine.states = tree_map(lambda t: t.to(device) if torch.is_tensor(t) else t, states)
+    if dtype is not None:
+        engine.states = tree_map(lambda t: t.to(dtype) if torch.is_tensor(t) and
+                                 t.is_floating_point() else t, engine.states)
+        for prob in engine.problems:
+            for loader in prob.train_data_loader:
+                loader.arrays = (np.asarray(loader.arrays[0], str(dtype).split(".")[1]),
+                                 *loader.arrays[1:])
+    return engine
+
+
+def nas_small_phase(which, card):
+    """The small float64 search (C4 L3 B8, ``NAS_PERIODS`` meta-periods,
+    roll-back) or evaluation phase (DARTS_V2 C4 L4 B8, auxiliary head,
+    cutout, drop-path 0, grad clip 5, 4 steps) on the card against the CPU
+    from the same weights, within 1e-9; then compiled blocks against driver
+    mode on the card, bit for bit. cuDNN runs its deterministic
+    algorithms."""
+    import torch
+    from betty_tpu_torch.examples import nas_eval, neural_architecture_search
+
+    example, argv = {"search": (neural_architecture_search, NAS_SMALL_SEARCH),
+                     "eval": (nas_eval, NAS_SMALL_EVAL)}[which]
+    argv = argv + (["--train_iters", str(NAS_PERIODS)] if which == "search" else [])
+    tag = f"[nas small] {which} [{card}]"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = _nas_engine(example, argv, "cpu", False, dtype=torch.float64).states
+        runs = {}
+        for label, device, compiled in (("cpu", "cpu", False), ("card", "cuda", False),
+                                        ("compiled", "cuda", True)):
+            engine = _nas_engine(example, argv, device, compiled, states, torch.float64)
+            if which == "eval":
+                engine.train_iters = NAS_PERIODS
+            engine.run()
+            runs[label] = engine
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    card_err = _mwn_tree_err(runs["cpu"].states, runs["card"].states)
+    comp_err = _state_err(runs["card"].states, runs["compiled"].states)
+    moved = _mwn_tree_err(states, runs["card"].states)
+    runner = runs["compiled"].block_runner
+    counts = {k: [p.count for p in e.problems] for k, e in runs.items()}
+    finite = all(bool(torch.isfinite(t).all()) for e in runs.values() for s in e.states.values()
+                 for t in s["params"].values())
+    log(f"{tag}: card vs CPU max |param or batch_stats diff| {card_err:.3e} (tol 1e-9; moved "
+        f"{moved:.3e}); compiled vs driver on the card max |state diff| {comp_err:.3e} (bit for "
+        f"bit); captures {runner.captures}, replays {runner.replays} of {runner.periods_run} "
+        f"periods, capture {runner.capture_seconds:.2f} s; counts {counts}; finite {finite}")
+    assert all(c == [NAS_PERIODS] * len(c) for c in counts.values()), counts
+    assert finite and moved > 0 and card_err <= 1e-9 and comp_err == 0.0, (card_err, comp_err)
+    assert runner.captures == 1 and runner.replays == runner.periods_run >= NAS_PERIODS - 1
+    if which == "search":
+        from betty_tpu_torch.models.darts import derive_genotype
+
+        genotypes = [derive_genotype(e.arch.params) for e in runs.values()]
+        log(f"{tag}: genotype {genotypes[0]}; the same in all three runs "
+            f"{all(g == genotypes[0] for g in genotypes)}")
+        assert all(g == genotypes[0] for g in genotypes)
+    del runs, runner
+    _free()
+    return card_err, comp_err
+
+
+def _nas_counts(engine):
+    """Parameter leaves, BatchNorms (two running statistics each) and
+    parameters of an engine's states."""
+    leaves = sum(len(s["params"]) for s in engine.states.values())
+    stats = sum(len(s["extra"].get("batch_stats", {})) for s in engine.states.values())
+    n_params = sum(t.numel() for s in engine.states.values() for t in s["params"].values())
+    return leaves, stats // 2, n_params
+
+
+def _nas_eval_loss(engine):
+    """The evaluation network's training loss at its parameters on a fixed
+    batch (the first 96 images, drop-path 0), no graph."""
+    import torch
+
+    ld = engine.network.train_data_loader[0]
+    ctx = {n: {"params": s["params"], "extra": s["extra"]} for n, s in engine.states.items()}
+    batch = (torch.as_tensor(ld.arrays[0][:ld.batch_size]).cuda(),
+             torch.as_tensor(ld.arrays[1][:ld.batch_size]).cuda(), torch.zeros((), device="cuda"))
+    with torch.no_grad():
+        return float(engine.network.eval_loss(ctx, batch)[0])
+
+
+def nas_search_cell(card, warmup=3, steady=8):
+    """The DARTS search at its published width (C16 L8 B64, float32, TF32
+    off; SGD 0.025 momentum 0.9 with cosine LR, Adam 3e-4 on the alphas,
+    unroll 1, roll-back; synthetic CIFAR in the default host loaders),
+    driver mode then compiled blocks (one replay a period): ``warmup`` +
+    ``steady`` timed periods and one profiled each. The fixed-batch losses
+    after each warm-up period are compared between the modes (float32 cuDNN
+    does not repeat bit for bit); both must derive a genotype of 8 + 8
+    edges."""
+    import torch
+    from betty_tpu_torch.examples import neural_architecture_search as ex
+    from betty_tpu_torch.models.darts import derive_genotype
+    from betty_tpu_torch.ops import flash_attention as fa
+    from betty_tpu_torch.ops import vector as vec
+
+    periods = warmup + steady + 1
+    argv = ["--train_iters", str(periods), "--valid_step", "1000000",
+            "--train_size", "2048"]
+    out, losses = {}, {}
+    for mode in ("driver", "compiled"):
+        tag = f"[nas search] C16 L8 B64 {mode} [{card}]"
+        t0 = time.time()
+        engine = _nas_engine(ex, argv, "cuda", mode == "compiled")
+        leaves, bns, n_params = _nas_counts(engine)
+        log(f"{tag} build_engine {time.time() - t0:.1f} s; parameter leaves {leaves} (the "
+            f"supernet's and the alphas), BatchNorms {bns}, parameters {n_params}")
+        assert leaves == NAS_SEARCH_LEAVES and bns == NAS_SEARCH_BATCHNORMS, (leaves, bns)
+        seen = losses[mode] = []
+        validate = engine.maybe_validate_checkpoint
+
+        def hook(window=1, _engine=engine, _seen=seen, _validate=validate):
+            stop = _validate(window)
+            if len(_seen) < warmup:
+                _seen.append(_fixed_losses(_engine))
+            return stop
+
+        engine.maybe_validate_checkpoint = hook
+        fa.reset_launch_counts()
+        vec.reset_launch_counts()
+        seconds, report, peak = _timed_run(engine, 1, periods, tag, _op_class, profiled="card")
+        ours = {**{k: f.launches for k, f in fa.KERNELS.items()},
+                **{k: getattr(vec, k).launches for k in VECTOR_KERNELS}}
+        out[mode] = _cell_line(tag, seconds, report, peak, warmup)
+        if report:
+            shares = {k: round(v / report["busy_ms"], 3) for k, v in report["by_kind"].items()}
+            out[mode]["shares"] = shares
+            log(f"{tag} device time shares {shares}")
+        if mode == "compiled":
+            r = engine.block_runner
+            out[mode]["capture_s"] = r.capture_seconds
+            log(f"{tag} captures {r.captures}, replays {r.replays}, capture (two warm-up "
+                f"periods and the capture) {r.capture_seconds:.3f} s; kernels in the profiled "
+                f"replay (the graph's nodes) {report['launches'] if report else 'not read'}")
+            assert r.captures == 1 and r.replays == periods
+        genotype = derive_genotype(engine.arch.params)
+        final = _fixed_losses(engine)
+        log(f"{tag} fixed-batch losses after periods 1..{warmup} {seen}, after {periods} "
+            f"{final}; genotype {genotype}; launches of the port's kernels {ours}")
+        assert len(genotype.normal) == len(genotype.reduce) == 8
+        assert engine.classifier.count == engine.arch.count == periods
+        assert all(math.isfinite(v) for d in seen + [final] for v in d.values())
+        assert all(n == 0 for n in ours.values()), ours
+        del engine
+        _free()
+    diffs = [max(abs(a[k] - b[k]) / abs(b[k]) for k in a)
+             for a, b in zip(losses["driver"], losses["compiled"])]
+    log(f"[nas search] [{card}] compiled vs driver: relative difference of the fixed-batch "
+        f"losses after periods 1..{warmup}: {diffs} (tol 1e-3: float32 cuDNN is not "
+        "repeatable)")
+    assert max(diffs) <= 1e-3, diffs
+    return out
+
+
+def nas_eval_cell(card, warmup=3, steady=8):
+    """The evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2, C36
+    L20 B96, auxiliary head 0.4, drop-path 0.2, cutout 16, grad clip 5,
+    float32, TF32 off): driver mode, then compiled blocks (one replay a
+    step): ``warmup`` + ``steady`` timed steps and one profiled each."""
+    import torch
+    from betty_tpu_torch.examples import nas_eval as ex
+    from betty_tpu_torch.ops import flash_attention as fa
+    from betty_tpu_torch.ops import vector as vec
+
+    steps = warmup + steady + 1
+    argv = ["--auxiliary", "--cutout", "--train_size", str(96 * steps), "--epochs", "1",
+            "--valid_every_epochs", "100"]
+    out = {}
+    for mode in ("driver", "compiled"):
+        tag = f"[nas eval] DARTS_V2 C36 L20 B96 {mode} [{card}]"
+        engine = _nas_engine(ex, argv, "cuda", mode == "compiled")
+        # drop-path at its full 0.2: the loader's epoch past the ramp
+        engine.network.train_data_loader[0].set_epoch(1)
+        leaves, bns, n_params = _nas_counts(engine)
+        log(f"{tag}: parameter leaves {leaves}, BatchNorms {bns}, parameters {n_params}")
+        fa.reset_launch_counts()
+        vec.reset_launch_counts()
+        seconds, report, peak = _timed_run(engine, 1, steps, tag, _op_class, profiled="card")
+        out[mode] = _cell_line(tag, seconds, report, peak, warmup)
+        if mode == "compiled":
+            r = engine.block_runner
+            out[mode]["capture_s"] = r.capture_seconds
+            log(f"{tag} captures {r.captures}, replays {r.replays}, capture "
+                f"{r.capture_seconds:.3f} s")
+            assert r.captures == 1 and r.replays == steps
+        ours = {**{k: f.launches for k, f in fa.KERNELS.items()},
+                **{k: getattr(vec, k).launches for k in VECTOR_KERNELS}}
+        loss = _nas_eval_loss(engine)
+        dp = float(engine.network.cur_batch[2])
+        log(f"{tag} fixed-batch loss {loss}; drop-path probability of the last batch {dp}; "
+            f"launches of the port's kernels {ours}")
+        assert engine.network.count == steps and math.isfinite(loss) and abs(dp - 0.2) < 1e-7
+        assert all(n == 0 for n in ours.values()), ours
+        assert all(bool(torch.isfinite(t).all())
+                   for t in engine.states["network"]["params"].values())
+        del engine
+        _free()
+    return out
+
+
+def nas_phase(card):
+    """Every line carries ``card``, the card's name and power limit."""
+    t0 = time.time()
+    for which in ("search", "eval"):
+        nas_small_phase(which, card)
+    nas_search_cell(card)
+    nas_eval_cell(card)
+    log(f"[nas] [{card}] phase done in {time.time() - t0:.1f} s")
+
+
+
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
 KERNEL_SYMBOLS = {
     "fp32_fwd_single_kernel": "flash B1", "mma_fwd_single_kernel": "flash B1",
@@ -2300,7 +2564,7 @@ def sass_report(lib_paths, head_dims):
         raise AssertionError(f"kernels without the instructions of their design: {bad}")
 
 
-PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat")
+PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat", "nas")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -2334,7 +2598,8 @@ def main(argv=None):
                          "(ResNet-32 Meta-Weight-Net), compiled (compiled blocks against "
                          "driver mode), itd (iterative differentiation and reinforce on the "
                          "MWN flagship), checkpoint (engine checkpoints and auto_resume), "
-                         "remat (rematerialized encoder blocks)")
+                         "remat (rematerialized encoder blocks), nas (DARTS search and its "
+                         "evaluation phase)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -2398,6 +2663,8 @@ def main(argv=None):
         checkpoint_phase()
     if "remat" in phases:
         remat_phase()
+    if "nas" in phases:
+        nas_phase(card)
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

@@ -17,6 +17,7 @@ from betty_tpu_torch.data import ArrayLoader
 from betty_tpu_torch.entry import entry
 from betty_tpu_torch.examples import bert_data_reweighting as tex
 from betty_tpu_torch.examples import learning_to_reweight as mwn
+from betty_tpu_torch.examples import nas_eval, neural_architecture_search as nas
 from betty_tpu_torch.hypergradient import _solver, cg, neumann, reinforce
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,7 +40,9 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
                 "hypergradient/neumann.py", "examples/logistic_regression_hpo.py",
                 "models/batchnorm.py", "models/resnet.py", "examples/learning_to_reweight.py",
                 "examples/mwn_data.py", "examples/vision_data.py", "entry.py", "compile.py",
-                "problems/iterative.py", "hypergradient/reinforce.py", "checkpoint.py"):
+                "problems/iterative.py", "hypergradient/reinforce.py", "checkpoint.py",
+                "models/darts.py", "models/layers.py", "examples/neural_architecture_search.py",
+                "examples/nas_eval.py"):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -96,6 +99,13 @@ def test_engine_defaults_to_cuda():
                                          "--meta_size", "8", "--batch_size", "4"]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+    assert nas.parse_args([]).device == nas_eval.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nas.build_engine(nas.parse_args(["--channels", "2", "--layers", "1", "--batch_size", "4",
+                                         "--train_size", "8"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nas_eval.build_engine(nas_eval.parse_args(["--init_channels", "2", "--layers", "2",
+                                                   "--batch_size", "4", "--train_size", "8"]))
 
 
 @pytest.mark.parametrize("device", [False, "cpu"])
