@@ -442,7 +442,7 @@ class BlockRunner:
     device one graph replay a period, on the CPU the period function
     eagerly. ``captures``, ``replays`` (CUDA) and ``periods_run`` count what
     it did; ``capture_seconds`` is the time of the warm-up periods and the
-    capture."""
+    capture, ``warmup_seconds`` the warm-up periods' part of it."""
 
     def __init__(self, engine, periods: int = 1, schedule_only: bool = False):
         self.engine = engine
@@ -481,7 +481,7 @@ class BlockRunner:
         self.captures = 0
         self.replays = 0
         self.periods_run = 0
-        self.capture_seconds = None
+        self.capture_seconds = self.warmup_seconds = None
         self.finalized = False
         self._slots = None
         self._graph = None
@@ -639,6 +639,8 @@ class BlockRunner:
                 self._stream.wait_stream(torch.cuda.current_stream(self.engine.device))
                 with torch.cuda.stream(self._stream):
                     self._warm_up(collected)
+                torch.cuda.synchronize(self.engine.device)
+                self.warmup_seconds = time.perf_counter() - t0
                 # the static buffers were made on the warm-up stream
                 torch.cuda.current_stream(self.engine.device).wait_stream(self._stream)
                 self._slots.write(r)
@@ -655,7 +657,7 @@ class BlockRunner:
             if self._slots is None:
                 t0 = time.perf_counter()
                 self._warm_up(collected)
-                self.capture_seconds = time.perf_counter() - t0
+                self.capture_seconds = self.warmup_seconds = time.perf_counter() - t0
             self._slots.write(r)
             record = _StepValues(self._slots)
             counts0 = {n: p._count for n, p in self.problems.items()}

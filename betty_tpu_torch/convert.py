@@ -1,10 +1,11 @@
 """Move parameters from the JAX package to the port.
 
-``from_flax_transformer`` and ``from_flax_mwn`` take a flax parameter tree
-as a nested dict of numpy arrays (``engine.states[name]["params"]`` of the
-JAX package, after ``np.asarray``) and return the params dict of the port's
-``TransformerClassifier`` / ``MetaWeightNet``. flax ``Dense`` kernels are
-``(in, out)`` and ``nn.Linear`` weights ``(out, in)``, so they are
+``from_flax_transformer``, ``from_flax_mlp`` and ``from_flax_mwn`` take a
+flax parameter tree as a nested dict of numpy arrays
+(``engine.states[name]["params"]`` of the JAX package, after
+``np.asarray``) and return the params dict of the port's
+``TransformerClassifier`` / ``MLP`` / ``MetaWeightNet``. flax ``Dense``
+kernels are ``(in, out)`` and ``nn.Linear`` weights ``(out, in)``, so they are
 transposed; the attention kernels keep their shapes; LayerNorm ``scale``
 becomes ``weight``. ``from_flax_resnet`` takes a ``ResNet``'s variables
 (``params`` and ``batch_stats``) and returns the port's params and
@@ -56,6 +57,15 @@ def from_flax_transformer(params, device="cpu", dtype=torch.float32):
     _layernorm(out, "ln_f", params["LayerNorm_0"], device, dtype)
     _dense(out, "pool", params["Dense_0"], device, dtype)
     _dense(out, "head", params["Dense_1"], device, dtype)
+    return out
+
+
+def from_flax_mlp(params, device="cpu", dtype=torch.float32):
+    """flax ``MLP`` params (``Dense_0``, ``Dense_1``, ...) -> the port's
+    ``MLP`` params dict (``layers.i.weight/bias``)."""
+    out = {}
+    for i in range(sum(1 for k in params if k.startswith("Dense_"))):
+        _dense(out, f"layers.{i}", params[f"Dense_{i}"], device, dtype)
     return out
 
 

@@ -8,6 +8,15 @@ a stride-2 convolution of an even input pads asymmetrically (3x3 on 32:
 dilation 2, effective 9: (3, 4)), which ``F.conv2d``'s symmetric
 ``padding`` cannot express, so those inputs are padded first.
 
+A grouped convolution (``groups > 1``: the DARTS depthwise convolutions)
+runs through ``grouped_conv2d``, whose backward is made of differentiable
+convolutions (ROADMAP §C.8): PyTorch's own double backward of a grouped
+convolution computes the weight term one group at a time (a convolution,
+its slices and copies per channel), and cuDNN runs those at up to 0.4 ms
+each; through ``grouped_conv2d`` a second-order pass takes the weight
+term as one grouped weight gradient. The values are those of
+``F.conv2d``'s derivatives.
+
 ``max_pool`` pads with -inf. ``avg_pool`` pads with zeros and counts them
 (flax's ``avg_pool`` defaults to ``count_include_pad=True``), so a 3x3
 SAME average divides by 9 everywhere, the border and the stride-2 (0, 1)
@@ -38,6 +47,67 @@ def _pad_same(x, kernel, stride, dilation=1, value=0.0):
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
 
 
+class _GroupedConv2d(torch.autograd.Function):
+    """``F.conv2d(x, w, stride, padding, dilation, groups)`` whose backward,
+    when its graph is kept (``create_graph``), is differentiable by
+    first-order rules: the input gradient is ``conv_transpose2d(gO, w)``
+    (differentiated in ``w`` by one grouped weight gradient, where
+    ``F.conv2d``'s double backward loops over the groups) and the weight
+    gradient is ``convolution_backward``'s. A first-order backward is
+    ``F.conv2d``'s own single ``convolution_backward`` call."""
+
+    @staticmethod
+    def forward(x, w, stride, padding, dilation, groups):
+        return F.conv2d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, stride, padding, dilation, groups = inputs
+        ctx.save_for_backward(x, w)
+        ctx.save_for_forward(x, w)
+        ctx.conf = (stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        conf = ([stride] * 2, list(padding), [dilation] * 2, False, [0, 0], groups)
+        if not torch.is_grad_enabled():
+            # a first-order backward (no create_graph): F.conv2d's own call
+            g_x, g_w, _ = torch.ops.aten.convolution_backward(
+                g_out, x, w, None, *conf, (*ctx.needs_input_grad[:2], False))
+            return g_x, g_w, None, None, None, None
+        g_x = g_w = None
+        if ctx.needs_input_grad[0]:
+            k_eff = [(k - 1) * dilation + 1 for k in w.shape[2:]]
+            extra = [n - ((m - 1) * stride - 2 * p + k)
+                     for n, m, p, k in zip(x.shape[2:], g_out.shape[2:], padding, k_eff)]
+            g_x = F.conv_transpose2d(g_out, w, None, stride, padding, extra, groups, dilation)
+        if ctx.needs_input_grad[1]:
+            g_w = torch.ops.aten.convolution_backward(g_out, x, w, None, *conf,
+                                                      (False, True, False))[1]
+        return g_x, g_w, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_dot, w_dot, *_):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        out = None
+        if x_dot is not None:
+            out = F.conv2d(x_dot, w, None, stride, padding, dilation, groups)
+        if w_dot is not None:
+            term = F.conv2d(x, w_dot, None, stride, padding, dilation, groups)
+            out = term if out is None else out + term
+        return out
+
+
+def grouped_conv2d(x, w, stride, padding, dilation, groups):
+    """``F.conv2d`` of ``groups`` > 1 through ``_GroupedConv2d`` (the same
+    values and derivatives; second-order passes take one grouped weight
+    gradient, not one convolution a group)."""
+    return _GroupedConv2d.apply(x, w, stride, tuple(padding), dilation, groups)
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv(features, (k, k), (s, s), kernel_dilation=(d, d),
     feature_group_count=groups, padding=padding, use_bias=False)`` on NCHW;
@@ -59,6 +129,8 @@ class Conv(nn.Module):
         pads = (0, 0)
         if self.padding == "SAME":
             x, pads = _pad_same(x, self.weight.shape[-1], self.stride, self.dilation)
+        if self.groups > 1:
+            return grouped_conv2d(x, self.weight, self.stride, pads, self.dilation, self.groups)
         return F.conv2d(x, self.weight, stride=self.stride, padding=pads,
                         dilation=self.dilation, groups=self.groups)
 

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases kernels,itd     # ... and ITD / reinforce on the MWN flagship
     python3 chip_smoke.py --phases kernels,checkpoint,remat  # ... checkpoints and remat
     python3 chip_smoke.py --phases kernels,nas     # ... DARTS search and its evaluation phase
+    python3 chip_smoke.py --phases kernels,robust  # ... robust NAS and the 4-level SANAS
 
 Phases:
 
@@ -151,6 +152,29 @@ Phases:
    B96, auxiliary 0.4, drop-path 0.2, cutout 16, grad clip 5) in both
    modes, 3 + 8 timed steps and a profiled one. Each of its lines carries
    the card's name and power limit.
+11. robust: robust NAS (``examples/robust_nas.py``: the DARTS search whose
+   classifier loss adds the input-Jacobian and CURE terms, second order
+   through the inputs) and the 4-level saliency-aware NAS
+   (``examples/saliency_aware_nas_4_level.py``: three problems, three
+   hypergradient paths into the outer one, a PGD attack inside a step),
+   which launch no kernel of the port. Small float64 runs (cuDNN
+   deterministic): the robust search at C2 L1 B4 with both terms for 2
+   meta-periods on the ``darts`` and the ``mlp`` backbone, and SANAS at dim
+   16, 3 classes for 4 outer steps, on the card against the CPU from the
+   same weights within 1e-9 (the Jacobian directions drawn on the host on
+   both sides), and compiled against driver mode on the card bit for bit
+   (the directions from the example's generator, reseeded every replay).
+   Then the robust search at the DARTS search widths (C16 L8 B32, both
+   terms, float32, TF32 off), driver mode then compiled: 3 + 5 timed
+   periods and a profiled one each (period, busy, idle, launches, device
+   time by op class and convolution time by kernel, peak memory, capture
+   split into warm-up and recording), the fixed-batch losses of the first
+   periods within 1e-3 between the modes, and one more driver period that
+   counts its convolutions at the dispatcher (none may be a per-group one
+   of PyTorch's conv double backward); then SANAS at the JAX example's
+   defaults in driver mode for 20 outer periods (finite losses, three
+   paths, counts 8:4:2 per 8 inner1 steps). B1-B8 launch 0 times in every run. Each of
+   its lines carries the card's name and power limit.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -852,20 +876,36 @@ def profile_period(engine, unroll, tag, classify=None):
     return profile_report(prof, wall_ms, tag, classify)
 
 
+def _device_kernels(prof):
+    """``(ms, launches, name)`` of each kernel (and copy) the card ran under
+    ``prof``, summed by name from the profiler's raw events: building its
+    event tree (``key_averages``) takes the host minutes for a period of a
+    million kernels."""
+    import torch
+
+    results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if results is None:
+        out = []
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None)
+                if t is None:
+                    t = getattr(e, "self_cuda_time_total", 0.0)
+                out.append((t / 1e3, e.count, e.key))
+        return out
+    by_name = {}
+    for e in results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t, c = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (t + e.duration_ns(), c + 1)
+    return [(t / 1e6, c, name) for name, (t, c) in by_name.items()]
+
+
 def profile_report(prof, wall_ms, tag, classify=None):
     """Device time by kernel class of a finished ``torch.profiler`` run over
     ``wall_ms`` of wall time (``profile_period``'s report); None when the
     profiler recorded no device time."""
-    import torch
-
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        kernels.append((t / 1e3, e.count, e.key))
+    kernels = _device_kernels(prof)
     busy = sum(t for t, _, _ in kernels)
     if busy == 0.0:
         log(f"{tag} [profile] the profiler recorded no device time")
@@ -906,7 +946,7 @@ def profile_report(prof, wall_ms, tag, classify=None):
     for t, c, name in sorted(kernels, reverse=True)[:15]:
         log(f"{tag} [profile]   {t:9.2f} ms  x{c:<6d} {name[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "launches": sum(c for _, c, _ in kernels),
-            "by_kind": by_kind, "own_launches": counts}
+            "by_kind": by_kind, "own_launches": counts, "kernels": kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -2170,9 +2210,27 @@ NAS_SEARCH_LEAVES = 1_401  # 1,399 of the supernet at C16 L8 and the two alphas
 NAS_SEARCH_BATCHNORMS = 929
 
 
+def _port_launches():
+    """Launches of B1-B8 since their counters were last reset."""
+    from betty_tpu_torch.ops import flash_attention as fa
+    from betty_tpu_torch.ops import vector as vec
+
+    return {**{k: f.launches for k, f in fa.KERNELS.items()},
+            **{k: getattr(vec, k).launches for k in VECTOR_KERNELS}}
+
+
+def _reset_port_launches():
+    from betty_tpu_torch.ops import flash_attention as fa
+    from betty_tpu_torch.ops import vector as vec
+
+    fa.reset_launch_counts()
+    vec.reset_launch_counts()
+
+
 def _nas_engine(example, argv, device, compiled, states=None, dtype=None):
-    """A NAS example's engine on ``device``; ``states`` (CPU tensors)
-    replace its own and ``dtype`` casts states and images."""
+    """A NAS example's engine (the DARTS search and evaluation phase, robust
+    NAS, SANAS) on ``device``; ``states`` (CPU tensors) replace its own and
+    ``dtype`` casts states and inputs."""
     import numpy as np
     import torch
     from betty_tpu_torch.utils import tree_map
@@ -2185,10 +2243,13 @@ def _nas_engine(example, argv, device, compiled, states=None, dtype=None):
     if dtype is not None:
         engine.states = tree_map(lambda t: t.to(dtype) if torch.is_tensor(t) and
                                  t.is_floating_point() else t, engine.states)
+        name = str(dtype).split(".")[1]
         for prob in engine.problems:
             for loader in prob.train_data_loader:
-                loader.arrays = (np.asarray(loader.arrays[0], str(dtype).split(".")[1]),
-                                 *loader.arrays[1:])
+                if isinstance(loader, list):  # host batches (SANAS)
+                    loader[:] = [(np.asarray(x, name), y) for x, y in loader]
+                else:
+                    loader.arrays = (np.asarray(loader.arrays[0], name), *loader.arrays[1:])
     return engine
 
 
@@ -2281,8 +2342,6 @@ def nas_search_cell(card, warmup=3, steady=8):
     import torch
     from betty_tpu_torch.examples import neural_architecture_search as ex
     from betty_tpu_torch.models.darts import derive_genotype
-    from betty_tpu_torch.ops import flash_attention as fa
-    from betty_tpu_torch.ops import vector as vec
 
     periods = warmup + steady + 1
     argv = ["--train_iters", str(periods), "--valid_step", "1000000",
@@ -2306,11 +2365,9 @@ def nas_search_cell(card, warmup=3, steady=8):
             return stop
 
         engine.maybe_validate_checkpoint = hook
-        fa.reset_launch_counts()
-        vec.reset_launch_counts()
+        _reset_port_launches()
         seconds, report, peak = _timed_run(engine, 1, periods, tag, _op_class, profiled="card")
-        ours = {**{k: f.launches for k, f in fa.KERNELS.items()},
-                **{k: getattr(vec, k).launches for k in VECTOR_KERNELS}}
+        ours = _port_launches()
         out[mode] = _cell_line(tag, seconds, report, peak, warmup)
         if report:
             shares = {k: round(v / report["busy_ms"], 3) for k, v in report["by_kind"].items()}
@@ -2349,8 +2406,6 @@ def nas_eval_cell(card, warmup=3, steady=8):
     step): ``warmup`` + ``steady`` timed steps and one profiled each."""
     import torch
     from betty_tpu_torch.examples import nas_eval as ex
-    from betty_tpu_torch.ops import flash_attention as fa
-    from betty_tpu_torch.ops import vector as vec
 
     steps = warmup + steady + 1
     argv = ["--auxiliary", "--cutout", "--train_size", str(96 * steps), "--epochs", "1",
@@ -2363,8 +2418,7 @@ def nas_eval_cell(card, warmup=3, steady=8):
         engine.network.train_data_loader[0].set_epoch(1)
         leaves, bns, n_params = _nas_counts(engine)
         log(f"{tag}: parameter leaves {leaves}, BatchNorms {bns}, parameters {n_params}")
-        fa.reset_launch_counts()
-        vec.reset_launch_counts()
+        _reset_port_launches()
         seconds, report, peak = _timed_run(engine, 1, steps, tag, _op_class, profiled="card")
         out[mode] = _cell_line(tag, seconds, report, peak, warmup)
         if mode == "compiled":
@@ -2373,8 +2427,7 @@ def nas_eval_cell(card, warmup=3, steady=8):
             log(f"{tag} captures {r.captures}, replays {r.replays}, capture "
                 f"{r.capture_seconds:.3f} s")
             assert r.captures == 1 and r.replays == steps
-        ours = {**{k: f.launches for k, f in fa.KERNELS.items()},
-                **{k: getattr(vec, k).launches for k in VECTOR_KERNELS}}
+        ours = _port_launches()
         loss = _nas_eval_loss(engine)
         dp = float(engine.network.cur_batch[2])
         log(f"{tag} fixed-batch loss {loss}; drop-path probability of the last batch {dp}; "
@@ -2397,6 +2450,311 @@ def nas_phase(card):
     nas_eval_cell(card)
     log(f"[nas] [{card}] phase done in {time.time() - t0:.1f} s")
 
+
+
+# ---------------------------------------------------------------------------
+# robust: robust NAS (examples/robust_nas.py: the DARTS search whose
+# classifier loss adds the input-Jacobian and CURE terms, a second-order
+# pass through the inputs) and the 4-level saliency-aware NAS
+# (examples/saliency_aware_nas_4_level.py: three problems, three
+# hypergradient paths, a PGD attack inside a step); no kernel of the port
+# runs on either (cuDNN and PyTorch ops)
+# ---------------------------------------------------------------------------
+
+ROBUST_SMALL = {"darts": ["--channels", "2", "--layers", "1"], "mlp": ["--arch", "mlp"]}
+ROBUST_SMALL_ARGV = ["--batch_size", "4", "--train_size", "16", "--valid_step", "1000"]
+ROBUST_PERIODS = 2
+SANAS_SMALL = ["--dim", "16", "--classes", "3", "--n", "256", "--batch", "32",
+               "--valid_step", "1000", "--train_iters", "16"]  # 4 outer steps
+
+
+def _host_directions(rng, x):
+    """The Jacobian term's direction drawn on the host from the step's seed,
+    the same on every device (the example's own generator draws differently
+    on the CPU and on the card)."""
+    import numpy as np
+    import torch
+    from betty_tpu_torch.examples.robust_nas import DIRECTION_FOLD
+    from betty_tpu_torch.utils import fold_in
+
+    r = np.random.RandomState(fold_in(rng, DIRECTION_FOLD) % 2**32)
+    return torch.from_numpy(r.standard_normal(tuple(x.shape))).to(x.device, x.dtype)
+
+
+def robust_small_phase(which, card):
+    """Small float64 runs, cuDNN deterministic: the robust search (C2 L1 B4
+    on the ``darts`` backbone or the ``mlp`` one, both regularizers,
+    ``ROBUST_PERIODS`` meta-periods) or SANAS (dim 16, 3 classes, 4 outer
+    steps) on the card against the CPU from the same weights within 1e-9
+    (the Jacobian directions drawn on the host on both sides), then
+    compiled blocks against driver mode on the card bit for bit (the
+    directions from the example's own generator, in the graph's reseeded
+    pool: fresh every replay)."""
+    import torch
+    from betty_tpu_torch.examples import robust_nas, saliency_aware_nas_4_level
+
+    if which == "sanas":
+        example, argv = saliency_aware_nas_4_level, SANAS_SMALL
+    else:
+        example = robust_nas
+        argv = (ROBUST_SMALL_ARGV + ROBUST_SMALL[which] +
+                ["--train_iters", str(ROBUST_PERIODS)])
+    tag = f"[robust small] {which} [{card}]"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _reset_port_launches()
+    runs = {}
+    try:
+        states = _nas_engine(example, argv, "cpu", False, dtype=torch.float64).states
+        for label, device, compiled, host in (("cpu", "cpu", False, True),
+                                              ("card", "cuda", False, True),
+                                              ("driver", "cuda", False, False),
+                                              ("compiled", "cuda", True, False)):
+            if which == "sanas" and label == "driver":
+                runs["driver"] = runs["card"]  # no random draws
+                continue
+            engine = _nas_engine(example, argv, device, compiled, states, torch.float64)
+            if host and which != "sanas":
+                engine.classifier.directions = _host_directions
+            with _CaptureWatch({}) as watch:
+                engine.run()
+            runs[label] = engine
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    card_err = _mwn_tree_err(runs["cpu"].states, runs["card"].states)
+    comp_err = _state_err(runs["driver"].states, runs["compiled"].states)
+    moved = _mwn_tree_err(states, runs["card"].states)
+    runner = runs["compiled"].block_runner
+    seeds = [w[2] for w in watch.written]
+    fresh = all(a != b for r in range(len(seeds) - 1) for a, b in zip(seeds[r], seeds[r + 1]))
+    counts = {k: [p.count for p in e.problems] for k, e in runs.items()}
+    finite = all(bool(torch.isfinite(t).all()) for e in runs.values() for s in e.states.values()
+                 for t in s["params"].values())
+    ours = _port_launches()
+    log(f"{tag}: card vs CPU max |param or batch_stats diff| {card_err:.3e} (tol 1e-9; moved "
+        f"{moved:.3e}); compiled vs driver on the card max |state diff| {comp_err:.3e} (bit for "
+        f"bit); captures {runner.captures}, replays {runner.replays} of {runner.periods_run} "
+        f"periods, capture {runner.capture_seconds:.2f} s; generators a period "
+        f"{len(seeds[0]) if seeds else 0}, fresh seeds every replay {fresh}; counts {counts}; "
+        f"finite {finite}; launches of B1-B8 {ours}")
+    if which == "sanas":
+        want = [4, 8, 16]
+        paths = [[q.name for q in path] for path in runs["card"].outer.paths]
+        log(f"{tag}: the outer problem's paths {paths}")
+        assert len(paths) == 3, paths
+    else:
+        want = [ROBUST_PERIODS, ROBUST_PERIODS]
+        # the Jacobian direction of the classifier's step and of darts' two
+        # evaluations
+        assert seeds and len(seeds[0]) == 3 and fresh, seeds
+    assert all(c == want for c in counts.values()), counts
+    assert finite and moved > 0 and card_err <= 1e-9 and comp_err == 0.0, (card_err, comp_err)
+    assert runner.captures == 1 and runner.replays == runner.periods_run >= 1
+    assert all(n == 0 for n in ours.values()), ours
+    del runs, runner
+    _free()
+    return card_err, comp_err
+
+
+class _ConvCount:
+    """Counts the convolutions of a run at the dispatcher (a
+    ``TorchDispatchMode``, which the autograd engine's device threads
+    inherit): all of them, their backwards, and the per-group ones of
+    PyTorch's conv double backward, which computes a grouped convolution's
+    weight term one group at a time: a convolution with ``groups=1`` and a
+    one-channel "weight" (the output gradient of one group, batch as its
+    channels). No convolution of the supernet itself has one output
+    channel."""
+
+    def __init__(self):
+        self.total = self.per_group = self.backward = 0
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = str(func)
+                if name.startswith("aten.convolution."):
+                    counter.total += 1
+                    if args[8] == 1 and args[1].shape[0] == 1:
+                        counter.per_group += 1
+                elif name.startswith("aten.convolution_backward."):
+                    counter.backward += 1
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        return False
+
+
+def grouped_convolutions(channels=16, layers=8):
+    """``(grouped convolutions of the C16 L8 supernet, the sum of their
+    groups)``: the second is the per-group convolutions of one double
+    backward through all of them."""
+    from betty_tpu_torch.models.darts import DARTSNetwork
+    from betty_tpu_torch.models.layers import Conv
+
+    convs = [m for m in DARTSNetwork(channels=channels, layers=layers).modules()
+             if isinstance(m, Conv) and m.groups > 1]
+    return len(convs), sum(m.groups for m in convs)
+
+
+def robust_full_cell(card, warmup=3, steady=5):
+    """The robust search at the DARTS search widths (C16 L8 B32, both
+    regularizers, lambda_j 0.1, lambda_c 0.01; SGD 0.025 momentum 0.9, no
+    schedule, no roll-back; Adam 3e-4 on the alphas; float32, TF32 off;
+    synthetic CIFAR in the host loaders), driver mode then compiled blocks
+    (one replay a period): ``warmup`` + ``steady`` timed periods and one
+    profiled each (period, busy, idle, launches, device time by op class,
+    convolution time by kernel, peak memory; capture split into the warm-up
+    periods and the recording), then one driver period counting its
+    convolutions (``_ConvCount``: no per-group one, since the grouped
+    convolutions run through ``models/layers.py::grouped_conv2d``). The fixed-batch losses after each
+    warm-up period agree between the modes within 1e-3 relative; B1-B8
+    launch 0 times."""
+    import torch
+    from betty_tpu_torch.examples import robust_nas as ex
+    from betty_tpu_torch.models.darts import derive_genotype
+
+    periods = warmup + steady + 1
+    argv = ["--train_iters", str(periods), "--valid_step", "1000000"]
+    out, losses = {}, {}
+    for mode in ("driver", "compiled"):
+        tag = f"[robust search] C16 L8 B32 {mode} [{card}]"
+        t0 = time.time()
+        engine = _nas_engine(ex, argv, "cuda", mode == "compiled")
+        leaves, bns, n_params = _nas_counts(engine)
+        log(f"{tag} build_engine {time.time() - t0:.1f} s; parameter leaves {leaves}, "
+            f"BatchNorms {bns}, parameters {n_params}; lambda_j "
+            f"{engine.classifier.cfg['lambda_j']}, lambda_c {engine.classifier.cfg['lambda_c']}")
+        assert leaves == NAS_SEARCH_LEAVES and bns == NAS_SEARCH_BATCHNORMS, (leaves, bns)
+        seen = losses[mode] = []
+        validate = engine.maybe_validate_checkpoint
+
+        def hook(window=1, _engine=engine, _seen=seen, _validate=validate):
+            stop = _validate(window)
+            if len(_seen) < warmup:
+                _seen.append(_fixed_losses(_engine))
+            return stop
+
+        engine.maybe_validate_checkpoint = hook
+        _reset_port_launches()
+        seconds, report, peak = _timed_run(engine, 1, periods, tag, _op_class, profiled="card")
+        row = out[mode] = _cell_line(tag, seconds, report, peak, warmup)
+        if report:
+            row["launches"] = report["launches"]
+            row["shares"] = {k: round(v / report["busy_ms"], 3)
+                             for k, v in report["by_kind"].items()}
+            convs = sorted((k for k in report["kernels"] if _op_class(k[2]) == "convolution"),
+                           reverse=True)
+            row["conv_ms"] = sum(t for t, _, _ in convs)
+            log(f"{tag} device time shares {row['shares']}; convolution {row['conv_ms']:.1f} ms "
+                f"over {sum(c for _, c, _ in convs)} launches, by kernel:")
+            for t, c, name in convs[:12]:
+                log(f"{tag}   {t:9.2f} ms  x{c:<7d} {t * 1e3 / c:8.1f} us/launch  {name[:100]}")
+        if mode == "compiled":
+            r = engine.block_runner
+            row["capture_s"], row["warmup_s"] = r.capture_seconds, r.warmup_seconds
+            log(f"{tag} captures {r.captures}, replays {r.replays}; capture "
+                f"{r.capture_seconds:.3f} s: two warm-up periods {r.warmup_seconds:.3f} s, "
+                f"recording {r.capture_seconds - r.warmup_seconds:.3f} s; graph nodes (kernels "
+                f"of the profiled replay) {report['launches'] if report else 'not read'}")
+            assert r.captures == 1 and r.replays == periods
+        else:
+            engine.train_iters = 1
+            engine.maybe_validate_checkpoint = validate
+            with _ConvCount() as cc:
+                engine.run()
+            torch.cuda.synchronize()
+            row.update(conv_calls=cc.total, per_group_convs=cc.per_group,
+                       conv_backwards=cc.backward)
+            n_grouped, slices = grouped_convolutions()
+            log(f"{tag} one more driver period at the dispatcher: {cc.total} convolutions, "
+                f"{cc.per_group} per-group convolutions of PyTorch's conv double backward (the "
+                f"supernet's {n_grouped} grouped convolutions hold {slices} groups; "
+                f"models/layers.py::grouped_conv2d takes their weight term whole), "
+                f"{cc.backward} convolution backwards")
+            assert cc.per_group == 0, cc.per_group
+        genotype = derive_genotype(engine.arch.params)
+        final = _fixed_losses(engine)
+        ours = _port_launches()
+        log(f"{tag} fixed-batch losses after periods 1..{warmup} {seen}, at the end {final}; "
+            f"genotype {genotype}; launches of B1-B8 {ours}")
+        assert len(genotype.normal) == len(genotype.reduce) == 8
+        assert all(math.isfinite(v) for d in seen + [final] for v in d.values())
+        assert all(n == 0 for n in ours.values()), ours
+        del engine
+        _free()
+    diffs = [max(abs(a[k] - b[k]) / abs(b[k]) for k in a)
+             for a, b in zip(losses["driver"], losses["compiled"])]
+    log(f"[robust search] [{card}] compiled vs driver: relative difference of the fixed-batch "
+        f"losses after periods 1..{warmup}: {diffs} (tol 1e-3: float32 cuDNN is not "
+        "repeatable)")
+    assert max(diffs) <= 1e-3, diffs
+    return out
+
+
+def sanas_cell(card, periods=20):
+    """SANAS at the JAX example's defaults (dim 32, 5 classes, n 512, batch
+    64, MLP [64, 5], 3 PGD steps, unroll 2 and 2) in driver mode for
+    ``periods`` outer periods: finite losses of all three problems, the
+    outer problem's three paths, counts 8:4:2 per 8 inner1 steps; the
+    seconds of each outer period."""
+    import torch
+    from betty_tpu_torch.examples import saliency_aware_nas_4_level as ex
+
+    tag = f"[sanas] defaults, driver [{card}]"
+    engine = ex.build_engine(ex.parse_args(["--device", "cuda", "--train_iters",
+                                            str(4 * periods), "--valid_step", "1000000"]))
+    losses, ends = {p.name: [] for p in engine.problems}, []
+    for p in engine.problems:
+        def record(*a, _p=p, _orig=p.one_step_descent, **kw):
+            out = _orig(*a, **kw)
+            losses[_p.name].append(float(out["loss"]))
+            if _p.name == "outer":
+                torch.cuda.synchronize()
+                ends.append(time.time())
+            return out
+
+        p.one_step_descent = record
+    _reset_port_launches()
+    t0 = time.time()
+    engine.run()
+    torch.cuda.synchronize()
+    seconds = [b - a for a, b in zip([t0] + ends, ends)]
+    q1, med, q3 = _quartiles(seconds[3:])
+    counts = [p.count for p in engine.problems]
+    paths = [[q.name for q in path] for path in engine.outer.paths]
+    stats = engine.validation()
+    ours = _port_launches()
+    finite = all(math.isfinite(v) for ls in losses.values() for v in ls)
+    log(f"{tag}: {periods} outer periods; s/outer period median {med:.6f} quartiles {q1:.6f} / "
+        f"{q3:.6f} (periods 4..{periods}); counts {counts}; paths {paths}; losses (last) "
+        f"{ {k: v[-1] for k, v in losses.items()} }; finite {finite}; validation {stats}; "
+        f"launches of B1-B8 {ours}")
+    assert counts == [periods, 2 * periods, 4 * periods] and len(paths) == 3, (counts, paths)
+    assert finite and all(n == 0 for n in ours.values()), ours
+    del engine
+    _free()
+    return {"median": med, "q1": q1, "q3": q3}
+
+
+def robust_phase(card):
+    """Every line carries ``card``, the card's name and power limit."""
+    t0 = time.time()
+    for which in ("mlp", "darts", "sanas"):
+        robust_small_phase(which, card)
+    robust_full_cell(card)
+    sanas_cell(card)
+    log(f"[robust] [{card}] phase done in {time.time() - t0:.1f} s")
 
 
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
@@ -2564,7 +2922,8 @@ def sass_report(lib_paths, head_dims):
         raise AssertionError(f"kernels without the instructions of their design: {bad}")
 
 
-PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat", "nas")
+PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat", "nas",
+          "robust")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -2599,7 +2958,8 @@ def main(argv=None):
                          "driver mode), itd (iterative differentiation and reinforce on the "
                          "MWN flagship), checkpoint (engine checkpoints and auto_resume), "
                          "remat (rematerialized encoder blocks), nas (DARTS search and its "
-                         "evaluation phase)")
+                         "evaluation phase), robust (robust NAS and the 4-level saliency-aware "
+                         "NAS)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -2665,6 +3025,8 @@ def main(argv=None):
         remat_phase()
     if "nas" in phases:
         nas_phase(card)
+    if "robust" in phases:
+        robust_phase(card)
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

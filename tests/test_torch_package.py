@@ -18,6 +18,7 @@ from betty_tpu_torch.entry import entry
 from betty_tpu_torch.examples import bert_data_reweighting as tex
 from betty_tpu_torch.examples import learning_to_reweight as mwn
 from betty_tpu_torch.examples import nas_eval, neural_architecture_search as nas
+from betty_tpu_torch.examples import robust_nas, saliency_aware_nas_4_level as sanas
 from betty_tpu_torch.hypergradient import _solver, cg, neumann, reinforce
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,7 +43,8 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
                 "examples/mwn_data.py", "examples/vision_data.py", "entry.py", "compile.py",
                 "problems/iterative.py", "hypergradient/reinforce.py", "checkpoint.py",
                 "models/darts.py", "models/layers.py", "examples/neural_architecture_search.py",
-                "examples/nas_eval.py"):
+                "examples/nas_eval.py", "models/mlp.py", "examples/robust_nas.py",
+                "examples/saliency_aware_nas_4_level.py"):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -106,6 +108,11 @@ def test_engine_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         nas_eval.build_engine(nas_eval.parse_args(["--init_channels", "2", "--layers", "2",
                                                    "--batch_size", "4", "--train_size", "8"]))
+    assert robust_nas.parse_args([]).device == sanas.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        robust_nas.build_engine(robust_nas.parse_args(["--arch", "mlp"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sanas.build_engine(sanas.parse_args([]))
 
 
 @pytest.mark.parametrize("device", [False, "cpu"])

@@ -3,8 +3,10 @@ inverse of ``convert.from_flax_darts``), a functional apply of a port
 module that returns its new running statistics, and ``compare``, which
 runs a flax module and the port's counterpart on the same inputs and
 weights and returns their differences; ``check_supernet``, the supernet's
-case of that comparison, and ``run_nas_impl``, which runs a case of
-``torch_nas_impl.py`` in a subprocess."""
+case of that comparison; ``run_nas_impl`` and ``run_robust_impl``, which
+run cases of ``torch_nas_impl.py`` / ``torch_robust_impl.py`` in a
+subprocess; and ``jax_cli_defaults``, a JAX example's command-line
+defaults."""
 
 import os
 import subprocess
@@ -278,3 +280,33 @@ def run_nas_impl(case):
     print(run.stderr[-3000:], file=sys.stderr)
     lines = [line for line in run.stdout.splitlines() if f'"case": "{case}"' in line]
     assert run.returncode == 0 and len(lines) == 1 and lines[0].startswith("OK "), lines
+
+
+def run_robust_impl(cases):
+    """``torch_robust_impl.py`` on ``cases`` in a subprocess, one thread a
+    framework; its ``OK``/``FAIL`` line of each case, by case."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
+    run = subprocess.run([sys.executable, str(Path(__file__).with_name("torch_robust_impl.py")),
+                          *cases], capture_output=True, text=True, env=env, timeout=900)
+    print(run.stdout)
+    print(run.stderr[-3000:], file=sys.stderr)
+    return {case: [line for line in run.stdout.splitlines() if f'"case": "{case}"' in line]
+            for case in cases}
+
+
+def jax_cli_defaults(path):
+    """The defaults of a JAX example's command line: its ``__main__`` block
+    run in a subprocess until it parses its (empty) arguments."""
+    code = ("import argparse, json, runpy, sys\n"
+            "def grab(self, args=None, namespace=None):\n"
+            "    print(json.dumps(vars(ORIG(self, []))))\n"
+            "    sys.exit(0)\n"
+            "ORIG = argparse.ArgumentParser.parse_args\n"
+            "argparse.ArgumentParser.parse_args = grab\n"
+            f"runpy.run_path({str(path)!r}, run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"), timeout=300, check=True)
+    import json
+
+    return json.loads(out.stdout.strip().splitlines()[-1])
