@@ -5,7 +5,8 @@ directory holds:
 
 * ``step_<global_step>.pt``: one ``torch.save`` file of host tensors, a dict
   with every problem's state under its name (params, ``extra`` with
-  BatchNorm's ``batch_stats``, ``opt_state``, ``grad_acc``, ``last_grad``;
+  BatchNorm's ``batch_stats``, ``opt_state`` (under ``param_groups``
+  ``{"groups": [...]}``, one state a group), ``grad_acc``, ``last_grad``;
   integer leaves such as Adam's ``count`` and ``sched_step`` stay Python
   integers), ``__rollback__<name>`` for each live roll-back cache (between
   compiled blocks, the caches the ``BlockRunner`` carries), and

@@ -270,15 +270,7 @@ def compress(events: List[Event], problems) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 
-def _paths(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k in tree:
-            yield from _paths(tree[k], prefix + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, t in enumerate(tree):
-            yield from _paths(t, prefix + (i,))
-    else:
-        yield prefix, tree
+_paths = utils.tree_paths
 
 
 def _ints(tree):

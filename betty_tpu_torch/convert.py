@@ -14,7 +14,9 @@ kh, kw)``, BatchNorm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var``. ``from_flax_darts``
 does the same for the DARTS supernet and evaluation network, mapping
 flax's auto-names onto the port's module names, and ``from_flax_alphas``
-carries the architecture logits.
+carries the architecture logits. ``from_flax_captioner`` maps IUC's
+``Captioner`` (and JAX's frozen projection, when given) and
+``from_flax_omniglot`` the Omniglot CNN's variables.
 """
 
 import numpy as np
@@ -178,3 +180,52 @@ def from_flax_darts(variables, net, device="cpu", dtype=torch.float32):
 def from_flax_alphas(alphas, device="cpu", dtype=torch.float32):
     """The JAX arch problem's ``{"normal", "reduce"}`` logits as tensors."""
     return {k: _t(alphas[k], device, dtype) for k in ("normal", "reduce")}
+
+
+def _attention(out, prefix, p, device, dtype):
+    for name in ("query", "key", "value", "out"):
+        out[f"{prefix}.{name}.kernel"] = _t(p[name]["kernel"], device, dtype)
+        out[f"{prefix}.{name}.bias"] = _t(p[name]["bias"], device, dtype)
+
+
+def from_flax_captioner(params, proj=None, device="cpu", dtype=torch.float32):
+    """flax IUC ``Captioner`` params -> ``(the port's params dict, proj)``:
+    ``proj`` is JAX's frozen projection as a tensor when it is given (for
+    the port's ``Captioner.proj`` buffer), else None. flax names the
+    decoder blocks ``blocks_i`` with ``LayerNorm_0..2``,
+    ``SelfAttention_0``, ``MultiHeadDotProductAttention_0`` (the
+    cross-attention) and ``Dense_0/1``."""
+    out = {}
+    for i in range(2):
+        _dense(out, f"enc_deep.{i}", params[f"enc_deep_{i}"], device, dtype)
+    _layernorm(out, "enc_norm_a", params["enc_norm_a"], device, dtype)
+    _layernorm(out, "enc_norm_b", params["enc_norm_b"], device, dtype)
+    out["tok_emb.weight"] = _t(params["tok_emb"]["embedding"], device, dtype)
+    out["pos_emb"] = _t(params["pos_emb"], device, dtype)
+    for i in range(sum(1 for k in params if k.startswith("blocks_"))):
+        blk, pre = params[f"blocks_{i}"], f"blocks.{i}"
+        for j, ln in enumerate(("ln1", "ln2", "ln3")):
+            _layernorm(out, f"{pre}.{ln}", blk[f"LayerNorm_{j}"], device, dtype)
+        _attention(out, f"{pre}.self_attn", blk["SelfAttention_0"], device, dtype)
+        _attention(out, f"{pre}.cross_attn", blk["MultiHeadDotProductAttention_0"], device,
+                   dtype)
+        _dense(out, f"{pre}.fc1", blk["Dense_0"], device, dtype)
+        _dense(out, f"{pre}.fc2", blk["Dense_1"], device, dtype)
+    _layernorm(out, "out_ln", params["out_ln"], device, dtype)
+    _dense(out, "out_proj", params["out_proj"], device, dtype)
+    return out, (None if proj is None else _t(proj, device, dtype))
+
+
+def from_flax_omniglot(variables, device="cpu", dtype=torch.float32):
+    """flax ``OmniglotCNN`` variables -> the port's ``(params,
+    batch_stats)``: ``Conv_i`` (HWIO kernel and bias) -> ``convs.i``,
+    ``BatchNorm_i`` -> ``norms.i``, ``Dense_0`` -> ``head``."""
+    p, s = variables["params"], variables["batch_stats"]
+    params, stats = {}, {}
+    for i in range(sum(1 for k in p if k.startswith("Conv_"))):
+        _conv(params, f"convs.{i}", p[f"Conv_{i}"], device, dtype)
+        params[f"convs.{i}.bias"] = _t(p[f"Conv_{i}"]["bias"], device, dtype)
+        _batchnorm(params, stats, f"norms.{i}", p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"],
+                   device, dtype)
+    _dense(params, "head", p["Dense_0"], device, dtype)
+    return params, stats

@@ -13,6 +13,9 @@ kernels on CUDA) and writes its trace there as
 ``<host>_<pid>.<ns>.pt.trace.json``, over the span JAX's
 ``start_trace``/``stop_trace`` cover: the driver loop, or the whole of
 ``run_compiled`` after its schedule probe (warm-up, capture and replays).
+An engine that overrides ``train_step`` (iMAML's, which steps its env
+there) runs in driver mode under ``compile_blocks``: a block would replay
+the problems' steps without calling it.
 
 Engine checkpoints (``betty_tpu_torch/checkpoint.py``): ``save_checkpoint``
 / ``load_checkpoint``; ``EngineConfig(checkpoint_step=N, checkpoint_dir=...)``
@@ -95,6 +98,7 @@ class Engine:
 
         if self.env is not None:
             self.env.engine = self
+            self.env.configure_device(self.device)
             self.env.initialize()
 
         for i, problem in enumerate(self.problems):
@@ -231,6 +235,12 @@ class Engine:
         kept as ``block_runner``."""
         from betty_tpu_torch.compile import BlockRunner
 
+        if type(self).train_step is not Engine.train_step:
+            # a block replays the problems' steps and never calls an
+            # overridden train_step (an env stepped there would not step)
+            self.logger.info("[compile_blocks] falling back to driver mode: the engine "
+                             "overrides train_step")
+            return self._run_driver()
         try:
             probe = BlockRunner(self, schedule_only=True)
         except RuntimeError as e:

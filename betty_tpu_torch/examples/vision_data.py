@@ -4,7 +4,8 @@
 No dataset is downloaded: the examples train on synthetic data by default
 and read a local CIFAR-10/100 copy when given one, either the torchvision
 pickle layout (``cifar-10-batches-py`` / ``cifar-100-python``) or an
-``.npz`` with ``x_train/y_train/x_test/y_test``. Images are float32 NHWC.
+``.npz`` with ``x_train/y_train/x_test/y_test``; Omniglot from an npz of
+``images``/``labels``. Images are float32 NHWC.
 """
 
 import os
@@ -65,6 +66,19 @@ def load_classification(data_dir, normalize=True):
         x_test = np.asarray(x_test, np.float32)
     return (x_train, np.asarray(y_train, np.int32),
             x_test, np.asarray(y_test, np.int32))
+
+
+def load_omniglot(data_dir):
+    """An Omniglot-style npz: ``(images (N, 28, 28, 1) float32 in [0, 1],
+    labels (N,) int64 character ids)``; uint8 images are scaled by 1/255
+    and (N, 28, 28) images get a channel axis."""
+    d = np.load(data_dir)
+    x = np.asarray(d["images"], np.float32)
+    if x.max() > 2.0:
+        x = x / 255.0
+    if x.ndim == 3:
+        x = x[..., None]
+    return x, np.asarray(d["labels"], np.int64)
 
 
 def problem_accuracy(problem, x, y, batch=256):

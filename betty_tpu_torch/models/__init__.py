@@ -1,10 +1,13 @@
 from betty_tpu_torch.models.darts import (DARTS_V2, DARTSEvalNetwork, DARTSNetwork, Genotype,
                                           derive_genotype, genotype_from_json, genotype_to_json,
                                           init_alphas)
+from betty_tpu_torch.models.iuc import Captioner, DecoderBlock
 from betty_tpu_torch.models.mlp import MLP, MetaWeightNet
+from betty_tpu_torch.models.omniglot import OmniglotCNN
 from betty_tpu_torch.models.resnet import BasicBlock, ResNet, ResNet32
 from betty_tpu_torch.models.transformer import TransformerClassifier, roberta_large_config
 
-__all__ = ["BasicBlock", "DARTSEvalNetwork", "DARTSNetwork", "DARTS_V2", "Genotype", "MLP",
-           "MetaWeightNet", "ResNet", "ResNet32", "TransformerClassifier", "derive_genotype",
-           "genotype_from_json", "genotype_to_json", "init_alphas", "roberta_large_config"]
+__all__ = ["BasicBlock", "Captioner", "DARTSEvalNetwork", "DARTSNetwork", "DARTS_V2",
+           "DecoderBlock", "Genotype", "MLP", "MetaWeightNet", "OmniglotCNN", "ResNet", "ResNet32",
+           "TransformerClassifier", "derive_genotype", "genotype_from_json", "genotype_to_json",
+           "init_alphas", "roberta_large_config"]

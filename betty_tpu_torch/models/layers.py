@@ -17,7 +17,8 @@ each; through ``grouped_conv2d`` a second-order pass takes the weight
 term as one grouped weight gradient. The values are those of
 ``F.conv2d``'s derivatives.
 
-``max_pool`` pads with -inf. ``avg_pool`` pads with zeros and counts them
+``max_pool`` pads SAME with -inf (VALID: no padding, the Omniglot CNN's
+pools). ``avg_pool`` pads with zeros and counts them
 (flax's ``avg_pool`` defaults to ``count_include_pad=True``), so a 3x3
 SAME average divides by 9 everywhere, the border and the stride-2 (0, 1)
 padding included.
@@ -110,11 +111,12 @@ def grouped_conv2d(x, w, stride, padding, dilation, groups):
 
 class Conv(nn.Module):
     """flax ``nn.Conv(features, (k, k), (s, s), kernel_dilation=(d, d),
-    feature_group_count=groups, padding=padding, use_bias=False)`` on NCHW;
-    the weight is ``(features, in_features // groups, k, k)``."""
+    feature_group_count=groups, padding=padding, use_bias=use_bias)`` on
+    NCHW; the weight is ``(features, in_features // groups, k, k)``, the
+    bias (flax's zeros) ``(features,)``."""
 
     def __init__(self, in_features, features, kernel, stride=1, device=None, generator=None,
-                 dilation=1, groups=1, padding="SAME"):
+                 dilation=1, groups=1, padding="SAME", use_bias=False):
         super().__init__()
         self.stride = stride
         self.dilation = dilation
@@ -124,20 +126,25 @@ class Conv(nn.Module):
                                                device=device))
         lecun_normal_(self.weight, fan_in=in_features // groups * kernel * kernel,
                       generator=generator)
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
     def forward(self, x):
         pads = (0, 0)
         if self.padding == "SAME":
             x, pads = _pad_same(x, self.weight.shape[-1], self.stride, self.dilation)
         if self.groups > 1:
-            return grouped_conv2d(x, self.weight, self.stride, pads, self.dilation, self.groups)
-        return F.conv2d(x, self.weight, stride=self.stride, padding=pads,
+            out = grouped_conv2d(x, self.weight, self.stride, pads, self.dilation, self.groups)
+            return out if self.bias is None else out + self.bias[:, None, None]
+        return F.conv2d(x, self.weight, self.bias, stride=self.stride, padding=pads,
                         dilation=self.dilation, groups=self.groups)
 
 
-def max_pool(x, window: int, stride: int):
-    """flax ``nn.max_pool(x, (w, w), (s, s), padding="SAME")`` on NCHW."""
-    x, pads = _pad_same(x, window, stride, value=float("-inf"))
+def max_pool(x, window: int, stride: int, padding: str = "SAME"):
+    """flax ``nn.max_pool(x, (w, w), (s, s), padding=padding)`` on NCHW
+    (flax's own default is ``"VALID"``: no padding, the windows that fit)."""
+    pads = (0, 0)
+    if padding == "SAME":
+        x, pads = _pad_same(x, window, stride, value=float("-inf"))
     return F.max_pool2d(x, window, stride, padding=pads)
 
 

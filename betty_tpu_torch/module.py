@@ -60,9 +60,13 @@ def from_torch(module: nn.Module, rng_names: Sequence[str] = ("dropout",)) -> Fu
     value of a buffer under ``(submodule, buffer name)`` instead of writing
     it in place (``models/batchnorm.py``), and returns ``(out,
     {"batch_stats": new})``. Buffers it does not update keep their
-    values."""
+    values. Non-persistent buffers are constants the module keeps and are
+    not part of the variables."""
     params = {name: p.detach() for name, p in module.named_parameters()}
-    buffers = {name: b.detach() for name, b in module.named_buffers()}
+    # a non-persistent buffer is a constant of the model (IUC's frozen
+    # projection), not state: the module keeps it
+    persistent = module.state_dict(keep_vars=True)
+    buffers = {name: b.detach() for name, b in module.named_buffers() if name in persistent}
     prefixes = {m: f"{name}." if name else "" for name, m in module.named_modules()}
 
     def apply_fn(variables, *args, train=True, rngs=None, mutable=(), **kwargs):

@@ -29,7 +29,9 @@ of keeping its activations; the numbers do not change.
 put one back (the engine's checkpoints, ``checkpoint.py``, save every
 problem's).
 
-Not ported yet: parameter groups.
+A problem that defines ``param_groups()`` gets a grouped optimizer
+(``optim.grouped``) with its optimizer as the template: per-group
+learning rates, momentum and schedules (``init_state``).
 """
 
 import abc
@@ -353,7 +355,12 @@ class Problem(abc.ABC):
         params = {k: v.detach().to(self.device) for k, v in variables.pop("params").items()}
         extra = tree_map(lambda x: x.to(self.device), variables)
         if self.optimizer is not None and self.is_implemented("param_groups"):
-            raise NotImplementedError("param_groups: grouped optimizers are not ported yet")
+            # per-group hyperparameters: the user's optimizer is the template
+            # each group re-instantiates with its overrides
+            from betty_tpu_torch import optim
+
+            if not isinstance(self.optimizer, optim.GroupedOptimizer):
+                self.optimizer = optim.grouped(self.optimizer, self.param_groups(), params)
         opt_state = self.optimizer.init(params) if self.optimizer is not None else ()
         state = {
             "params": params,

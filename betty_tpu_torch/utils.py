@@ -41,6 +41,19 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_paths(tree, prefix=()):
+    """``(path, leaf)`` pairs in ``tree_leaves`` order; a path is the tuple
+    of dict keys and sequence indices down to the leaf."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from tree_paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from tree_paths(t, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
 def tree_add(a, b):
     """a + b, leafwise. ``None``-tolerant on either side (treated as zero)."""
     if a is None:

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases kernels,checkpoint,remat  # ... checkpoints and remat
     python3 chip_smoke.py --phases kernels,nas     # ... DARTS search and its evaluation phase
     python3 chip_smoke.py --phases kernels,robust  # ... robust NAS and the 4-level SANAS
+    python3 chip_smoke.py --phases kernels,programs  # ... IUC, learning by ignoring, iMAML
 
 Phases:
 
@@ -144,13 +145,13 @@ Phases:
    the CPU from the same weights within 1e-9, and compiled against driver
    mode on the card bit for bit. Then the search at the published DARTS
    width (C16 L8 B64, float32, TF32 off; 1,401 leaves and 929 BatchNorms
-   held), driver mode then compiled: 3 + 8 timed periods and a profiled
+   held), driver mode then compiled: 3 + 5 timed periods and a profiled
    one each (period, busy, idle, launches, device time by op class, peak
    memory, capture), fixed-batch losses of the first periods within 1e-3
    between the modes, a genotype of 8 + 8 edges, 0 launches of B1-B8; and
    the evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2 C36 L20
    B96, auxiliary 0.4, drop-path 0.2, cutout 16, grad clip 5) in both
-   modes, 3 + 8 timed steps and a profiled one. Each of its lines carries
+   modes, 3 + 5 timed steps and a profiled one. Each of its lines carries
    the card's name and power limit.
 11. robust: robust NAS (``examples/robust_nas.py``: the DARTS search whose
    classifier loss adds the input-Jacobian and CURE terms, second order
@@ -165,7 +166,7 @@ Phases:
    both sides), and compiled against driver mode on the card bit for bit
    (the directions from the example's generator, reseeded every replay).
    Then the robust search at the DARTS search widths (C16 L8 B32, both
-   terms, float32, TF32 off), driver mode then compiled: 3 + 5 timed
+   terms, float32, TF32 off), driver mode then compiled: 3 + 3 timed
    periods and a profiled one each (period, busy, idle, launches, device
    time by op class and convolution time by kernel, peak memory, capture
    split into warm-up and recording), the fixed-batch losses of the first
@@ -175,6 +176,26 @@ Phases:
    defaults in driver mode for 20 outer periods (finite losses, three
    paths, counts 8:4:2 per 8 inner1 steps). B1-B8 launch 0 times in every run. Each of
    its lines carries the card's name and power limit.
+12. programs: the 3-level image-captioning NAS
+   (``examples/nas_augmented_image_captioning_3_level.py``: a causal
+   transformer decoder with cross-attention, greedy decoding inside a
+   step), learning by ignoring (``examples/learning_by_ignoring.py``:
+   per-group learning rates through ``param_groups``) and implicit MAML
+   (``examples/implicit_maml.py``: an env-fed program on the Omniglot CNN,
+   CG with gradient accumulation), which launch no kernel of the port.
+   Small float64 runs (cuDNN deterministic) of each on the card against the
+   CPU from the same weights within 1e-9 relative, IUC and LBI compiled
+   against driver mode on the card bit for bit; one LBI step on the card
+   whose two groups moved by their own rates; then each at its JAX
+   example's defaults (LBI with features_lr 0.08 and classifier_lr 0.02):
+   IUC (n 512, B32, seq_len 12, d 64, depth 2, 4 heads, unroll 2 and 2)
+   and LBI in driver mode then compiled, iMAML (5-way 1-shot, 5 inner
+   steps, meta batch 4) in driver mode: 3 + 8, 3 + 20 and 3 + 5 timed
+   periods (an IUC outer period is 4 inner1 steps, an iMAML meta update 20
+   inner steps) and a profiled one each (period, busy, idle, launches,
+   peak, capture), counts a period and paths, the fixed-batch losses of the
+   two modes within 1e-3. B1-B8 launch 0 times. Each of its lines carries
+   the card's name and power limit.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -1402,13 +1423,14 @@ def compiled_small_phase(name):
     return err, spread
 
 
-def _timed_run(engine, unroll, periods, tag, classify=None, profiled="all"):
+def _timed_run(engine, unroll, periods, tag, classify=None, profiled="all", offset=0):
     """Run ``periods`` meta-periods, the host clock read (device
     synchronised) at the end of each, the last one under the profiler
     (``profiled``: "all" host ops and the card's kernels, "card" the
     kernels alone, whose trace the host processes faster; None: no
-    profile). Returns ``(seconds of each period, profile report or None,
-    peak GiB)``."""
+    profile). A period ends where the global step less ``offset`` is a
+    multiple of ``unroll``. Returns ``(seconds of each period, profile
+    report or None, peak GiB)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1420,7 +1442,7 @@ def _timed_run(engine, unroll, periods, tag, classify=None, profiled="all"):
 
     def hook(window=1):
         stop = validate(window)
-        if engine.global_step % unroll == 0:
+        if (engine.global_step - offset) % unroll == 0:
             torch.cuda.synchronize()
             ends.append(time.time())
             if len(ends) == periods - 1 and activities:
@@ -2330,7 +2352,7 @@ def _nas_eval_loss(engine):
         return float(engine.network.eval_loss(ctx, batch)[0])
 
 
-def nas_search_cell(card, warmup=3, steady=8):
+def nas_search_cell(card, warmup=3, steady=5):
     """The DARTS search at its published width (C16 L8 B64, float32, TF32
     off; SGD 0.025 momentum 0.9 with cosine LR, Adam 3e-4 on the alphas,
     unroll 1, roll-back; synthetic CIFAR in the default host loaders),
@@ -2399,7 +2421,7 @@ def nas_search_cell(card, warmup=3, steady=8):
     return out
 
 
-def nas_eval_cell(card, warmup=3, steady=8):
+def nas_eval_cell(card, warmup=3, steady=5):
     """The evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2, C36
     L20 B96, auxiliary head 0.4, drop-path 0.2, cutout 16, grad clip 5,
     float32, TF32 off): driver mode, then compiled blocks (one replay a
@@ -2607,7 +2629,7 @@ def grouped_convolutions(channels=16, layers=8):
     return len(convs), sum(m.groups for m in convs)
 
 
-def robust_full_cell(card, warmup=3, steady=5):
+def robust_full_cell(card, warmup=3, steady=3):
     """The robust search at the DARTS search widths (C16 L8 B32, both
     regularizers, lambda_j 0.1, lambda_c 0.01; SGD 0.025 momentum 0.9, no
     schedule, no roll-back; Adam 3e-4 on the alphas; float32, TF32 off;
@@ -2755,6 +2777,278 @@ def robust_phase(card):
     robust_full_cell(card)
     sanas_cell(card)
     log(f"[robust] [{card}] phase done in {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# programs: the 3-level image-captioning NAS (IUC), learning by ignoring
+# (LBI, per-group optimizers) and implicit MAML (an env-fed program on the
+# Omniglot CNN), none of which launches a kernel of the port
+# ---------------------------------------------------------------------------
+
+PROGRAMS_SMALL = {  # name: (argv, compiled run too)
+    "iuc": (["--n", "64", "--batch", "8", "--seq_len", "6", "--vocab", "16", "--feat_dim", "8",
+             "--dim", "16", "--depth", "1", "--heads", "2", "--valid_step", "1000000",
+             "--train_iters", "16"], True),  # 4 outer periods
+    "lbi": (["--dim", "16", "--classes", "3", "--n_source", "128", "--n_target", "128",
+             "--batch", "32", "--features_lr", "0.08", "--classifier_lr", "0.02",
+             "--train_iters", "8"], True),
+    "imaml": (["--ways", "3", "--inner_steps", "2", "--meta_batch_size", "2",
+               "--train_iters", "8"], False),  # 2 meta updates
+}
+LBI_GROUPS = ["--features_lr", "0.08", "--classifier_lr", "0.02"]
+
+
+def _program_example(name):
+    from betty_tpu_torch.examples import implicit_maml, learning_by_ignoring
+    from betty_tpu_torch.examples import nas_augmented_image_captioning_3_level as iuc
+
+    return {"iuc": iuc, "lbi": learning_by_ignoring, "imaml": implicit_maml}[name]
+
+
+def _program_engine(name, argv, device, compiled, states=None, dtype=None):
+    """A program's engine on ``device``; ``states`` (CPU tensors) replace
+    its own and ``dtype`` casts the states, the loaders' features and the
+    env's tasks."""
+    import numpy as np
+    import torch
+    from betty_tpu_torch.utils import tree_map
+
+    example = _program_example(name)
+    engine = example.build_engine(example.parse_args(
+        argv + ["--device", device] + (["--compile_blocks"] if compiled else [])))
+    engine.config.block_periods = 1
+    if states is not None:
+        engine.states = tree_map(lambda t: t.to(device) if torch.is_tensor(t) else t, states)
+    if dtype is None:
+        return engine
+    engine.states = tree_map(lambda t: t.to(dtype) if torch.is_tensor(t) and
+                             t.is_floating_point() else t, engine.states)
+    np_dtype = str(dtype).split(".")[1]
+
+    def cast(batch):
+        return (np.asarray(batch[0], np_dtype), *batch[1:])
+
+    for prob in engine.problems:
+        for loader in prob.train_data_loader or ():
+            loader[:] = [cast(b) for b in loader]
+    env = engine.env
+    if env is not None:
+        step = env.step
+
+        def cast_step():
+            step()
+            env.support, env.query = cast(env.support), cast(env.query)
+
+        env.support, env.query = cast(env.support), cast(env.query)
+        env.step = cast_step
+    return engine
+
+
+def _rel_err(a_states, b_states):
+    """Largest |difference| of two engines' parameters (and running
+    statistics), relative to the largest |value| of that problem's
+    parameters (statistics). Not leaf by leaf: an attention key bias, whose
+    true gradient is 0, holds rounding noise of 1e-17 alone (ROADMAP §C)."""
+    err = 0.0
+    for name, a in a_states.items():
+        b = b_states[name]
+        pairs = [(a["params"], b["params"]),
+                 (a["extra"].get("batch_stats", {}), b["extra"].get("batch_stats", {}))]
+        for ta, tb in pairs:
+            assert set(ta) == set(tb), name
+            if not ta:
+                continue
+            scale = max(float(y.abs().max()) for y in tb.values()) or 1.0
+            diff = max(float((x.double().cpu() - tb[k].double().cpu()).abs().max())
+                       for k, x in ta.items())
+            err = max(err, diff / scale)
+    return err
+
+
+def program_small_phase(name, card):
+    """A program at a small size in float64 (cuDNN deterministic) on the card
+    against the CPU from the same weights, within 1e-9 relative on every
+    problem's parameters; IUC and LBI also compiled against driver mode on
+    the card, bit for bit. B1-B8 launch 0 times."""
+    import torch
+
+    argv, with_compiled = PROGRAMS_SMALL[name]
+    tag = f"[programs small] {name} [{card}]"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _reset_port_launches()
+    runs = {}
+    t0 = time.time()
+    try:
+        states = _program_engine(name, argv, "cpu", False, dtype=torch.float64).states
+        for label, device, compiled in (("cpu", "cpu", False), ("card", "cuda", False),
+                                        ("compiled", "cuda", True)):
+            if compiled and not with_compiled:
+                continue
+            engine = _program_engine(name, argv, device, compiled, states, torch.float64)
+            engine.run()
+            runs[label] = engine
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    card_err = _rel_err(runs["cpu"].states, runs["card"].states)
+    moved = _rel_err(states, runs["card"].states)
+    counts = {k: [p.count for p in e.problems] for k, e in runs.items()}
+    ours = _port_launches()
+    line = (f"{tag}: card vs CPU max relative |param or statistic diff| {card_err:.3e} (tol "
+            f"1e-9; moved {moved:.3e}); counts {counts}")
+    comp_err = None
+    if with_compiled:
+        comp_err = _state_err(runs["card"].states, runs["compiled"].states)
+        runner = runs["compiled"].block_runner
+        line += (f"; compiled vs driver on the card max |state diff| {comp_err:.3e} (bit for "
+                 f"bit), captures {runner.captures}, replays {runner.replays} of "
+                 f"{runner.periods_run} periods")
+        assert comp_err == 0.0 and runner.captures == 1 and runner.replays >= 1, comp_err
+    log(f"{line}; launches of B1-B8 {ours}; {time.time() - t0:.1f} s")
+    assert len({tuple(c) for c in counts.values()}) == 1, counts
+    assert moved > 0 and card_err <= 1e-9, (card_err, moved)
+    assert all(n == 0 for n in ours.values()), ours
+    del runs
+    _free()
+    return card_err, comp_err
+
+
+def _list_fixed_losses(engine):
+    """Every problem's loss at the engine's parameters on the first batch of
+    its loader (the env's current task where it has none), no graph."""
+    import torch
+
+    ctx = {n: {"params": s["params"], "extra": s["extra"]} for n, s in engine.states.items()}
+    out = {}
+    with torch.no_grad():
+        for p in engine.problems:
+            loader = p.train_data_loader
+            batch = p._convert_batch(loader[0][0]) if loader else p.get_batch()
+            out[p.name] = float(p.eval_loss(ctx, batch)[0])
+    return out
+
+
+def _group_step_check(card):
+    """LBI at its defaults with features_lr 0.08 and classifier_lr 0.02, one
+    driver step on the card: each finetune leaf moved by -lr of its group
+    times its momentum trace (the first step's trace is the gradient)."""
+    import torch
+
+    engine = _program_engine("lbi", LBI_GROUPS + ["--train_iters", "1"], "cuda", False)
+    before = dict(engine.states["finetune"]["params"])
+    engine.run()
+    state = engine.states["finetune"]
+    traces = {k: v for g in state["opt_state"]["groups"] for k, v in g["trace"].items()}
+    worst = {}
+    for name, p in state["params"].items():
+        lr = 0.08 if name.startswith("layers.0.") else 0.02
+        want = -lr * traces[name]
+        worst[name] = float((p - before[name] - want).abs().max() / want.abs().max())
+    labels = engine.finetune.optimizer.labels
+    log(f"[lbi] group check [{card}]: groups {labels}, lrs "
+        f"{[m['lr'] for m in engine.finetune.optimizer.group_meta]}; relative |step - (-lr x "
+        f"trace)| by leaf {worst}")
+    assert max(worst.values()) <= 1e-5, worst
+    del engine
+    _free()
+    return worst
+
+
+PROGRAM_CELLS = {  # name: (argv, global steps a period, problems' counts a period, periods,
+    # the driver steps before the compiled schedule's period starts: IUC's
+    # starts after 2 inner1 steps and 1 inner2 step)
+    "iuc": (["--valid_step", "1000000"], 4, [1, 2, 4], (3, 8), 2),
+    "lbi": (LBI_GROUPS, 1, [1, 1, 1], (3, 20), 0),
+    "imaml": ([], 20, [4, 20], (3, 5), 0),
+}
+
+
+def program_cell(name, card):
+    """A program at its JAX example's defaults (LBI with features_lr 0.08 and
+    classifier_lr 0.02), float32, TF32 off: driver mode, then compiled
+    (IUC, LBI). ``warmup`` + ``steady`` timed periods (an IUC outer period
+    is 4 inner1 steps, an iMAML meta update 20 inner steps) and one profiled
+    (the card's kernels): period, busy, idle, launches, peak, capture; the
+    counts a period and the paths; the fixed-batch losses of the two modes
+    after each warm-up period; 0 launches of B1-B8."""
+    from betty_tpu_torch.compile import BlockRunner
+
+    argv, unroll, per_period, (warmup, steady), prefix = PROGRAM_CELLS[name]
+    periods = warmup + steady + 1
+    modes = ("driver", "compiled") if name != "imaml" else ("driver",)
+    out, losses = {}, {}
+    for mode in modes:
+        tag = f"[{name}] defaults {mode} [{card}]"
+        t0 = time.time()
+        engine = _program_engine(name, argv, "cuda", mode == "compiled")
+        n_params = sum(t.numel() for s in engine.states.values() for t in s["params"].values())
+        log(f"{tag} build_engine {time.time() - t0:.1f} s; parameters {n_params}")
+        if prefix:
+            # both modes time the same spans: the compiled schedule's periods
+            engine.train_iters = prefix
+            engine.run()
+        if name != "imaml":
+            probe = BlockRunner(engine, schedule_only=True)
+            assert probe.live_phase() == probe.initial_phase and probe.period == unroll
+        counts0 = [p.count for p in engine.problems]
+        seen = losses[mode] = []
+        validate = engine.maybe_validate_checkpoint
+
+        def hook(window=1, _engine=engine, _seen=seen, _validate=validate):
+            stop = _validate(window)
+            if len(_seen) < warmup and (_engine.global_step - prefix) % unroll == 0:
+                _seen.append(_list_fixed_losses(_engine))
+            return stop
+
+        engine.maybe_validate_checkpoint = hook
+        _reset_port_launches()
+        seconds, report, peak = _timed_run(engine, unroll, periods, tag, profiled="card",
+                                           offset=prefix)
+        row = out[mode] = _cell_line(tag, seconds, report, peak, warmup)
+        row["launches"] = report["launches"] if report else None
+        counts = [p.count - c for p, c in zip(engine.problems, counts0)]
+        paths = {p.name: [[q.name for q in path] for path in p.paths]
+                 for p in engine.problems if p.paths}
+        if mode == "compiled":
+            r = engine.block_runner
+            row["capture_s"], row["warmup_s"] = r.capture_seconds, r.warmup_seconds
+            log(f"{tag} captures {r.captures}, replays {r.replays}; capture "
+                f"{r.capture_seconds:.3f} s (two warm-up periods {r.warmup_seconds:.3f} s)")
+            assert r.captures == 1 and r.replays == periods, (r.captures, r.replays)
+        final = _list_fixed_losses(engine)
+        ours = _port_launches()
+        log(f"{tag} counts over the timed periods {counts} ({per_period} a period); paths "
+            f"{paths}; fixed-batch losses "
+            f"after periods 1..{warmup} {seen}, at the end {final}; launches of B1-B8 {ours}")
+        assert counts == [c * periods for c in per_period], counts
+        if name == "iuc":
+            assert len(paths["outer"]) == 3, paths
+        if name == "lbi":
+            assert len(paths["reweight"]) == 2, paths
+        assert all(math.isfinite(v) for d in seen + [final] for v in d.values())
+        assert all(n == 0 for n in ours.values()), ours
+        del engine
+        _free()
+    if len(modes) == 2:
+        diffs = [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in a)
+                 for a, b in zip(losses["driver"], losses["compiled"])]
+        out["loss_diffs"] = diffs
+        log(f"[{name}] [{card}] compiled vs driver: relative difference of the fixed-batch "
+            f"losses after periods 1..{warmup}: {diffs} (tol 1e-3)")
+        assert max(diffs) <= 1e-3, diffs
+    return out
+
+
+def programs_phase(card):
+    """Every line carries ``card``, the card's name and power limit."""
+    t0 = time.time()
+    for name in ("iuc", "lbi", "imaml"):
+        program_small_phase(name, card)
+    _group_step_check(card)
+    for name in ("iuc", "lbi", "imaml"):
+        program_cell(name, card)
+    log(f"[programs] [{card}] phase done in {time.time() - t0:.1f} s")
 
 
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
@@ -2923,7 +3217,7 @@ def sass_report(lib_paths, head_dims):
 
 
 PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat", "nas",
-          "robust")
+          "robust", "programs")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -2959,7 +3253,8 @@ def main(argv=None):
                          "MWN flagship), checkpoint (engine checkpoints and auto_resume), "
                          "remat (rematerialized encoder blocks), nas (DARTS search and its "
                          "evaluation phase), robust (robust NAS and the 4-level saliency-aware "
-                         "NAS)")
+                         "NAS), programs (the image-captioning NAS, learning by ignoring and "
+                         "implicit MAML)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -3027,6 +3322,8 @@ def main(argv=None):
         nas_phase(card)
     if "robust" in phases:
         robust_phase(card)
+    if "programs" in phases:
+        programs_phase(card)
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

@@ -19,6 +19,8 @@ from betty_tpu_torch.examples import bert_data_reweighting as tex
 from betty_tpu_torch.examples import learning_to_reweight as mwn
 from betty_tpu_torch.examples import nas_eval, neural_architecture_search as nas
 from betty_tpu_torch.examples import robust_nas, saliency_aware_nas_4_level as sanas
+from betty_tpu_torch.examples import implicit_maml, learning_by_ignoring as lbi
+from betty_tpu_torch.examples import nas_augmented_image_captioning_3_level as iuc
 from betty_tpu_torch.hypergradient import _solver, cg, neumann, reinforce
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +46,10 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
                 "problems/iterative.py", "hypergradient/reinforce.py", "checkpoint.py",
                 "models/darts.py", "models/layers.py", "examples/neural_architecture_search.py",
                 "examples/nas_eval.py", "models/mlp.py", "examples/robust_nas.py",
-                "examples/saliency_aware_nas_4_level.py"):
+                "examples/saliency_aware_nas_4_level.py", "models/iuc.py", "models/omniglot.py",
+                "envs/__init__.py", "envs/env_base.py", "examples/learning_by_ignoring.py",
+                "examples/nas_augmented_image_captioning_3_level.py",
+                "examples/implicit_maml.py"):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -55,6 +60,11 @@ def test_unported_options_raise(monkeypatch):
     assert EngineConfig(compile_blocks=True).compile_blocks  # ported: accepted
     with pytest.raises(NotImplementedError, match="§A.7"):
         EngineConfig(strategy="fsdp")
+    # ported: parameter groups build a grouped optimizer
+    from betty_tpu_torch import optim
+
+    engine = lbi.build_engine(lbi.parse_args(["--device", "cpu", "--train_iters", "1"]))
+    assert isinstance(engine.finetune.optimizer, optim.GroupedOptimizer)
     # ported: rematerialization and engine checkpoints are accepted
     assert Config(remat=True).remat
     cfg = EngineConfig(checkpoint_step=5, checkpoint_dir="ckpt", auto_resume=True)
@@ -113,6 +123,10 @@ def test_engine_defaults_to_cuda():
         robust_nas.build_engine(robust_nas.parse_args(["--arch", "mlp"]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sanas.build_engine(sanas.parse_args([]))
+    for example in (lbi, iuc, implicit_maml):
+        assert example.parse_args([]).device == "cuda"
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            example.build_engine(example.parse_args([]))
 
 
 @pytest.mark.parametrize("device", [False, "cpu"])

@@ -5,8 +5,8 @@ runs a flax module and the port's counterpart on the same inputs and
 weights and returns their differences; ``check_supernet``, the supernet's
 case of that comparison; ``run_nas_impl`` and ``run_robust_impl``, which
 run cases of ``torch_nas_impl.py`` / ``torch_robust_impl.py`` in a
-subprocess; and ``jax_cli_defaults``, a JAX example's command-line
-defaults."""
+subprocess; ``jax_cli_defaults``, a JAX example's command-line
+defaults; and ``write_pool``, a synthetic Omniglot npz."""
 
 import os
 import subprocess
@@ -282,12 +282,13 @@ def run_nas_impl(case):
     assert run.returncode == 0 and len(lines) == 1 and lines[0].startswith("OK "), lines
 
 
-def run_robust_impl(cases):
-    """``torch_robust_impl.py`` on ``cases`` in a subprocess, one thread a
-    framework; its ``OK``/``FAIL`` line of each case, by case."""
+def run_robust_impl(cases, script="torch_robust_impl.py"):
+    """``script`` (``torch_robust_impl.py`` or another impl file of the same
+    protocol) on ``cases`` in a subprocess, one thread a framework; its
+    ``OK``/``FAIL`` line of each case, by case."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                XLA_FLAGS="--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
-    run = subprocess.run([sys.executable, str(Path(__file__).with_name("torch_robust_impl.py")),
+    run = subprocess.run([sys.executable, str(Path(__file__).with_name(script)),
                           *cases], capture_output=True, text=True, env=env, timeout=900)
     print(run.stdout)
     print(run.stderr[-3000:], file=sys.stderr)
@@ -310,3 +311,14 @@ def jax_cli_defaults(path):
     import json
 
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def write_pool(path, classes=20, per_class=7, seed=0):
+    """A synthetic Omniglot npz at ``path``: uint8 28x28 images (class
+    prototypes plus noise) and int32 labels."""
+    rng = np.random.RandomState(seed)
+    protos = rng.rand(classes, 28, 28)
+    images = np.concatenate([np.clip(p + 0.2 * rng.randn(per_class, 28, 28), 0, 1)
+                             for p in protos])
+    labels = np.repeat(np.arange(classes), per_class)
+    np.savez(path, images=(images * 255).astype(np.uint8), labels=labels.astype(np.int32))
