@@ -11,9 +11,10 @@ becomes ``weight``. ``from_flax_resnet`` takes a ``ResNet``'s variables
 (``params`` and ``batch_stats``) and returns the port's params and
 batch_stats dicts: conv kernels ``(kh, kw, in, out)`` become ``(out, in,
 kh, kw)``, BatchNorm ``scale``/``bias``/``mean``/``var`` become
-``weight``/``bias``/``running_mean``/``running_var``. ``from_flax_darts``
-does the same for the DARTS supernet and evaluation network, mapping
-flax's auto-names onto the port's module names, and ``from_flax_alphas``
+``weight``/``bias``/``running_mean``/``running_var``. ``from_flax_net``
+(also named ``from_flax_darts``) does the same for the DARTS supernet and
+evaluation network, ``ResNetV1`` and ``WideResNet``, mapping flax's
+auto-names onto the port's module names, and ``from_flax_alphas``
 carries the architecture logits. ``from_flax_captioner`` maps IUC's
 ``Captioner`` (and JAX's frozen projection, when given) and
 ``from_flax_omniglot`` the Omniglot CNN's variables.
@@ -163,18 +164,23 @@ def _from_flax_tree(module, prefix, p, s, params, stats, device, dtype):
             _from_flax_tree(child, f"{path}.", cp, cs, params, stats, device, dtype)
 
 
-def from_flax_darts(variables, net, device="cpu", dtype=torch.float32):
-    """flax ``DARTSNetwork`` / ``DARTSEvalNetwork`` variables -> the port's
-    ``(params, batch_stats)`` for ``net``, the port's network of the same
-    configuration (its modules give the flax auto-names, e.g.
-    ``Cell_2/MixedOp_5/SepConv_1/Conv_3`` -> ``cells.2.ops.5.sep_conv_5x5.pw1``).
-    HWIO kernels, depthwise ``(k, k, 1, C)`` included, become OIHW; the
-    search's BatchNorms without scale and bias have running statistics
-    only."""
+def from_flax_net(variables, net, device="cpu", dtype=torch.float32):
+    """flax variables -> the port's ``(params, batch_stats)`` for ``net``, the
+    port's network of the same configuration, whose modules register in the
+    order flax creates its submodules: the DARTS supernet and evaluation
+    network (``Cell_2/MixedOp_5/SepConv_1/Conv_3`` ->
+    ``cells.2.ops.5.sep_conv_5x5.pw1``), ``ResNetV1``
+    (``BottleneckBlock_3/Conv_3`` -> ``blocks.3.proj``) and ``WideResNet``
+    (whose only BatchNorm outside the blocks follows them). HWIO kernels,
+    depthwise ``(k, k, 1, C)`` included, become OIHW; BatchNorms without
+    scale and bias have running statistics only."""
     params, stats = {}, {}
     _from_flax_tree(net, "", variables["params"], variables.get("batch_stats", {}), params,
                     stats, device, dtype)
     return params, stats
+
+
+from_flax_darts = from_flax_net  # the name of its first callers
 
 
 def from_flax_alphas(alphas, device="cpu", dtype=torch.float32):

@@ -81,20 +81,21 @@ def load_omniglot(data_dir):
     return x, np.asarray(d["labels"], np.int64)
 
 
-def problem_accuracy(problem, x, y, batch=256):
-    """Accuracy (percent) of a problem's forward (``engine.<name>``) over
-    ``(x, y)`` in batches on the problem's device; the trailing partial
-    batch is padded to the batch size and counted too. Correct predictions
-    are summed on the device and read once."""
+def problem_accuracy(fwd, x, y, batch=256, device=None):
+    """Accuracy (percent) of ``fwd`` over ``(x, y)`` in batches: a problem's
+    forward (``engine.<name>``, on the problem's device) or any callable of
+    a batch of images (on ``device``, by default ``fwd.device``); the
+    trailing partial batch is padded to the batch size and counted too.
+    Correct predictions are summed on the device and read once."""
     bs = min(batch, len(y))
-    device = problem.device
+    device = fwd.device if device is None else device
     correct = torch.zeros((), dtype=torch.int64, device=device)
     for i in range(0, len(y), bs):
         xb, yb = np.asarray(x[i:i + bs]), np.asarray(y[i:i + bs])
         k = len(yb)
         if k < bs:  # pad the tail to the steady batch shape
             xb = np.concatenate([xb, np.asarray(x[:bs - k])])
-        logits = problem(torch.from_numpy(xb).to(device))
+        logits = fwd(torch.from_numpy(xb).to(device))
         pred = logits[:k].argmax(dim=1)
         correct += (pred == torch.from_numpy(yb).to(device)).sum()
     return 100.0 * int(correct) / max(len(y), 1)

@@ -12,7 +12,9 @@ flax computes it: ``gelu`` is the tanh approximation, ``softplus`` is
 ``Dense_0``/``Dense_1`` onto them.
 
 Linear layers take flax's default initialization (lecun-normal kernels,
-zero biases) from an explicit ``torch.Generator``.
+zero biases) from an explicit ``torch.Generator``. ``MLP`` casts its input
+to the parameters' dtype, as flax's ``Dense`` promotes a float32 input
+against float64 weights.
 """
 
 from typing import Sequence
@@ -68,6 +70,7 @@ class MLP(nn.Module):
 
     def forward(self, x, train: bool = True, rngs=None):
         act = ACTIVATIONS[self.activation]
+        x = x.to(self.layers[0].weight.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < len(self.layers) - 1:

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases kernels,nas     # ... DARTS search and its evaluation phase
     python3 chip_smoke.py --phases kernels,robust  # ... robust NAS and the 4-level SANAS
     python3 chip_smoke.py --phases kernels,programs  # ... IUC, learning by ignoring, iMAML
+    python3 chip_smoke.py --phases kernels,pruning,ppo  # ... ImageNet data pruning, PPO
 
 Phases:
 
@@ -196,6 +197,35 @@ Phases:
    peak, capture), counts a period and paths, the fixed-batch losses of the
    two modes within 1e-3. B1-B8 launch 0 times. Each of its lines carries
    the card's name and power limit.
+13. pruning: ImageNet data pruning (``examples/imagenet_pruning.py``: a
+   bottleneck ResNet student with an EMA teacher in its state under a
+   two-feature Meta-Weight-Net, darts, device augmentation), which launches
+   no kernel of the port. Small float64 runs (cuDNN deterministic; B4,
+   32x32, stages [1, 1], width 8, ``--gas 2``, 4 meta-periods; and with
+   ``--augment device`` at 40 -> 32) on the card against the CPU from the
+   same weights within 1e-9 relative (crop draws made on the host on both
+   sides), compiled against driver mode on the card bit for bit (the
+   example's own draws), the EMA teacher moved in every run;
+   ``WideResNet(10, 2)`` in float64, logits and one SGD step, card against
+   CPU within 1e-9. Then ResNet-50 at the JAX example's defaults (B32,
+   224x224, 1,000 classes, ``--gas 1``, TF32 off, ``--device_data``): fp32
+   in driver mode and compiled, ``--augment device`` (crops 224) and
+   ``--precision bf16`` compiled; 3 + 8 timed periods and a profiled one
+   each (period, busy, idle, launches, device time by op class, peak,
+   capture and its warm-up part), counts 1:1 a period and one path into the
+   reweighter, the batch statistics float32, the fixed-batch losses after
+   the first periods (driver against compiled within 1e-3; the augmented
+   and bf16 runs' beside fp32's), and the transforms' share of device time
+   (a period's transforms profiled alone).
+14. ppo: PPO (``examples/ppo.py``: a numpy CartPole on the host, a rollout
+   env that reads the actor's and the critic's outputs back every step),
+   which launches no kernel of the port. A small float64 run (4 envs,
+   horizon 32, 8 iterations) on the card against the CPU within 1e-9
+   relative with equal actions; then the JAX example's defaults (8 envs,
+   horizon 128, 200 iterations, a rollout every 8) in driver mode: seconds
+   an iteration and a rollout, a rollout's launches and host reads, a
+   profiled rollout block's busy and idle, peak memory, counts 200:200,
+   ``mean_return``. B1-B8 launch 0 times in both phases.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -2845,15 +2875,17 @@ def _program_engine(name, argv, device, compiled, states=None, dtype=None):
 
 
 def _rel_err(a_states, b_states):
-    """Largest |difference| of two engines' parameters (and running
-    statistics), relative to the largest |value| of that problem's
-    parameters (statistics). Not leaf by leaf: an attention key bias, whose
-    true gradient is 0, holds rounding noise of 1e-17 alone (ROADMAP §C)."""
+    """Largest |difference| of two engines' parameters (and of each dict of
+    tensors in ``extra``: running statistics, an EMA teacher), relative to
+    the largest |value| of that problem's parameters (statistics, teacher).
+    Not leaf by leaf: an attention key bias, whose true gradient is 0, holds
+    rounding noise of 1e-17 alone (ROADMAP §C)."""
     err = 0.0
     for name, a in a_states.items():
         b = b_states[name]
-        pairs = [(a["params"], b["params"]),
-                 (a["extra"].get("batch_stats", {}), b["extra"].get("batch_stats", {}))]
+        assert set(a["extra"]) == set(b["extra"]), name
+        pairs = [(a["params"], b["params"])] + [(v, b["extra"][k]) for k, v in a["extra"].items()
+                                                 if isinstance(v, dict)]
         for ta, tb in pairs:
             assert set(ta) == set(tb), name
             if not ta:
@@ -3051,6 +3083,453 @@ def programs_phase(card):
     log(f"[programs] [{card}] phase done in {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# pruning: ImageNet data pruning (a ResNet-50 student under a two-feature
+# Meta-Weight-Net, darts, an EMA teacher in the classifier's state, device
+# augmentation); ppo: PPO with a host-side simulator and rollout env. Neither
+# runs a kernel of the port: cuDNN convolutions and BatchNorm, cuBLAS
+# products (the augmentation's resampling among them), as the JAX package's
+# are XLA's.
+# ---------------------------------------------------------------------------
+
+PRUNING_SMALL = ["--batch_size", "4", "--image_size", "32", "--num_classes", "10", "--width",
+                 "8", "--stages", "1", "1", "--gas", "2", "--ema_decay", "0.9", "--train_size",
+                 "32", "--meta_size", "16", "--train_iters", "8"]  # 4 meta-periods
+PRUNING_AUGMENT = ["--image_size", "40", "--crop_size", "32", "--augment", "device"]
+RESNET50_PARAMS = 25_557_032
+PRUNING_CELLS = {  # name: (argv beside --device_data, modes)
+    "fp32": ([], ("driver", "compiled")),
+    "augment": (["--augment", "device"], ("compiled",)),
+    "bf16": (["--precision", "bf16"], ("compiled",)),
+}
+
+
+def _host_draws(rng, images):
+    """Crop and flip draws of ``imagenet_train_transform`` made on the host
+    from the step seed, in float64 (the card's and the CPU's generators draw
+    different numbers)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(int(rng))
+    u = torch.rand(5, images.shape[0], generator=gen, dtype=torch.float64)
+    lo, hi = math.log(3 / 4), math.log(4 / 3)
+    draws = {"area": u[0] * (1.0 - 0.08) + 0.08, "log_ratio": u[1] * (hi - lo) + lo,
+             "y": u[2], "x": u[3], "flip": u[4] < 0.5}
+    return {k: v.to(images.device) for k, v in draws.items()}
+
+
+def _prune_engine(argv, device, compiled, states=None, dtype=None, draws=None):
+    """The pruning example's engine on ``device``; ``states`` (CPU tensors)
+    replace its own, ``dtype`` casts the states and the loaders' images,
+    ``draws`` replaces the classifier's crop and flip draws."""
+    import numpy as np
+    import torch
+    from betty_tpu_torch.examples import imagenet_pruning as ex
+    from betty_tpu_torch.utils import tree_map
+
+    engine = ex.build_engine(ex.parse_args(
+        argv + ["--device", device] + (["--compile_blocks"] if compiled else [])))
+    engine.config.block_periods = 1
+    engine.classifier.draws = draws
+    if states is not None:
+        engine.states = tree_map(lambda t: t.to(device, copy=True) if torch.is_tensor(t) else t,
+                                 states)
+    if dtype is not None:
+        engine.states = tree_map(lambda t: t.to(dtype) if torch.is_tensor(t) and
+                                 t.is_floating_point() else t, engine.states)
+        for p in engine.problems:
+            for ld in p.train_data_loader:
+                ld.arrays = (np.asarray(ld.arrays[0], str(dtype).split(".")[1]),
+                             *ld.arrays[1:])
+    return engine
+
+
+def _teacher_moved(engine, states):
+    import torch
+
+    before = states["classifier"]["extra"]["teacher_params"]
+    after = engine.states["classifier"]["extra"]["teacher_params"]
+    return max(float((after[k].double().cpu() - before[k].double()).abs().max()) for k in before)
+
+
+def pruning_small_phase(which, card, device="cuda"):
+    """The pruning program at ``tests/test_examples2.py``'s sizes (B4, 32x32,
+    stages [1, 1], width 8, ``--gas 2``; ``augment``: 40 -> 32 crops) for 4
+    meta-periods in float64 (cuDNN deterministic): on the card against the
+    CPU from the same weights within 1e-9 relative (crop draws made on the
+    host on both sides), and compiled against driver mode on the card bit
+    for bit (the example's own draws); the EMA teacher moved in every run.
+    B1-B8 launch 0 times."""
+    import torch
+
+    argv = PRUNING_SMALL + (PRUNING_AUGMENT if which == "augment" else [])
+    tag = f"[pruning small] {which} [{card}]"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _reset_port_launches()
+    host = _host_draws if which == "augment" else None
+    t0 = time.time()
+    try:
+        states = _prune_engine(argv, "cpu", False, dtype=torch.float64).states
+        runs = {}
+        for label, dev, compiled, draws in (("cpu", "cpu", False, host),
+                                            ("card", device, False, host),
+                                            ("driver", device, False, None),
+                                            ("compiled", device, True, None)):
+            if label == "driver" and host is None:
+                runs["driver"] = runs["card"]
+                continue
+            engine = _prune_engine(argv, dev, compiled, states, torch.float64, draws)
+            engine.run()
+            runs[label] = engine
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    card_err = _rel_err(runs["cpu"].states, runs["card"].states)
+    comp_err = _state_err(runs["driver"].states, runs["compiled"].states)
+    runner = runs["compiled"].block_runner
+    counts = {k: [p.count for p in e.problems] for k, e in runs.items()}
+    moved = {k: _teacher_moved(e, states) for k, e in runs.items()}
+    ours = _port_launches()
+    log(f"{tag}: card vs CPU max relative |param, statistic or teacher diff| {card_err:.3e} "
+        f"(tol 1e-9); compiled vs driver on the card max |state diff| {comp_err:.3e} (bit for "
+        f"bit), captures {runner.captures}, replays {runner.replays} of {runner.periods_run} "
+        f"periods; teacher moved {moved}; counts {counts}; launches of B1-B8 {ours}; "
+        f"{time.time() - t0:.1f} s")
+    assert card_err <= 1e-9 and comp_err == 0.0, (card_err, comp_err)
+    assert runner.periods_run >= 2 and (device != "cuda" or (runner.captures == 1
+                                                             and runner.replays >= 2))
+    assert all(c == [4, 8] for c in counts.values()), counts
+    assert all(m > 0 for m in moved.values()), moved
+    assert all(n == 0 for n in ours.values()), ours
+    del runs
+    _free()
+    return card_err, comp_err
+
+
+def wide_resnet_check(card, device="cuda"):
+    """``WideResNet(10, 2)`` in float64 (cuDNN deterministic), card against
+    CPU from the same weights: train-mode logits and one SGD step (lr 0.1)
+    of its parameters, within 1e-9 relative."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from betty_tpu_torch.models import WideResNet
+
+    net = WideResNet(10, 2).double()
+    x = torch.tensor(np.random.RandomState(0).randn(8, 32, 32, 3))
+    y = torch.tensor(np.arange(8) % 10)
+    params = {k: v.detach() for k, v in net.named_parameters()}
+    stats = {k: v.detach() for k, v in net.named_buffers()}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for dev in ("cpu", device):
+            p = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+            s = {k: v.to(dev) for k, v in stats.items()}
+            logits = torch.func.functional_call(net.to(dev), {**p, **s}, (x.to(dev),),
+                                                {"train": True, "updates": {}})
+            grads = torch.autograd.grad(F.cross_entropy(logits, y.to(dev)), list(p.values()))
+            out[dev] = (logits.detach().cpu(), {k: (v - 0.1 * g).detach().cpu()
+                                                for (k, v), g in zip(p.items(), grads)})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l0, p0), (l1, p1) = out["cpu"], out[device]
+    logit_err = float((l0 - l1).abs().max() / l0.abs().max())
+    step_err = max(float((p0[k] - p1[k]).abs().max()) for k in p0) / max(
+        float(v.abs().max()) for v in p0.values())
+    log(f"[pruning] WideResNet(10, 2) [{card}]: {sum(v.numel() for v in params.values())} "
+        f"parameters; card vs CPU relative |logit diff| {logit_err:.3e}, |param diff after one "
+        f"SGD step| {step_err:.3e} (tol 1e-9)")
+    assert logit_err <= 1e-9 and step_err <= 1e-9, (logit_err, step_err)
+    net.to("cpu")
+    _free()
+
+
+def _transform_device_ms(engine):
+    """Device time and launches of one period's transforms (3 train, 1
+    eval) at the cell's shapes, from the profiler's kernel durations (a
+    clock around them would time the host's enqueue of their small ops)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from betty_tpu_torch.data import imagenet_eval_transform, imagenet_train_transform
+    from betty_tpu_torch.utils import seeded_generator
+
+    loader = engine.classifier.train_data_loader[0]
+    images = loader.arrays[0][:loader.batch_size]
+    crop = engine.classifier.cfg["crop_size"]
+
+    def period():
+        for seed in range(3):
+            imagenet_train_transform(images, seeded_generator(seed, images.device),
+                                     out_size=crop)
+        imagenet_eval_transform(images, out_size=crop)
+
+    period()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        period()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    return sum(t for t, _, _ in kernels), sum(c for _, c, _ in kernels)
+
+
+def pruning_cell(name, card, warmup=3, steady=8):
+    """ImageNet data pruning at the JAX example's defaults (ResNet-50, B32,
+    224x224, 1,000 classes, ``--gas 1``, TF32 off, ``--device_data``),
+    ``name``: fp32 in driver mode and compiled, ``--augment device``
+    (crops 224) and ``--precision bf16`` compiled. ``warmup`` + ``steady``
+    timed periods and one profiled (the card's kernels): period, busy, idle,
+    launches, peak, capture and its warm-up part; counts 1:1 a period and
+    one path into the reweighter; the fixed-batch losses after each warm-up
+    period; the batch statistics' dtype; the transforms' share of device
+    time (augment); 0 launches of B1-B8."""
+    import torch
+    from betty_tpu_torch.compile import BlockRunner
+
+    extra, modes = PRUNING_CELLS[name]
+    periods = warmup + steady + 1
+    out, losses = {}, {}
+    for mode in modes:
+        tag = f"[pruning] ResNet-50 {name} {mode} [{card}]"
+        t0 = time.time()
+        engine = _prune_engine(["--device_data"] + extra, "cuda", mode == "compiled")
+        n_params = sum(t.numel() for t in engine.states["classifier"]["params"].values())
+        log(f"{tag} build_engine {time.time() - t0:.1f} s; classifier parameters {n_params} in "
+            f"{len(engine.states['classifier']['params'])} leaves")
+        assert n_params == RESNET50_PARAMS
+        probe = BlockRunner(engine, schedule_only=True)
+        assert probe.live_phase() == probe.initial_phase and probe.period == 1
+        seen = losses[mode] = []
+        validate = engine.maybe_validate_checkpoint
+
+        def hook(window=1, _engine=engine, _seen=seen, _validate=validate):
+            stop = _validate(window)
+            if len(_seen) < warmup:
+                _seen.append(_fixed_losses(_engine))
+            return stop
+
+        engine.maybe_validate_checkpoint = hook
+        _reset_port_launches()
+        seconds, report, peak = _timed_run(engine, 1, periods, tag, _op_class, profiled="card")
+        row = out[mode] = _cell_line(tag, seconds, report, peak, warmup)
+        row["launches"] = report["launches"] if report else None
+        counts = [p.count for p in engine.problems]
+        paths = {p.name: [[q.name for q in path] for path in p.paths]
+                 for p in engine.problems if p.paths}
+        if mode == "compiled":
+            r = engine.block_runner
+            row["capture_s"], row["warmup_s"] = r.capture_seconds, r.warmup_seconds
+            log(f"{tag} captures {r.captures}, replays {r.replays}; capture "
+                f"{r.capture_seconds:.3f} s (two warm-up periods {r.warmup_seconds:.3f} s)")
+            assert r.periods_run == periods and (not r.on_card or (r.captures, r.replays) == (
+                1, periods)), (r.captures, r.replays)
+        stats = engine.states["classifier"]["extra"]["batch_stats"]
+        dtypes = sorted({str(t.dtype) for t in stats.values()})
+        if name == "augment" and report:
+            # a period: the classifier's step and darts' two re-evaluations
+            # take the train transform, the reweighter's step the eval one
+            row["resample_ms"], launches = _transform_device_ms(engine)
+            log(f"{tag} a period's transforms (3 train, 1 eval) alone: device time "
+                f"{row['resample_ms']:.4f} ms in {launches} launches, "
+                f"{row['resample_ms'] / report['busy_ms']:.4f} of the period's device time")
+        final = _fixed_losses(engine)
+        ours = _port_launches()
+        log(f"{tag} counts {counts} ({periods} periods, 1:1 a period); paths {paths}; batch "
+            f"statistics {dtypes}; fixed-batch losses after periods 1..{warmup} {seen}, at the "
+            f"end {final}; launches of B1-B8 {ours}")
+        assert counts == [periods, periods], counts
+        assert len(paths["reweight"]) == 1, paths
+        assert dtypes == ["torch.float32"], dtypes
+        assert all(math.isfinite(v) for d in seen + [final] for v in d.values())
+        assert all(n == 0 for n in ours.values()), ours
+        row["losses"] = seen
+        del engine
+        _free()
+    if len(modes) == 2:
+        diffs = [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in a)
+                 for a, b in zip(losses["driver"], losses["compiled"])]
+        out["loss_diffs"] = diffs
+        log(f"[pruning] fp32 [{card}] compiled vs driver: relative difference of the fixed-batch "
+            f"losses after periods 1..{warmup}: {diffs} (tol 1e-3)")
+        assert max(diffs) <= 1e-3, diffs
+    return out
+
+
+def pruning_phase(card):
+    """Every line carries ``card``, the card's name and power limit."""
+    t0 = time.time()
+    for which in ("plain", "augment"):
+        pruning_small_phase(which, card)
+    wide_resnet_check(card)
+    rows = {name: pruning_cell(name, card) for name in PRUNING_CELLS}
+    fp32 = rows["fp32"]["compiled"]["losses"]
+    for name in ("augment", "bf16"):
+        log(f"[pruning] [{card}] fixed-batch losses after periods 1..3, {name} compiled "
+            f"{rows[name]['compiled']['losses']} beside fp32 compiled {fp32}")
+    log(f"[pruning] [{card}] phase done in {time.time() - t0:.1f} s")
+
+
+PPO_SMALL = ["--n_envs", "4", "--horizon", "32", "--train_iters", "8",
+             "--epochs_per_rollout", "4"]
+
+
+def _ppo_engine(argv, device, states=None, dtype=None):
+    import torch
+    from betty_tpu_torch.examples import ppo as ex
+    from betty_tpu_torch.utils import tree_map
+
+    engine = ex.build_engine(ex.parse_args(argv + ["--device", device]))
+    if states is not None:
+        engine.states = tree_map(lambda t: t.to(device, copy=True) if torch.is_tensor(t) else t,
+                                 states)
+    if dtype is not None:
+        engine.states = tree_map(lambda t: t.to(dtype) if torch.is_tensor(t) and
+                                 t.is_floating_point() else t, engine.states)
+    return engine
+
+
+def ppo_small_phase(card, device="cuda"):
+    """The PPO program at ``tests/test_examples2.py``'s arguments (4 envs,
+    horizon 32, 8 iterations, a rollout every 4) in float64 on the card
+    against the CPU from the same weights: parameters within 1e-9 relative,
+    the last rollout's actions equal, counts 8:8. B1-B8 launch 0 times."""
+    import numpy as np
+    import torch
+
+    _reset_port_launches()
+    t0 = time.time()
+    states = _ppo_engine(PPO_SMALL, "cpu", dtype=torch.float64).states
+    runs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device)):
+        runs[label] = _ppo_engine(PPO_SMALL, dev, states, torch.float64)
+        runs[label].run()
+    err = _rel_err(runs["cpu"].states, runs["card"].states)
+    moved = _rel_err(states, runs["card"].states)
+    same_actions = np.array_equal(runs["cpu"].env.rollout["act"], runs["card"].env.rollout["act"])
+    adv = float(np.abs(runs["cpu"].env.rollout["adv"] - runs["card"].env.rollout["adv"]).max())
+    counts = {k: [p.count for p in e.problems] for k, e in runs.items()}
+    ours = _port_launches()
+    log(f"[ppo small] [{card}]: card vs CPU max relative |param diff| {err:.3e} (tol 1e-9; "
+        f"moved {moved:.3e}); last rollout's actions equal {same_actions}, max |advantage "
+        f"diff| {adv:.3e}; counts {counts}; launches of B1-B8 {ours}; {time.time() - t0:.1f} s")
+    assert err <= 1e-9 and moved > 0 and same_actions, (err, moved, same_actions)
+    assert all(c == [8, 8] for c in counts.values()), counts
+    assert all(n == 0 for n in ours.values()), ours
+    del runs
+    _free()
+    return err
+
+
+def _d2h_copies(kernels):
+    return sum(c for _, c, name in kernels if "DtoH" in name or "Device -> " in name)
+
+
+def ppo_cell(card, device="cuda"):
+    """PPO at the JAX example's defaults (8 envs, horizon 128, 200
+    iterations, a rollout every 8), driver mode: seconds per iteration (the
+    iterations that collect a rollout apart), seconds per rollout; one
+    rollout and its 8 iterations under the profiler (the card's kernels and
+    copies): launches and device-to-host copies of the rollout, busy and
+    idle of the block; peak memory; counts 200:200; ``mean_return``. B1-B8
+    launch 0 times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = f"[ppo] defaults driver [{card}]"
+    engine = _ppo_engine([], device)
+    env = engine.env
+    rollouts, ends, reads = [], [], []
+    step, outputs = env.step, env._outputs
+    prof = {}
+
+    def counted(problem, obs):
+        reads[-1] += 1
+        return outputs(problem, obs)
+
+    env._outputs = counted
+
+    def timed_step():
+        if len(rollouts) == 2:
+            torch.cuda.synchronize()
+            prof["rollout"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["rollout"].__enter__()
+        t = time.time()
+        reads.append(0)
+        step()
+        rollouts.append(time.time() - t)
+        if "rollout" in prof and "rollout_done" not in prof:
+            prof["rollout"].__exit__(None, None, None)
+            prof["rollout_done"] = True
+
+    env.step = timed_step
+    validate = engine.maybe_validate_checkpoint
+
+    def hook(window=1):
+        stop = validate(window)
+        torch.cuda.synchronize()
+        ends.append(time.time())
+        return stop
+
+    engine.maybe_validate_checkpoint = hook
+    _reset_port_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine.run()
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    seconds = [b - a for a, b in zip([t0] + ends, ends)]
+    with_rollout = [s for i, s in enumerate(seconds) if i % 8 == 0]
+    without = [s for i, s in enumerate(seconds) if i % 8 != 0]
+    rollout_kernels = _device_kernels(prof["rollout"])
+    launches = sum(c for _, c, _ in rollout_kernels)
+    copies = _d2h_copies(rollout_kernels)
+    counts200 = [p.count for p in engine.problems]
+    # one more rollout block (a rollout and its 8 iterations) under the profiler
+    engine.train_iters = 8
+    engine.maybe_validate_checkpoint = validate
+    env.step, env._outputs = step, outputs
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as block:
+        tb = time.time()
+        engine.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - tb) * 1e3
+    report = profile_report(block, wall_ms, tag + " [a rollout and 8 iterations]", _op_class)
+    counts = [p.count for p in engine.problems]
+    ours = _port_launches()
+    q1, med, q3 = _quartiles(without)
+    r1, rmed, r3 = _quartiles(rollouts[1:])
+    log(f"{tag} {total:.3f} s for 200 iterations; s/iteration without a rollout median "
+        f"{med:.6f} quartiles {q1:.6f} / {q3:.6f}, with one median "
+        f"{_quartiles(with_rollout[1:])[1]:.6f}; s/rollout (after the first) median {rmed:.6f} "
+        f"quartiles {r1:.6f} / {r3:.6f}; a rollout's kernel launches {launches}, host reads "
+        f"of the networks' outputs {reads[2]} (each a synchronising copy; the profiler saw "
+        f"{copies} device-to-host copies); peak {peak:.3f} GiB; counts {counts200} after 200 "
+        f"iterations, {counts} with the profiled block; mean_return {env.mean_return}; "
+        f"launches of B1-B8 {ours}")
+    assert counts200 == [200, 200] and counts == [208, 208], (counts200, counts)
+    assert set(reads) == {2 * env.horizon + 1}, reads
+    assert math.isfinite(env.mean_return) and env.mean_return > 0
+    assert all(n == 0 for n in ours.values()), ours
+    del engine
+    _free()
+    return {"median": med, "q1": q1, "q3": q3, "rollout_s": rmed, "launches": launches,
+            "reads": reads[2], "d2h_copies": copies, "peak_gib": peak,
+            "busy_ms": report["busy_ms"] if report else None, "wall_ms": wall_ms}
+
+
+def ppo_phase(card):
+    """Every line carries ``card``, the card's name and power limit."""
+    t0 = time.time()
+    ppo_small_phase(card)
+    ppo_cell(card)
+    log(f"[ppo] [{card}] phase done in {time.time() - t0:.1f} s")
+
+
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
 KERNEL_SYMBOLS = {
     "fp32_fwd_single_kernel": "flash B1", "mma_fwd_single_kernel": "flash B1",
@@ -3217,7 +3696,7 @@ def sass_report(lib_paths, head_dims):
 
 
 PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat", "nas",
-          "robust", "programs")
+          "robust", "programs", "pruning", "ppo")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -3254,7 +3733,8 @@ def main(argv=None):
                          "remat (rematerialized encoder blocks), nas (DARTS search and its "
                          "evaluation phase), robust (robust NAS and the 4-level saliency-aware "
                          "NAS), programs (the image-captioning NAS, learning by ignoring and "
-                         "implicit MAML)")
+                         "implicit MAML), pruning (ImageNet data pruning: ResNet-50, EMA "
+                         "teacher, device augmentation), ppo (PPO with its rollout env)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -3324,6 +3804,10 @@ def main(argv=None):
         robust_phase(card)
     if "programs" in phases:
         programs_phase(card)
+    if "pruning" in phases:
+        pruning_phase(card)
+    if "ppo" in phases:
+        ppo_phase(card)
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

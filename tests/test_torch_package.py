@@ -21,6 +21,7 @@ from betty_tpu_torch.examples import nas_eval, neural_architecture_search as nas
 from betty_tpu_torch.examples import robust_nas, saliency_aware_nas_4_level as sanas
 from betty_tpu_torch.examples import implicit_maml, learning_by_ignoring as lbi
 from betty_tpu_torch.examples import nas_augmented_image_captioning_3_level as iuc
+from betty_tpu_torch.examples import imagenet_pruning, ppo
 from betty_tpu_torch.hypergradient import _solver, cg, neumann, reinforce
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,7 +50,8 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
                 "examples/saliency_aware_nas_4_level.py", "models/iuc.py", "models/omniglot.py",
                 "envs/__init__.py", "envs/env_base.py", "examples/learning_by_ignoring.py",
                 "examples/nas_augmented_image_captioning_3_level.py",
-                "examples/implicit_maml.py"):
+                "examples/implicit_maml.py", "data/augment.py", "examples/imagenet_pruning.py",
+                "rl/__init__.py", "rl/buffer.py", "examples/ppo.py"):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -123,7 +125,7 @@ def test_engine_defaults_to_cuda():
         robust_nas.build_engine(robust_nas.parse_args(["--arch", "mlp"]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sanas.build_engine(sanas.parse_args([]))
-    for example in (lbi, iuc, implicit_maml):
+    for example in (lbi, iuc, implicit_maml, imagenet_pruning, ppo):
         assert example.parse_args([]).device == "cuda"
         with pytest.raises(RuntimeError, match="device='cpu'"):
             example.build_engine(example.parse_args([]))
