@@ -17,7 +17,9 @@ evaluation network, ``ResNetV1`` and ``WideResNet``, mapping flax's
 auto-names onto the port's module names, and ``from_flax_alphas``
 carries the architecture logits. ``from_flax_captioner`` maps IUC's
 ``Captioner`` (and JAX's frozen projection, when given) and
-``from_flax_omniglot`` the Omniglot CNN's variables.
+``from_flax_omniglot`` the Omniglot CNN's variables. ``from_jax_moe`` takes
+the JAX package's MoE parameter dict (``models/moe.py``), whose layouts the
+port keeps.
 """
 
 import numpy as np
@@ -235,3 +237,10 @@ def from_flax_omniglot(variables, device="cpu", dtype=torch.float32):
                    device, dtype)
     _dense(params, "head", p["Dense_0"], device, dtype)
     return params, stats
+
+
+def from_jax_moe(params, device="cpu", dtype=torch.float32):
+    """``betty_tpu.models.moe.init_moe_params``'s dict (numpy arrays) -> the
+    port's ``models/moe.py`` params: the same names and layouts (``router``
+    (d, E), ``w1`` (E, d, h), ``b1`` (E, h), ``w2`` (E, h, d), ``b2`` (E, d))."""
+    return {k: _t(params[k], device, dtype) for k in ("router", "w1", "b1", "w2", "b2")}

@@ -14,10 +14,18 @@ The cursor API (``take_indices``, ``sync_cursor``, ``cursor_position``,
 the host and gather the batches on the device inside the captured period,
 then hand the stream back to the driver's iterator, so warm-up, blocks and
 remainder consume one continuous stream of batches.
+
+``prefetch_to_device`` keeps a few batches of any iterator in flight to the
+card (``betty_tpu/data/loader.py::prefetch_to_device``).
 """
+
+import collections
+import itertools
 
 import numpy as np
 import torch
+
+from betty_tpu_torch.utils import require_device, tree_leaves, tree_map
 
 
 class ArrayLoader:
@@ -105,3 +113,71 @@ class ArrayLoader:
         end = self.n - self.batch_size + 1 if self.drop_last else self.n
         for i in range(int(batches_served) * self.batch_size, end, self.batch_size):
             yield self.postprocess(self.gather(order[i:i + self.batch_size]))
+
+
+def prefetch_to_device(iterator, size: int = 2, device=None):
+    """Keep ``size`` batches of ``iterator`` in flight to ``device`` (default
+    ``"cuda"``), so that the copies overlap the consumer's work; batches are
+    yielded in order, the last ones included.
+
+    On a CUDA device each tensor or numpy leaf of a batch is copied from
+    pinned host memory with ``non_blocking=True`` on a side stream; the
+    consumer's current stream waits on an event recorded after the batch's
+    copies, and ``record_stream`` keeps the batch's memory from being reused
+    while that stream may still read it. On the CPU the batches are yielded
+    unchanged."""
+    device = require_device("cuda" if device is None else device, "prefetch_to_device")
+    if size < 1:
+        raise ValueError(f"prefetch_to_device: size must be at least 1, got {size}")
+    if device.type == "cuda":
+        put, take = _cuda_transfer(device)
+    else:
+        put = take = _unchanged
+    return _prefetch(iter(iterator), size, put, take)
+
+
+def _unchanged(batch):
+    return batch
+
+
+def _prefetch(it, size, put, take):
+    """``size`` batches of ``it`` started with ``put``, each handed out
+    through ``take`` as the next one starts."""
+    queue = collections.deque(put(batch) for batch in itertools.islice(it, size))
+    while queue:
+        yield take(queue.popleft())
+        for batch in itertools.islice(it, 1):
+            queue.append(put(batch))
+
+
+def _pinned(x):
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    if x.device.type == "cpu" and not x.is_pinned():
+        x = x.pin_memory()
+    return x
+
+
+def _cuda_transfer(device):
+    """``(put, take)``: ``put`` copies a batch on a side stream and records
+    an event after it; ``take`` makes the current stream wait on it."""
+    stream = torch.cuda.Stream(device)
+
+    def put(batch):
+        with torch.cuda.stream(stream):
+            out = tree_map(lambda x: _pinned(x).to(device, non_blocking=True)
+                           if isinstance(x, (np.ndarray, torch.Tensor)) else x, batch)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return out, event
+
+    def take(pending):
+        batch, event = pending
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(event)
+        for x in tree_leaves(batch):
+            if isinstance(x, torch.Tensor):
+                x.record_stream(consumer)
+        return batch
+
+    return put, take

@@ -3,6 +3,7 @@ from betty_tpu_torch.models.darts import (DARTS_V2, DARTSEvalNetwork, DARTSNetwo
                                           init_alphas)
 from betty_tpu_torch.models.iuc import Captioner, DecoderBlock
 from betty_tpu_torch.models.mlp import MLP, MetaWeightNet
+from betty_tpu_torch.models.moe import init_moe_params, moe_ffn, moe_ffn_dense
 from betty_tpu_torch.models.omniglot import OmniglotCNN
 from betty_tpu_torch.models.resnet import (BasicBlock, BottleneckBlock, ResNet, ResNet32,
                                           ResNet50, ResNetV1, WideResNet)
@@ -12,4 +13,4 @@ __all__ = ["BasicBlock", "BottleneckBlock", "Captioner", "DARTSEvalNetwork", "DA
            "DARTS_V2", "DecoderBlock", "Genotype", "MLP", "MetaWeightNet", "OmniglotCNN", "ResNet",
            "ResNet32", "ResNet50", "ResNetV1", "TransformerClassifier", "WideResNet",
            "derive_genotype", "genotype_from_json", "genotype_to_json", "init_alphas",
-           "roberta_large_config"]
+           "init_moe_params", "moe_ffn", "moe_ffn_dense", "roberta_large_config"]

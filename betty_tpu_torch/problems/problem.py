@@ -352,7 +352,7 @@ class Problem(abc.ABC):
         """Build the initial state dict of this problem on the engine's
         device."""
         variables = dict(self.module_fn.init(rng))
-        params = {k: v.detach().to(self.device) for k, v in variables.pop("params").items()}
+        params = tree_map(lambda v: v.detach().to(self.device), variables.pop("params"))
         extra = tree_map(lambda x: x.to(self.device), variables)
         if self.optimizer is not None and self.is_implemented("param_groups"):
             # per-group hyperparameters: the user's optimizer is the template

@@ -63,6 +63,11 @@ def tree_add(a, b):
     return tree_map(torch.add, a, b)
 
 
+def tree_sub(a, b):
+    """a - b, leafwise."""
+    return tree_map(torch.sub, a, b)
+
+
 def tree_scale(a, s):
     """s * a, leafwise (s a number or a 0-dim tensor)."""
     return tree_map(lambda x: s * x, a)
@@ -97,6 +102,24 @@ def tree_dot(a, b):
 def tree_norm(a):
     """Global L2 norm of a tree (``to_vec(v).norm()`` of the reference)."""
     return torch.sqrt(tree_dot(a, a))
+
+
+def to_vec(tree, alpha=1.0):
+    """The leaves of ``tree`` times ``alpha``, flattened and concatenated into
+    one 1-D tensor in ``tree_leaves`` order."""
+    return torch.cat([(alpha * x).reshape(-1) for x in tree_leaves(tree)])
+
+
+def count_parameters(tree) -> int:
+    """Number of elements over the leaves of ``tree``."""
+    return sum(int(np.prod(tuple(x.shape))) for x in tree_leaves(tree))
+
+
+def tree_where_mask(mask, a, b):
+    """``a`` where ``mask`` else ``b``, leafwise; ``mask`` is a tree of bools
+    (or bool tensors) of ``a``'s structure."""
+    return tree_map(lambda m, x, y: torch.where(torch.as_tensor(m, device=x.device), x, y),
+                    mask, a, b)
 
 
 def tree_cast(tree, dtype):

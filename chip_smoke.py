@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases kernels,robust  # ... robust NAS and the 4-level SANAS
     python3 chip_smoke.py --phases kernels,programs  # ... IUC, learning by ignoring, iMAML
     python3 chip_smoke.py --phases kernels,pruning,ppo  # ... ImageNet data pruning, PPO
+    python3 chip_smoke.py --phases kernels,moe,tutorials  # ... Switch MoE, the tutorials
 
 Phases:
 
@@ -107,7 +108,7 @@ Phases:
    ``EngineConfig.profile_dir`` trace in both modes; then the flagship's
    defaults (ResNet-32 B128, fp32, a MultiStepLR at 10000/13000) as ITD at
    unroll 1 and 5 and as reinforce (4 samples), driver mode then compiled:
-   3 + 8 timed periods and a profiled one each (period, busy, idle share,
+   2 + 4 timed periods and a profiled one each (period, busy, idle share,
    launches, peak memory, capture), the two modes' parameters, losses and
    norms, finite losses, no launch of the port's kernels.
 8. checkpoint: engine checkpoints (``betty_tpu_torch/checkpoint.py``)
@@ -127,7 +128,7 @@ Phases:
    period and the device time.
 9. remat: rematerialized encoder blocks (``models/transformer.py``). SAMA
    ``--flash`` at B8 S1024 in driver mode with remat off, "full" (the
-   flash residuals kept) and "minimal" (everything replayed): 4 periods
+   flash residuals kept) and "minimal" (everything replayed): 3 periods
    each (the first warm-up, the last profiled: the card's kernels), peak
    memory (inside the optimizer steps and elsewhere), the launches
    of B3-B5 a period held exactly (216, 144, 144 off and under "full";
@@ -146,13 +147,13 @@ Phases:
    the CPU from the same weights within 1e-9, and compiled against driver
    mode on the card bit for bit. Then the search at the published DARTS
    width (C16 L8 B64, float32, TF32 off; 1,401 leaves and 929 BatchNorms
-   held), driver mode then compiled: 3 + 5 timed periods and a profiled
+   held), driver mode then compiled: 2 + 3 timed periods and a profiled
    one each (period, busy, idle, launches, device time by op class, peak
    memory, capture), fixed-batch losses of the first periods within 1e-3
    between the modes, a genotype of 8 + 8 edges, 0 launches of B1-B8; and
    the evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2 C36 L20
    B96, auxiliary 0.4, drop-path 0.2, cutout 16, grad clip 5) in both
-   modes, 3 + 5 timed steps and a profiled one. Each of its lines carries
+   modes, 2 + 3 timed steps and a profiled one. Each of its lines carries
    the card's name and power limit.
 11. robust: robust NAS (``examples/robust_nas.py``: the DARTS search whose
    classifier loss adds the input-Jacobian and CURE terms, second order
@@ -166,8 +167,9 @@ Phases:
    same weights within 1e-9 (the Jacobian directions drawn on the host on
    both sides), and compiled against driver mode on the card bit for bit
    (the directions from the example's generator, reseeded every replay).
-   Then the robust search at the DARTS search widths (C16 L8 B32, both
-   terms, float32, TF32 off), driver mode then compiled: 3 + 3 timed
+   Then the robust search at the DARTS search widths with the depth cut
+   to 3 cells (C16 L3 B32, both terms, float32, TF32 off; 550 leaves and
+   359 BatchNorms held), driver mode then compiled: 2 + 2 timed
    periods and a profiled one each (period, busy, idle, launches, device
    time by op class and convolution time by kernel, peak memory, capture
    split into warm-up and recording), the fixed-batch losses of the first
@@ -226,6 +228,32 @@ Phases:
    an iteration and a rollout, a rollout's launches and host reads, a
    profiled rollout block's busy and idle, peak memory, counts 200:200,
    ``mean_return``. B1-B8 launch 0 times in both phases.
+15. moe: the Switch top-1 MoE feed-forward layer (``models/moe.py``: dense
+   one-hot dispatch and combine einsums) in the one-device bilevel program
+   of the JAX package's ``tests/test_ep.py`` (``examples/moe_reweighting.py``:
+   the layer with a residual and a linear head under a Meta-Weight-Net,
+   darts, unroll 2), which launches no kernel of the port. ``moe_ffn`` at
+   DIM 16 / HID 32 / E 4 / T 64 in float64 for capacities T, 2 and the
+   default, forward, ``aux`` and every gradient, and the program at those
+   widths (every token to its expert, 4 iterations), on the card against
+   the CPU from the same weights within 1e-12 relative, compiled against
+   driver mode bit for bit. Then the program at the published
+   Switch-Base-8's widths (d_model 768, d_ff 3072, 8 experts, capacity
+   factor 1.25: 640 slots an expert; 4,096 tokens a step), float32, TF32
+   off, driver mode then compiled: 3 + 8 timed periods and a profiled one
+   each (period, busy, idle, launches, peak, capture), a driver period's
+   device time split by the matmul that launched each kernel (the dispatch
+   and combine einsums, the expert products, the rest), the fixed-batch
+   losses of the two modes within 1e-3; then ``--precision bf16``
+   compiled, and one period's routing in bf16: more than 256 tokens to one
+   expert, each expert's kept positions 0..min(n_e, C) - 1 used once.
+16. tutorials: ``test_install.main()`` at its defaults (its Hello line,
+   loss, seconds); tutorials 1 (and ``--baseline``), 2, 3, 4 and 8 at
+   ``TUTORIAL_ITERS`` in driver mode (seconds, the fixed-batch losses,
+   2's test accuracy, 3's sink and, with TensorBoard, its scalar events
+   read back, 8's printed norm); tutorial 6's four configurations'
+   meta-steps/s; ``prefetch_to_device`` on the card (batches equal to the
+   host's, in order). B1-B8 launch 0 times in both phases.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -1785,7 +1813,7 @@ def _param_norm(states, name):
     return float(torch.sqrt(sum((t.double() ** 2).sum() for t in states[name]["params"].values())))
 
 
-def itd_full_cell(variant, unroll, warmup=3, steady=8):
+def itd_full_cell(variant, unroll, warmup=2, steady=4):
     """The flagship's defaults (ResNet-32 B128, fp32, TF32 off, SGD 0.1
     nesterov with weight decay 5e-4 under a MultiStepLR at the reference's
     milestones 10000 and 13000, Adam 1e-5, data on the device) as
@@ -2149,7 +2177,7 @@ def _peak_split(engine):
     return rec
 
 
-def remat_long_cell(periods=4):
+def remat_long_cell(periods=3):
     """SAMA ``--flash`` at B8 S1024 in driver mode with remat off, "full"
     (the flash residuals kept) and "minimal" (everything replayed):
     ``periods`` meta-periods (the first warm-up, the last profiled), the
@@ -2382,7 +2410,7 @@ def _nas_eval_loss(engine):
         return float(engine.network.eval_loss(ctx, batch)[0])
 
 
-def nas_search_cell(card, warmup=3, steady=5):
+def nas_search_cell(card, warmup=2, steady=3):
     """The DARTS search at its published width (C16 L8 B64, float32, TF32
     off; SGD 0.025 momentum 0.9 with cosine LR, Adam 3e-4 on the alphas,
     unroll 1, roll-back; synthetic CIFAR in the default host loaders),
@@ -2451,7 +2479,7 @@ def nas_search_cell(card, warmup=3, steady=5):
     return out
 
 
-def nas_eval_cell(card, warmup=3, steady=5):
+def nas_eval_cell(card, warmup=2, steady=3):
     """The evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2, C36
     L20 B96, auxiliary head 0.4, drop-path 0.2, cutout 16, grad clip 5,
     float32, TF32 off): driver mode, then compiled blocks (one replay a
@@ -2659,10 +2687,17 @@ def grouped_convolutions(channels=16, layers=8):
     return len(convs), sum(m.groups for m in convs)
 
 
-def robust_full_cell(card, warmup=3, steady=3):
-    """The robust search at the DARTS search widths (C16 L8 B32, both
-    regularizers, lambda_j 0.1, lambda_c 0.01; SGD 0.025 momentum 0.9, no
-    schedule, no roll-back; Adam 3e-4 on the alphas; float32, TF32 off;
+ROBUST_SEARCH_LAYERS = 3  # depth cut from DARTS's 8 cells so the whole script keeps its time
+ROBUST_SEARCH_LEAVES = 550  # 548 of the supernet at C16 L3 and the two alphas
+ROBUST_SEARCH_BATCHNORMS = 359
+
+
+def robust_full_cell(card, warmup=2, steady=2):
+    """The robust search at the DARTS search widths, depth cut to
+    ``ROBUST_SEARCH_LAYERS`` cells (C16 L3 B32: a normal cell and two
+    reduction cells; both regularizers, lambda_j 0.1, lambda_c 0.01; SGD
+    0.025 momentum 0.9, no schedule, no roll-back; Adam 3e-4 on the alphas;
+    float32, TF32 off;
     synthetic CIFAR in the host loaders), driver mode then compiled blocks
     (one replay a period): ``warmup`` + ``steady`` timed periods and one
     profiled each (period, busy, idle, launches, device time by op class,
@@ -2676,18 +2711,19 @@ def robust_full_cell(card, warmup=3, steady=3):
     from betty_tpu_torch.examples import robust_nas as ex
     from betty_tpu_torch.models.darts import derive_genotype
 
+    layers = ROBUST_SEARCH_LAYERS
     periods = warmup + steady + 1
-    argv = ["--train_iters", str(periods), "--valid_step", "1000000"]
+    argv = ["--layers", str(layers), "--train_iters", str(periods), "--valid_step", "1000000"]
     out, losses = {}, {}
     for mode in ("driver", "compiled"):
-        tag = f"[robust search] C16 L8 B32 {mode} [{card}]"
+        tag = f"[robust search] C16 L{layers} B32 {mode} [{card}]"
         t0 = time.time()
         engine = _nas_engine(ex, argv, "cuda", mode == "compiled")
         leaves, bns, n_params = _nas_counts(engine)
         log(f"{tag} build_engine {time.time() - t0:.1f} s; parameter leaves {leaves}, "
             f"BatchNorms {bns}, parameters {n_params}; lambda_j "
             f"{engine.classifier.cfg['lambda_j']}, lambda_c {engine.classifier.cfg['lambda_c']}")
-        assert leaves == NAS_SEARCH_LEAVES and bns == NAS_SEARCH_BATCHNORMS, (leaves, bns)
+        assert leaves == ROBUST_SEARCH_LEAVES and bns == ROBUST_SEARCH_BATCHNORMS, (leaves, bns)
         seen = losses[mode] = []
         validate = engine.maybe_validate_checkpoint
 
@@ -2728,7 +2764,7 @@ def robust_full_cell(card, warmup=3, steady=3):
             torch.cuda.synchronize()
             row.update(conv_calls=cc.total, per_group_convs=cc.per_group,
                        conv_backwards=cc.backward)
-            n_grouped, slices = grouped_convolutions()
+            n_grouped, slices = grouped_convolutions(layers=layers)
             log(f"{tag} one more driver period at the dispatcher: {cc.total} convolutions, "
                 f"{cc.per_group} per-group convolutions of PyTorch's conv double backward (the "
                 f"supernet's {n_grouped} grouped convolutions hold {slices} groups; "
@@ -3530,6 +3566,485 @@ def ppo_phase(card):
     log(f"[ppo] [{card}] phase done in {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# moe: the Switch MoE feed-forward layer (``models/moe.py``) under a
+# Meta-Weight-Net reweighter (``examples/moe_reweighting.py``); tutorials:
+# ``test_install``, the tutorials and ``prefetch_to_device``. Neither runs a
+# kernel of the port: the MoE's dispatch, expert and combine einsums are
+# cuBLAS products, as the JAX package's are XLA's.
+# ---------------------------------------------------------------------------
+
+MOE_SMALL = ["--dim", "16", "--hidden", "32", "--experts", "4", "--tokens", "64",
+             "--val_tokens", "32", "--dense", "--train_iters", "4"]  # tests/test_ep.py's program
+MOE_PARAMS = 8 * (768 * 3072 * 2 + 3072 + 768) + 768 * 8 + 768 * 2  # the inner problem's
+MOE_MATMULS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def _moe_engine(argv, device, compiled, states=None, dtype=None):
+    """The MoE program on ``device``; ``states`` (CPU tensors) replace its
+    own and ``dtype`` casts the states and the batches."""
+    import torch
+    from betty_tpu_torch.examples import moe_reweighting as ex
+    from betty_tpu_torch.utils import tree_map
+
+    engine = ex.build_engine(ex.parse_args(
+        argv + ["--device", device] + (["--compile_blocks"] if compiled else [])))
+    engine.config.block_periods = 1
+    if states is not None:
+        engine.states = tree_map(lambda t: t.to(device, copy=True) if torch.is_tensor(t) else t,
+                                 states)
+    if dtype is not None:
+        engine.states = tree_map(lambda t: t.to(dtype) if torch.is_tensor(t) and
+                                 t.is_floating_point() else t, engine.states)
+        for prob in engine.problems:
+            (x, y), = prob.train_data_loader[0]
+            prob.train_data_loader[0][0] = (x.to(dtype), y)
+    return engine
+
+
+def _tree_rel_err(a_states, b_states):
+    """Largest |difference| of two engines' parameters, relative to the
+    largest |value| of that problem's parameters (nested dicts)."""
+    from betty_tpu_torch.utils import tree_leaves
+
+    err = 0.0
+    for name, a in a_states.items():
+        la, lb = tree_leaves(a["params"]), tree_leaves(b_states[name]["params"])
+        assert len(la) == len(lb), name
+        scale = max(float(t.abs().max()) for t in lb) or 1.0
+        diff = max(float((x.double().cpu() - y.double().cpu()).abs().max())
+                   for x, y in zip(la, lb))
+        err = max(err, diff / scale)
+    return err
+
+
+def moe_layer_check(card):
+    """``moe_ffn`` at DIM 16 / HID 32 / E 4 / T 64 in float64 on the card
+    against the CPU from the same weights, for capacities T, 2 and the
+    default: ``y``, ``aux`` and the gradients of every parameter and of
+    ``x`` within 1e-12 relative."""
+    import torch
+    from betty_tpu_torch.models import moe
+
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe_params(gen, 16, 32, 4, dtype=torch.float64)
+    x = torch.randn(64, 16, generator=gen, dtype=torch.float64)
+    g = torch.randn(64, 16, generator=gen, dtype=torch.float64)
+    worst = {}
+    for cap in (64, 2, None):
+        out = []
+        for dev in ("cpu", "cuda"):
+            p = {k: v.to(dev, copy=True).requires_grad_(True) for k, v in params.items()}
+            xd = x.to(dev, copy=True).requires_grad_(True)
+            y, aux = moe.moe_ffn(p, xd, capacity=cap)
+            (torch.sum(y * g.to(dev)) + aux).backward()
+            out.append([y.detach(), aux.detach(), xd.grad] + [p[k].grad for k in sorted(p)])
+        errs = [float((a - b.cpu()).abs().max()) / (float(a.abs().max()) or 1.0)
+                for a, b in zip(*out)]
+        dropped = int((out[0][0] == 0).all(dim=1).sum())
+        worst[str(cap)] = max(errs)
+        log(f"[moe small] [{card}] moe_ffn capacity {cap or 'default (1.25)'}: card vs CPU max "
+            f"relative diff of y, aux and the gradients {max(errs):.3e} (tol 1e-12); tokens "
+            f"dropped {dropped}")
+        drops = {64: False, 2: True}.get(cap)  # none at capacity T, some at 2
+        assert max(errs) <= 1e-12 and drops in (None, dropped > 0), (errs, dropped)
+    return worst
+
+
+def moe_small_phase(card):
+    """``tests/test_ep.py``'s program (DIM 16, every token to its expert,
+    darts unroll 2, 4 iterations) in float64 on the card against the CPU
+    from the same weights within 1e-12 relative, and compiled against driver
+    mode on the card bit for bit. B1-B8 launch 0 times."""
+    import torch
+
+    _reset_port_launches()
+    t0 = time.time()
+    states = _moe_engine(MOE_SMALL, "cpu", False, dtype=torch.float64).states
+    runs = {}
+    for label, device, compiled in (("cpu", "cpu", False), ("card", "cuda", False),
+                                    ("compiled", "cuda", True)):
+        runs[label] = _moe_engine(MOE_SMALL, device, compiled, states, torch.float64)
+        runs[label].run()
+    torch.cuda.synchronize()
+    err = _tree_rel_err(runs["cpu"].states, runs["card"].states)
+    moved = _tree_rel_err(states, runs["card"].states)
+    comp = _state_err(runs["card"].states, runs["compiled"].states)
+    runner = runs["compiled"].block_runner
+    counts = {k: [p.count for p in e.problems] for k, e in runs.items()}
+    ours = _port_launches()
+    log(f"[moe small] [{card}] program: card vs CPU max relative |param diff| {err:.3e} (tol "
+        f"1e-12; moved {moved:.3e}); compiled vs driver on the card max |state diff| {comp:.3e} "
+        f"(bit for bit), captures {runner.captures}, replays {runner.replays} of "
+        f"{runner.periods_run} periods; counts {counts}; launches of B1-B8 {ours}; "
+        f"{time.time() - t0:.1f} s")
+    assert err <= 1e-12 and moved > 0 and comp == 0.0, (err, moved, comp)
+    assert runner.periods_run == 2 and (not runner.on_card or (
+        runner.captures == 1 and runner.replays >= 1)), (runner.captures, runner.replays)
+    assert all(c == [2, 4] for c in counts.values()), counts
+    assert all(n == 0 for n in ours.values()), ours
+    del runs
+    _free()
+
+
+def _moe_split(prof, tokens, slots, experts):
+    """Device time (ms) of a profiled period's kernels by the matmul that
+    launched them: ``dispatch/combine`` (a product whose operands hold both
+    the token count and ``E * C``: the two routing einsums and their
+    backward), ``experts`` (a batched product over the ``E`` experts: the
+    two expert einsums and their backward) and ``rest`` (every other
+    kernel, by op class). Reads the profiler's op tree (CPU and CUDA
+    activities, shapes recorded); None where it holds no kernel."""
+    split = {}
+    for evt in prof.events():
+        kernels = getattr(evt, "kernels", None) or []
+        ms = sum(k.duration for k in kernels) / 1e3
+        if not ms:
+            continue
+        op = evt
+        while op is not None and op.name not in MOE_MATMULS:
+            op = op.cpu_parent
+        dims = [d for shape in (op.input_shapes if op is not None else []) for d in shape]
+        if op is None:
+            key = "rest " + _op_class(kernels[0].name)
+        elif tokens in dims and slots in dims:
+            key = "dispatch/combine"
+        elif op.name in ("aten::bmm", "aten::baddbmm") and op.input_shapes[0][:1] == [experts]:
+            key = "experts"
+        else:
+            key = "rest matmul"
+        split[key] = split.get(key, 0.0) + ms
+    return split or None
+
+
+def moe_cell(card, name, argv, modes, warmup=3, steady=8):
+    """The program at Switch-Base-8's widths (d_model 768, d_ff 3072, 8
+    experts, capacity factor 1.25, 4,096 tokens a step), TF32 off, in each of
+    ``modes``: ``warmup`` + ``steady`` timed periods (2 steps each) and one
+    profiled (the card's kernels): period, busy, idle, launches, peak,
+    capture; the fixed-batch losses after each warm-up period; in driver
+    mode one more period profiled with its ops, for the device time of the
+    dispatch/combine einsums, the expert products and the rest. B1-B8 launch
+    0 times."""
+    import torch
+    from betty_tpu_torch.compile import BlockRunner
+    from betty_tpu_torch.models import moe
+    from betty_tpu_torch.utils import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+
+    periods = warmup + steady + 1
+    out, losses = {}, {}
+    for mode in modes:
+        tag = f"[moe] Switch-Base-8 {name} {mode} [{card}]"
+        t0 = time.time()
+        engine = _moe_engine(argv, "cuda", mode == "compiled")
+        n_params = sum(t.numel() for t in tree_leaves(engine.states["inner"]["params"]))
+        args_t, slots = 4096, 8 * moe.expert_capacity(4096, 8)
+        log(f"{tag} build_engine {time.time() - t0:.1f} s; inner parameters {n_params}, "
+            f"capacity {slots // 8} an expert")
+        assert n_params == MOE_PARAMS, n_params
+        probe = BlockRunner(engine, schedule_only=True)
+        assert probe.live_phase() == probe.initial_phase and probe.period == 2
+        seen = losses[mode] = []
+        validate = engine.maybe_validate_checkpoint
+
+        def hook(window=1, _engine=engine, _seen=seen, _validate=validate):
+            stop = _validate(window)
+            if len(_seen) < warmup and _engine.global_step % 2 == 0:
+                _seen.append(_list_fixed_losses(_engine))
+            return stop
+
+        engine.maybe_validate_checkpoint = hook
+        _reset_port_launches()
+        seconds, report, peak = _timed_run(engine, 2, periods, tag, _op_class, profiled="card")
+        row = out[mode] = _cell_line(tag, seconds, report, peak, warmup)
+        row["launches"] = report["launches"] if report else None
+        if mode == "compiled":
+            r = engine.block_runner
+            row["capture_s"], row["warmup_s"] = r.capture_seconds, r.warmup_seconds
+            log(f"{tag} captures {r.captures}, replays {r.replays}; capture "
+                f"{r.capture_seconds:.3f} s (two warm-up periods {r.warmup_seconds:.3f} s)")
+            assert r.periods_run == periods and (not r.on_card or (
+                r.captures, r.replays) == (1, periods)), (r.captures, r.replays)
+        else:
+            engine.maybe_validate_checkpoint = validate
+            engine.train_iters = 2
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                engine.run()
+                torch.cuda.synchronize()
+            split = row["split"] = _moe_split(prof, args_t, slots, 8)
+            total = sum(split.values()) if split else float("nan")
+            log(f"{tag} a period's device time by einsum (ops profiled): "
+                + (", ".join(f"{k} {v:.2f} ms ({v / total:.3f})"
+                             for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+                   if split else "not read") + f"; total {total:.2f} ms")
+        counts = [p.count for p in engine.problems]
+        final = _list_fixed_losses(engine)
+        ours = _port_launches()
+        log(f"{tag} counts {counts}; fixed-batch losses after periods 1..{warmup} {seen}, at "
+            f"the end {final}; launches of B1-B8 {ours}")
+        assert all(math.isfinite(v) for d in seen + [final] for v in d.values())
+        assert all(n == 0 for n in ours.values()), ours
+        row["losses"] = seen
+        if name == "bf16":
+            row["routing"] = moe_routing_check(engine, card)
+        del engine
+        _free()
+    if len(modes) == 2:
+        diffs = [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in a)
+                 for a, b in zip(losses["driver"], losses["compiled"])]
+        out["loss_diffs"] = diffs
+        log(f"[moe] fp32 [{card}] compiled vs driver: fixed-batch losses after periods "
+            f"1..{warmup}: driver {losses['driver']}, compiled {losses['compiled']}; relative "
+            f"differences {diffs} (tol 1e-3)")
+        assert max(diffs) <= 1e-3, diffs
+    return out
+
+
+def moe_routing_check(engine, card):
+    """The routing of the inner problem's loss at the engine's parameters on
+    its batch (one period's routing), under the engine's precision: the
+    largest count of tokens routed to one expert (it must pass 256, where a
+    bf16 count stops being exact), and in each expert the kept buffer
+    positions exactly 0..min(n_e, C) - 1, each used once."""
+    import torch
+    from betty_tpu_torch.models import moe
+
+    seen = []
+    route = moe.route
+
+    def recorded(probs, capacity, dtype):
+        out = route(probs, capacity, dtype)
+        seen.append((probs.dtype, capacity, out))
+        return out
+
+    ctx = {n: {"params": s["params"], "extra": s["extra"]} for n, s in engine.states.items()}
+    moe.route = recorded
+    try:
+        with torch.no_grad():
+            engine.inner.eval_loss(ctx, engine.inner.cur_batch)
+    finally:
+        moe.route = route
+    dtype, capacity, (_, onehot, dispatch) = seen[0]
+    routed = onehot.float().sum(0)
+    used = dispatch.float().sum(0)  # [E, C]: tokens in each buffer slot
+    kept = torch.minimum(routed, torch.tensor(float(capacity), device=routed.device))
+    slots = torch.arange(capacity, device=used.device, dtype=used.dtype)
+    want = (slots[None, :] < kept[:, None]).to(used.dtype)
+    exact = bool(torch.equal(used, want))
+    log(f"[moe] bf16 routing [{card}]: {len(seen)} routing call(s) in the inner loss, dtype "
+        f"{dtype}, dispatch {dispatch.dtype}; tokens routed to each expert "
+        f"{[int(v) for v in routed.tolist()]} (largest {int(routed.max())}, capacity "
+        f"{capacity}); kept positions 0..min(n_e, C) - 1 each used once: {exact}")
+    assert dtype == dispatch.dtype == torch.bfloat16
+    assert int(routed.max()) > 256 and exact, (routed.tolist(), exact)
+    return {"routed": [int(v) for v in routed.tolist()], "capacity": capacity}
+
+
+def moe_phase(card):
+    """Every line carries ``card``, the card's name and power limit."""
+    t0 = time.time()
+    moe_layer_check(card)
+    moe_small_phase(card)
+    rows = {"fp32": moe_cell(card, "fp32", [], ("driver", "compiled")),
+            "bf16": moe_cell(card, "bf16", ["--precision", "bf16"], ("compiled",))}
+    log(f"[moe] [{card}] fixed-batch losses after periods 1..3: fp32 driver "
+        f"{rows['fp32']['driver']['losses']}, fp32 compiled {rows['fp32']['compiled']['losses']}, "
+        f"bf16 compiled {rows['bf16']['compiled']['losses']}")
+    log(f"[moe] [{card}] phase done in {time.time() - t0:.1f} s")
+    return rows
+
+
+# iterations of each tutorial's run: the JAX defaults of 3 (1,000) and 8 (100);
+# 1, its baseline and 2 cut from 3,000 and 4 from 2,000 to 1,000, because a
+# driver iteration of 1 and 2 takes about 16 ms on the card (3,000: 49 s each)
+# and the moe and tutorials phases are held to 120 s together
+TUTORIAL_ITERS = {  # 1, 2, 3 and 4 cut from 3,000, 3,000, 1,000 and 2,000 for the time limit
+    "1_quick_start": 500, "1_quick_start --baseline": 500, "2_validation": 500,
+    "3_logging": 500, "4_memory_optimization": 500, "8_custom_solver": 100,
+}
+
+
+def _tutorial(name):
+    import importlib
+
+    return importlib.import_module(f"betty_tpu_torch.tutorial.{name}")
+
+
+def _fixed_tutorial_losses(engine):
+    """Every problem's loss at the engine's parameters on the first batch of
+    its loader, no graph."""
+    import torch
+
+    ctx = {n: {"params": s["params"], "extra": s["extra"]} for n, s in engine.states.items()}
+    out = {}
+    with torch.no_grad():
+        for p in engine.problems:
+            ld = p.train_data_loader[0]
+            batch = p._convert_batch(tuple(a[:ld.batch_size] for a in ld.arrays))
+            out[p.name] = float(p.eval_loss(ctx, batch)[0])
+    return out
+
+
+def _tensorboard_scalars(log_root):
+    """``(scalar events, tags)`` written under ``log_root/betty_tensorboard``."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    events, tags = 0, set()
+    for run in sorted(os.listdir(os.path.join(log_root, "betty_tensorboard"))):
+        acc = EventAccumulator(os.path.join(log_root, "betty_tensorboard", run))
+        acc.Reload()
+        for tag in acc.Tags()["scalars"]:
+            tags.add(tag)
+            events += len(acc.Scalars(tag))
+    return events, sorted(tags)
+
+
+def tutorial_run(card, key):
+    """One tutorial (``key``: its module name, ``--baseline`` for 1's
+    baseline) at ``TUTORIAL_ITERS[key]`` iterations on the card, driver mode:
+    seconds (synchronised), counts, the fixed-batch losses at the end,
+    validation accuracy (2), the sink and its scalar events (3), the
+    printed norm (8)."""
+    import shutil
+
+    import torch
+
+    name, *flags = key.split()
+    mod = _tutorial(name)
+    iters = TUTORIAL_ITERS[key]
+    extra = {}
+    log_root = os.path.join(ROOT, "build", "tutorial_logs")
+    here = os.getcwd()
+    if name == "3_logging":  # the sink writes under the working directory
+        shutil.rmtree(log_root, ignore_errors=True)
+        os.makedirs(log_root)
+        os.chdir(log_root)
+    try:
+        engine = mod.build_engine(mod.parse_args(flags + ["--train_iters", str(iters)]))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        engine.run()
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    finally:
+        os.chdir(here)
+    losses = _fixed_tutorial_losses(engine)
+    if name == "2_validation":
+        engine.eval()
+        extra["test_acc"] = float(engine.validation()["acc"])
+        engine.train()
+    if name == "3_logging":
+        sink = type(engine.logger).__name__
+        extra["sink"] = sink
+        if sink == "TensorBoardLogger":
+            engine.logger.writer.close()
+            extra["scalar_events"], extra["tags"] = _tensorboard_scalars(log_root)
+            assert extra["scalar_events"] == 3 * (iters // 100), extra
+    if name == "8_custom_solver":
+        extra["first_leaf_norm"] = mod.first_leaf_norm(engine)
+    counts = [p.count for p in engine.problems]
+    log(f"[tutorials] {key} [{card}]: {iters} iterations in {seconds:.3f} s "
+        f"({iters / seconds:.1f} it/s), counts {counts}; fixed-batch losses at the end "
+        f"{losses}; {extra}")
+    assert all(math.isfinite(v) for v in losses.values()), losses
+    assert max(counts) == iters, counts
+    if key == "1_quick_start":  # one more iteration under the profiler
+        report = profile_period(engine, 1, f"[tutorials] {key} [{card}]", _op_class)
+        extra["launches"] = report["launches"] if report else None
+    del engine
+    _free()
+    return {"seconds": seconds, "losses": losses, **extra}
+
+
+def tutorial6_run(card, iters=512):
+    """Tutorial 6's four configurations at its defaults (``run_all``: each
+    from a fresh engine, the card synchronised around its run, the capture
+    included): meta-steps/s each."""
+    mod = _tutorial("6_performance")
+    t0 = time.time()
+    rates = {}
+    for name, rate, engine in mod.run_all("cuda", iters):
+        counts = [p.count for p in engine.problems]
+        runner = engine.block_runner
+        blocks = (runner.periods_run, runner.replays) if runner is not None else (0, 0)
+        losses = _fixed_tutorial_losses(engine)
+        log(f"[tutorials] 6_performance {name} [{card}]: {rate:.1f} meta-steps/s over {iters} "
+            f"(capture included), counts {counts}, periods in blocks and replays {blocks}; "
+            f"fixed-batch losses {losses}")
+        assert counts == [iters, iters] and all(math.isfinite(v) for v in losses.values())
+        assert (blocks[0] > 0) == name.startswith("blocks"), (name, blocks)
+        assert not runner or not runner.on_card or blocks[1] == blocks[0], blocks
+        rates[name] = rate
+        del engine
+    _free()
+    log(f"[tutorials] 6_performance [{card}]: {time.time() - t0:.1f} s")
+    return rates
+
+
+def install_run(card):
+    """``test_install.main()`` at its defaults on the card."""
+    import torch
+    from betty_tpu_torch import test_install
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss = test_install.main()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    log(f"[tutorials] test_install [{card}]: final outer loss {loss:.6f} (< 0.48), "
+        f"{seconds:.3f} s")
+    assert loss < 0.48, loss
+    return {"loss": loss, "seconds": seconds}
+
+
+def prefetch_check(card):
+    """``prefetch_to_device`` on the card: numpy and pinned-or-not CPU
+    tensor batches, sizes 1 to 3 and an iterator shorter than the size; each
+    batch on the card, equal to the host's, in order, the last ones
+    included, and readable by work queued on the consumer's stream."""
+    import numpy as np
+    import torch
+    from betty_tpu_torch.data import prefetch_to_device
+
+    rng = np.random.RandomState(0)
+    host = [(rng.randn(128, 784).astype(np.float32), torch.from_numpy(rng.randint(0, 2, 128)),
+             {"step": i}) for i in range(6)]
+    checked = 0
+    for size in (1, 2, 3):
+        for n in (len(host), 2):
+            got = list(prefetch_to_device(iter(host[:n]), size=size))
+            sums = [float((x * 2).sum()) for x, _, _ in got]  # consumer-stream work
+            assert len(got) == n and [d["step"] for _, _, d in got] == list(range(n))
+            for (x, y, _), (hx, hy, _), s in zip(got, host, sums):
+                assert x.is_cuda and y.is_cuda
+                assert np.array_equal(x.cpu().numpy(), hx) and torch.equal(y.cpu(), hy)
+                assert math.isclose(s, float(2 * torch.from_numpy(hx).double().sum()),
+                                    rel_tol=1e-4)
+                checked += 1
+    log(f"[tutorials] prefetch_to_device [{card}]: {checked} batches on the card equal to the "
+        f"host's, in order, sizes 1-3, iterators of 6 and 2 batches")
+    return checked
+
+
+def tutorials_phase(card):
+    """Every line carries ``card``, the card's name and power limit. B1-B8
+    launch 0 times."""
+    t0 = time.time()
+    _reset_port_launches()
+    out = {"test_install": install_run(card)}
+    for key in TUTORIAL_ITERS:
+        out[key] = tutorial_run(card, key)
+    out["6_performance"] = tutorial6_run(card)
+    out["prefetch"] = prefetch_check(card)
+    ours = _port_launches()
+    log(f"[tutorials] [{card}] launches of B1-B8 {ours}; phase done in {time.time() - t0:.1f} s")
+    assert all(n == 0 for n in ours.values()), ours
+    return out
+
+
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
 KERNEL_SYMBOLS = {
     "fp32_fwd_single_kernel": "flash B1", "mma_fwd_single_kernel": "flash B1",
@@ -3696,7 +4211,7 @@ def sass_report(lib_paths, head_dims):
 
 
 PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat", "nas",
-          "robust", "programs", "pruning", "ppo")
+          "robust", "programs", "pruning", "ppo", "moe", "tutorials")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -3734,7 +4249,9 @@ def main(argv=None):
                          "evaluation phase), robust (robust NAS and the 4-level saliency-aware "
                          "NAS), programs (the image-captioning NAS, learning by ignoring and "
                          "implicit MAML), pruning (ImageNet data pruning: ResNet-50, EMA "
-                         "teacher, device augmentation), ppo (PPO with its rollout env)")
+                         "teacher, device augmentation), ppo (PPO with its rollout env), moe "
+                         "(the Switch MoE layer under a Meta-Weight-Net at Switch-Base-8 "
+                         "widths), tutorials (test_install, the tutorials, prefetch_to_device)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) | {"kernels"}
 
@@ -3808,6 +4325,10 @@ def main(argv=None):
         pruning_phase(card)
     if "ppo" in phases:
         ppo_phase(card)
+    if "moe" in phases:
+        moe_phase(card)
+    if "tutorials" in phases:
+        tutorials_phase(card)
 
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:

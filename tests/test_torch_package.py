@@ -5,6 +5,8 @@ entry points default to CUDA, and its loader serves the JAX loader's
 batches."""
 
 import ast
+import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -21,11 +23,15 @@ from betty_tpu_torch.examples import nas_eval, neural_architecture_search as nas
 from betty_tpu_torch.examples import robust_nas, saliency_aware_nas_4_level as sanas
 from betty_tpu_torch.examples import implicit_maml, learning_by_ignoring as lbi
 from betty_tpu_torch.examples import nas_augmented_image_captioning_3_level as iuc
-from betty_tpu_torch.examples import imagenet_pruning, ppo
+from betty_tpu_torch.examples import imagenet_pruning, moe_reweighting, ppo
+from betty_tpu_torch import test_install
 from betty_tpu_torch.hypergradient import _solver, cg, neumann, reinforce
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "betty_tpu", "examples", "mwn_data", "vision_data")
+FORBIDDEN = ("jax", "flax", "optax", "betty_tpu", "examples", "mwn_data", "vision_data",
+             "common")
+TUTORIALS = ("1_quick_start", "2_validation", "3_logging", "4_memory_optimization",
+             "6_performance", "8_custom_solver")
 
 
 def _imports(path):
@@ -51,7 +57,10 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
                 "envs/__init__.py", "envs/env_base.py", "examples/learning_by_ignoring.py",
                 "examples/nas_augmented_image_captioning_3_level.py",
                 "examples/implicit_maml.py", "data/augment.py", "examples/imagenet_pruning.py",
-                "rl/__init__.py", "rl/buffer.py", "examples/ppo.py"):
+                "rl/__init__.py", "rl/buffer.py", "examples/ppo.py", "models/moe.py",
+                "examples/moe_reweighting.py", "logging/logger_tensorboard.py",
+                "logging/logger_wandb.py", "test_install.py", "tutorial/__init__.py",
+                "tutorial/common.py", *(f"tutorial/{t}.py" for t in TUTORIALS)):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -125,10 +134,18 @@ def test_engine_defaults_to_cuda():
         robust_nas.build_engine(robust_nas.parse_args(["--arch", "mlp"]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sanas.build_engine(sanas.parse_args([]))
-    for example in (lbi, iuc, implicit_maml, imagenet_pruning, ppo):
+    for example in (lbi, iuc, implicit_maml, imagenet_pruning, ppo, moe_reweighting):
         assert example.parse_args([]).device == "cuda"
         with pytest.raises(RuntimeError, match="device='cpu'"):
             example.build_engine(example.parse_args([]))
+    assert inspect.signature(test_install.main).parameters["device"].default is None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        test_install.main(train_iters=1)
+    for name in TUTORIALS:
+        tutorial = importlib.import_module(f"betty_tpu_torch.tutorial.{name}")
+        assert tutorial.parse_args([]).device == "cuda"
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tutorial.main([])
 
 
 @pytest.mark.parametrize("device", [False, "cpu"])
