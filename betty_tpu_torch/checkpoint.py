@@ -1,7 +1,6 @@
 """Engine checkpoints and bit-exact resume.
 
-Counterpart of ``betty_tpu/checkpoint.py`` on one card. A checkpoint
-directory holds:
+Counterpart of ``betty_tpu/checkpoint.py``. A checkpoint directory holds:
 
 * ``step_<global_step>.pt``: one ``torch.save`` file of host tensors, a dict
   with every problem's state under its name (params, ``extra`` with
@@ -27,6 +26,16 @@ the saved position: ``ArrayLoader``-style loaders resume mid-epoch
 (``set_epoch``, ``iter_from``, ``sync_cursor``); other iterables restart
 their epoch, and their ``batches_served`` restarts with it.
 
+Across ranks (a data-parallel strategy, ``betty_tpu/checkpoint.py:54-144,
+198-246``): every rank gathers the whole tensors of its ZeRO/FSDP shards
+(``Problem.full_state``, a collective), rank 0 alone writes the files, and
+all ranks then meet at a barrier, so no rank reads a checkpoint before it
+is whole. On restore every rank reads the same files and cuts its shards
+from them (``Problem.shard_full_state``); the host counters are the same on
+every rank. A mid-unroll ITD recording holds each rank's own batches: they
+are saved concatenated in rank order and each rank takes its part back.
+The directory must be one that every rank sees.
+
 At a compiled-block boundary no unroll of an ITD child is live: the
 schedule starts a block only where every such unroll lies wholly inside it
 (``compile._Simulator._causally_complete``), so the child stands at an
@@ -41,6 +50,8 @@ import os
 from typing import Any, Dict
 
 import torch
+
+from betty_tpu_torch.utils import tree_map
 
 META = "meta.json"
 
@@ -147,19 +158,57 @@ def _host_meta(engine, caches) -> Dict[str, Any]:
     }
 
 
+def _all_ranks(engine, batch):
+    """A rank's batch: under a mesh every rank's, concatenated in rank order
+    (a collective)."""
+    if engine.mesh is None:
+        return batch
+    from betty_tpu_torch.parallel import make_global_batch
+
+    return make_global_batch(batch, engine.mesh)
+
+
+def _own_rows(engine, batch):
+    """This rank's part of a batch saved by ``_all_ranks``."""
+    if engine.mesh is None:
+        return batch
+    from betty_tpu_torch.parallel import batch_sharding
+
+    sharding = batch_sharding(engine.mesh)
+    return tree_map(lambda x: sharding.local(x) if isinstance(x, torch.Tensor) else x, batch)
+
+
+def _barrier(engine):
+    if engine.mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=engine.mesh.group)
+
+
 def save_engine_state(engine, path: str):
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
+    problems = {p.name: p for p in engine.problems}
     caches = _rollback_caches(engine)
-    tensors = {name: to_host(s) for name, s in engine.states.items()}
+    # whole tensors of every shard: every rank gathers (a collective), only
+    # the writer copies them to the host
+    keep = to_host if engine.is_rank_zero() else (lambda _tree: None)
+    tensors = {name: keep(problems[name].full_state(s)) for name, s in engine.states.items()}
     for name, cache in caches.items():
-        tensors[f"__rollback__{name}"] = to_host(cache)
+        tensors[f"__rollback__{name}"] = keep(problems[name].full_state(cache))
     unroll_recorded = {}
     for p in engine.problems:
         if _live_unroll(p) and _resumable(p):
-            tensors[f"__unroll_start__{p.name}"] = to_host(p._unroll_start_state)
-            tensors[f"__unroll_batches__{p.name}"] = [to_host(b) for b in p._unroll_batches]
+            tensors[f"__unroll_start__{p.name}"] = keep(p.full_state(p._unroll_start_state))
+            tensors[f"__unroll_batches__{p.name}"] = [keep(_all_ranks(engine, b))
+                                                      for b in p._unroll_batches]
             unroll_recorded[p.name] = len(p._unroll_batches)
+    if engine.is_rank_zero():
+        _write(engine, path, tensors, caches, unroll_recorded)
+    _barrier(engine)
+
+
+def _write(engine, path, tensors, caches, unroll_recorded):
+    os.makedirs(path, exist_ok=True)
     name = f"step_{engine.global_step}.pt"
     torch.save(tensors, os.path.join(path, name + ".tmp"))
     os.replace(os.path.join(path, name + ".tmp"), os.path.join(path, name))
@@ -199,9 +248,15 @@ def restore_engine_state(engine, path: str):
     with open(os.path.join(path, META)) as f:
         meta = json.load(f)
     saved = torch.load(os.path.join(path, meta["file"]), map_location="cpu", weights_only=True)
+    problems = {p.name: p for p in engine.problems}
+
+    def restore(p, current, saved_state, what):
+        """``saved_state`` (whole tensors) cut to this rank's shards."""
+        return p.shard_full_state(restore_like(p.full_state_like(current), saved_state, what))
+
     for name in engine.states:
-        engine.states[name] = restore_like(engine.states[name], saved[name],
-                                           f"restore of problem {name!r}")
+        engine.states[name] = restore(problems[name], engine.states[name], saved[name],
+                                      f"restore of problem {name!r}")
     engine.global_step = meta["global_step"]
     for p in engine.problems:
         name = p.name
@@ -211,18 +266,19 @@ def restore_engine_state(engine, path: str):
         p._host_rng_calls, p._host_rng_last_count = meta["host_rng"][name]
         p._state_cache = None
         if name in meta["rollback_cached"]:
-            p._state_cache = restore_like(engine.states[name], saved[f"__rollback__{name}"],
-                                          f"restore of the roll-back cache of {name!r}")
+            p._state_cache = restore(p, engine.states[name], saved[f"__rollback__{name}"],
+                                     f"restore of the roll-back cache of {name!r}")
         if name in meta["epoch_counters"] and p.train_data_loader is not None:
             served = meta["batches_served"].get(name, [0] * len(p.train_data_loader))
             _restore_loaders(p, meta["epoch_counters"][name], served)
         if name in meta.get("unroll_recorded", {}):
             # the mid-unroll ITD recording: the differentiation start state
             # and the batches consumed since
-            p._unroll_start_state = restore_like(
-                engine.states[name], saved[f"__unroll_start__{name}"],
+            p._unroll_start_state = restore(
+                p, engine.states[name], saved[f"__unroll_start__{name}"],
                 f"restore of the unroll start state of {name!r}")
-            p._unroll_batches = [p._convert_batch(b) for b in saved[f"__unroll_batches__{name}"]]
+            p._unroll_batches = [p._convert_batch(_own_rows(engine, b))
+                                 for b in saved[f"__unroll_batches__{name}"]]
             p._pending_unroll_reset = False
         elif hasattr(p, "_unroll_batches"):
             p._unroll_start_state, p._unroll_batches = None, []

@@ -49,7 +49,15 @@ holds the live state. A run resumed from it builds a new runner, which
 captures a new graph; its per-step values and seeds derive from the
 restored counts and integer leaves, as every period's do.
 
-Not ported: meshes.
+Under a data-parallel strategy the period's update functions make their
+collectives (``parallel/collectives.py``) as in driver mode: on the CPU
+eagerly, on the card inside the captured graph, which replays them
+(PyTorch captures NCCL collectives into a CUDA graph). A capture that fails
+under a strategy raises an error naming the strategy and the failure;
+nothing falls back to driver mode. With more than one rank every loader
+takes the host data path (the batches copied into the static inputs), as
+the JAX package's multi-process blocks stage batches on the host
+(``betty_tpu/compile.py:357-359``): a rank's loader holds its own shard.
 """
 
 from dataclasses import dataclass, field, replace
@@ -466,7 +474,9 @@ class BlockRunner:
                     and getattr(dl[0], "postprocess_is_identity",
                                 type(dl[0]).postprocess is ArrayLoader.postprocess)
                     and type(p).get_batch is Problem.get_batch
-                    and not p.is_implemented("epoch_callback")):
+                    and not p.is_implemented("epoch_callback")
+                    # several ranks: the host-staging path
+                    and (engine.mesh is None or engine.mesh.world == 1)):
                 self.fastpath[name] = dl[0]
         self.itd_names = {name for name, p in self.problems.items() if itd_child(p)}
         self.on_card = engine.device.type == "cuda"
@@ -610,12 +620,21 @@ class BlockRunner:
             graph.register_generator_state(g)
         record = _StepValues(self._slots)
         counts0 = {n: p._count for n, p in self.problems.items()}
-        with torch.cuda.graph(graph, stream=self._stream):
-            with utils.step_values(record):
-                states, cache, loss = self._period(self._states, self._cache_in(self._cache),
-                                                   self._static_batches(), counts0)
-            _copy_into(self._states, states)
-            _copy_into({n: self._cache[n] for n in cache}, cache)
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                with utils.step_values(record):
+                    states, cache, loss = self._period(self._states,
+                                                       self._cache_in(self._cache),
+                                                       self._static_batches(), counts0)
+                _copy_into(self._states, states)
+                _copy_into({n: self._cache[n] for n in cache}, cache)
+        except Exception as e:
+            if self.engine.mesh is None:
+                raise
+            raise RuntimeError(
+                f"compiled blocks under strategy {self.engine.strategy!r}: capturing the "
+                f"period with its collectives failed ({type(e).__name__}: {e}); run "
+                "without compile_blocks") from e
         self._slots.check(record, self.periods_run)
         self._graph, self._loss = graph, loss
         self.captures += 1

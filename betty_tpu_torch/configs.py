@@ -7,10 +7,18 @@ fields have no meaning and are accepted but inert:
 * ``Config``: ``initial_dynamic_scale``/``scale_factor`` (bf16 needs no loss
   scaling; ``"fp16"`` is treated as ``"bf16"``), ``retain_graph``,
   ``allow_unused`` and ``shard_rules``.
-* ``EngineConfig``: ``backend``, ``mesh_shape``, ``autoshard_data``,
-  ``compile_cache_dir`` and ``rng_impl``; ``donate_state`` has no
-  counterpart, since a compiled block's graph updates its static state
-  tensors in place. ``strategy`` must be ``"default"``.
+* ``EngineConfig``: ``backend``, ``compile_cache_dir`` and ``rng_impl``;
+  ``donate_state`` has no counterpart, since a compiled block's graph
+  updates its static state tensors in place.
+
+``EngineConfig.strategy`` is ``"default"`` (one process, no collectives)
+or a data-parallel strategy over ``torch.distributed``: ``"dp"`` (alias
+``"distributed"``), ``"zero"`` or ``"fsdp"`` (``betty_tpu_torch/parallel``);
+``mesh_shape`` lays the ranks out (``(("dp", N),)`` by default, or
+``(("dcn", M), ("dp", N))``), and ``autoshard_data`` gives each rank its
+examples of every ``ArrayLoader`` (``data.shard_loader``). ``"tp"``,
+``"pp"``, ``"ep"`` and ``"sp"``, and meshes with a ``mdl``, ``pp``, ``ep``
+or ``sp`` axis, raise ``NotImplementedError`` (ROADMAP.md §A.7).
 
 ``EngineConfig.profile_dir`` writes a ``torch.profiler`` trace of the run
 there (``Engine._profiler``).
@@ -27,8 +35,7 @@ a save every ``checkpoint_step`` global steps, and a run that starts from
 the checkpoint in ``checkpoint_dir`` when one is there.
 
 ``Config.hvp_mode`` other than ``"jvp"``/``"vjp"`` raises, as the JAX
-package's ``make_hvp`` does. A ``strategy`` other than ``"default"`` raises:
-the port runs on one card.
+package's ``make_hvp`` does.
 """
 
 from dataclasses import dataclass
@@ -120,7 +127,15 @@ class EngineConfig:
     auto_resume: bool = False
 
     def __post_init__(self):
-        if self.strategy != "default":
-            raise NotImplementedError(
-                f"EngineConfig.strategy={self.strategy!r}: the port runs on one card "
-                "(strategy='default'; ROADMAP.md §A.7)")
+        from betty_tpu_torch.parallel.mesh import (DP_STRATEGIES, MODEL_PARALLEL_AXES,
+                                                   MODEL_PARALLEL_STRATEGIES,
+                                                   model_parallel_error)
+
+        if self.strategy in MODEL_PARALLEL_STRATEGIES:
+            raise model_parallel_error(f"EngineConfig.strategy={self.strategy!r}")
+        if self.strategy != "default" and self.strategy not in DP_STRATEGIES:
+            raise ValueError(f"EngineConfig.strategy={self.strategy!r}: one of 'default', "
+                             + ", ".join(repr(s) for s in DP_STRATEGIES))
+        for name, _ in self.mesh_shape or ():
+            if name in MODEL_PARALLEL_AXES:
+                raise model_parallel_error(f"EngineConfig.mesh_shape axis {name!r}")

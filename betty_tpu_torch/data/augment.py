@@ -34,6 +34,8 @@ the generator before every replay. ``draws=`` replaces the draws (tests
 inject the JAX package's): a dict of per-image tensors ``area`` (the crop's
 area fraction), ``log_ratio`` (its log aspect ratio), ``y`` and ``x`` (the
 box's position, uniform in [0, 1)) and, for the flip, ``flip`` (bool).
+Under a data-parallel mesh each rank draws the global batch's values and
+keeps its rows (``parallel.local_rows``).
 
 As in the JAX package, one box is drawn and clamped to ``[8, H]`` x ``[8,
 W]`` (torchvision rejection-samples up to 10 boxes and falls back to a
@@ -43,6 +45,8 @@ center crop).
 import math
 
 import torch
+
+from betty_tpu_torch.parallel import local_rows
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -69,7 +73,8 @@ def random_horizontal_flip(images, generator, p=0.5, draws=None):
     """Each (B, H, W, C) image reversed along W with probability ``p``;
     ``draws`` is the (B,) bool flip of each image."""
     if draws is None:
-        draws = torch.rand(images.shape[0], generator=generator, device=images.device) < p
+        draws = local_rows((images.shape[0],), lambda s: torch.rand(
+            s, generator=generator, device=images.device)) < p
     return torch.where(draws[:, None, None, None], images.flip(2), images)
 
 
@@ -140,7 +145,8 @@ def random_resized_crop(images, generator, out_size, scale=(0.08, 1.0),
     B, H, W, _ = images.shape
     if draws is None:
         dtype = torch.promote_types(images.dtype, torch.float32)
-        u = torch.rand(4, B, generator=generator, device=images.device, dtype=dtype)
+        u = local_rows((4, B), lambda s: torch.rand(s, generator=generator,
+                                                    device=images.device, dtype=dtype), dim=1)
         lo, hi = math.log(ratio[0]), math.log(ratio[1])
         draws = {"area": torch.clamp(u[0] * (scale[1] - scale[0]) + scale[0], min=scale[0]),
                  "log_ratio": torch.clamp(u[1] * (hi - lo) + lo, min=lo), "y": u[2], "x": u[3]}

@@ -17,6 +17,10 @@ remainder consume one continuous stream of batches.
 
 ``prefetch_to_device`` keeps a few batches of any iterator in flight to the
 card (``betty_tpu/data/loader.py::prefetch_to_device``).
+
+``shard_loader`` gives a rank of a data-parallel run its examples
+``rank::world`` of a loader (``betty_tpu/data/loader.py::shard_loader``);
+``Problem.initialize`` applies it to every ``ArrayLoader`` under a strategy.
 """
 
 import collections
@@ -113,6 +117,31 @@ class ArrayLoader:
         end = self.n - self.batch_size + 1 if self.drop_last else self.n
         for i in range(int(batches_served) * self.batch_size, end, self.batch_size):
             yield self.postprocess(self.gather(order[i:i + self.batch_size]))
+
+
+def shard_loader(loader: ArrayLoader, process_index=None, process_count=None) -> ArrayLoader:
+    """Per-rank example sharding: rank i keeps examples ``i::N`` of every
+    array (the reference's rank-round-robin ``DistributedBatchSampler``).
+    A shallow copy, so that ``ArrayLoader`` subclasses (a custom
+    ``postprocess``, their own attributes) survive; the epoch and the
+    ``take_indices`` cursor start again. Defaults: the process group's rank
+    and size (one process without a group)."""
+    import copy
+
+    if process_index is None or process_count is None:
+        import torch.distributed as dist
+
+        grouped = dist.is_initialized()
+        process_index = dist.get_rank() if grouped else 0
+        process_count = dist.get_world_size() if grouped else 1
+    new = copy.copy(loader)
+    new.arrays = tuple(a[process_index::process_count] for a in loader.arrays)
+    new.n = len(new.arrays[0])
+    new.epoch = 0
+    for attr in ("_fp_pos", "_fp_order", "_fp_epoch"):
+        if hasattr(new, attr):
+            delattr(new, attr)
+    return new
 
 
 def prefetch_to_device(iterator, size: int = 2, device=None):

@@ -27,7 +27,19 @@ A resumed run equals the uninterrupted one bit for bit, in driver mode and
 compiled (a block never spans two checkpoint boundaries, and a save between
 blocks reads the runner's live state).
 
-Not ported yet: meshes and strategies other than one device.
+``EngineConfig(strategy="dp" | "distributed" | "zero" | "fsdp")`` runs one
+process a rank (``betty_tpu/engine.py:78-166``): ``configure_systems``
+joins the process group (``parallel.maybe_init_distributed``: torchrun's
+or the ``BETTY_*`` variables, else a world of one) and builds the mesh of
+``mesh_shape``; ``initialize`` places each problem's state for the strategy
+(``parallel.shard_state``; the shard dims kept as ``problem._shard_dims``),
+and each problem's ``ArrayLoader``s give each rank its examples
+(``Problem.initialize``). The run reaches the parameters of the
+one-process run on the union of the ranks' batches. Only rank 0 logs;
+validation runs on every rank and its numbers are averaged over the ranks,
+so the early-stopping decision agrees. A strategy other than ``"default"``
+with a ``mesh_shape`` of ``None`` puts every rank on ``dp``; ``"default"``
+with a ``mesh_shape`` runs as ``"dp"``.
 """
 
 import contextlib
@@ -37,10 +49,12 @@ from typing import Dict, List, Optional
 
 import torch
 
+from betty_tpu_torch import parallel
 from betty_tpu_torch.configs import EngineConfig
 from betty_tpu_torch.logging import logger
+from betty_tpu_torch.logging.logger_base import LoggerBase
 from betty_tpu_torch.misc.early_stopping import EarlyStopping
-from betty_tpu_torch.utils import log_from_loss_dict, require_device
+from betty_tpu_torch.utils import log_from_loss_dict, require_device, tree_leaves
 
 
 class Engine:
@@ -65,6 +79,8 @@ class Engine:
 
         self.states: Dict[str, dict] = {}
         self.block_runner = None
+        self.mesh: Optional[parallel.Mesh] = None
+        self.strategy = "default"
 
         self.initialize()
 
@@ -81,14 +97,27 @@ class Engine:
             )
 
     def configure_systems(self):
-        """One device; a CUDA device must exist (no fallback to the CPU)."""
+        """The device (a CUDA device must exist: no fallback to the CPU) and,
+        under a data-parallel strategy, the process group and the mesh."""
         require_device(self.device, "Engine")
+        strategy = self.config.strategy
+        if strategy == "default" and self.config.mesh_shape is None:
+            return
+        self.strategy = "dp" if strategy in ("default", "distributed") else strategy
+        parallel.maybe_init_distributed(self.device)
+        self.mesh = parallel.make_mesh(self.config.mesh_shape)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+
+    def is_rank_zero(self) -> bool:
+        return parallel.is_rank_zero()
 
     def initialize(self):
         self.parse_config()
         self.configure_systems()
 
-        self.logger = logger(logger_type=self.logger_type)
+        self.logger = logger(logger_type=self.logger_type) if self.is_rank_zero() else \
+            _RankLogger()
         self.logger.info("Initializing Multilevel Optimization...")
         start = time.time()
 
@@ -108,7 +137,12 @@ class Engine:
             if self.env is not None:
                 problem.add_env(self.env)
             problem.initialize(self)
-            self.states[problem.name] = problem.init_state(i)
+            state = problem.init_state(i)
+            if self.mesh is not None:
+                _check_on_card(problem.name, state, self.device)
+                problem._shard_dims = parallel.state_shard_dims(state, self.mesh, self.strategy)
+                state = parallel.shard_state(state, self.mesh, self.strategy)
+            self.states[problem.name] = state
 
         self.logger.info(f"Time spent on initialization: {time.time() - start:.3f} (s)")
 
@@ -341,7 +375,7 @@ class Engine:
         stop = False
         if self.do_validation() and self.global_step % self.valid_step < window:
             self.eval()
-            validation_stats = self.validation() or {}
+            validation_stats = self._agree(self.validation() or {})
             self.logger.info(f"[Validation] [Global Step {self.global_step}] "
                              f"{log_from_loss_dict(validation_stats)}")
             self.logger.log(validation_stats, tag="validation", step=self.global_step)
@@ -377,10 +411,49 @@ class Engine:
             problem.eval()
 
     def do_validation(self) -> bool:
+        # every rank validates, so that collectives inside validation and
+        # the early-stopping decision stay aligned across ranks
         return self.is_implemented("validation") and self.valid_step > 0
+
+    def _agree(self, stats):
+        """Under a mesh, the numbers of ``stats`` averaged over the ranks
+        (each rank may have validated on its own data)."""
+        if self.mesh is None:
+            return stats
+        keys = [k for k, v in stats.items()
+                if isinstance(v, (int, float)) or (torch.is_tensor(v) and v.numel() == 1)]
+        if not keys:
+            return stats
+        vals = torch.tensor([float(stats[k]) for k in keys], dtype=torch.float64,
+                            device=self.device)
+        vals = parallel.grad_mean(vals, self.mesh)
+        return {**stats, **{k: float(v) for k, v in zip(keys, vals.tolist())}}
 
     def cleanup(self):
         self.logger.info("Multilevel optimization finished!")
 
     def is_implemented(self, fn_name: str) -> bool:
         return callable(getattr(self, fn_name, None))
+
+
+def _check_on_card(name, state, device):
+    """A rank's state must live on the rank's own card. A module built
+    before the process group chose that card (``configure_systems``, or
+    ``parallel.maybe_init_distributed`` called first, as the examples do)
+    sits on card 0."""
+    for x in tree_leaves(state):
+        if isinstance(x, torch.Tensor) and x.is_cuda and x.device != device:
+            raise RuntimeError(
+                f"problem {name!r}: a state tensor is on {x.device} but this rank runs on "
+                f"{device}; call parallel.maybe_init_distributed() before building the "
+                "modules so that every rank builds on its own card")
+
+
+class _RankLogger(LoggerBase):
+    """The logger of ranks other than 0: warnings and errors only."""
+
+    def info(self, msg):
+        pass
+
+    def debug(self, msg):
+        pass

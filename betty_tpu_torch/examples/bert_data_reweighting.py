@@ -21,9 +21,15 @@ are kept and B1/B3 is not replayed), ``minimal`` (everything replayed, the
 flash forward included) or ``dots`` (matmul outputs kept); see
 ``models/transformer.py``. ``--checkpoint_dir`` saves an engine checkpoint
 whenever the dev accuracy improves (``SST2Engine.validation``; the
-synthetic data has no dev split, so set ``engine.dev_data``). Not ported
-yet: real SST-2 (``--data-dir``), HuggingFace checkpoints (``--hf_model``)
-and strategies other than one device.
+synthetic data has no dev split, so set ``engine.dev_data``).
+``--strategy dp|distributed|zero|fsdp`` runs one process a rank
+(``torchrun --nproc_per_node N -m betty_tpu_torch.examples.bert_data_reweighting
+--strategy fsdp``, or the ``BETTY_*`` variables), each rank loading
+``--batch_size`` examples; ``--mesh dcn:2,dp:4`` lays the ranks out. The
+classifier's loss divides by the global batch's weight sum
+(``parallel.global_divisor`` of the local sum), so the mean of the ranks'
+losses is the one-process loss of the global batch. Not ported yet: real
+SST-2 (``--data-dir``) and HuggingFace checkpoints (``--hf_model``).
 """
 
 import argparse
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
+from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.data import ArrayLoader
 from betty_tpu_torch.examples.vision_data import problem_accuracy
 from betty_tpu_torch.models import MetaWeightNet, TransformerClassifier, roberta_large_config
@@ -75,7 +81,8 @@ class Classifier(ImplicitProblem):
         logits = self.module(input_ids)
         ce = F.cross_entropy(logits, labels.long(), reduction="none")
         weight = self.reweight(ce.detach())
-        return torch.sum(weight * ce) / torch.clamp(torch.sum(weight), min=1e-8)
+        # the global batch's weight sum, held at 1e-8 or more
+        return torch.sum(weight * ce) / parallel.global_divisor(torch.sum(weight), least=1e-8)
 
 
 class SST2Engine(Engine):
@@ -102,6 +109,8 @@ class SST2Engine(Engine):
 def build_engine(args, **solver_config):
     vocab = 1000 if args.model == "small" else 50265
     device = torch.device(args.device)
+    if args.strategy in parallel.DP_STRATEGIES or (args.strategy == "default" and args.mesh):
+        parallel.maybe_init_distributed(device)  # this rank's card, before anything is built
     x_train, y_train = make_synthetic_sst2(args.train_size, args.seq_len, vocab, seed=0,
                                            imbalance=args.imbalance, signal=args.signal)
     x_meta, y_meta = make_synthetic_sst2(args.meta_size, args.seq_len, vocab, seed=1,
@@ -144,13 +153,22 @@ def build_engine(args, **solver_config):
     )
     engine = SST2Engine(
         config=EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step,
-                            strategy=args.strategy, compile_blocks=args.compile_blocks),
+                            strategy=args.strategy, compile_blocks=args.compile_blocks,
+                            mesh_shape=mesh_shape(args.mesh)),
         problems=[reweight, classifier],
         dependencies={"u2l": {reweight: [classifier]}, "l2u": {classifier: [reweight]}},
         device=device,
     )
     engine.checkpoint_dir = args.checkpoint_dir
     return engine
+
+
+def mesh_shape(spec):
+    """``EngineConfig.mesh_shape`` of ``--mesh`` (``"dp:4"`` or
+    ``"dcn:2,dp:4"``, the JAX example's format), or None."""
+    if not spec:
+        return None
+    return tuple((name, int(size)) for name, size in (ax.split(":") for ax in spec.split(",")))
 
 
 def parse_args(argv=None):
@@ -161,7 +179,13 @@ def parse_args(argv=None):
     p.add_argument("--precision", default="bf16", choices=["fp32", "bf16"])
     p.add_argument("--solver_precision", default="fp32", choices=["fp32", "bf16"],
                    help="precision of the hypergradient pipeline")
-    p.add_argument("--strategy", default="default", choices=["default"])
+    p.add_argument("--strategy", default="default",
+                   choices=["default", "dp", "distributed", "zero", "fsdp", "tp"],
+                   help="data-parallel strategy over torch.distributed (one process a "
+                        "rank); tp is not ported and raises")
+    p.add_argument("--mesh", default=None,
+                   help="rank layout as 'name:size,...', e.g. 'dcn:2,dp:4' (default: every "
+                        "rank on dp)")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--dim", type=int, default=256)

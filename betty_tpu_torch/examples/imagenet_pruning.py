@@ -27,7 +27,10 @@ crop, at ``--crop_size``. ``Classifier.draws``, when set, is ``(rng, images)
 -> draws`` and replaces the crop and flip draws (tests inject JAX's).
 ``--precision bf16`` runs the steps in bfloat16 (BatchNorm statistics in
 float32). ``--compile_blocks`` runs the steady schedule as compiled blocks.
-``--strategy`` other than ``default`` raises (ROADMAP.md §A.7).
+``--strategy dp|distributed|zero|fsdp`` runs one process a rank
+(``torchrun``), each loading ``--batch_size`` examples, with the global
+batch's BatchNorm statistics and crop and flip draws; ``tp`` raises
+(ROADMAP.md §A.7).
 
     python -m betty_tpu_torch.examples.imagenet_pruning --device_data
     python -m betty_tpu_torch.examples.imagenet_pruning --device cpu --batch_size 4 \\
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
+from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.data import ArrayLoader, imagenet_eval_transform, imagenet_train_transform
 from betty_tpu_torch.examples.vision_data import load_classification, problem_accuracy
 from betty_tpu_torch.models import MetaWeightNet, ResNetV1
@@ -157,10 +160,9 @@ class PruneEngine(Engine):
 
 
 def build_engine(args):
-    if args.strategy != "default":
-        raise NotImplementedError(f"--strategy {args.strategy}: the port runs on one card "
-                                  "(ROADMAP.md §A.7)")
     device = require_device(args.device, "imagenet_pruning")
+    if args.strategy in parallel.DP_STRATEGIES:
+        parallel.maybe_init_distributed(device)  # this rank's card, before anything is built
     test_data = None
     if args.data_dir:
         x_train, y_train, x_test, y_test = load_classification(args.data_dir)
@@ -206,7 +208,7 @@ def build_engine(args):
         extra_config={"ema_decay": args.ema_decay, **aug_cfg})
     engine = PruneEngine(
         config=EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step,
-                            compile_blocks=args.compile_blocks),
+                            compile_blocks=args.compile_blocks, strategy=args.strategy),
         problems=[reweight, classifier],
         dependencies={"u2l": {reweight: [classifier]}, "l2u": {classifier: [reweight]}},
         device=device)
@@ -231,7 +233,8 @@ def parse_args(argv=None):
     p.add_argument("--train_iters", type=int, default=10)
     p.add_argument("--valid_step", type=int, default=1000)
     p.add_argument("--strategy", default="default",
-                   help="not ported beyond 'default': others raise")
+                   help="default, or a data-parallel strategy over torch.distributed: dp "
+                        "(alias distributed), zero, fsdp; tp raises")
     p.add_argument("--precision", default="fp32", choices=["fp32", "bf16"])
     p.add_argument("--log_step", type=int, default=-1)
     p.add_argument("--data-dir", dest="data_dir", type=str, default=None,

@@ -21,9 +21,12 @@ training, and ``--retrain`` samples the kept set by them.
 one graph replay a meta-period; with ``--device_data`` the batches are
 gathered inside the graph). ``--checkpoint_dir`` saves an engine
 checkpoint whenever the test accuracy improves (``MWNEngine.validation``,
-with ``--data-dir``); ``Engine.load_checkpoint`` reads it back. Not ported
-yet: strategies other than one device (ROADMAP.md §A.7); ``--strategy``
-raises.
+with ``--data-dir``); ``Engine.load_checkpoint`` reads it back.
+``--strategy dp|distributed|zero|fsdp`` runs one process a rank
+(``torchrun --nproc_per_node N -m betty_tpu_torch.examples.learning_to_reweight
+--strategy dp``), each rank loading ``--batch_size`` examples; the
+ResNet's BatchNorm then normalizes with the global batch's statistics
+(``models/batchnorm.py``). ``tp`` raises (ROADMAP.md §A.7).
 """
 
 import argparse
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
+from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.data import ArrayLoader
 from betty_tpu_torch.examples.mwn_data import augment_batch, build_splits, load_cifar10
 from betty_tpu_torch.examples.vision_data import problem_accuracy
@@ -154,15 +157,10 @@ def solver_kwargs(args):
     return {}
 
 
-def _check_ported(args):
-    if args.strategy != "default":
-        raise NotImplementedError(f"--strategy {args.strategy}: the port runs on one card "
-                                  "(ROADMAP.md §A.7)")
-
-
 def build_engine(args):
-    _check_ported(args)
     device = require_device(args.device, "learning_to_reweight")
+    if args.strategy in parallel.DP_STRATEGIES:
+        parallel.maybe_init_distributed(device)  # this rank's card, before anything is built
     test_data = None
     if args.data_dir:
         x_all, y_all, x_test, y_test = load_cifar10(args.data_dir)
@@ -197,7 +195,7 @@ def build_engine(args):
                                weight_decay=args.weight_decay, nesterov=True,
                                schedule=make_schedule(args))
     engine_config = EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step,
-                                 compile_blocks=args.compile_blocks)
+                                 compile_blocks=args.compile_blocks, strategy=args.strategy)
 
     if args.baseline or args.retrain:
         # one problem, no dependency edges, plain mean cross-entropy
@@ -274,7 +272,8 @@ def parse_args(argv=None):
     p.add_argument("--unroll_steps", type=int, default=1)
     p.add_argument("--precision", type=str, default="fp32")
     p.add_argument("--strategy", type=str, default="default",
-                   help="not ported beyond 'default': others raise")
+                   help="default, or a data-parallel strategy over torch.distributed: dp "
+                        "(alias distributed), zero, fsdp; tp raises")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--num_classes", type=int, default=10)
     p.add_argument("--stage_sizes", type=str, default="5,5,5",

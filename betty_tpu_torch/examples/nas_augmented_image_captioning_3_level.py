@@ -47,7 +47,7 @@ import argparse
 import numpy as np
 import torch
 
-from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
+from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.models.iuc import Captioner
 from betty_tpu_torch.module import from_fn, from_torch
 from betty_tpu_torch.utils import require_device
@@ -74,10 +74,13 @@ def make_caption_data(n, seq_len, vocab, feat_dim, seed, noise=0.1):
 
 
 def caption_loss(logits, targets):
-    """Token cross entropy masked at PAD, divided by ``max(sum(mask), 1)``."""
+    """Token cross entropy masked at PAD, divided by ``max(sum(mask), 1)``;
+    under a data-parallel mesh the mask's sum is the global batch's
+    (``parallel.global_divisor``), so the ranks' mean loss is the global
+    batch's."""
     mask = (targets != PAD).to(logits.dtype)
     ce = torch.logsumexp(logits, dim=-1) - logits.gather(-1, targets[..., None])[..., 0]
-    return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(ce * mask) / parallel.global_divisor(torch.sum(mask), least=1.0)
 
 
 @torch.no_grad()

@@ -46,11 +46,12 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
+from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.examples.learning_to_reweight import BatchLoader, make_synthetic_cifar
 from betty_tpu_torch.models.darts import DARTSNetwork, derive_genotype, init_alphas
 from betty_tpu_torch.models.mlp import ACTIVATIONS, dense
 from betty_tpu_torch.module import from_fn, from_torch
+from betty_tpu_torch.parallel import local_rows
 from betty_tpu_torch.utils import fold_in, require_device, seeded_generator
 
 DIRECTION_FOLD = 0x4A4143  # the Jacobian direction's generator: fold_in(rng, this)
@@ -68,12 +69,17 @@ def input_grad(loss_fn, x):
 
 
 def _unit(u):
-    return u / (torch.sqrt(torch.sum(u ** 2)) + 1e-12)
+    """``u`` over its norm across the whole global batch (every rank's rows
+    under a data-parallel mesh)."""
+    return u / (torch.sqrt(parallel.global_sum(torch.sum(u ** 2))) + 1e-12)
 
 
 def _randn(rng, fold, like):
+    """A draw shaped like ``like``: this rank's rows of the global batch's
+    draw under a data-parallel mesh."""
     gen = seeded_generator(fold_in(rng, fold), like.device)
-    return torch.randn(like.shape, generator=gen, dtype=like.dtype, device=like.device)
+    return local_rows(like.shape, lambda shape: torch.randn(
+        shape, generator=gen, dtype=like.dtype, device=like.device))
 
 
 def jacobian_reg(loss_fn, x, rng, direction=None, grad=None):
@@ -90,7 +96,8 @@ def jacobian_reg(loss_fn, x, rng, direction=None, grad=None):
     if grad is None:
         _, grad = input_grad(loss_fn, x)
     u = _randn(rng, DIRECTION_FOLD, x) if direction is None else direction.to(x)
-    return torch.sum(grad * _unit(u)) ** 2
+    # a rank's input gradient is world x the global batch's on its rows
+    return parallel.global_mean(torch.sum(grad * _unit(u))) ** 2
 
 
 def cure_reg(loss_fn, x, h=1.0, grad=None):
@@ -106,7 +113,7 @@ def cure_reg(loss_fn, x, h=1.0, grad=None):
     norm = torch.sqrt(torch.sum(z.reshape(z.shape[0], -1) ** 2, dim=1) + 1e-12)
     z = h * z / norm.reshape(lead)
     _, shifted = input_grad(loss_fn, x.detach() + z)
-    diff = shifted - grad
+    diff = (shifted - grad) * parallel.rank_share()  # the global objective's input gradients
     return torch.mean(torch.sqrt(torch.sum(diff.reshape(diff.shape[0], -1) ** 2, dim=1)
                                  + 1e-12))
 
@@ -131,8 +138,8 @@ def curvature_reg(loss_fn, x, rng, iters=5, direction=None):
         v = _randn(rng, CURVATURE_FOLD, x) if direction is None else direction.to(x)
         v = _unit(v)
         for _ in range(iters):
-            v = _unit(hvp(v, False).detach())
-        return torch.sum(v * hvp(v, True))
+            v = _unit(hvp(v, False).detach() * parallel.rank_share())
+        return parallel.global_mean(torch.sum(v * hvp(v, True)))
 
 
 class Arch(ImplicitProblem):

@@ -8,8 +8,15 @@ context dict and evaluate losses on perturbed copies; no parameter is
 perturbed in place.
 
 Registered: ``darts``, ``sama``, ``cg``, ``neumann`` and ``reinforce``.
+
+Under a data-parallel strategy (a mesh bound by the problem's update) the
+starting vector is averaged over the ranks here when the caller did not
+(``v_by_child`` already is), and each solver returns a vector averaged over
+the ranks (``parallel.grad_mean``), so every rank chains the same global
+vectors and a solver's norms and scalars are global.
 """
 
+from betty_tpu_torch.parallel import grad_mean
 from betty_tpu_torch.utils import tree_add, grad
 
 from .cg import cg
@@ -58,7 +65,7 @@ def compute_path_grads(problem, ctx, states, batch, path_batches, rng, gas, v_by
                 return loss / gas
 
             with force_fp32(problem.config.solver_precision == "fp32"):
-                v = grad(child_loss)(ctx[child.name]["params"])
+                v = grad_mean(grad(child_loss)(ctx[child.name]["params"]))
         v = child.meta_filter_grad(v)
 
         for i in range(1, len(path) - 1):

@@ -11,7 +11,10 @@ With ``Config.use_fused_vector_ops`` the recurrence runs on the raveled
 parameter vector through the vector kernels (``ops/vector.py``): one
 ``fused_dot2`` on the first iteration and one ``cg_fused_step`` on every
 iteration. The step size stays a device tensor, so a solve on the card
-never waits for the host. Bilevel only, like the reference.
+never waits for the host. Bilevel only, like the reference. Under a
+data-parallel mesh every HVP and the cross term are averaged over the ranks
+(``hvp.py``), so the recurrence runs on global vectors and its scalars are
+the same on every rank.
 """
 
 import torch

@@ -5,9 +5,12 @@
     grad_n = d/d(prev) loss_curr(w - eps*v)
     out    = (grad_n - grad_p) / (2*eps)
 
-with ``loss_curr`` curr's training loss on its most recent batch.
+with ``loss_curr`` curr's training loss on its most recent batch. Under a
+data-parallel mesh ``v`` is global (so is ``eps``) and ``out`` is averaged
+over the ranks.
 """
 
+from betty_tpu_torch.parallel import grad_mean
 from betty_tpu_torch.utils import grad, tree_axpy, tree_map, tree_norm
 
 
@@ -32,4 +35,4 @@ def central_difference(vector, R, curr, prev, ctx, curr_batch, rng):
     grad_fn = grad(loss_at, argnums=1)
     grad_p = grad_fn(tree_axpy(eps, vector, w), prev_p)
     grad_n = grad_fn(tree_axpy(-eps, vector, w), prev_p)
-    return tree_map(lambda n, p: (n - p) / (2.0 * eps), grad_n, grad_p)
+    return grad_mean(tree_map(lambda n, p: (n - p) / (2.0 * eps), grad_n, grad_p))

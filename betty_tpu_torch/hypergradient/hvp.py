@@ -18,10 +18,15 @@ Hessian of the loss in ``w`` at ``(w0, prev0)``:
 over reverse in both modes, from a gradient graph of its own, as the JAX
 solvers take a fresh ``jax.vjp`` for it. ``utils.grad`` detaches its inputs
 and cannot be nested, hence this module's own differentiable gradient.
+
+Under a data-parallel mesh both are averaged over the ranks: the HVP of the
+global mean loss is the mean of the ranks' HVPs. The mean is taken on the
+output of ``torch.func.jvp`` / ``autograd.grad``, outside the transforms.
 """
 
 import torch
 
+from betty_tpu_torch.parallel import grad_mean
 from betty_tpu_torch.utils import tree_map
 
 
@@ -65,12 +70,12 @@ def make_hvp(loss_fn, w0, prev0, mode: str = "jvp"):
         grad_fn = torch.func.grad(lambda w: loss_fn(w, prev))
 
         def hvp(p):
-            return torch.func.jvp(grad_fn, (primals,), (p,))[1]
+            return grad_mean(torch.func.jvp(grad_fn, (primals,), (p,))[1])
 
         return hvp
     if mode == "vjp":
         w, _, g = _grad_graph(loss_fn, w0, prev0, prev_grad=False)
-        return lambda p: _vjp(g, p, w)
+        return lambda p: grad_mean(_vjp(g, p, w))
     raise ValueError(f"hvp_mode must be 'jvp' or 'vjp', got {mode!r}")
 
 
@@ -78,4 +83,4 @@ def cross_vjp(loss_fn, w0, prev0, x):
     """``(d g / d prev)^T x`` with ``g = d loss / d w`` at ``(w0, prev0)``,
     reverse over reverse: the solvers' mixed second-derivative term."""
     _, prev, g = _grad_graph(loss_fn, w0, prev0, prev_grad=True)
-    return _vjp(g, x, prev)
+    return grad_mean(_vjp(g, x, prev))

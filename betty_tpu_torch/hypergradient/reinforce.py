@@ -24,11 +24,14 @@ turn, one ``randn`` per leaf of the upper problem's parameters, in their
 order. So they are not JAX's threefry draws; a compiled block reseeds the
 generator before every replay and draws driver mode's directions. A
 ``directions`` callable ``(rng, i, prev_params) -> tree`` replaces the
-draws (tests inject JAX's).
+draws (tests inject JAX's). Under a data-parallel mesh every rank draws the
+same directions (the seed is the step's) and each loss evaluation is
+averaged over the ranks.
 """
 
 import torch
 
+from betty_tpu_torch.parallel import grad_mean
 from betty_tpu_torch.utils import (fold_in, seeded_generator, tree_axpy, tree_leaves, tree_map,
                                    tree_norm, tree_zeros_like)
 
@@ -47,7 +50,7 @@ def reinforce(vector, curr, prev, ctx, states, curr_batch, rng, directions=None)
         c = ctx_replace(ctx, curr.name, curr_params)
         c = ctx_replace(c, prev.name, prev_params)
         loss, _, _ = curr.eval_loss(c, curr_batch, rng=rng)
-        return loss
+        return grad_mean(loss)
 
     w = ctx[curr.name]["params"]
     prev_p = ctx[prev.name]["params"]

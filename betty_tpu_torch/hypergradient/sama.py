@@ -3,7 +3,8 @@ is preconditioned by the curvature of curr's Adam update, reconstructed
 from the post-step raw moments ``mu``/``nu`` and the cached ``last_grad``,
 then a darts-style central difference with ``R = sama_adam_alpha`` gives
 the best-response-Jacobian product. Under ``param_groups`` each leaf is
-preconditioned with its own group's learning rate, betas and eps."""
+preconditioned with its own group's learning rate, betas and eps. Under
+zero/fsdp the moments and ``last_grad`` are gathered whole first."""
 
 import torch
 
@@ -48,6 +49,7 @@ def precondition_adam(vector, curr, curr_state):
 
 
 def sama(vector, curr, prev, ctx, states, curr_batch, rng):
-    vector = precondition(vector, curr, states[curr.name])
+    vector = precondition(vector, curr,
+                          curr.full_state(states[curr.name], ("opt_state", "last_grad")))
     return central_difference(vector, curr.config.sama_adam_alpha, curr, prev, ctx,
                               curr_batch, rng)

@@ -19,11 +19,23 @@ BatchNorm of a bottleneck block) starts the weight at 0 instead of 1.
 A bfloat16 or float16 input (``precision="bf16"``) has its statistics
 taken in float32, and the running statistics it reports are float32, as
 flax's ``force_float32_reductions`` gives them.
+
+Under a data-parallel mesh (``parallel.current()``, bound by the problem's
+update) a train-mode forward normalizes with the statistics of the global
+batch, as JAX's BatchNorm over a dp-sharded batch does: the per-channel
+sums, sums of squares and counts go through the differentiable all-reduce
+(``parallel.global_sum``), the variance is flax's ``E[x^2] - E[x]^2``
+(clipped at 0), and the normalization is computed here from them, so its
+gradient (and its double backward) reaches every rank's examples; the
+running statistics are the global ones. ``nn.SyncBatchNorm`` is not used:
+it updates buffers in place and has no double backward.
 """
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from betty_tpu_torch import parallel
 
 
 class BatchNorm(nn.Module):
@@ -46,6 +58,8 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps)
+        if parallel.current() is not None:
+            return self._global_forward(x, updates)
         if updates is not None:
             dims = [d for d in range(x.dim()) if d != 1]
             stats_x = x.detach()
@@ -57,3 +71,25 @@ class BatchNorm(nn.Module):
             updates[(self, "running_mean")] = m * self.running_mean + (1 - m) * mean
             updates[(self, "running_var")] = m * self.running_var + (1 - m) * var
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+
+    def _global_forward(self, x, updates):
+        """Train mode on the global batch of the bound mesh."""
+        dims = [d for d in range(x.dim()) if d != 1]
+        xs = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+        count = torch.full((1,), float(xs.numel() // xs.shape[1]), dtype=xs.dtype,
+                           device=xs.device)
+        sums = parallel.global_sum(torch.cat([xs.sum(dim=dims), (xs * xs).sum(dim=dims),
+                                              count]))
+        c = xs.shape[1]
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        if updates is not None:
+            m = self.momentum
+            updates[(self, "running_mean")] = m * self.running_mean + (1 - m) * mean.detach()
+            updates[(self, "running_var")] = m * self.running_var + (1 - m) * var.detach()
+        shape = [1, c] + [1] * (x.dim() - 2)
+        y = (xs - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.weight is not None:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)

@@ -19,7 +19,11 @@ Dropout draws its masks from ``torch.Generator``s (``utils.seeded_generator``):
 the embedding dropout from one seeded with ``rngs["dropout"]``, block i's
 from its own, seeded with ``fold_in(rngs["dropout"], i + 1)`` and made
 inside the block. A forward repeated with the same seed draws the same
-masks, and so does a block recomputed in the backward.
+masks, and so does a block recomputed in the backward. Under a
+data-parallel mesh each rank draws the mask of the global batch and keeps
+its rows (``parallel.local_rows``: rows ``rank::world``, the rows its
+examples hold under ``shard_loader`` with ``shuffle=False``), so a
+data-parallel run draws the one-process run's masks at any dropout rate.
 
 ``remat=True`` recomputes each encoder block in the backward
 (``torch.utils.checkpoint``, non-reentrant), the counterpart of JAX's
@@ -66,6 +70,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from betty_tpu_torch.models.init import lecun_normal_, normal_
 from betty_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from betty_tpu_torch.parallel import local_rows
 from betty_tpu_torch.utils import fold_in, seeded_generator
 
 REMAT_POLICIES = (None, "minimal", "dots")
@@ -83,7 +88,8 @@ def _dropout(x, rate, generator):
     by 1 / (1 - rate). No-op without a generator (eval) or at rate 0."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = local_rows(x.shape, lambda shape: torch.rand(shape, generator=generator,
+                                                        device=x.device)) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

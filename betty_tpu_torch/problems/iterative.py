@@ -22,6 +22,13 @@ the running sum, and the optimizer step of ``_apply_optimizer`` (clipping,
 ``custom_optimizer_step``, ``param_callback``, ``last_grad``), with the
 scheduler frozen during a ``roll_back`` unroll as the eager steps freeze it.
 
+Under a data-parallel strategy each micro-step's gradient in the replay
+goes through the differentiable all-reduce (``parallel.all_reduce_tree``),
+whose backward is itself an all-reduce; with the mean over the ranks of the
+parent's gradient that gives the gradient of the global objective. Under
+zero/fsdp the replay starts from the whole tensors of the recorded state
+and steps whole tensors.
+
 MAML-style meta-initialization: override ``unroll_init(self, start_params)``
 to return the initial inner parameters as a function of other problems'
 parameters in the bound context (e.g. ``return self.outer.params``), so
@@ -39,6 +46,7 @@ MAML.
 
 from typing import Any, Dict, List, Optional
 
+from betty_tpu_torch import parallel
 from betty_tpu_torch.problems.problem import Problem, _CtxBinding
 from betty_tpu_torch.utils import StepSeed, tree_add, tree_zeros_like, value_and_grad
 
@@ -111,8 +119,10 @@ class IterativeProblem(Problem):
         the context ``ctx``; returns the post-unroll parameters. ``data``
         comes from :meth:`get_unroll_data` (or a compiled block's record of
         the same)."""
+        start = self.full_state({"params": data["start_params"],
+                                 "opt_state": data["start_opt_state"]})
         with _CtxBinding(ctx, None, rng):
-            init_params = self.unroll_init(data["start_params"])
+            init_params = self.unroll_init(start["params"])
 
         batches = data["batches"]
         gas = self.gas
@@ -127,7 +137,7 @@ class IterativeProblem(Problem):
         state = {
             "params": init_params,
             "extra": data.get("start_extra", ctx[self.name]["extra"]),
-            "opt_state": data["start_opt_state"],
+            "opt_state": start["opt_state"],
             "sched_step": data["start_sched_step"],
             "grad_acc": tree_zeros_like(init_params),
         }
@@ -151,7 +161,7 @@ class IterativeProblem(Problem):
 
                 (_, mutated), g = value_and_grad(loss_fn, state["params"], argnums=0,
                                                  has_aux=True, create_graph=True)
-                grad_acc = tree_add(grad_acc, g)
+                grad_acc = tree_add(grad_acc, parallel.all_reduce_tree(g, "mean"))
                 if mutated:
                     extra = {**extra, **mutated}
                 if self.is_implemented("grad_callback"):
@@ -176,7 +186,7 @@ class IterativeProblem(Problem):
             c[self.name] = {"params": state["params"], "extra": extra}
             # cross-problem edits of param_callback apply on the eager path
             # only: the replay returns this problem's parameters
-            step_state, _ = self._apply_optimizer(step_state, c, rng)
+            step_state, _ = self._apply_optimizer(step_state, c, rng, sharded=False)
             if advance:
                 step_state["sched_step"] = step_state["sched_step"] + 1
             state = step_state

@@ -32,16 +32,31 @@ problem's).
 A problem that defines ``param_groups()`` gets a grouped optimizer
 (``optim.grouped``) with its optimizer as the template: per-group
 learning rates, momentum and schedules (``init_state``).
+
+Under a data-parallel strategy (``EngineConfig(strategy="dp" | "zero" |
+"fsdp")``, ``betty_tpu_torch/parallel``) the update runs with the engine's
+mesh bound: the direct gradient and the joint ``v_by_child`` are averaged
+over the ranks before they are used or accumulated, and the logged losses
+are the ranks' mean. Under ``fsdp`` the state keeps only this rank's shard
+of the sharded leaves of ``params``, ``grad_acc``, ``last_grad`` and
+``opt_state`` (``_shard_dims``): every problem's parameters are gathered
+for each update (and for ``params``, ``set_params`` and a forward outside
+one, which every rank must then make), the direct gradient of a sharded
+leaf is reduce-scattered to its shard, and the optimizer steps the shards. Under ``zero`` only the
+optimizer state is sharded: the optimizer steps this rank's shard of the
+parameters and the new parameters are all-gathered. ``full_state`` gives
+the whole tensors of a state; ``state_dict`` hands them out.
 """
 
 import abc
+import contextlib
 from typing import Any, Callable, Dict, List, Optional
 import zlib
 
 import numpy as np
 import torch
 
-from betty_tpu_torch import utils
+from betty_tpu_torch import parallel, utils
 from betty_tpu_torch.configs import Config
 from betty_tpu_torch.module import FunctionalModule, ensure_module
 from betty_tpu_torch.utils import (
@@ -67,6 +82,7 @@ _CAPTURED_MUTATIONS: Dict[str, Any] = {}
 _TRACE_RNG: Optional[int] = None
 _TRACE_RNG_CALLS: int = 0
 _FORCE_FP32: bool = False
+_NO_MESH = contextlib.nullcontext()  # ``Problem._scope`` of the one-process path
 
 
 class force_fp32:
@@ -218,6 +234,8 @@ class Problem(abc.ABC):
         self._trace_grads = None
         self._meta_mask = None
         self._update_fns: Dict[Any, Callable] = {}
+        # state key -> tree of shard dims (None: replicated) under zero/fsdp
+        self._shard_dims: Dict[str, Any] = {}
 
         # per-problem random stream, derived stably from the name
         self._rng_seed = zlib.crc32(name.encode()) & 0x7FFFFFFF
@@ -264,10 +282,11 @@ class Problem(abc.ABC):
     @property
     def params(self):
         """Current parameters: the bound context's inside a loss evaluation,
-        the engine state's otherwise."""
+        the engine state's otherwise (under fsdp gathered whole: a
+        collective, so every rank reads them)."""
         if _TRACE_CTX is not None and self._name in _TRACE_CTX:
             return _TRACE_CTX[self._name]["params"]
-        return self.state["params"]
+        return self.full_state(self.state, ("params",))["params"]
 
     def set_params(self, new_params):
         """Functional parameter mutation, inside a bound context or on the
@@ -277,7 +296,8 @@ class Problem(abc.ABC):
             _TRACE_CTX = ctx_replace(_TRACE_CTX, self._name, new_params)
         else:
             st = dict(self.state)
-            st["params"] = tree_map(torch.clone, new_params)
+            st["params"] = self.shard_full_state(
+                {"params": tree_map(torch.clone, new_params)})["params"]
             self.state = st
 
     @property
@@ -341,12 +361,49 @@ class Problem(abc.ABC):
             if not isinstance(self.train_data_loader, tuple):
                 self.train_data_loader = (self.train_data_loader,)
             self.train_data_loader = list(self.train_data_loader)
+            if engine.mesh is not None and engine.config.autoshard_data:
+                self._shard_loaders(engine.mesh)
             self.train_data_iterator = [iter(dl) for dl in self.train_data_loader]
             self.epoch_counter = [0 for _ in self.train_data_loader]
             self.batches_served = [0 for _ in self.train_data_loader]
         else:
             assert type(self).get_batch is not Problem.get_batch, (
                 f"Problem {self._name} requires a data loader or a get_batch override")
+
+    def _shard_loaders(self, mesh):
+        """Each rank keeps its examples ``rank::world`` of every
+        ``ArrayLoader`` (``data.shard_loader``), so the global batch is the
+        local batch times the ranks (``betty_tpu/problems/problem.py:382-410``).
+        Other loaders cannot be cut and serve every rank the same batches:
+        a loud warning. The ranks' loaders must give the same number of
+        batches an epoch, or the ranks' collectives would fall out of step:
+        that raises."""
+        import torch.distributed as dist
+
+        from betty_tpu_torch.data.loader import ArrayLoader, shard_loader
+
+        self.train_data_loader = [shard_loader(dl, mesh.rank, mesh.world)
+                                  if isinstance(dl, ArrayLoader) else dl
+                                  for dl in self.train_data_loader]
+        unsharded = [type(dl).__name__ for dl in self.train_data_loader
+                     if not isinstance(dl, ArrayLoader)]
+        if unsharded:
+            from betty_tpu_torch.logging import get_logger
+
+            get_logger().warning(
+                f"[Betty-Torch] problem {self._name!r}: loaders {unsharded} cannot be "
+                f"auto-sharded across {mesh.world} ranks; each rank will contribute an "
+                "identical local batch (duplicated examples in the global batch). Shard "
+                "these loaders per rank yourself, or use ArrayLoader.")
+        lens = [len(dl) if hasattr(dl, "__len__") else -1 for dl in self.train_data_loader]
+        # every rank sees the same max and min, so all raise or none
+        both = torch.tensor(lens + [-n for n in lens], dtype=torch.float64,
+                            device=self._engine.device)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.group)
+        if not torch.equal(both[:len(lens)], -both[len(lens):]):
+            raise ValueError(f"problem {self._name!r}: the ranks' loaders give different "
+                             f"numbers of batches an epoch (this rank {lens}); make the "
+                             "examples divide evenly over the ranks")
 
     def init_state(self, rng=None) -> Dict[str, Any]:
         """Build the initial state dict of this problem on the engine's
@@ -389,7 +446,7 @@ class Problem(abc.ABC):
             entry = _TRACE_CTX[self._name]
             params, extra = entry["params"], entry["extra"]
         else:
-            st = self.state
+            st = self.full_state(self.state, ("params",))
             params, extra = st["params"], st["extra"]
 
         variables = {"params": params, **extra}
@@ -408,14 +465,15 @@ class Problem(abc.ABC):
         # collections (running statistics update once per step); the others
         # run in the same mode without computing them
         mutable = self.module_fn.mutable_collections if self._training else ()
-        if (mutable and _ACTIVE_CAPTURE == self._name
-                and self._name not in _CAPTURED_MUTATIONS):
-            out, mutated = self.module_fn.apply(variables, *args, train=self._training,
-                                                rngs=rngs, mutable=mutable, **kwargs)
-            _CAPTURED_MUTATIONS[self._name] = mutated
-            return out
-        return self.module_fn.apply(variables, *args, train=self._training, rngs=rngs,
-                                    mutable=(), **kwargs)
+        with self._scope():
+            if (mutable and _ACTIVE_CAPTURE == self._name
+                    and self._name not in _CAPTURED_MUTATIONS):
+                out, mutated = self.module_fn.apply(variables, *args, train=self._training,
+                                                    rngs=rngs, mutable=mutable, **kwargs)
+                _CAPTURED_MUTATIONS[self._name] = mutated
+                return out
+            return self.module_fn.apply(variables, *args, train=self._training, rngs=rngs,
+                                        mutable=(), **kwargs)
 
     @abc.abstractmethod
     def training_step(self, batch):
@@ -432,7 +490,7 @@ class Problem(abc.ABC):
         saved_mut = _CAPTURED_MUTATIONS
         _CAPTURED_MUTATIONS = {}
         try:
-            with _CtxBinding(ctx, self._name if capture else None, rng):
+            with _CtxBinding(ctx, self._name if capture else None, rng), self._scope():
                 maybe_loss_dict = self.training_step_exec(batch)
             mutated = _CAPTURED_MUTATIONS.get(self._name, None)
         finally:
@@ -448,6 +506,82 @@ class Problem(abc.ABC):
                 if key != "loss":
                     loss_dict[key] = value
         return loss, loss_dict, mutated
+
+    # ------------------------------------------------------------------
+    # data-parallel layout
+    # ------------------------------------------------------------------
+    def _mesh(self):
+        return None if self._engine is None else self._engine.mesh
+
+    def _scope(self):
+        """The scope that binds the mesh for the collectives
+        (``parallel.active``); a shared no-op without a mesh."""
+        mesh = self._mesh()
+        return _NO_MESH if mesh is None else parallel.active(mesh)
+
+    def full_state(self, state=None, keys=None):
+        """``state`` (default this problem's) with the whole tensors of its
+        shards (``keys``: only those state keys). A collective under
+        zero/fsdp: every rank calls it."""
+        state = self.state if state is None else state
+        if not self._shard_dims:
+            return state
+        out = dict(state)
+        for k, dims in self._shard_dims.items():
+            if k in out and (keys is None or k in keys):
+                out[k] = parallel.gather_shards(out[k], dims, self._mesh())
+        return out
+
+    def shard_full_state(self, state):
+        """A whole-tensor ``state`` cut to this rank's shards (no
+        communication): the inverse of ``full_state``."""
+        if not self._shard_dims:
+            return state
+        out = dict(state)
+        for k, dims in self._shard_dims.items():
+            if k in out:
+                out[k] = parallel.mesh.shard_tree(out[k], dims, self._mesh())
+        return out
+
+    def full_state_like(self, state):
+        """Templates of the whole tensors of a sharded ``state`` (empty
+        tensors; no communication)."""
+        if not self._shard_dims:
+            return state
+        out = dict(state)
+        for k, dims in self._shard_dims.items():
+            if k in out:
+                out[k] = parallel.mesh.full_shape_like(out[k], dims, self._mesh())
+        return out
+
+    def _param_shard_dims(self):
+        """The parameters' shard dims where the optimizer steps shards:
+        fsdp's (the state holds shards) or, under zero, the rule applied to
+        the parameters (the optimizer state's shards)."""
+        if "params" in self._shard_dims:
+            return self._shard_dims["params"]
+        if "opt_state" in self._shard_dims:
+            return parallel.fsdp_shardings(self.state["params"], self._mesh(),
+                                           min_size=parallel.mesh.FSDP_MIN_SIZE)
+        return None
+
+    def _reduce_direct(self, dgrad, v_by_child, loss_dict):
+        """The direct gradient, the joint child vectors and the logged
+        losses averaged over the ranks; under fsdp the sharded leaves of
+        the gradient reduce-scattered to this rank's shards."""
+        mesh = self._mesh()
+        dims = self._shard_dims.get("params")
+        if dims:
+            dgrad = parallel.reduce_scatter_mean(dgrad, dims, mesh)
+            v_by_child, loss_dict = parallel.grad_mean((v_by_child, loss_dict), mesh)
+        else:
+            dgrad, v_by_child, loss_dict = parallel.grad_mean((dgrad, v_by_child, loss_dict),
+                                                              mesh)
+        return dgrad, v_by_child, loss_dict
+
+    def is_rank_zero(self) -> bool:
+        """Rank 0 of the process group (``betty_tpu/problems/problem.py:1078``)."""
+        return parallel.is_rank_zero()
 
     # ------------------------------------------------------------------
     def set_meta_mask(self, mask):
@@ -489,8 +623,17 @@ class Problem(abc.ABC):
                    and not (set(path_children) & itd_names))
 
         def update(states, batch, path_batches, itd_data, rng):
+            with problem._scope():
+                return _update(states, batch, path_batches, itd_data, rng)
+
+        def _update(states, batch, path_batches, itd_data, rng):
+            mesh = problem._mesh()
             ctx = {name: {"params": s["params"], "extra": s["extra"]}
                    for name, s in states.items()}
+            if mesh is not None:  # fsdp: every problem's parameters whole for the update
+                for p in problem._engine.problems:
+                    if p.name in ctx:
+                        ctx[p.name]["params"] = p.full_state(states[p.name], ("params",))["params"]
             gas = float(problem.gas)
 
             def direct_loss(own_params, child_params):
@@ -514,11 +657,16 @@ class Problem(abc.ABC):
                 dgrad, v_by_child = grad_out
             else:
                 dgrad, v_by_child = grad_out, None
+            if mesh is not None:
+                dgrad, v_by_child, loss_dict = problem._reduce_direct(dgrad, v_by_child,
+                                                                      loss_dict)
 
             grads = dgrad
             if has_paths:
                 hyper = compute_path_grads(problem, ctx, states, batch, path_batches, rng,
                                            gas, v_by_child=v_by_child)
+                if "params" in problem._shard_dims:
+                    hyper = parallel.mesh.shard_tree(hyper, problem._shard_dims["params"], mesh)
                 grads = tree_add(grads, hyper)
 
             state = dict(states[problem._name])
@@ -530,14 +678,17 @@ class Problem(abc.ABC):
 
             cross_updates = {}
             if problem.is_implemented("grad_callback"):
-                problem._trace_grads = state["grad_acc"]
+                # the hook sees whole tensors; under fsdp they are cut back
+                whole = problem.full_state(state, ("params", "grad_acc"))
+                problem._trace_grads = whole["grad_acc"]
                 hook_ctx = dict(ctx)
-                hook_ctx[problem._name] = {"params": state["params"], "extra": state["extra"]}
+                hook_ctx[problem._name] = {"params": whole["params"], "extra": state["extra"]}
                 with _CtxBinding(hook_ctx, None, rng):
                     problem.grad_callback()
-                    cross_updates.update(_collect_cross_ctx(_TRACE_CTX, hook_ctx,
-                                                            problem._name))
-                state["grad_acc"] = problem._trace_grads
+                    cross_updates.update(problem._cut_cross(
+                        _collect_cross_ctx(_TRACE_CTX, hook_ctx, problem._name)))
+                state["grad_acc"] = problem.shard_full_state(
+                    {"grad_acc": problem._trace_grads})["grad_acc"]
                 problem._trace_grads = None
 
             if apply_update:
@@ -560,19 +711,42 @@ class Problem(abc.ABC):
 
         return update
 
-    def _apply_optimizer(self, state, ctx, rng):
+    def _apply_optimizer(self, state, ctx, rng, sharded: bool = True):
         """Optimizer step at a gradient-accumulation boundary. Returns
         ``(new_state, cross_updates)``; ``cross_updates`` carries params/extra
-        that ``param_callback`` set on other problems."""
+        that ``param_callback`` set on other problems. ``sharded``: ``state``
+        is in the engine's layout (under zero/fsdp the optimizer steps this
+        rank's shards); False for a state of whole tensors (an ITD
+        replay)."""
         global _TRACE_CTX
         grads = state["grad_acc"]
         cross_updates = {}
+        dims = self._shard_dims if sharded else {}
+        mesh = self._mesh()
+        pdims = dims.get("params")
         if self.gradient_clipping > 0.0:
-            grads = clip_by_global_norm(grads, self.gradient_clipping)
+            # the global norm of the whole gradient, as in dp
+            whole = parallel.gather_shards(grads, pdims, mesh) if pdims else grads
+            grads = clip_by_global_norm(whole, self.gradient_clipping)
+            if pdims:
+                grads = parallel.mesh.shard_tree(grads, pdims, mesh)
 
         if self.is_implemented("custom_optimizer_step"):
-            new_params = self.custom_optimizer_step(state["params"], grads, state)
+            whole = self.full_state({**state, "grad_acc": grads}) if dims else \
+                {**state, "grad_acc": grads}
+            new_params = self.custom_optimizer_step(whole["params"], whole["grad_acc"], whole)
+            if pdims:
+                new_params = parallel.mesh.shard_tree(new_params, pdims, mesh)
             new_opt_state = state["opt_state"]
+        elif "opt_state" in dims and not pdims:
+            # zero: step this rank's shard of the parameters, gather the result
+            udims = self._param_shard_dims()
+            p_shard = parallel.mesh.shard_tree(state["params"], udims, mesh)
+            g_shard = parallel.mesh.shard_tree(grads, udims, mesh)
+            updates, new_opt_state = self.optimizer.update(
+                g_shard, state["opt_state"], p_shard, sched_step=state["sched_step"])
+            new_params = parallel.gather_shards(tree_map(torch.add, p_shard, updates), udims,
+                                                mesh)
         else:
             updates, new_opt_state = self.optimizer.update(
                 grads, state["opt_state"], state["params"], sched_step=state["sched_step"])
@@ -586,15 +760,35 @@ class Problem(abc.ABC):
 
         if self.is_implemented("param_callback"):
             base = {k: dict(v) for k, v in ctx.items()}
-            base[self._name] = {"params": state["params"], "extra": state["extra"]}
+            whole = parallel.gather_shards(state["params"], pdims, mesh) if pdims else \
+                state["params"]
+            base[self._name] = {"params": whole, "extra": state["extra"]}
             with _CtxBinding(base, None, rng):
                 self.param_callback()
-                state["params"] = _TRACE_CTX[self._name]["params"]
+                new_params = _TRACE_CTX[self._name]["params"]
+                state["params"] = (parallel.mesh.shard_tree(new_params, pdims, mesh) if pdims
+                                   else new_params)
                 state["extra"] = _TRACE_CTX[self._name]["extra"]
-                cross_updates.update(_collect_cross_ctx(_TRACE_CTX, base, self._name))
+                cross = _collect_cross_ctx(_TRACE_CTX, base, self._name)
+                cross_updates.update(self._cut_cross(cross) if sharded else cross)
 
         state["grad_acc"] = tree_zeros_like(state["grad_acc"])
         return state, cross_updates
+
+    def _cut_cross(self, cross):
+        """Cross-problem edits of a hook (whole parameters) cut to each
+        problem's layout."""
+        if self._mesh() is None:
+            return cross
+        problems = {p.name: p for p in self._engine.problems}
+        out = {}
+        for name, entry in cross.items():
+            entry = dict(entry)
+            if name in problems:
+                entry["params"] = problems[name].shard_full_state(
+                    {"params": entry["params"]})["params"]
+            out[name] = entry
+        return out
 
     def _get_update_fn(self, apply_update: bool, advance_sched: bool = True) -> Callable:
         key = (bool(apply_update), bool(advance_sched))
@@ -738,11 +932,12 @@ class Problem(abc.ABC):
         return bool(self._count % self.gas == 0)
 
     def state_dict(self) -> Dict[str, Any]:
-        """This problem's whole state as host tensors (copies); integer leaves
-        (Adam's ``count``, ``sched_step``) stay integers."""
+        """This problem's whole state as host tensors (copies; under
+        zero/fsdp the whole tensors of the shards, a collective); integer
+        leaves (Adam's ``count``, ``sched_step``) stay integers."""
         from betty_tpu_torch.checkpoint import to_host
 
-        return to_host(self.state)
+        return to_host(self.full_state())
 
     def load_state_dict(self, state_dict):
         """Put a state from :meth:`state_dict` back, each tensor on the
@@ -750,8 +945,9 @@ class Problem(abc.ABC):
         structure or shape raises ``ValueError`` naming both."""
         from betty_tpu_torch.checkpoint import restore_like
 
-        self.state = restore_like(self.state, state_dict,
-                                  f"load_state_dict for problem {self._name!r}")
+        self.state = self.shard_full_state(restore_like(
+            self.full_state_like(self.state), state_dict,
+            f"load_state_dict for problem {self._name!r}"))
 
     def log(self, stats, global_step):
         loss_log = log_from_loss_dict(stats)

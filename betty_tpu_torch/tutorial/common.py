@@ -36,8 +36,8 @@ def make_imbalanced_mnist(n=2048, imbalance=20, seed=0):
 
 
 class Loader(ArrayLoader):
-    def __init__(self, x, y, batch_size, seed=0, device=False):
-        super().__init__(x, y, batch_size=batch_size, seed=seed, device=device)
+    def __init__(self, x, y, batch_size, seed=0, device=False, shuffle=True):
+        super().__init__(x, y, batch_size=batch_size, seed=seed, device=device, shuffle=shuffle)
 
 
 class Reweight(ImplicitProblem):

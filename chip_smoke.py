@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases kernels,programs  # ... IUC, learning by ignoring, iMAML
     python3 chip_smoke.py --phases kernels,pruning,ppo  # ... ImageNet data pruning, PPO
     python3 chip_smoke.py --phases kernels,moe,tutorials  # ... Switch MoE, the tutorials
+    python3 chip_smoke.py --phases kernels,dist    # ... dp/zero/fsdp over torch.distributed
 
 Phases:
 
@@ -108,7 +109,7 @@ Phases:
    ``EngineConfig.profile_dir`` trace in both modes; then the flagship's
    defaults (ResNet-32 B128, fp32, a MultiStepLR at 10000/13000) as ITD at
    unroll 1 and 5 and as reinforce (4 samples), driver mode then compiled:
-   2 + 4 timed periods and a profiled one each (period, busy, idle share,
+   2 + 3 timed periods and a profiled one each (period, busy, idle share,
    launches, peak memory, capture), the two modes' parameters, losses and
    norms, finite losses, no launch of the port's kernels.
 8. checkpoint: engine checkpoints (``betty_tpu_torch/checkpoint.py``)
@@ -147,13 +148,13 @@ Phases:
    the CPU from the same weights within 1e-9, and compiled against driver
    mode on the card bit for bit. Then the search at the published DARTS
    width (C16 L8 B64, float32, TF32 off; 1,401 leaves and 929 BatchNorms
-   held), driver mode then compiled: 2 + 3 timed periods and a profiled
+   held), driver mode then compiled: 2 + 2 timed periods and a profiled
    one each (period, busy, idle, launches, device time by op class, peak
    memory, capture), fixed-batch losses of the first periods within 1e-3
    between the modes, a genotype of 8 + 8 edges, 0 launches of B1-B8; and
    the evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2 C36 L20
    B96, auxiliary 0.4, drop-path 0.2, cutout 16, grad clip 5) in both
-   modes, 2 + 3 timed steps and a profiled one. Each of its lines carries
+   modes, 2 + 2 timed steps and a profiled one. Each of its lines carries
    the card's name and power limit.
 11. robust: robust NAS (``examples/robust_nas.py``: the DARTS search whose
    classifier loss adds the input-Jacobian and CURE terms, second order
@@ -212,7 +213,7 @@ Phases:
    CPU within 1e-9. Then ResNet-50 at the JAX example's defaults (B32,
    224x224, 1,000 classes, ``--gas 1``, TF32 off, ``--device_data``): fp32
    in driver mode and compiled, ``--augment device`` (crops 224) and
-   ``--precision bf16`` compiled; 3 + 8 timed periods and a profiled one
+   ``--precision bf16`` compiled; 3 + 5 timed periods and a profiled one
    each (period, busy, idle, launches, device time by op class, peak,
    capture and its warm-up part), counts 1:1 a period and one path into the
    reweighter, the batch statistics float32, the fixed-batch losses after
@@ -254,6 +255,22 @@ Phases:
    read back, 8's printed norm); tutorial 6's four configurations'
    meta-steps/s; ``prefetch_to_device`` on the card (batches equal to the
    host's, in order). B1-B8 launch 0 times in both phases.
+17. dist: the data-parallel strategies over ``torch.distributed``, each
+   leg in subprocesses of this script (``--dist-worker``) with a timeout;
+   any rank's failure or timeout fails the phase. A world of one over NCCL
+   (the collectives made over one rank): the north star (the ``slice``
+   argv: RoBERTa-large S128 B32, SAMA, bf16, ``--flash``) for 2
+   meta-periods under ``--strategy default`` and under ``--strategy
+   fsdp`` at the same seed, parameters and every step's loss equal bit for
+   bit, B1/B2 at 432/288 in both, each period, the peak memory, and one
+   profiled period of each with the collective calls and the NCCL kernels
+   (at one rank NCCL runs them as device copies) with their device time;
+   then the small reweighting run under dp and zero against default, and
+   compiled fsdp against driver, bit for bit. Before it, two ranks on the one card
+   over gloo with CUDA tensors (NCCL takes one rank a device): tutorial 5's
+   program in float64 under dp, zero and fsdp, held to this process's
+   one-process run on the global batch (1e-10) and zero/fsdp to dp bit for
+   bit.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -1813,7 +1830,7 @@ def _param_norm(states, name):
     return float(torch.sqrt(sum((t.double() ** 2).sum() for t in states[name]["params"].values())))
 
 
-def itd_full_cell(variant, unroll, warmup=2, steady=4):
+def itd_full_cell(variant, unroll, warmup=2, steady=3):
     """The flagship's defaults (ResNet-32 B128, fp32, TF32 off, SGD 0.1
     nesterov with weight decay 5e-4 under a MultiStepLR at the reference's
     milestones 10000 and 13000, Adam 1e-5, data on the device) as
@@ -2410,7 +2427,7 @@ def _nas_eval_loss(engine):
         return float(engine.network.eval_loss(ctx, batch)[0])
 
 
-def nas_search_cell(card, warmup=2, steady=3):
+def nas_search_cell(card, warmup=2, steady=2):
     """The DARTS search at its published width (C16 L8 B64, float32, TF32
     off; SGD 0.025 momentum 0.9 with cosine LR, Adam 3e-4 on the alphas,
     unroll 1, roll-back; synthetic CIFAR in the default host loaders),
@@ -2479,7 +2496,7 @@ def nas_search_cell(card, warmup=2, steady=3):
     return out
 
 
-def nas_eval_cell(card, warmup=2, steady=3):
+def nas_eval_cell(card, warmup=2, steady=2):
     """The evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2, C36
     L20 B96, auxiliary head 0.4, drop-path 0.2, cutout 16, grad clip 5,
     float32, TF32 off): driver mode, then compiled blocks (one replay a
@@ -3312,7 +3329,7 @@ def _transform_device_ms(engine):
     return sum(t for t, _, _ in kernels), sum(c for _, c, _ in kernels)
 
 
-def pruning_cell(name, card, warmup=3, steady=8):
+def pruning_cell(name, card, warmup=3, steady=5):
     """ImageNet data pruning at the JAX example's defaults (ResNet-50, B32,
     224x224, 1,000 classes, ``--gas 1``, TF32 off, ``--device_data``),
     ``name``: fp32 in driver mode and compiled, ``--augment device``
@@ -3862,8 +3879,8 @@ def moe_phase(card):
 # driver iteration of 1 and 2 takes about 16 ms on the card (3,000: 49 s each)
 # and the moe and tutorials phases are held to 120 s together
 TUTORIAL_ITERS = {  # 1, 2, 3 and 4 cut from 3,000, 3,000, 1,000 and 2,000 for the time limit
-    "1_quick_start": 500, "1_quick_start --baseline": 500, "2_validation": 500,
-    "3_logging": 500, "4_memory_optimization": 500, "8_custom_solver": 100,
+    "1_quick_start": 250, "1_quick_start --baseline": 250, "2_validation": 250,
+    "3_logging": 250, "4_memory_optimization": 250, "8_custom_solver": 100,
 }
 
 
@@ -4045,6 +4062,330 @@ def tutorials_phase(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# dist: the data-parallel strategies (dp, zero, fsdp) over torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT = 300  # seconds a leg's ranks may take, set-up included
+DIST_OP_TIMEOUT = 120  # seconds a collective may wait for the other ranks
+NORTH_ARGV = ["--model", "large", "--hypergradient", "sama", "--precision", "bf16",
+              "--solver_precision", "fp32", "--unroll_steps", "5", "--batch_size", "32",
+              "--seq_len", "128", "--device_data", "--train_iters", "10", "--train_size", "2048",
+              "--meta_size", "512", "--device", "cuda", "--flash"]
+DIST_T5_ARGV = ["--device", "cuda", "--train_iters", "12", "--no_shuffle", "--backend", "gloo"]
+DIST_T5_BATCH = 64  # a rank's batch: the one-process run loads twice that
+
+
+def _dist_launch(mode, world, out, extra_env=None):
+    """``world`` ranks of ``--dist-worker mode out`` on a free local port,
+    started together: the ``Popen``s."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, BETTY_COORDINATOR_ADDRESS=f"localhost:{port}",
+                   BETTY_NUM_PROCESSES=str(world), BETTY_PROCESS_ID=str(rank),
+                   **(extra_env or {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker", mode, out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _dist_wait(tag, procs, deadline):
+    """Wait for every rank; any failure or timeout kills the rest and
+    raises. Logs each rank's output."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.time()))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{tag}: a rank passed the {DIST_TIMEOUT} s limit")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("[dist") or "Error" in line or "error" in line:
+                log(f"{tag} rank {rank}: {line}")
+        assert p.returncode == 0, f"{tag}: rank {rank} exited {p.returncode}:\n{out[-3000:]}"
+
+
+def _t5_engine(strategy, batch):
+    """Tutorial 5's program on the card in float64."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from betty_tpu_torch.utils import tree_map
+
+    t5 = importlib.import_module("betty_tpu_torch.tutorial.5_distributed_training")
+    engine = t5.build_engine(t5.parse_args(DIST_T5_ARGV + ["--strategy", strategy,
+                                                           "--batch_size", str(batch)]))
+    engine.states = tree_map(lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point()
+                             else t, engine.states)
+    for p in engine.problems:
+        for dl in p.train_data_loader:
+            dl.arrays = (np.asarray(dl.arrays[0], np.float64),) + tuple(dl.arrays[1:])
+    return engine
+
+
+def _whole_params(engine):
+    return {p.name: {k: v.detach().cpu().clone() for k, v in p.full_state()["params"].items()}
+            for p in engine.problems}
+
+
+def _north_run(strategy, tag):
+    """Two north-star meta-periods under ``strategy``: ``(params on the
+    card, losses, periods, peak bytes, launches, engine)``."""
+    import torch
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+
+    t0 = time.time()
+    engine = ex.build_engine(ex.parse_args(NORTH_ARGV + ["--strategy", strategy]))
+    torch.cuda.synchronize()
+    log(f"{tag} build_engine {time.time() - t0:.1f} s")
+    losses, ends = [], []
+    for prob in (engine.classifier, engine.reweight):
+        orig = prob.one_step_descent
+
+        def record(*a, _orig=orig, _name=prob.name, **kw):
+            out = _orig(*a, **kw)
+            losses.append((_name, out["loss"].detach().clone()))
+            if _name == "reweight":
+                torch.cuda.synchronize()
+                ends.append(time.time())
+            return out
+
+        prob.one_step_descent = record
+    reset, counters = _counters("sama")
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.time()
+    engine.run()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    periods = [b - a for a, b in zip([t0] + ends, ends)]
+    peak = torch.cuda.max_memory_allocated()
+    params = {p.name: {k: v.clone() for k, v in p.full_state()["params"].items()}
+              for p in engine.problems}
+    return params, list(losses), periods, peak, launches, engine
+
+
+def _nccl_kind(name):
+    if "nccl" in name.lower():
+        return "nccl"
+    return "copy DtoD" if "memcpy dtod" in name.lower() else "other"
+
+
+def _count_collectives():
+    """Counts of the collective calls the port makes, by name (the
+    ``torch.distributed`` functions wrapped in place)."""
+    import torch.distributed as dist
+
+    counts = {}
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        orig = getattr(dist, name)
+
+        def wrapped(*a, _orig=orig, _name=name, **kw):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _orig(*a, **kw)
+
+        setattr(dist, name, wrapped)
+    return counts
+
+
+def _dist_north(go):
+    """World of one over NCCL: the north star under default, then fsdp,
+    once the file ``go`` exists (the card is then this process's alone)."""
+    import torch
+    from betty_tpu_torch import parallel
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+
+    deadline = time.time() + DIST_TIMEOUT
+    while not os.path.exists(go):
+        if time.time() > deadline:
+            raise TimeoutError(f"no {go} after {DIST_TIMEOUT} s")
+        time.sleep(0.1)
+    parallel.maybe_init_distributed("cuda", timeout=DIST_OP_TIMEOUT)
+    assert torch.distributed.get_backend() == "nccl" and torch.distributed.get_world_size() == 1
+    calls = _count_collectives()
+    runs = {}
+    for strategy in ("default", "fsdp"):
+        tag = f"[dist north {strategy}]"
+        params, losses, periods, peak, launches, engine = _north_run(strategy, tag)
+        log(f"{tag} meta-period seconds {periods} (the first includes warm-up); peak "
+            f"{peak / 2**30:.2f} GiB; launches {launches}")
+        assert launches == SAMA_S128, (launches, SAMA_S128)
+        assert all(math.isfinite(float(x)) for _, x in losses)
+        runs[strategy] = (params, losses, periods, peak)
+        if strategy == "fsdp":
+            held = {k: list(v.shape) for k, v in list(engine.states["classifier"]["params"]
+                                                      .items())[:2]}
+            log(f"{tag} first classifier leaves as held (one rank: whole) {held}; shard dims "
+                f"of the state: {sorted(engine.classifier._shard_dims)}")
+        # one more period of each under the profiler, the copies and NCCL
+        # kernels apart
+        calls.clear()
+        rep = profile_period(engine, 5, f"{tag}", classify=_nccl_kind)
+        kernels = (rep or {}).get("kernels", [])
+        for kind in ("nccl", "copy DtoD"):
+            ks = [(t, c) for t, c, n in kernels if _nccl_kind(n) == kind]
+            log(f"{tag} {kind} in the profiled period: {sum(c for _, c in ks)} launches, "
+                f"{sum(t for t, _ in ks):.3f} ms device time")
+        log(f"{tag} collective calls in the profiled period: {dict(calls)}")
+        assert (sum(calls.values()) > 0) == (strategy == "fsdp"), calls
+        del engine
+        _free()
+    (pa, la, _, _), (pb, lb, _, _) = runs["default"], runs["fsdp"]
+    same = all(torch.equal(pa[n][k], pb[n][k]) for n in pa for k in pa[n])
+    same_losses = len(la) == len(lb) and all(
+        a[0] == b[0] and torch.equal(a[1], b[1]) for a, b in zip(la, lb))
+    log(f"[dist north] fsdp vs default at a world of one: parameters bit-equal {same}, "
+        f"{len(la)} losses bit-equal {same_losses}")
+    assert same and same_losses
+    del runs, pa, pb
+    _free()
+    # dp and zero at small width, the same check
+    argv = SMALL_ARGV + ["--hypergradient", "sama", "--flash", "--dropout", "0.1",
+                         "--device", "cuda"]
+    small = {}
+    for strategy in ("default", "dp", "zero"):
+        engine = ex.build_engine(ex.parse_args(argv + ["--strategy", strategy]))
+        engine.run()
+        small[strategy] = _whole_params(engine)
+        del engine
+    for strategy in ("dp", "zero"):
+        eq = all(torch.equal(small[strategy][n][k], t) for n, st in small["default"].items()
+                 for k, t in st.items())
+        log(f"[dist small] {strategy} vs default at a world of one (dropout 0.1): bit-equal {eq}")
+        assert eq, strategy
+    # compiled blocks under fsdp: the period's NCCL collectives captured
+    runs = {}
+    for compiled in (False, True):
+        engine = ex.build_engine(ex.parse_args(
+            argv + ["--strategy", "fsdp", "--train_iters", "12"]
+            + (["--compile_blocks"] if compiled else [])))
+        engine.run()
+        runs[compiled] = _whole_params(engine)
+        if compiled:
+            runner = engine.block_runner
+            log(f"[dist compiled] fsdp compiled: captures {runner.captures}, replays "
+                f"{runner.replays}, periods {runner.periods_run}, capture "
+                f"{runner.capture_seconds:.2f} s")
+            assert runner.periods_run > 0
+            assert (runner.captures, runner.replays) == ((1, runner.periods_run)
+                                                         if runner.on_card else (0, 0))
+        del engine
+    eq = all(torch.equal(runs[True][n][k], t) for n, st in runs[False].items()
+             for k, t in st.items())
+    log(f"[dist compiled] fsdp compiled vs driver at a world of one: bit-equal {eq}")
+    assert eq
+
+
+def _dist_gloo2(out):
+    """One of two ranks on the one card over gloo: tutorial 5's program in
+    float64 under dp, zero and fsdp; rank 0 saves the whole parameters."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    parallel.maybe_init_distributed("cuda", backend="gloo", timeout=DIST_OP_TIMEOUT)
+    got = {}
+    for strategy in ("dp", "zero", "fsdp"):
+        t0 = time.time()
+        engine = _t5_engine(strategy, DIST_T5_BATCH)
+        engine.run()
+        got[strategy] = _whole_params(engine)
+        shape = list(engine.states["classifier"]["params"]["layers.0.weight"].shape)
+        log(f"[dist gloo2 {strategy}] rank {torch.distributed.get_rank()}: "
+            f"{time.time() - t0:.2f} s, holds layers.0.weight {shape}")
+        del engine
+    if torch.distributed.get_rank() == 0:
+        torch.save(got, out)
+    torch.distributed.barrier()
+
+
+def dist_worker(mode, out):
+    """``--dist-worker``: one rank of a dist leg."""
+    import torch
+
+    assert torch.cuda.is_available(), "the dist legs run on the card"
+    from betty_tpu_torch.ops import _build
+    from betty_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # the parent built them: found in build/kernels
+    fa._lib("flash_single")
+    fa._lib("flash_multi")
+    if mode == "north":
+        _dist_north(out)
+    elif mode == "gloo2":
+        _dist_gloo2(out)
+    else:
+        raise ValueError(f"unknown dist worker mode {mode!r}")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dist_phase(card):
+    """The two-rank leg (and its one-process reference, here), then the
+    world of one alone on the card, each in subprocesses (the world of one
+    starts up beside the two-rank leg)."""
+    t0 = time.time()
+    deadline = t0 + DIST_TIMEOUT
+    os.makedirs("build", exist_ok=True)
+    out = os.path.abspath(os.path.join("build", "dist_gloo2.pt"))
+    go = os.path.abspath(os.path.join("build", "dist_gloo2.done"))
+    for f in (out, go):
+        if os.path.exists(f):
+            os.remove(f)
+    gloo = _dist_launch("gloo2", 2, out)
+    # the world of one starts up meanwhile and runs once ``go`` exists
+    north = _dist_launch("north", 1, go)
+    try:
+        _dist_gloo2_check(card, gloo, out, deadline, t0)
+        with open(go, "w"):
+            pass
+        _dist_wait("[dist north]", north, deadline)
+    finally:
+        for p in north:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"[dist] [{card}] phase done in {time.time() - t0:.1f} s")
+
+
+def _dist_gloo2_check(card, gloo, out, deadline, t0):
+    """The two-rank leg's result against this process's one-process run on
+    the global batch."""
+    import torch
+
+    ref_engine = _t5_engine("default", 2 * DIST_T5_BATCH)
+    ref_engine.run()
+    ref = _whole_params(ref_engine)
+    del ref_engine
+    _dist_wait("[dist gloo2]", gloo, deadline)
+    got = torch.load(out, weights_only=True)
+    errs = {s: max(float((got[s][n][k] - t).abs().max()) for n, st in ref.items()
+                   for k, t in st.items()) for s in got}
+    moved = max(float((got["dp"]["classifier"][k] - t).abs().max())
+                for k, t in _whole_params(_t5_engine("default", 2 * DIST_T5_BATCH))
+                ["classifier"].items())
+    same = {s: all(torch.equal(got[s][n][k], got["dp"][n][k]) for n in got["dp"]
+                   for k in got["dp"][n]) for s in ("zero", "fsdp")}
+    log(f"[dist gloo2] [{card}] two ranks (gloo, CUDA tensors, float64) against one process "
+        f"on the global batch: max |param diff| {errs} (tol 1e-10); zero/fsdp bit-equal to dp "
+        f"{same}; moved from the start {moved:.3e}; {time.time() - t0:.1f} s")
+    assert max(errs.values()) <= 1e-10 and all(same.values()) and moved > 0
+
+
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
 KERNEL_SYMBOLS = {
     "fp32_fwd_single_kernel": "flash B1", "mma_fwd_single_kernel": "flash B1",
@@ -4211,7 +4552,7 @@ def sass_report(lib_paths, head_dims):
 
 
 PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat", "nas",
-          "robust", "programs", "pruning", "ppo", "moe", "tutorials")
+          "robust", "programs", "pruning", "ppo", "moe", "tutorials", "dist")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -4251,8 +4592,13 @@ def main(argv=None):
                          "implicit MAML), pruning (ImageNet data pruning: ResNet-50, EMA "
                          "teacher, device augmentation), ppo (PPO with its rollout env), moe "
                          "(the Switch MoE layer under a Meta-Weight-Net at Switch-Base-8 "
-                         "widths), tutorials (test_install, the tutorials, prefetch_to_device)")
+                         "widths), tutorials (test_install, the tutorials, prefetch_to_device), "
+                         "dist (the data-parallel strategies over torch.distributed)")
+    ap.add_argument("--dist-worker", nargs=2, metavar=("MODE", "OUT"), default=None,
+                    help="one rank of the dist phase (run by the dist phase itself)")
     args = ap.parse_args(argv)
+    if args.dist_worker:
+        return dist_worker(*args.dist_worker)
     phases = set(args.phases.split(",")) | {"kernels"}
 
     import torch
@@ -4286,6 +4632,7 @@ def main(argv=None):
     ptxas_report(_build.BUILD_LOGS)
     sass_report(libs, fa.KERNEL_HEAD_DIMS)
 
+    marks = [("kernels", time.time())]
     worst = kernel_phase()
     rows = kernel_timings()
     worst.update(multi_kernel_phase())
@@ -4294,6 +4641,7 @@ def main(argv=None):
     # each kernel's launches come from its own path's run
     launches = {name: None for name in REPLACES}
     if "slice" in phases:
+        marks.append(("slice", time.time()))
         for hypergradient in ("sama", "cg", "neumann"):
             small_run_phase(hypergradient)
         sama = slice_phase("sama", expected=SAMA_S128)
@@ -4302,34 +4650,54 @@ def main(argv=None):
         launches.update(slice_phase("neumann", expected={"neumann_fused_step": 6},
                                     profile=False))
     if "long" in phases:
+        marks.append(("long", time.time()))
         small_run_phase("sama", seq_len=1024, batch=2)
         sama = slice_phase("sama", expected=SAMA_S1024, seq_len=1024, batch=8)
         launches.update({k: sama[k] for k in MULTI_KERNELS})
     if "mwn" in phases:
+        marks.append(("mwn", time.time()))
         mwn_phase()
     if "compiled" in phases:
+        marks.append(("compiled", time.time()))
         compiled_phase()
     if "itd" in phases:
+        marks.append(("itd", time.time()))
         itd_phase()
     if "checkpoint" in phases:
+        marks.append(("checkpoint", time.time()))
         checkpoint_phase()
     if "remat" in phases:
+        marks.append(("remat", time.time()))
         remat_phase()
     if "nas" in phases:
+        marks.append(("nas", time.time()))
         nas_phase(card)
     if "robust" in phases:
+        marks.append(("robust", time.time()))
         robust_phase(card)
     if "programs" in phases:
+        marks.append(("programs", time.time()))
         programs_phase(card)
     if "pruning" in phases:
+        marks.append(("pruning", time.time()))
         pruning_phase(card)
     if "ppo" in phases:
+        marks.append(("ppo", time.time()))
         ppo_phase(card)
     if "moe" in phases:
+        marks.append(("moe", time.time()))
         moe_phase(card)
     if "tutorials" in phases:
+        marks.append(("tutorials", time.time()))
         tutorials_phase(card)
+    if "dist" in phases:
+        marks.append(("dist", time.time()))
+        dist_phase(card)
 
+    marks.append(("end", time.time()))
+    log("[timing] seconds by phase: " + ", ".join(
+        f"{name} {b - a:.1f}" for (name, a), (_, b) in zip(marks, marks[1:]))
+        + f"; total since the build {marks[-1][1] - marks[0][1]:.1f}")
     kernels = [_flash_row(name, worst, rows, launches) for name in SINGLE_KERNELS + MULTI_KERNELS]
     for name in VECTOR_KERNELS:
         r = vrows[name]

@@ -31,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "betty_tpu", "examples", "mwn_data", "vision_data",
              "common")
 TUTORIALS = ("1_quick_start", "2_validation", "3_logging", "4_memory_optimization",
-             "6_performance", "8_custom_solver")
+             "5_distributed_training", "6_performance", "8_custom_solver")
 
 
 def _imports(path):
@@ -60,6 +60,7 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
                 "rl/__init__.py", "rl/buffer.py", "examples/ppo.py", "models/moe.py",
                 "examples/moe_reweighting.py", "logging/logger_tensorboard.py",
                 "logging/logger_wandb.py", "test_install.py", "tutorial/__init__.py",
+                "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
                 "tutorial/common.py", *(f"tutorial/{t}.py" for t in TUTORIALS)):
         assert ROOT / "betty_tpu_torch" / new in files, new
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
@@ -69,8 +70,15 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
 
 def test_unported_options_raise(monkeypatch):
     assert EngineConfig(compile_blocks=True).compile_blocks  # ported: accepted
+    # ported: the data-parallel strategies; tensor/pipeline/expert/sequence
+    # parallelism and meshes with their axes still raise
+    for s in ("dp", "distributed", "zero", "fsdp"):
+        assert EngineConfig(strategy=s).strategy == s
+    for s in ("tp", "pp", "ep", "sp"):
+        with pytest.raises(NotImplementedError, match="§A.7"):
+            EngineConfig(strategy=s)
     with pytest.raises(NotImplementedError, match="§A.7"):
-        EngineConfig(strategy="fsdp")
+        EngineConfig(strategy="dp", mesh_shape=(("dp", 1), ("mdl", 2)))
     # ported: parameter groups build a grouped optimizer
     from betty_tpu_torch import optim
 
@@ -101,7 +109,7 @@ def test_unported_options_raise(monkeypatch):
     assert mwn.build_engine(args).checkpoint_dir == "ckpt"
     assert tex.build_engine(tex.parse_args(small + ["--checkpoint_dir", "ckpt"])) \
         .checkpoint_dir == "ckpt"
-    args = mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1", "--strategy", "fsdp"])
+    args = mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1", "--strategy", "tp"])
     with pytest.raises(NotImplementedError, match="§A.7"):
         mwn.build_engine(args)
     # compiled blocks are ported: both examples build an engine with them

@@ -130,7 +130,7 @@ def test_bf16_keeps_float32_statistics():
 
 
 def test_unported_strategy_raises():
-    args = tprune.parse_args(SMALL + ["--strategy", "dp"])
+    args = tprune.parse_args(SMALL + ["--strategy", "tp"])
     with pytest.raises(NotImplementedError, match="§A.7"):
         tprune.build_engine(args)
 
