@@ -26,14 +26,17 @@ the saved position: ``ArrayLoader``-style loaders resume mid-epoch
 (``set_epoch``, ``iter_from``, ``sync_cursor``); other iterables restart
 their epoch, and their ``batches_served`` restarts with it.
 
-Across ranks (a data-parallel strategy, ``betty_tpu/checkpoint.py:54-144,
-198-246``): every rank gathers the whole tensors of its ZeRO/FSDP shards
-(``Problem.full_state``, a collective), rank 0 alone writes the files, and
+Across ranks (a strategy over ``torch.distributed``,
+``betty_tpu/checkpoint.py:54-144, 198-246``): every rank gathers the whole
+tensors of its ZeRO/FSDP shards over ``dp``, or of its tp/ep shards over the
+model axis (``Problem.full_state``, a collective), rank 0 alone writes the
+files, and
 all ranks then meet at a barrier, so no rank reads a checkpoint before it
 is whole. On restore every rank reads the same files and cuts its shards
 from them (``Problem.shard_full_state``); the host counters are the same on
 every rank. A mid-unroll ITD recording holds each rank's own batches: they
-are saved concatenated in rank order and each rank takes its part back.
+are saved concatenated in batch-rank order and each rank takes its part
+back.
 The directory must be one that every rank sees.
 
 At a compiled-block boundary no unroll of an ITD child is live: the

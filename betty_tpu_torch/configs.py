@@ -5,20 +5,25 @@ for the JAX package configures the port unchanged. On one CUDA card some
 fields have no meaning and are accepted but inert:
 
 * ``Config``: ``initial_dynamic_scale``/``scale_factor`` (bf16 needs no loss
-  scaling; ``"fp16"`` is treated as ``"bf16"``), ``retain_graph``,
-  ``allow_unused`` and ``shard_rules``.
+  scaling; ``"fp16"`` is treated as ``"bf16"``), ``retain_graph`` and
+  ``allow_unused``.
 * ``EngineConfig``: ``backend``, ``compile_cache_dir`` and ``rng_impl``;
   ``donate_state`` has no counterpart, since a compiled block's graph
   updates its static state tensors in place.
 
 ``EngineConfig.strategy`` is ``"default"`` (one process, no collectives)
-or a data-parallel strategy over ``torch.distributed``: ``"dp"`` (alias
-``"distributed"``), ``"zero"`` or ``"fsdp"`` (``betty_tpu_torch/parallel``);
-``mesh_shape`` lays the ranks out (``(("dp", N),)`` by default, or
-``(("dcn", M), ("dp", N))``), and ``autoshard_data`` gives each rank its
-examples of every ``ArrayLoader`` (``data.shard_loader``). ``"tp"``,
-``"pp"``, ``"ep"`` and ``"sp"``, and meshes with a ``mdl``, ``pp``, ``ep``
-or ``sp`` axis, raise ``NotImplementedError`` (ROADMAP.md §A.7).
+or a strategy over ``torch.distributed`` (``betty_tpu_torch/parallel``):
+data-parallel ``"dp"`` (alias ``"distributed"``), ``"zero"`` or ``"fsdp"``;
+tensor-parallel ``"tp"``, whose layouts ``Config.shard_rules`` overrides
+(``(regex, partition-spec tuple)`` pairs, the regex searched in the port's
+leaf names, the spec over the port's dims, as in
+``parallel.tp_shardings``); or expert-parallel ``"ep"``. ``mesh_shape``
+lays the ranks out (``(("dp", N),)`` by default, ``(("dcn", M), ("dp",
+N))``, and for tp and ep a model axis last: ``(("dp", N), ("mdl", M))``
+or ``(("dp", N), ("ep", M))``), and ``autoshard_data`` gives each rank its
+examples of every ``ArrayLoader`` (``data.shard_loader``). ``"pp"`` and
+``"sp"``, and meshes with a ``pp`` or ``sp`` axis, raise
+``NotImplementedError`` (ROADMAP.md §A.7's remaining slice).
 
 ``EngineConfig.profile_dir`` writes a ``torch.profiler`` trace of the run
 there (``Engine._profiler``).
@@ -127,15 +132,16 @@ class EngineConfig:
     auto_resume: bool = False
 
     def __post_init__(self):
-        from betty_tpu_torch.parallel.mesh import (DP_STRATEGIES, MODEL_PARALLEL_AXES,
-                                                   MODEL_PARALLEL_STRATEGIES,
+        from betty_tpu_torch.parallel.mesh import (DP_STRATEGIES, MODEL_STRATEGIES,
+                                                   UNPORTED_AXES, UNPORTED_STRATEGIES,
                                                    model_parallel_error)
 
-        if self.strategy in MODEL_PARALLEL_STRATEGIES:
+        if self.strategy in UNPORTED_STRATEGIES:
             raise model_parallel_error(f"EngineConfig.strategy={self.strategy!r}")
-        if self.strategy != "default" and self.strategy not in DP_STRATEGIES:
+        known = DP_STRATEGIES + MODEL_STRATEGIES
+        if self.strategy != "default" and self.strategy not in known:
             raise ValueError(f"EngineConfig.strategy={self.strategy!r}: one of 'default', "
-                             + ", ".join(repr(s) for s in DP_STRATEGIES))
+                             + ", ".join(repr(s) for s in known))
         for name, _ in self.mesh_shape or ():
-            if name in MODEL_PARALLEL_AXES:
+            if name in UNPORTED_AXES:
                 raise model_parallel_error(f"EngineConfig.mesh_shape axis {name!r}")

@@ -27,19 +27,25 @@ A resumed run equals the uninterrupted one bit for bit, in driver mode and
 compiled (a block never spans two checkpoint boundaries, and a save between
 blocks reads the runner's live state).
 
-``EngineConfig(strategy="dp" | "distributed" | "zero" | "fsdp")`` runs one
-process a rank (``betty_tpu/engine.py:78-166``): ``configure_systems``
-joins the process group (``parallel.maybe_init_distributed``: torchrun's
-or the ``BETTY_*`` variables, else a world of one) and builds the mesh of
-``mesh_shape``; ``initialize`` places each problem's state for the strategy
-(``parallel.shard_state``; the shard dims kept as ``problem._shard_dims``),
-and each problem's ``ArrayLoader``s give each rank its examples
-(``Problem.initialize``). The run reaches the parameters of the
-one-process run on the union of the ranks' batches. Only rank 0 logs;
-validation runs on every rank and its numbers are averaged over the ranks,
-so the early-stopping decision agrees. A strategy other than ``"default"``
-with a ``mesh_shape`` of ``None`` puts every rank on ``dp``; ``"default"``
-with a ``mesh_shape`` runs as ``"dp"``.
+``EngineConfig(strategy="dp" | "distributed" | "zero" | "fsdp" | "tp" |
+"ep")`` runs one process a rank (``betty_tpu/engine.py:78-187``):
+``configure_systems`` joins the process group
+(``parallel.maybe_init_distributed``: torchrun's or the ``BETTY_*``
+variables, else a world of one) and builds the mesh of ``mesh_shape``;
+``initialize`` places each problem's state for the strategy
+(``parallel.shard_state``, with the problem's ``Config.shard_rules`` under
+tp; the shard dims kept as ``problem._shard_dims``, their axis as
+``problem._shard_axis``), and each problem's ``ArrayLoader``s give each
+batch rank its examples (``Problem.initialize``). The run reaches the
+parameters of the one-process run on the union of the batch ranks'
+batches. Only rank 0 logs; validation runs on every rank and its numbers
+are averaged over the batch ranks, so the early-stopping decision agrees.
+A strategy other than ``"default"`` with a ``mesh_shape`` of ``None`` puts
+every rank on ``dp``; ``"default"`` with a ``mesh_shape`` runs as ``"dp"``.
+tp needs a model axis (``mdl`` or ``ep``) on the mesh and ep an ``ep``
+axis; the data-parallel strategies take none. Under ep a program none of
+whose problems has expert-stacked MoE leaves raises, as the JAX package's
+engine does.
 """
 
 import contextlib
@@ -104,6 +110,19 @@ class Engine:
         if strategy == "default" and self.config.mesh_shape is None:
             return
         self.strategy = "dp" if strategy in ("default", "distributed") else strategy
+        axes = [n for n, _ in self.config.mesh_shape or ()]
+        model = [n for n in axes if n in ("mdl", "ep")]
+        if self.strategy == "tp" and not model:
+            raise ValueError("strategy='tp' needs a mesh with a model axis: pass "
+                             "EngineConfig(mesh_shape=(('dp', N), ('mdl', M))) "
+                             f"(got {self.config.mesh_shape})")
+        if self.strategy == "ep" and "ep" not in axes:
+            raise ValueError("strategy='ep' needs a mesh with an 'ep' axis: pass "
+                             "EngineConfig(mesh_shape=(('dp', N), ('ep', M))) "
+                             f"(got {self.config.mesh_shape})")
+        if self.strategy in parallel.DP_STRATEGIES and model:
+            raise ValueError(f"strategy={strategy!r} on the mesh {self.config.mesh_shape}: a "
+                             f"{model[0]!r} axis is for strategy 'tp' or 'ep'")
         parallel.maybe_init_distributed(self.device)
         self.mesh = parallel.make_mesh(self.config.mesh_shape)
         if self.device.type == "cuda" and self.device.index is None:
@@ -140,9 +159,20 @@ class Engine:
             state = problem.init_state(i)
             if self.mesh is not None:
                 _check_on_card(problem.name, state, self.device)
-                problem._shard_dims = parallel.state_shard_dims(state, self.mesh, self.strategy)
-                state = parallel.shard_state(state, self.mesh, self.strategy)
+                rules = problem.config.shard_rules
+                problem._shard_axis = parallel.mesh.shard_axis(self.strategy)
+                problem._shard_dims = parallel.state_shard_dims(state, self.mesh, self.strategy,
+                                                                rules)
+                state = parallel.shard_state(state, self.mesh, self.strategy, rules)
             self.states[problem.name] = state
+
+        if self.strategy == "ep" and not any(
+                parallel.strategy_matches("ep", s) for s in self.states.values()):
+            # no problem's module has the layout: the run would train
+            # unsharded, so fail loudly (betty_tpu/engine.py:172-187)
+            raise ValueError("strategy='ep': no problem's module has expert-stacked parameters "
+                             "under a moe/ subtree (models.moe.init_moe_params); nothing to "
+                             "shard")
 
         self.logger.info(f"Time spent on initialization: {time.time() - start:.3f} (s)")
 

@@ -28,8 +28,17 @@ synthetic data has no dev split, so set ``engine.dev_data``).
 ``--batch_size`` examples; ``--mesh dcn:2,dp:4`` lays the ranks out. The
 classifier's loss divides by the global batch's weight sum
 (``parallel.global_divisor`` of the local sum), so the mean of the ranks'
-losses is the one-process loss of the global batch. Not ported yet: real
-SST-2 (``--data-dir``) and HuggingFace checkpoints (``--hf_model``).
+losses is the one-process loss of the global batch. ``--strategy tp
+--mesh dp:2,mdl:4`` (the JAX example's ``main.py:341-346``) shards the
+classifier over the ``mdl`` axis by the Megatron rules (attention on a
+rank's heads, the MLP column- then row-parallel; ``parallel.tp_shardings``),
+each of the ``dp`` ranks loading ``--batch_size`` examples:
+
+    torchrun --nproc_per_node 4 -m betty_tpu_torch.examples.bert_data_reweighting \
+        --model large --flash --strategy tp --mesh mdl:4
+
+Not ported yet: real SST-2 (``--data-dir``) and HuggingFace checkpoints
+(``--hf_model``).
 """
 
 import argparse
@@ -109,7 +118,7 @@ class SST2Engine(Engine):
 def build_engine(args, **solver_config):
     vocab = 1000 if args.model == "small" else 50265
     device = torch.device(args.device)
-    if args.strategy in parallel.DP_STRATEGIES or (args.strategy == "default" and args.mesh):
+    if args.strategy != "default" or args.mesh:
         parallel.maybe_init_distributed(device)  # this rank's card, before anything is built
     x_train, y_train = make_synthetic_sst2(args.train_size, args.seq_len, vocab, seed=0,
                                            imbalance=args.imbalance, signal=args.signal)
@@ -154,21 +163,13 @@ def build_engine(args, **solver_config):
     engine = SST2Engine(
         config=EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step,
                             strategy=args.strategy, compile_blocks=args.compile_blocks,
-                            mesh_shape=mesh_shape(args.mesh)),
+                            mesh_shape=parallel.mesh_shape(args.mesh)),
         problems=[reweight, classifier],
         dependencies={"u2l": {reweight: [classifier]}, "l2u": {classifier: [reweight]}},
         device=device,
     )
     engine.checkpoint_dir = args.checkpoint_dir
     return engine
-
-
-def mesh_shape(spec):
-    """``EngineConfig.mesh_shape`` of ``--mesh`` (``"dp:4"`` or
-    ``"dcn:2,dp:4"``, the JAX example's format), or None."""
-    if not spec:
-        return None
-    return tuple((name, int(size)) for name, size in (ax.split(":") for ax in spec.split(",")))
 
 
 def parse_args(argv=None):
@@ -181,11 +182,11 @@ def parse_args(argv=None):
                    help="precision of the hypergradient pipeline")
     p.add_argument("--strategy", default="default",
                    choices=["default", "dp", "distributed", "zero", "fsdp", "tp"],
-                   help="data-parallel strategy over torch.distributed (one process a "
-                        "rank); tp is not ported and raises")
+                   help="strategy over torch.distributed (one process a rank): data "
+                        "parallel, or tp (Megatron tensor parallelism over a 'mdl' axis)")
     p.add_argument("--mesh", default=None,
-                   help="rank layout as 'name:size,...', e.g. 'dcn:2,dp:4' (default: every "
-                        "rank on dp)")
+                   help="rank layout as 'name:size,...', e.g. 'dcn:2,dp:4' or 'dp:2,mdl:4' "
+                        "(default: every rank on dp)")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--dim", type=int, default=256)

@@ -29,8 +29,8 @@ crop, at ``--crop_size``. ``Classifier.draws``, when set, is ``(rng, images)
 float32). ``--compile_blocks`` runs the steady schedule as compiled blocks.
 ``--strategy dp|distributed|zero|fsdp`` runs one process a rank
 (``torchrun``), each loading ``--batch_size`` examples, with the global
-batch's BatchNorm statistics and crop and flip draws; ``tp`` raises
-(ROADMAP.md §A.7).
+batch's BatchNorm statistics and crop and flip draws; ``tp`` needs a
+model axis on the mesh, which this example does not lay out: it raises.
 
     python -m betty_tpu_torch.examples.imagenet_pruning --device_data
     python -m betty_tpu_torch.examples.imagenet_pruning --device cpu --batch_size 4 \\
@@ -234,7 +234,7 @@ def parse_args(argv=None):
     p.add_argument("--valid_step", type=int, default=1000)
     p.add_argument("--strategy", default="default",
                    help="default, or a data-parallel strategy over torch.distributed: dp "
-                        "(alias distributed), zero, fsdp; tp raises")
+                        "(alias distributed), zero, fsdp; tp raises (no model axis here)")
     p.add_argument("--precision", default="fp32", choices=["fp32", "bf16"])
     p.add_argument("--log_step", type=int, default=-1)
     p.add_argument("--data-dir", dest="data_dir", type=str, default=None,

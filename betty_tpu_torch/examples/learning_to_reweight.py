@@ -26,7 +26,9 @@ with ``--data-dir``); ``Engine.load_checkpoint`` reads it back.
 (``torchrun --nproc_per_node N -m betty_tpu_torch.examples.learning_to_reweight
 --strategy dp``), each rank loading ``--batch_size`` examples; the
 ResNet's BatchNorm then normalizes with the global batch's statistics
-(``models/batchnorm.py``). ``tp`` raises (ROADMAP.md §A.7).
+(``models/batchnorm.py``). ``tp`` needs a model axis on the mesh, which
+this example does not lay out (``examples/bert_data_reweighting.py`` and
+``examples/moe_reweighting.py`` do): it raises ``ValueError``.
 """
 
 import argparse
@@ -273,7 +275,7 @@ def parse_args(argv=None):
     p.add_argument("--precision", type=str, default="fp32")
     p.add_argument("--strategy", type=str, default="default",
                    help="default, or a data-parallel strategy over torch.distributed: dp "
-                        "(alias distributed), zero, fsdp; tp raises")
+                        "(alias distributed), zero, fsdp; tp raises (no model axis here)")
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--num_classes", type=int, default=10)
     p.add_argument("--stage_sizes", type=str, default="5,5,5",

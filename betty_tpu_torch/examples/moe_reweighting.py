@@ -26,6 +26,20 @@ reweighter's from one seeded with 1. The batches live on the device.
 ``--precision bf16`` runs both problems' steps in bfloat16 (the routing
 bookkeeping stays float32); ``--compile_blocks`` runs the steady schedule as
 compiled blocks.
+
+``--strategy ep --mesh dp:N,ep:M`` shards the experts over the ``ep`` axis
+(``M`` dividing ``--experts``): each rank holds E/M experts of ``w1``,
+``b1``, ``w2`` and ``b2`` and computes on them, routing on every token
+(``models/moe.py``). ``--strategy tp`` takes the JAX test's route to the
+same layout: ``Config.shard_rules`` on the inner problem naming ``ep`` for
+the expert leaves and replicating the rest. The loaders are the step's
+whole token batch, so every ``dp`` rank runs all of it (the routing's
+capacities and buffer positions are over the step's tokens, which a split
+would change); the mean of the ranks' losses is the one-process loss. One
+process a rank:
+
+    torchrun --nproc_per_node 4 -m betty_tpu_torch.examples.moe_reweighting \
+        --strategy ep --mesh ep:4
 """
 
 import argparse
@@ -35,7 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
+from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.models.mlp import MetaWeightNet
 from betty_tpu_torch.models.moe import init_moe_params, moe_ffn, moe_ffn_dense
 from betty_tpu_torch.module import from_fn, from_torch
@@ -55,6 +69,8 @@ def make_data(tokens, val_tokens, dim):
 
 
 CAPACITY_FACTOR = 1.25  # Switch-Base-8's
+# ``--strategy tp``'s layout of the inner problem (tests/test_ep.py's rules)
+EP_SHARD_RULES = ((r"moe/(w[12]|b[12])$", ("ep",)), (r".*", ()))
 
 
 def classifier(params, tokens, dense=False):
@@ -84,6 +100,8 @@ class Outer(ImplicitProblem):
 
 def build_engine(args):
     device = require_device(args.device, "moe_reweighting")
+    if args.strategy != "default" or args.mesh:
+        parallel.maybe_init_distributed(device)  # this rank's card, before anything is built
     (x, y), (xv, yv), head = make_data(args.tokens, args.val_tokens, args.dim)
     moe = init_moe_params(torch.Generator(device=device).manual_seed(0), args.dim, args.hidden,
                           args.experts, device=device)
@@ -97,7 +115,8 @@ def build_engine(args):
                        {"moe": moe, "out": torch.from_numpy(head).to(device)}),
         optimizer=optim.sgd(lr=0.05),
         train_data_loader=[on_device(x, y)],
-        config=Config(type="darts", unroll_steps=2, precision=args.precision),
+        config=Config(type="darts", unroll_steps=2, precision=args.precision,
+                      shard_rules=EP_SHARD_RULES if args.strategy == "tp" else None),
     )
     outer = Outer(
         name="outer",
@@ -108,7 +127,8 @@ def build_engine(args):
         config=Config(precision=args.precision),
     )
     return Engine(
-        config=EngineConfig(train_iters=args.train_iters, compile_blocks=args.compile_blocks),
+        config=EngineConfig(train_iters=args.train_iters, compile_blocks=args.compile_blocks,
+                            strategy=args.strategy, mesh_shape=parallel.mesh_shape(args.mesh)),
         problems=[outer, inner],
         dependencies={"u2l": {outer: [inner]}, "l2u": {inner: [outer]}},
         device=device,
@@ -126,6 +146,11 @@ def parse_args(argv=None):
     p.add_argument("--val_tokens", type=int, default=4096, help="tokens of a reweighter step")
     p.add_argument("--train_iters", type=int, default=4)
     p.add_argument("--precision", default="fp32", choices=["fp32", "bf16"])
+    p.add_argument("--strategy", default="default", choices=["default", "ep", "tp"],
+                   help="ep: the experts over the 'ep' mesh axis; tp: the same layout "
+                        "through Config.shard_rules")
+    p.add_argument("--mesh", default=None,
+                   help="rank layout as 'name:size,...', e.g. 'dp:2,ep:2' or 'ep:4'")
     p.add_argument("--compile_blocks", action="store_true",
                    help="compiled blocks: one CUDA graph replay a meta-period")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")

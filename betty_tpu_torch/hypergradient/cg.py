@@ -14,13 +14,19 @@ iteration. The step size stays a device tensor, so a solve on the card
 never waits for the host. Bilevel only, like the reference. Under a
 data-parallel mesh every HVP and the cross term are averaged over the ranks
 (``hvp.py``), so the recurrence runs on global vectors and its scalars are
-the same on every rank.
+the same on every rank. Under tp/ep the vectors are held as shards: the
+dots count each shard's partial sum over the model group and each
+replicated leaf once (``parallel.sharded_dot``), and the fused loop ravels
+the sharded and the replicated leaves into two segments, runs B6/B7 on
+each and sums the sharded segment's partial dots over the model group
+before the step size or ``beta`` is formed.
 """
 
 import torch
 
+from betty_tpu_torch import parallel
 from betty_tpu_torch.hypergradient.hvp import cross_vjp, make_hvp
-from betty_tpu_torch.utils import neg, tree_axpy, tree_dot, tree_scale, tree_zeros_like
+from betty_tpu_torch.utils import neg, tree_axpy, tree_leaves, tree_map, tree_scale, tree_zeros_like
 
 
 def inner_loss(curr, prev, ctx, curr_batch, rng):
@@ -45,8 +51,13 @@ def cg(vector, curr, prev, ctx, states, curr_batch, rng):
     prev0 = ctx[prev.name]["params"]
     hvp_fn = make_hvp(loss, w0, prev0, config.hvp_mode)
 
+    dims = curr.model_dims()
+
+    def tree_dot(a, b):
+        return parallel.sharded_dot(a, b, dims)
+
     if config.use_fused_vector_ops:
-        x = _cg_loop_fused(vector, hvp_fn, config)
+        x = _cg_loop_fused(vector, hvp_fn, config, dims)
     else:
         x = tree_zeros_like(vector)
         r = vector
@@ -67,25 +78,57 @@ def cg(vector, curr, prev, ctx, states, curr_batch, rng):
     return neg(cross_vjp(loss, w0, prev0, x))
 
 
-def _cg_loop_fused(vector, hvp_fn, config):
-    """The same recurrence on the raveled vector through the B6/B7 kernels."""
+def _cg_loop_fused(vector, hvp_fn, config, dims):
+    """The same recurrence on the raveled vector through the B6/B7 kernels.
+    On a tp layout the sharded leaves and the replicated ones are raveled
+    into two segments, B6/B7 launched on each, and the sharded segment's
+    partial dots summed over the model group (one all-reduce for both of
+    B6's) before they are used; with no shards there is one segment."""
     from betty_tpu_torch.ops.vector import cg_fused_step, fused_dot2, tree_ravel, tree_unravel
 
     alpha_s = config.cg_alpha
-    flat_v, _ = tree_ravel(vector)
-    x = torch.zeros_like(flat_v)
-    r = flat_v
-    p = flat_v
+    leaves = tree_leaves(vector)
+    seg_of = ([0 if d is not None else 1 for d in parallel.collectives.dims_of(vector, dims)]
+              if dims else [1] * len(leaves))
+    templates = [[x for x, k in zip(leaves, seg_of) if k == s] for s in (0, 1)]
+    live = [s for s in (0, 1) if templates[s]]
+
+    def ravel(tree):
+        parts = tree_leaves(tree)
+        return {s: tree_ravel([x for x, k in zip(parts, seg_of) if k == s])[0] for s in live}
+
+    def unravel(flats):
+        parts = {s: iter(tree_unravel(templates[s], flats[s])) for s in live}
+        it = iter([next(parts[k]) for k in seg_of])
+        return tree_map(lambda _x: next(it), vector)
+
+    def total(partials):
+        """The global values of the segments' partial dots (a tuple a
+        segment): the sharded segment's summed over the model group."""
+        out = None
+        for s in live:
+            v = partials[s]
+            if s == 0:
+                v = parallel.reduce_from_model(torch.stack(v)).unbind()
+            out = v if out is None else tuple(a + b for a, b in zip(out, v))
+        return out
+
+    r = ravel(vector)
+    x = {s: torch.zeros_like(r[s]) for s in live}
+    p = dict(r)
     rr = None
     for _ in range(config.cg_iterations):
-        hvp, _ = tree_ravel(hvp_fn(tree_unravel(vector, p)))
-        if rr is None:
-            rr, hp = fused_dot2(r, r, hvp, p)  # one pass for both dots
-        else:
-            hp = torch.dot(hvp, p)  # rr carried from the previous iteration
+        hvp = ravel(hvp_fn(unravel(p)))
+        if rr is None:  # one pass for both dots
+            rr, hp = total({s: fused_dot2(r[s], r[s], hvp[s], p[s]) for s in live})
+        else:  # rr carried from the previous iteration
+            hp, = total({s: (torch.dot(hvp[s], p[s]),) for s in live})
         ak = rr / (alpha_s * hp)
-        x, r_new, rr_new = cg_fused_step(ak, x, p, r, hvp)
+        rr_parts, r_new = {}, {}
+        for s in live:
+            x[s], r_new[s], rr_parts[s] = cg_fused_step(ak, x[s], p[s], r[s], hvp[s])
+        rr_new, = total({s: (rr_parts[s],) for s in live})
         beta = rr_new / rr
-        p = r_new + beta * p
+        p = {s: r_new[s] + beta * p[s] for s in live}
         r, rr = r_new, rr_new
-    return tree_unravel(vector, x)
+    return unravel(x)

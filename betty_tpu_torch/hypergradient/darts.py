@@ -7,11 +7,12 @@
 
 with ``loss_curr`` curr's training loss on its most recent batch. Under a
 data-parallel mesh ``v`` is global (so is ``eps``) and ``out`` is averaged
-over the ranks.
+over the batch ranks; under tp/ep ``||v||`` counts each shard once
+(``parallel.sharded_norm`` over curr's ``model_dims``).
 """
 
-from betty_tpu_torch.parallel import grad_mean
-from betty_tpu_torch.utils import grad, tree_axpy, tree_map, tree_norm
+from betty_tpu_torch.parallel import grad_mean, sharded_norm
+from betty_tpu_torch.utils import grad, tree_axpy, tree_map
 
 
 def darts(vector, curr, prev, ctx, states, curr_batch, rng):
@@ -22,7 +23,7 @@ def central_difference(vector, R, curr, prev, ctx, curr_batch, rng):
     """``(grad_n - grad_p) / (2 eps)`` at ``w -/+ eps v``, eps = R / ||v||."""
     from betty_tpu_torch.problems.problem import ctx_replace
 
-    eps = R / (tree_norm(vector) + 1e-15)
+    eps = R / (sharded_norm(vector, curr.model_dims()) + 1e-15)
 
     def loss_at(curr_params, prev_params):
         c = ctx_replace(ctx, curr.name, curr_params)

@@ -26,14 +26,17 @@ generator before every replay and draws driver mode's directions. A
 ``directions`` callable ``(rng, i, prev_params) -> tree`` replaces the
 draws (tests inject JAX's). Under a data-parallel mesh every rank draws the
 same directions (the seed is the step's) and each loss evaluation is
-averaged over the ranks.
+averaged over the batch ranks. Under tp/ep a sharded leaf's direction is
+this rank's chunk of the whole leaf's draw, and ``||v||`` counts each shard
+once.
 """
 
 import torch
 
-from betty_tpu_torch.parallel import grad_mean
+from betty_tpu_torch import parallel
+from betty_tpu_torch.parallel import grad_mean, sharded_norm
 from betty_tpu_torch.utils import (fold_in, seeded_generator, tree_axpy, tree_leaves, tree_map,
-                                   tree_norm, tree_zeros_like)
+                                   tree_zeros_like)
 
 SEED_FOLD = 0x5E1F
 
@@ -44,7 +47,7 @@ def reinforce(vector, curr, prev, ctx, states, curr_batch, rng, directions=None)
     config = curr.config
     n = config.reinforce_samples
     sigma = config.reinforce_sigma
-    eps = config.reinforce_alpha / (tree_norm(vector) + 1e-15)
+    eps = config.reinforce_alpha / (sharded_norm(vector, curr.model_dims()) + 1e-15)
 
     def loss_at(curr_params, prev_params):
         c = ctx_replace(ctx, curr.name, curr_params)
@@ -56,10 +59,14 @@ def reinforce(vector, curr, prev, ctx, states, curr_batch, rng, directions=None)
     prev_p = ctx[prev.name]["params"]
     if directions is None:
         gen = seeded_generator(fold_in(rng, SEED_FOLD), tree_leaves(prev_p)[0].device)
+        # the whole leaf's draw (the same on every rank), cut to a shard
+        dims = prev.model_dims()
+        whole = prev.full_state_like({"params": prev_p})["params"] if dims else prev_p
 
         def directions(_rng, _i, like):
-            return tree_map(lambda x: torch.randn(x.shape, generator=gen, dtype=x.dtype,
-                                                  device=x.device), like)
+            u = tree_map(lambda x: torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                                               device=x.device), whole)
+            return parallel.mesh.shard_tree(u, dims, prev._mesh(), "model") if dims else u
 
     with torch.no_grad():
         w_plus = tree_axpy(eps, vector, w)

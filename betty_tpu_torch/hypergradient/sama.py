@@ -4,7 +4,8 @@ from the post-step raw moments ``mu``/``nu`` and the cached ``last_grad``,
 then a darts-style central difference with ``R = sama_adam_alpha`` gives
 the best-response-Jacobian product. Under ``param_groups`` each leaf is
 preconditioned with its own group's learning rate, betas and eps. Under
-zero/fsdp the moments and ``last_grad`` are gathered whole first."""
+zero/fsdp the moments and ``last_grad`` are gathered whole first; under
+tp/ep the preconditioning is elementwise on the shards."""
 
 import torch
 
@@ -50,6 +51,6 @@ def precondition_adam(vector, curr, curr_state):
 
 def sama(vector, curr, prev, ctx, states, curr_batch, rng):
     vector = precondition(vector, curr,
-                          curr.full_state(states[curr.name], ("opt_state", "last_grad")))
+                          curr.compute_state(states[curr.name], ("opt_state", "last_grad")))
     return central_difference(vector, curr.config.sama_adam_alpha, curr, prev, ctx,
                               curr_batch, rng)

@@ -18,6 +18,19 @@ token's position in its expert's buffer) stays float32 whatever the input
 dtype, because a bf16 cumsum counts exactly only up to 256 and experts with
 more routed tokens would otherwise share buffer positions. ``onehot``,
 ``keep`` and ``dispatch`` take the input's dtype, as in JAX.
+
+Under expert parallelism (a mesh with a model axis bound: ``strategy="ep"``,
+or ``"tp"`` with ``shard_rules`` naming ``ep``) the expert-stacked leaves
+arrive as this rank's E/m experts. Routing runs on every token, which every
+rank of the model group holds: the router, the softmax, top-1 and the
+positions, and the aux loss from those replicated probabilities. The
+dispatch and the expert products take this rank's experts only, and their
+combine is summed over the model group (``parallel.reduce_from_model``;
+each token has one expert, so the sum adds zeros to one product). The
+tokens enter the split computation through *f*
+(``parallel.copy_to_model``), whose backward sums the ranks' cotangents.
+An expert leaf that arrives whole on several ranks (a layout that does not
+shard it) keeps the one-rank path.
 """
 
 import math
@@ -25,6 +38,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from betty_tpu_torch.parallel import copy_to_model, model_mesh, reduce_from_model
 
 
 def init_moe_params(generator: Optional[torch.Generator], dim: int, hidden: int,
@@ -100,17 +115,43 @@ def moe_ffn(params, x, capacity_factor: float = 1.25, capacity: Optional[int] = 
     probs = router_probs(params["router"], x)                        # [T, E]
     gate, onehot, dispatch = route(probs, C, x.dtype)
 
-    expert_in = torch.einsum("tec,td->ecd", dispatch, x)             # [E, C, d]
-    h = F.gelu(torch.einsum("ecd,edh->ech", expert_in, params["w1"])
-               + params["b1"][:, None, :], approximate="tanh")
-    expert_out = (torch.einsum("ech,ehd->ecd", h, params["w2"])
-                  + params["b2"][:, None, :])                        # [E, C, d]
-    y = torch.einsum("tec,ecd->td", dispatch, expert_out) * gate[:, None]
+    experts = {k: params[k] for k in ("w1", "b1", "w2", "b2")}
+    mesh = model_mesh()
+    if mesh is not None and (mesh.model_size == 1 or params["w1"].shape[0] != E):
+        experts, x_in, dispatch_in = _local_experts(experts, x, dispatch, E, mesh)
+    else:
+        mesh, x_in, dispatch_in = None, x, dispatch
+    expert_in = torch.einsum("tec,td->ecd", dispatch_in, x_in)       # [E, C, d]
+    h = F.gelu(torch.einsum("ecd,edh->ech", expert_in, experts["w1"])
+               + experts["b1"][:, None, :], approximate="tanh")
+    expert_out = (torch.einsum("ech,ehd->ecd", h, experts["w2"])
+                  + experts["b2"][:, None, :])                       # [E, C, d]
+    combined = torch.einsum("tec,ecd->td", dispatch_in, expert_out)
+    if mesh is not None:
+        combined = reduce_from_model(combined, mesh)
+    y = combined * gate[:, None]
 
     fraction = onehot.mean(dim=0)                                    # [E]
     mean_prob = probs.mean(dim=0)                                    # [E]
     aux = E * torch.sum(fraction * mean_prob)
     return y, aux
+
+
+def _local_experts(experts, x, dispatch, E, mesh):
+    """``(this rank's expert leaves, x through f, this rank's dispatch
+    columns)``: the leaves arrive as their E/m chunk or whole (then through
+    f and cut). The dispatch is built from comparisons and carries no
+    gradient."""
+    m, i = mesh.model_size, mesh.model_index
+    if E % m:
+        raise ValueError(f"expert parallelism: {E} experts do not divide over {m} ranks")
+    local = {}
+    for k, w in experts.items():
+        if w.shape[0] * m != E:
+            w = copy_to_model(w, mesh).chunk(m, 0)[i]
+        local[k] = w
+    n = E // m
+    return local, copy_to_model(x, mesh), dispatch[:, i * n:(i + 1) * n]
 
 
 def moe_ffn_dense(params, x):

@@ -58,6 +58,22 @@ block's dropout generator is made from its seed inside the recomputed
 function, remat on and off draw the same masks and compute the same
 numbers (inside a compiled block the recompute takes its own generators
 of the reseeded pool). ``make_pipelined_transformer`` is not ported yet.
+
+Under tensor parallelism (a mesh with a model axis bound, ``strategy="tp"``)
+a block computes as Megatron's (arXiv:1909.08053): the attention on its
+rank's H/m heads (the q/k/v kernels' and the out kernel's head chunks; the
+flash kernels run unchanged on fewer heads), the output projection
+row-parallel and summed over the model group (*g*), ``fc1`` column-parallel
+with its bias, GELU local, ``fc2`` row-parallel and summed; the ``out`` and
+``fc2`` biases are added once, after the sums. The LayerNorm outputs enter
+the split computation through *f* (``parallel.copy_to_model``: its backward
+sums the ranks' cotangents). ``TransformerClassifier.tensor_parallel_dims``
+names those leaves and dims; each arrives as its rank's chunk or whole (a
+layout that does not shard it there: then *f* and this rank's chunk), and a
+group whose main weight (the query kernel, ``fc1``) arrives whole on
+several ranks runs as without tp. Every rank of a model group draws the
+same dropout stream, so the replicated activations get the unsharded run's
+masks.
 """
 
 import functools
@@ -70,7 +86,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from betty_tpu_torch.models.init import lecun_normal_, normal_
 from betty_tpu_torch.ops.flash_attention import flash_attention, reference_attention
-from betty_tpu_torch.parallel import local_rows
+from betty_tpu_torch.parallel import copy_to_model, local_rows, model_mesh, reduce_from_model
 from betty_tpu_torch.utils import fold_in, seeded_generator
 
 REMAT_POLICIES = (None, "minimal", "dots")
@@ -81,6 +97,28 @@ def _linear(d_in, d_out, device, generator):
     lecun_normal_(layer.weight, fan_in=d_in, generator=generator)
     nn.init.zeros_(layer.bias)
     return layer
+
+
+def _tp_part(x, dim, full, mesh):
+    """This model rank's chunk along ``dim`` of a parameter ``full`` long
+    there, which arrives as that chunk or whole (then through *f*, whose
+    backward sums the ranks' cotangents of the whole tensor)."""
+    m = mesh.model_size
+    if x.shape[dim] * m == full:
+        return x
+    if x.shape[dim] != full:
+        raise ValueError(f"tensor parallelism: a parameter of shape {tuple(x.shape)} is neither "
+                         f"whole ({full} along dim {dim}) nor a 1/{m} chunk of it")
+    return copy_to_model(x, mesh).chunk(m, dim)[mesh.model_index]
+
+
+def _tp_mesh(local: int, full: int):
+    """The bound model-axis mesh if a group whose main weight holds
+    ``local`` of ``full`` rows computes split over it, else None."""
+    mesh = model_mesh()
+    if mesh is None or (mesh.model_size > 1 and local == full):
+        return None
+    return mesh
 
 
 def _dropout(x, rate, generator):
@@ -99,12 +137,22 @@ class _HeadProj(nn.Module):
 
     def __init__(self, dim, heads, head_dim, device=None, generator=None):
         super().__init__()
+        self.heads = heads
         self.kernel = nn.Parameter(torch.empty(dim, heads, head_dim, device=device))
         self.bias = nn.Parameter(torch.zeros(heads, head_dim, device=device))
         lecun_normal_(self.kernel, fan_in=dim, generator=generator)
 
-    def forward(self, x):
-        return torch.einsum("bld,dhk->bhlk", x, self.kernel) + self.bias[None, :, None, :]
+    def forward(self, x, tp=None, bias=None):
+        """``tp``: the model-axis mesh whose rank's heads to project (x
+        then came through *f*; ``bias``: those heads' bias, if the caller
+        cut it), or None for every head."""
+        kernel = self.kernel
+        if tp is not None:
+            kernel = _tp_part(kernel, 1, self.heads, tp)
+            if bias is None:
+                bias = _tp_part(self.bias, 0, self.heads, tp)
+        bias = self.bias if bias is None else bias
+        return torch.einsum("bld,dhk->bhlk", x, kernel) + bias[None, :, None, :]
 
 
 class _OutProj(nn.Module):
@@ -113,12 +161,19 @@ class _OutProj(nn.Module):
 
     def __init__(self, heads, head_dim, features, device=None, generator=None):
         super().__init__()
+        self.heads = heads
         self.kernel = nn.Parameter(torch.empty(heads, head_dim, features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         lecun_normal_(self.kernel, fan_in=heads * head_dim, generator=generator)
 
-    def forward(self, o):
-        return torch.einsum("bhlk,hkd->bld", o, self.kernel) + self.bias
+    def forward(self, o, tp=None):
+        """``tp``: the model-axis mesh whose rank's heads ``o`` holds (row
+        parallel: the partial products summed over the model group before
+        the bias), or None."""
+        if tp is None:
+            return torch.einsum("bhlk,hkd->bld", o, self.kernel) + self.bias
+        kernel = _tp_part(self.kernel, 0, self.heads, tp)
+        return reduce_from_model(torch.einsum("bhlk,hkd->bld", o, kernel), tp) + self.bias
 
 
 class FlashSelfAttention(nn.Module):
@@ -132,6 +187,7 @@ class FlashSelfAttention(nn.Module):
                  block_q=None, block_kv=None, device=None, generator=None):
         super().__init__()
         head_dim = qkv_features // num_heads
+        self.num_heads = num_heads
         self.causal = causal
         self.use_flash = use_flash
         self.block_q, self.block_kv = block_q, block_kv
@@ -142,8 +198,29 @@ class FlashSelfAttention(nn.Module):
 
     def forward(self, x, kv_mask=None, generator=None):
         """``generator``: the dropout stream in train mode, None in eval."""
-        q, k, v = self.query(x), self.key(x), self.value(x)
-        return self.out(self.attend(q, k, v, kv_mask, generator))
+        q, k, v = self.project(x)
+        return self.out(self.attend(q, k, v, kv_mask, generator), self.tp_mesh())
+
+    def tp_mesh(self):
+        """The model-axis mesh the heads are split over, or None."""
+        return _tp_mesh(self.query.kernel.shape[1], self.num_heads)
+
+    def project(self, x):
+        """q, k, v of ``x`` on this rank's heads (all of them without tp)."""
+        projs = (self.query, self.key, self.value)
+        tp = self.tp_mesh()
+        if tp is None:
+            return tuple(proj(x) for proj in projs)
+        x = copy_to_model(x, tp)
+        biases = [proj.bias for proj in projs]
+        if all(b.shape[0] == self.num_heads for b in biases) and tp.model_size > 1:
+            # whole biases (the default layout shards them on Dh and they
+            # are gathered): one f for the three, then this rank's heads
+            biases = copy_to_model(torch.stack(biases), tp).chunk(
+                tp.model_size, 1)[tp.model_index].unbind(0)
+        else:
+            biases = [None] * 3
+        return tuple(proj(x, tp, b) for proj, b in zip(projs, biases))
 
     def attend(self, q, k, v, kv_mask=None, generator=None):
         """The attention of projected ``(B, H, L, Dh)`` q, k, v, before the
@@ -198,6 +275,7 @@ class EncoderBlock(nn.Module):
                  generator=None, remat=None, dots=False):
         super().__init__()
         self.dropout = dropout
+        self.hidden = dim * mlp_ratio
         self.remat, self.dots = remat, dots
         self.ln1 = nn.LayerNorm(dim, eps=1e-6, device=device)
         self.attn = FlashSelfAttention(heads, dim, use_flash=use_flash, dropout=dropout,
@@ -238,8 +316,7 @@ class EncoderBlock(nn.Module):
         return _checkpoint(run, self.dots, dict(self.named_parameters()), x, kv_mask, o)
 
     def _qkv(self, x):
-        y = self.ln1(x)
-        return self.attn.query(y), self.attn.key(y), self.attn.value(y)
+        return self.attn.project(self.ln1(x))
 
     def _block(self, x, kv_mask, seed):
         generator = _generator(seed, x.device)
@@ -252,8 +329,16 @@ class EncoderBlock(nn.Module):
     def _residuals(self, x, o, generator):
         """Output projection, both residual branches and the MLP; the
         attention's own dropout (plain path) drew from ``generator`` first."""
-        x = x + _dropout(self.attn.out(o), self.dropout, generator)
-        y = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
+        x = x + _dropout(self.attn.out(o, self.attn.tp_mesh()), self.dropout, generator)
+        tp = _tp_mesh(self.fc1.weight.shape[0], self.hidden)
+        if tp is None:
+            y = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
+        else:  # fc1 column-parallel, fc2 row-parallel, its bias after the sum
+            w1 = _tp_part(self.fc1.weight, 0, self.hidden, tp)
+            b1 = _tp_part(self.fc1.bias, 0, self.hidden, tp)
+            w2 = _tp_part(self.fc2.weight, 1, self.hidden, tp)
+            h = F.gelu(F.linear(copy_to_model(self.ln2(x), tp), w1, b1), approximate="tanh")
+            y = reduce_from_model(F.linear(h, w2), tp) + self.fc2.bias
         return x + _dropout(y, self.dropout, generator)
 
 
@@ -270,7 +355,9 @@ class TransformerClassifier(nn.Module):
                     "(blanket even for flash residuals) or 'dots' (save matmul outputs)")
             block_remat = "split" if use_flash and remat_policy != "minimal" else "blanket"
         self.remat, self.remat_policy = remat, remat_policy
-        gen = torch.Generator(device=device if device is not None else "cpu").manual_seed(seed)
+        # on the meta device (the shapes alone, for layouts) nothing is drawn
+        gen = None if device is not None and torch.device(device).type == "meta" else \
+            torch.Generator(device=device if device is not None else "cpu").manual_seed(seed)
         self.dropout = dropout
         self.pad_id = pad_id
         self.embed = nn.Embedding(vocab_size, dim, device=device)
@@ -284,6 +371,22 @@ class TransformerClassifier(nn.Module):
         self.ln_f = nn.LayerNorm(dim, eps=1e-6, device=device)
         self.pool = _linear(dim, dim, device, gen)
         self.head = _linear(dim, num_classes, device, gen)
+
+    def tensor_parallel_dims(self):
+        """The leaves the blocks compute on as tp shards, and the dim of
+        each (``module.FunctionalModule.local_dim``): the q/k/v kernels' and
+        biases' heads, the out kernel's heads, ``fc1``'s rows and bias and
+        ``fc2``'s columns. A layout that shards them elsewhere (the default
+        rules put the q/k/v biases on Dh) has them gathered."""
+        out = {}
+        for i in range(len(self.blocks)):
+            pre = f"blocks.{i}."
+            for name in ("query", "key", "value"):
+                out[f"{pre}attn.{name}.kernel"] = 1
+                out[f"{pre}attn.{name}.bias"] = 0
+            out.update({f"{pre}attn.out.kernel": 0, f"{pre}fc1.weight": 0,
+                        f"{pre}fc1.bias": 0, f"{pre}fc2.weight": 1})
+        return out
 
     def forward(self, input_ids, train: bool = True, rngs=None):
         L = input_ids.shape[1]

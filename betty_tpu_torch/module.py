@@ -18,12 +18,25 @@ running statistics) become the mutable ``"batch_stats"`` collection.
 draws its random numbers from a ``torch.Generator`` seeded with it, so two
 calls with the same seed draw the same numbers (the darts and SAMA
 re-evaluations rely on it).
+
+``FunctionalModule.local_dim(name)`` is the dim along which the module
+computes on a tp/ep shard of parameter ``name`` itself (None: it takes the
+whole tensor, which ``Problem.forward`` gathers): the expert-stacked MoE
+leaves (``models/moe.py``) for every module, and what an ``nn.Module``'s
+``tensor_parallel_dims()`` declares (``models/transformer.py``).
 """
 
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+
+from betty_tpu_torch.parallel.mesh import MOE_EXPERT_LEAF
+
+
+def _moe_local_dim(name: str) -> Optional[int]:
+    """``moe_ffn`` computes on its rank's experts (dim 0)."""
+    return 0 if MOE_EXPERT_LEAF.search(name) else None
 
 
 class FunctionalModule:
@@ -35,11 +48,18 @@ class FunctionalModule:
 
     def __init__(self, apply_fn: Callable, variables: Dict[str, Any],
                  mutable_collections: Sequence[str] = (),
-                 rng_names: Sequence[str] = ("dropout",)):
+                 rng_names: Sequence[str] = ("dropout",),
+                 local_dims: Optional[Dict[str, int]] = None):
         self.apply_fn = apply_fn
         self.variables = variables
         self.mutable_collections = tuple(mutable_collections)
         self.rng_names = tuple(rng_names)
+        self.local_dims = dict(local_dims or {})
+
+    def local_dim(self, name: str) -> Optional[int]:
+        """The dim the module computes a tp/ep shard of ``name`` on, or None."""
+        d = self.local_dims.get(name)
+        return d if d is not None else _moe_local_dim(name)
 
     def init(self, rng=None) -> Dict[str, Any]:
         return self.variables
@@ -87,10 +107,13 @@ def from_torch(module: nn.Module, rng_names: Sequence[str] = ("dropout",)) -> Fu
             new[prefixes[owner] + name] = value
         return out, {"batch_stats": new}
 
+    local = module.tensor_parallel_dims() if hasattr(module, "tensor_parallel_dims") else None
     if not buffers:
-        return FunctionalModule(apply_fn, {"params": params}, rng_names=rng_names)
+        return FunctionalModule(apply_fn, {"params": params}, rng_names=rng_names,
+                                local_dims=local)
     return FunctionalModule(apply_fn, {"params": params, "batch_stats": buffers},
-                            mutable_collections=("batch_stats",), rng_names=rng_names)
+                            mutable_collections=("batch_stats",), rng_names=rng_names,
+                            local_dims=local)
 
 
 def from_fn(apply_fn: Callable, params) -> FunctionalModule:

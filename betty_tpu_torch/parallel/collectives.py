@@ -1,11 +1,13 @@
-"""The collectives of the data-parallel strategies, on trees of tensors.
+"""The collectives of the strategies, on trees of tensors.
 
 Each rank computes on its local batch; the loss the strategies optimise is
-the mean of the ranks' losses, which for equal local batches of a mean
-loss is the loss of the global batch. So every place where the JAX package
-lets XLA reduce over the sharded batch reduces here over the ranks:
+the mean of the batch ranks' losses, which for equal local batches of a
+mean loss is the loss of the global batch. So every place where the JAX
+package lets XLA reduce over the sharded batch reduces here over the batch
+ranks (the mesh's ``batch_group``: every rank of a data-parallel mesh, the
+ranks at this rank's model index of one with a model axis):
 
-* ``grad_mean``: the mean of a tree of gradients over every rank, one
+* ``grad_mean``: the mean of a tree of gradients over the batch ranks, one
   ``all_reduce`` a dtype (the leaves flattened into one buffer), outside
   autograd. The direct gradients, the hypergradient vectors, every HVP and
   cross-VJP, darts' central difference and reinforce's loss evaluations go
@@ -19,16 +21,29 @@ lets XLA reduce over the sharded batch reduces here over the ranks:
   same collective on the tangent) and runs inside ``torch.func`` transforms.
 * ``rank_share`` / ``global_divisor``: that objective's rule for the terms
   of a program that couple a batch's examples. A rank's loss weighs
-  ``1 / world`` in it, so a derivative with respect to a rank's own inputs
-  is scaled by ``rank_share()``, and a sum normalised by a batch total
-  divides by ``global_divisor`` of the rank's total.
-* ``gather_shards``: the whole tensors of FSDP shards, over the ``dp``
-  axis, one collective a dtype; differentiable, its backward the
-  sum-reduce-scatter of the cotangents (whose backward is the gather).
-* ``reduce_scatter_mean``: the gradient of sharded leaves, each rank
-  keeping the mean over every rank of its own shard; one
-  ``reduce_scatter_tensor`` a dtype over ``dp`` (then an ``all_reduce``
-  over ``dcn``).
+  ``1 / batch world`` in it, so a derivative with respect to a rank's own
+  inputs is scaled by ``rank_share()``, and a sum normalised by a batch
+  total divides by ``global_divisor`` of the rank's total.
+* ``gather_shards``: the whole tensors of shards, over the ``dp`` axis
+  (FSDP) or the model axis (tp/ep), one collective a dtype;
+  differentiable. Over ``dp`` its backward is the sum-reduce-scatter of the
+  cotangents (the ranks' losses differ); over the model axis the ranks of
+  a model group compute one loss and hold the same cotangent of a
+  replicated tensor, so the backward is this rank's slice of it.
+* ``reduce_scatter_mean``: the gradient of FSDP leaves, each rank keeping
+  the mean over every rank of its own shard; one ``reduce_scatter_tensor``
+  a dtype over ``dp`` (then an ``all_reduce`` over ``dcn``).
+
+Tensor and expert parallelism (a mesh with a ``mdl`` or ``ep`` axis) add
+Megatron's two operators (arXiv:1909.08053) over the model group:
+``copy_to_model`` (*f*: identity forward, all-reduce of the cotangent
+backward), where a replicated activation enters a computation split over
+the model ranks, and ``reduce_from_model`` (*g*: all-reduce forward,
+identity backward), where the model ranks' partial results are summed.
+Each has a forward-mode rule, so the ``torch.func`` HVPs differentiate
+through them. ``sharded_dot`` is the inner product of two parameter trees
+in a tp layout: the shards' partial sums reduced over the model group, the
+replicated leaves counted once.
 
 A world of one is not special-cased: the collectives are made, over one
 rank.
@@ -41,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from betty_tpu_torch.parallel import mesh as mesh_mod
-from betty_tpu_torch.utils import tree_leaves, tree_map
+from betty_tpu_torch.utils import tree_dot, tree_leaves, tree_map
 
 # newer torch renames these two (``*_single``); the old names work on every
 # version the port runs on
@@ -63,8 +78,13 @@ def _rebuild(tree, leaves):
     return tree_map(lambda _x: next(it), tree)
 
 
+def _batch(mesh):
+    """``(group, size)`` of the batch ranks."""
+    return mesh.batch_group, mesh.batch_world
+
+
 def grad_mean(tree, mesh=None):
-    """The mean over every rank of each floating leaf of ``tree`` (no
+    """The mean over the batch ranks of each floating leaf of ``tree`` (no
     autograd; other leaves as they are). ``mesh``: default the bound one;
     with none, ``tree`` itself."""
     mesh = mesh if mesh is not None else mesh_mod.current()
@@ -75,8 +95,9 @@ def grad_mean(tree, mesh=None):
     for idx in _by_dtype(leaves).values():
         parts = [leaves[i].detach() for i in idx]
         buf = torch.cat([p.reshape(-1) for p in parts])
-        dist.all_reduce(buf, group=mesh.group)
-        buf.div_(mesh.world)
+        group, size = _batch(mesh)
+        dist.all_reduce(buf, group=group)
+        buf.div_(size)
         for i, piece in zip(idx, buf.split([p.numel() for p in parts])):
             out[i] = piece.view(leaves[i].shape)
     return _rebuild(tree, out)
@@ -84,14 +105,15 @@ def grad_mean(tree, mesh=None):
 
 def _all_reduce(x, op, mesh):
     y = x.detach().clone().contiguous()
-    dist.all_reduce(y, group=mesh.group)
+    group, size = _batch(mesh)
+    dist.all_reduce(y, group=group)
     if op == "mean":
-        y.div_(mesh.world)
+        y.div_(size)
     return y
 
 
 class _AllReduce(torch.autograd.Function):
-    """Sum or mean over every rank; backward and forward-mode the same
+    """Sum or mean over the batch ranks; backward and forward-mode the same
     collective on the cotangent or tangent."""
 
     @staticmethod
@@ -112,8 +134,8 @@ class _AllReduce(torch.autograd.Function):
 
 
 def all_reduce_tree(tree, op: str = "mean", mesh=None):
-    """``op`` ("mean" or "sum") over every rank of each floating leaf, as
-    one differentiable collective a dtype. Identity with no mesh."""
+    """``op`` ("mean" or "sum") over the batch ranks of each floating leaf,
+    as one differentiable collective a dtype. Identity with no mesh."""
     mesh = mesh if mesh is not None else mesh_mod.current()
     if mesh is None:
         return tree
@@ -130,24 +152,24 @@ def all_reduce_tree(tree, op: str = "mean", mesh=None):
 
 
 def global_sum(x):
-    """The sum of ``x`` over the ranks of the bound mesh, differentiable
-    (identity with none)."""
+    """The sum of ``x`` over the batch ranks of the bound mesh,
+    differentiable (identity with none)."""
     return all_reduce_tree(x, "sum")
 
 
 def global_mean(x):
-    """The mean of ``x`` over the ranks of the bound mesh, differentiable
-    (identity with none)."""
+    """The mean of ``x`` over the batch ranks of the bound mesh,
+    differentiable (identity with none)."""
     return all_reduce_tree(x, "mean")
 
 
 def rank_share() -> float:
     """The weight of one rank's loss in the objective, the mean of the
-    ranks' losses: ``1 / world`` (1 with no mesh bound). So a rank's
+    batch ranks' losses: ``1 / batch world`` (1 with no mesh bound). So a rank's
     derivative with respect to its own inputs is ``1 / rank_share()``
     times the global objective's; a term built from such derivatives (an
     input gradient, an input HVP) is multiplied by ``rank_share()``."""
-    return 1.0 / mesh_mod.world_size()
+    return 1.0 / mesh_mod.batch_world()
 
 
 def global_divisor(local_total, least=None):
@@ -177,7 +199,13 @@ def _gather_flat(shards, dims, mesh):
     flat = torch.cat([p.reshape(-1) for p in parts])
     buf = torch.empty(n * flat.numel(), dtype=flat.dtype, device=flat.device)
     dist.all_gather_into_tensor(buf, flat, group=mesh.dp_group)
-    rows = buf.view(n, flat.numel()).split([p.numel() for p in parts], dim=1)
+    return _unflatten_gathered(buf, parts, dims, n)
+
+
+def _unflatten_gathered(buf, parts, dims, n):
+    """The whole tensors of ``parts`` (shards moved to the front) from the
+    gathered buffer ``buf`` (rank j's concatenated shards in row j)."""
+    rows = buf.view(n, -1).split([p.numel() for p in parts], dim=1)
     out = []
     for p, d, row in zip(parts, dims, rows):
         whole = row.reshape((n * p.shape[0],) + tuple(p.shape[1:]))
@@ -244,12 +272,17 @@ class _ReduceScatterLeaves(torch.autograd.Function):
                                                  *_zeros_for(grads, ctx.like)))
 
 
+def dims_of(tree, dims):
+    """The dims of ``tree``'s leaves in ``tree_leaves`` order (matched by
+    key, whatever the order of ``dims``'s dicts)."""
+    return list(tree_leaves(tree_map(lambda _x, d: d, tree, dims)))
+
+
 def _flat_by_dtype(tree, dims):
     """``(leaves, dim list, groups)``: the sharded leaves' indices by
     dtype."""
     leaves = list(tree_leaves(tree))
-    dlist = list(tree_leaves(dims))
-    assert len(dlist) == len(leaves), "shard dims do not match the tree"
+    dlist = dims_of(tree, dims)
     groups = OrderedDict()
     for i, (x, d) in enumerate(zip(leaves, dlist)):
         if d is not None:
@@ -257,17 +290,21 @@ def _flat_by_dtype(tree, dims):
     return leaves, dlist, groups
 
 
-def gather_shards(tree, dims, mesh):
+def gather_shards(tree, dims, mesh, axis: str = "dp"):
     """The whole tensors of the shards of ``tree`` (the leaves whose dim in
-    ``dims`` is not None), gathered over ``dp`` in shard order: one
-    collective a dtype, differentiable (its backward the sum over ``dp`` of
-    the cotangents, reduce-scattered to the shards)."""
+    ``dims`` is not None), gathered in shard order over ``axis``: ``"dp"``
+    (FSDP; backward the sum over ``dp`` of the cotangents, reduce-scattered
+    to the shards) or ``"model"`` (tp/ep; backward this rank's slice of the
+    cotangent). One collective a dtype, differentiable."""
     if not dims:
         return tree
     leaves, dlist, groups = _flat_by_dtype(tree, dims)
     out = list(leaves)
     for idx in groups.values():
-        whole = _GatherLeaves.apply([dlist[i] for i in idx], mesh, *[leaves[i] for i in idx])
+        if axis == "model":
+            whole = _gather_model([leaves[i] for i in idx], [dlist[i] for i in idx], mesh)
+        else:
+            whole = _GatherLeaves.apply([dlist[i] for i in idx], mesh, *[leaves[i] for i in idx])
         for i, w in zip(idx, whole):
             out[i] = w
     return _rebuild(tree, out)
@@ -286,7 +323,7 @@ def reduce_scatter_mean(tree, dims, mesh):
         for i, m in zip(idx, mine):
             if mesh.dcn_group is not None:
                 dist.all_reduce(m, group=mesh.dcn_group)
-            out[i] = m.div_(mesh.world)
+            out[i] = m.div_(mesh.batch_world)
     rest = [None if d is not None else x for x, d in zip(leaves, dlist)]
     reduced = grad_mean(rest, mesh)
     out = [o if d is not None else r for o, r, d in zip(out, reduced, dlist)]
@@ -301,3 +338,135 @@ def all_gather_cat(x, group=None):
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x, group=group)
     return out
+
+
+# ---------------------------------------------------------------------------
+# tp/ep: the model-axis collectives
+# ---------------------------------------------------------------------------
+
+
+def _model_all_reduce(x, mesh):
+    y = x.detach().clone().contiguous()
+    dist.all_reduce(y, group=mesh.model_group)
+    return y
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's *f*: identity; backward the sum of the cotangents over the
+    model group (*g*); forward mode the identity (*f*)."""
+
+    @staticmethod
+    def forward(x, mesh):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceFromModel.apply(g, ctx.mesh), None
+
+    @staticmethod
+    def jvp(ctx, t, _mesh):
+        return _CopyToModel.apply(t, ctx.mesh)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: the sum over the model group; backward the identity
+    (*f*); forward mode the sum of the tangents (*g*)."""
+
+    @staticmethod
+    def forward(x, mesh):
+        return _model_all_reduce(x, mesh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _CopyToModel.apply(g, ctx.mesh), None
+
+    @staticmethod
+    def jvp(ctx, t, _mesh):
+        return _ReduceFromModel.apply(t, ctx.mesh)
+
+
+def copy_to_model(x, mesh=None):
+    """*f* over the model group of ``mesh`` (default the bound one);
+    identity without a model axis."""
+    mesh = mesh if mesh is not None else mesh_mod.model_mesh()
+    return x if mesh is None or mesh.model_axis is None else _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x, mesh=None):
+    """*g* over the model group of ``mesh`` (default the bound one);
+    identity without a model axis."""
+    mesh = mesh if mesh is not None else mesh_mod.model_mesh()
+    return x if mesh is None or mesh.model_axis is None else _ReduceFromModel.apply(x, mesh)
+
+
+class _GatherModelFlat(torch.autograd.Function):
+    """The model ranks' flat vectors side by side, ``[m, n]``; backward this
+    rank's row of the cotangent (after *f*), forward mode the gather of the
+    tangents."""
+
+    @staticmethod
+    def forward(flat, mesh):
+        n = mesh.model_size
+        buf = torch.empty((n, flat.numel()), dtype=flat.dtype, device=flat.device)
+        dist.all_gather_into_tensor(buf.view(-1), flat.detach().contiguous(),
+                                    group=mesh.model_group)
+        return buf
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        # the cotangent is replicated: this rank's row is its shard's, and
+        # through f, so that a derivative of the backward (an HVP's, a
+        # cross term's) sums the rows' contributions over the model group
+        return _CopyToModel.apply(g, ctx.mesh)[ctx.mesh.model_index], None
+
+    @staticmethod
+    def jvp(ctx, t, _mesh):
+        return _GatherModelFlat.apply(t, ctx.mesh)
+
+
+def _gather_model(shards, dims, mesh):
+    """The whole tensors of ``shards`` (one dtype) over the model group: one
+    ``all_gather_into_tensor``, differentiable."""
+    parts = [_front(x, d) for x, d in zip(shards, dims)]
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    buf = _GatherModelFlat.apply(flat, mesh)
+    return _unflatten_gathered(buf, parts, dims, mesh.model_size)
+
+
+def _promote(x):
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def sharded_dot(a, b, dims=None, mesh=None):
+    """``<vec(a), vec(b)>`` of two trees held in a tp layout (``dims``: the
+    leaves' shard dims over the model axis, None where replicated): the
+    sharded leaves' local dots summed over the model group, plus the
+    replicated leaves' once; in at least float32, differentiable. Without
+    sharded leaves (or a model axis) ``utils.tree_dot``."""
+    mesh = mesh if mesh is not None else mesh_mod.model_mesh()
+    dlist = dims_of(a, dims) if dims else []
+    if mesh is None or not any(d is not None for d in dlist):
+        return tree_dot(a, b)
+    sharded, rep = [], []
+    for x, y, d in zip(tree_leaves(a), tree_leaves(b), dlist):
+        dot = torch.dot(_promote(x).reshape(-1), _promote(y).reshape(-1))
+        (rep if d is None else sharded).append(dot)
+    total = _ReduceFromModel.apply(torch.stack(sharded).sum(), mesh)
+    return total + torch.stack(rep).sum() if rep else total
+
+
+def sharded_norm(a, dims=None, mesh=None):
+    """The global L2 norm of a tree in a tp layout (``sharded_dot``)."""
+    return torch.sqrt(sharded_dot(a, a, dims, mesh))

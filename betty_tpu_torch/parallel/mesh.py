@@ -1,10 +1,10 @@
-"""Data-parallel meshes over ``torch.distributed``.
+"""Meshes over ``torch.distributed``: the data-parallel strategies and
+tensor and expert parallelism.
 
-Counterpart of the data-parallel half of ``betty_tpu/parallel/mesh.py``.
-The JAX package drives every device from one process and XLA's partitioner
-inserts the collectives. The port runs one process a card (``torchrun``,
-or the JAX package's ``BETTY_*`` variables) and makes each of those
-collectives explicit, at the few places where gradients are made
+Counterpart of ``betty_tpu/parallel/mesh.py``. The JAX package drives every
+device from one process and XLA's partitioner inserts the collectives. The
+port runs one process a card (``torchrun``, or the JAX package's
+``BETTY_*`` variables) and makes each of those collectives explicit
 (``parallel/collectives.py``):
 
 * **dp** (``"distributed"`` is the reference Betty's name for it): every
@@ -18,24 +18,41 @@ collectives explicit, at the few places where gradients are made
   ``grad_acc``, ``last_grad`` and the optimizer state. Parameters are
   all-gathered for each update, and the direct gradient of a sharded leaf
   is reduce-scattered to its shard.
+* **tp** (Megatron tensor parallelism): ``params``, ``grad_acc``,
+  ``last_grad`` and ``opt_state`` sharded over the model axis by
+  ``tp_shardings`` (the JAX package's Megatron rules on the port's leaf
+  names, ``Config.shard_rules`` first). The update computes on the local
+  shards: the transformer's attention on its rank's heads and its MLP
+  column- then row-parallel (``models/transformer.py``), the MoE on its
+  rank's experts (``models/moe.py``); every other sharded leaf is gathered
+  where it is used (``Problem.forward``). The optimizer steps the shards.
+* **ep**: the expert-stacked MoE leaves (``moe/w1``, ``moe/b1``, ...)
+  sharded over the ``ep`` axis, everything else replicated
+  (``ep_rules``); a program none of whose problems has such leaves raises.
 
-A leaf is sharded by ``fsdp_shardings``'s rule (the JAX package's): its
-largest dimension divisible by the ``dp`` axis size, if it has
+A fsdp leaf is sharded by ``fsdp_shardings``'s rule (the JAX package's):
+its largest dimension divisible by the ``dp`` axis size, if it has
 ``min_size`` (2**14) elements or more; a shard is a contiguous chunk of
-that dimension, chunk ``i`` on the rank at ``dp`` coordinate ``i``.
+that dimension, chunk ``i`` on the rank at ``dp`` coordinate ``i``. A tp or
+ep leaf is cut the same way along its shard dim over the model axis.
 
-A mesh has a ``dp`` axis and, optionally, a ``dcn`` axis before it
-(``EngineConfig.mesh_shape=(("dcn", 2), ("dp", 4))``). Ranks are laid out
-row-major, rank = dcn index x dp size + dp index. The batch rides both
-axes; ZeRO/FSDP shards live on ``dp`` and are replicated across ``dcn``.
-Meshes naming ``mdl``, ``pp``, ``ep`` or ``sp`` (tensor, pipeline, expert
-and sequence parallelism) are the next slice of the port (ROADMAP.md
-§A.7) and raise ``NotImplementedError``.
+A mesh has a ``dp`` axis, optionally a ``dcn`` axis before it and a model
+axis (``mdl`` or ``ep``) after it:
+``EngineConfig.mesh_shape=(("dcn", 2), ("dp", 4))`` or
+``(("dp", 2), ("mdl", 4))``. Ranks are laid out row-major with the model
+axis innermost, as JAX's ``make_mesh`` reshapes the devices: rank =
+(dcn index x dp size + dp index) x model size + model index. The batch
+rides ``dcn`` and ``dp``: every reduction over the batch goes over the
+*batch group* (the ranks at this rank's model index), and the model-axis
+collectives over the *model group* (the ranks at this rank's dcn and dp
+index). ZeRO/FSDP shards live on ``dp`` and are replicated across ``dcn``.
+Meshes naming ``pp`` or ``sp`` (pipeline and sequence parallelism) are
+ROADMAP.md §A.7's remaining slice and raise ``NotImplementedError``.
 
 The engine binds its mesh while a problem's update, loss or forward runs
 (``active``); the collectives, ``models/batchnorm.py``'s global statistics,
 the global weight normaliser of ``examples/bert_data_reweighting.py``
-(``global_mean``) and the transformer's dropout rows read it there
+(``global_mean``), the dropout rows and the tp/ep modules read it there
 (``current``). Outside such a scope every helper is the identity.
 """
 
@@ -43,17 +60,20 @@ import contextlib
 import datetime
 import math
 import os
+import re
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from betty_tpu_torch.utils import tree_map
+from betty_tpu_torch.utils import tree_map, tree_map_named, tree_paths
 
 DP_STRATEGIES = ("dp", "distributed", "zero", "fsdp")
-MODEL_PARALLEL_STRATEGIES = ("tp", "pp", "ep", "sp")
-MODEL_PARALLEL_AXES = ("mdl", "pp", "ep", "sp")
+MODEL_STRATEGIES = ("tp", "ep")
+UNPORTED_STRATEGIES = ("pp", "sp")
+MODEL_AXES = ("mdl", "ep")
+UNPORTED_AXES = ("pp", "sp")
 DEFAULT_TIMEOUT_SECONDS = 600.0
 # the engine's FSDP/ZeRO threshold: leaves under it stay replicated
 FSDP_MIN_SIZE = 2**14
@@ -61,9 +81,10 @@ FSDP_MIN_SIZE = 2**14
 
 def model_parallel_error(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: tensor, pipeline, expert and sequence parallelism (tp/pp/ep/sp, the "
-        "mdl/pp/ep/sp mesh axes) are not ported yet (ROADMAP.md §A.7); the port runs "
-        "the data-parallel strategies dp, distributed, zero and fsdp")
+        f"{what}: pipeline and sequence parallelism (pp/sp, the pp and sp mesh axes) are "
+        "ROADMAP.md §A.7's remaining slice (parallel/pipeline.py with "
+        "make_pipelined_transformer, then sp); the port runs dp, distributed, zero, fsdp, "
+        "tp and ep")
 
 
 def maybe_init_distributed(device=None, backend: Optional[str] = None,
@@ -110,10 +131,15 @@ def maybe_init_distributed(device=None, backend: Optional[str] = None,
 
 @dataclass(eq=False)
 class Mesh:
-    """Ranks on named axes (``("dcn", n), ("dp", m)`` or ``("dp", m)``).
-    ``group`` spans every rank (``None``: the default group); ``dp_group``
-    the ranks of this rank's dcn slice, over which ZeRO/FSDP shard;
-    ``dcn_group`` the ranks at this rank's dp coordinate."""
+    """Ranks on named axes: ``("dp", n)``, with an optional ``("dcn", k)``
+    before it and an optional model axis ``("mdl" | "ep", m)`` after it.
+    ``group`` spans every rank (``None``: the default group);
+    ``batch_group`` the ranks at this rank's model index, over which the
+    batch reductions go (``None`` without a model axis: every rank);
+    ``model_group`` the ranks at this rank's dcn and dp index;
+    ``dp_group`` the ranks of this rank's dcn slice (and model index), over
+    which ZeRO/FSDP shard; ``dcn_group`` the ranks at this rank's dp (and
+    model) index."""
 
     axes: Tuple[Tuple[str, int], ...]
     rank: int
@@ -121,10 +147,36 @@ class Mesh:
     group: Optional[object] = None
     dp_group: Optional[object] = None
     dcn_group: Optional[object] = None
+    batch_group: Optional[object] = None
+    model_group: Optional[object] = None
 
     @property
     def shape(self):
         return dict(self.axes)
+
+    @property
+    def model_axis(self) -> Optional[str]:
+        """``"mdl"`` or ``"ep"``, or None for a data-parallel mesh."""
+        return next((n for n, _ in self.axes if n in MODEL_AXES), None)
+
+    @property
+    def model_size(self) -> int:
+        axis = self.model_axis
+        return 1 if axis is None else self.shape[axis]
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_size
+
+    @property
+    def batch_world(self) -> int:
+        """The ranks a batch is split over (dcn x dp)."""
+        return self.world // self.model_size
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's place among them: dcn index x dp size + dp index."""
+        return self.rank // self.model_size
 
     @property
     def dp_size(self) -> int:
@@ -132,11 +184,25 @@ class Mesh:
 
     @property
     def dp_index(self) -> int:
-        return self.rank % self.dp_size
+        return self.batch_index % self.dp_size
 
     @property
     def dcn_size(self) -> int:
         return self.shape.get("dcn", 1)
+
+
+def _check_axes(mesh_shape):
+    names = [str(n) for n, _ in mesh_shape]
+    for n in names:
+        if n in UNPORTED_AXES:
+            raise model_parallel_error(f"mesh axis {n!r}")
+        if n not in ("dcn", "dp") + MODEL_AXES:
+            raise ValueError(f"mesh axis {n!r}: the axes are 'dcn', 'dp', 'mdl' and 'ep'")
+    core = [n for n in names if n not in MODEL_AXES]
+    model = [n for n in names if n in MODEL_AXES]
+    if core not in (["dp"], ["dcn", "dp"]) or len(model) > 1 or (model and names[-1] != model[0]):
+        raise ValueError(f"mesh {tuple(mesh_shape)}: a 'dp' axis, with an optional 'dcn' axis "
+                         "before it and an optional model axis ('mdl' or 'ep') after it")
 
 
 def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
@@ -145,15 +211,7 @@ def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
     there is none. Every rank must call it, in the same order as its other
     group calls (sub-groups are made here)."""
     if mesh_shape is not None:
-        names = [str(n) for n, _ in mesh_shape]
-        for n in names:
-            if n in MODEL_PARALLEL_AXES:
-                raise model_parallel_error(f"mesh axis {n!r}")
-            if n not in ("dcn", "dp"):
-                raise ValueError(f"mesh axis {n!r}: the axes are 'dcn' and 'dp'")
-        if names not in (["dp"], ["dcn", "dp"]):
-            raise ValueError(f"mesh {tuple(mesh_shape)}: a 'dp' axis, with an optional 'dcn' "
-                             "axis before it")
+        _check_axes(mesh_shape)
     if not dist.is_initialized():
         maybe_init_distributed()
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -164,17 +222,55 @@ def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
     if math.prod(s for _, s in axes) != world:
         raise ValueError(f"mesh {axes} does not cover the {world} ranks of the process group")
     mesh = Mesh(axes=axes, rank=rank, world=world)
+    m, dp, dcn = mesh.model_size, mesh.dp_size, mesh.dcn_size
+    # every rank makes every group, in one order
     if "dcn" in names:
-        dp, dcn = mesh.dp_size, mesh.dcn_size
-        for i in range(dcn):  # every rank makes every group, in one order
-            g = dist.new_group([i * dp + j for j in range(dp)])
-            if i == rank // dp:
-                mesh.dp_group = g
-        for j in range(dp):
-            g = dist.new_group([i * dp + j for i in range(dcn)])
-            if j == mesh.dp_index:
-                mesh.dcn_group = g
+        for i in range(dcn):
+            for j in range(m):
+                g = dist.new_group([(i * dp + k) * m + j for k in range(dp)])
+                if i == mesh.batch_index // dp and j == mesh.model_index:
+                    mesh.dp_group = g
+        for k in range(dp):
+            for j in range(m):
+                g = dist.new_group([(i * dp + k) * m + j for i in range(dcn)])
+                if k == mesh.dp_index and j == mesh.model_index:
+                    mesh.dcn_group = g
+    if mesh.model_axis is not None:
+        batch = world // m
+        for j in range(m):
+            g = dist.new_group([b * m + j for b in range(batch)])
+            if j == mesh.model_index:
+                mesh.batch_group = g
+        for b in range(batch):
+            g = dist.new_group([b * m + j for j in range(m)])
+            if b == mesh.batch_index:
+                mesh.model_group = g
+        if dcn == 1:
+            mesh.dp_group = mesh.batch_group
     return mesh
+
+
+def mesh_shape(spec):
+    """``EngineConfig.mesh_shape`` of ``--mesh`` (``"dp:4"``,
+    ``"dcn:2,dp:4"`` or ``"dp:2,mdl:4"``, the JAX example's format; a model
+    axis alone, ``"mdl:4"``, gets a ``dp`` axis of 1 before it), or None."""
+    if not spec:
+        return None
+    axes = tuple((name, int(size)) for name, size in (ax.split(":") for ax in spec.split(",")))
+    if "dp" not in dict(axes):
+        axes = (("dp", 1),) + axes
+    return axes
+
+
+def batch_coordinates(mesh_shape=None) -> Tuple[int, int]:
+    """``(batch index, batch world)`` of this process on a mesh of
+    ``mesh_shape`` (no groups made): which slice of a global batch this
+    rank loads. ``(0, 1)`` without a process group."""
+    if not dist.is_initialized():
+        return 0, 1
+    world, rank = dist.get_world_size(), dist.get_rank()
+    m = next((int(s) for n, s in (mesh_shape or ()) if n in MODEL_AXES), 1)
+    return rank // m, world // m
 
 
 @dataclass(frozen=True)
@@ -191,7 +287,12 @@ class Sharding:
         if self.dim is None:
             return x
         n = math.prod(self.mesh.shape[a] for a in self.axes)
-        idx = self.mesh.rank if n == self.mesh.world else self.mesh.dp_index
+        if set(self.axes) <= set(MODEL_AXES):
+            idx = self.mesh.model_index
+        elif n == self.mesh.batch_world:
+            idx = self.mesh.batch_index
+        else:
+            idx = self.mesh.dp_index
         return x.chunk(n, dim=self.dim)[idx]
 
 
@@ -200,8 +301,9 @@ def replicated(mesh: Mesh) -> Sharding:
 
 
 def batch_sharding(mesh: Mesh, axis=None) -> Sharding:
-    """The batch (leading axis) split over ``("dcn", "dp")`` (every rank)
-    or ``"dp"``: ``local(global_batch)`` is this rank's contiguous slice."""
+    """The batch (leading axis) split over ``("dcn", "dp")`` (every batch
+    rank) or ``"dp"``: ``local(global_batch)`` is this rank's contiguous
+    slice."""
     if axis is None:
         axis = tuple(a for a in ("dcn", "dp") if a in mesh.shape)
     axes = (axis,) if isinstance(axis, str) else tuple(axis)
@@ -214,8 +316,12 @@ def shard_dim(x, axis_size: int, min_size: int = 2**14) -> Optional[int]:
     elements (and non-tensors, scalars) stay replicated (None)."""
     if not isinstance(x, torch.Tensor) or x.dim() == 0 or x.numel() < min_size:
         return None
-    for d in sorted(range(x.dim()), key=lambda d: -x.shape[d]):
-        if x.shape[d] % axis_size == 0 and x.shape[d] >= axis_size:
+    return _largest_dim(tuple(x.shape), axis_size)
+
+
+def _largest_dim(shape, axis_size: int) -> Optional[int]:
+    for d in sorted(range(len(shape)), key=lambda d: -shape[d]):
+        if shape[d] % axis_size == 0 and shape[d] >= axis_size:
             return d
     return None
 
@@ -230,75 +336,245 @@ def fsdp_shardings(tree, mesh, axis: Optional[str] = None, min_size: int = 2**14
     return tree_map(lambda x: shard_dim(x, size, min_size), tree)
 
 
+# ---------------------------------------------------------------------------
+# tp and ep layouts (``betty_tpu/parallel/mesh.py:99-280``) on the port's
+# leaf names: a nested dict's keys joined by "/", a torch module's
+# parameters by their own dotted names (``blocks.0.attn.query.kernel``), as
+# ``param_groups`` selectors see them
+# ---------------------------------------------------------------------------
+
+# The JAX package's Megatron rules, translated to the port's names. The
+# attention kernels keep flax's shapes, so their specs are the same: q/k/v
+# kernels (d, H, Dh) and biases (H, Dh) sharded on dim 1 (heads, and Dh for
+# the bias, as JAX's rule gives), the out kernel (H, Dh, d) on heads, the
+# out bias replicated, the token embedding (V, d) on the vocabulary.
+_TP_RULES = (
+    (re.compile(r"(query|key|value)\.(kernel|bias)$"),
+     lambda x: 1 if x.dim() in (2, 3) else None),
+    (re.compile(r"out\.kernel$"), lambda x: 0 if x.dim() == 3 else None),
+    (re.compile(r"out\.bias$"), lambda x: ()),
+    (re.compile(r"(^|[./])embed\.weight$"), lambda x: 0 if x.dim() == 2 else None),
+)
+TP_MIN_SIZE = 2**12
+
+# Expert-stacked MoE leaves (``models/moe.py``'s layout, the JAX package's
+# ``_MOE_EXPERT_LEAF``): one definition for the sharder, the matcher and
+# the module that computes on them.
+MOE_EXPERT_LEAF = re.compile(r"(^|/)moe/(w[0-9]+|b[0-9]+)$")
+
+
+def path_str(path) -> str:
+    """A leaf's name: its keys joined by "/"."""
+    return "/".join(str(k) for k in path)
+
+
+def _flax_order(name: str, x) -> Tuple[int, ...]:
+    """The port's dims in the order of the flax tensor they hold: an
+    ``nn.Linear`` weight (out, in) is a flax kernel (in, out), a conv
+    weight (out, in, kh, kw) one of (kh, kw, in, out). So the largest-dim
+    rule breaks a tie (a square kernel) on the axis JAX's rule takes."""
+    if name.endswith("weight") and not re.search(r"(^|[./])embed\.weight$", name):
+        if x.dim() == 2:
+            return (1, 0)
+        if x.dim() == 4:
+            return (2, 3, 1, 0)
+    return tuple(range(x.dim()))
+
+
+def _spec_dim(name, x, spec, mesh: Mesh) -> Optional[int]:
+    """The dim a partition-spec tuple shards ``x`` on, if the spec fits
+    (each named dim divisible by the size of its axes); raises for a spec
+    the port cannot lay out (more than one sharded dim, an axis other than
+    the model axis)."""
+    dims = []
+    for d, names in enumerate(spec):
+        if names is None:
+            continue
+        ns = names if isinstance(names, tuple) else (names,)
+        for n in ns:
+            if n not in mesh.shape:
+                raise ValueError(f"shard rule for {name!r}: axis {n!r} is not on the mesh "
+                                 f"{mesh.axes}")
+        if d >= x.dim() or x.shape[d] % math.prod(mesh.shape[n] for n in ns):
+            return False
+        dims.append((d, ns))
+    if not dims:
+        return None
+    if len(dims) > 1 or dims[0][1] != (mesh.model_axis,):
+        raise ValueError(f"shard rule {tuple(spec)} for {name!r}: the port shards a leaf along "
+                         f"one dim over the model axis {mesh.model_axis!r} only")
+    return dims[0][0]
+
+
+def tp_shardings(tree, mesh: Mesh, axis: Optional[str] = None, min_size: int = TP_MIN_SIZE,
+                 rules: Optional[Sequence] = None):
+    """The dim each leaf of ``tree`` is sharded on over the model axis (None:
+    replicated), by Megatron's rules (``betty_tpu/parallel/mesh.py:159-195``).
+
+    ``rules`` (``Config.shard_rules``) are checked first: ``(regex,
+    partition-spec tuple)`` pairs, the regex searched in the leaf's name,
+    the spec naming the port's dims (``(None, "mdl")`` shards dim 1); the
+    first that fits wins. Then the default rules (``_TP_RULES``), then
+    leaves under ``min_size`` elements stay replicated and larger ones take
+    the largest-dim rule, on the flax layout of the tensor (``_flax_order``).
+    ``axis``: the model axis (default the mesh's)."""
+    axis = axis or mesh.model_axis
+    if axis is None:
+        raise ValueError(f"tp layouts need a model axis ('mdl' or 'ep') on the mesh {mesh.axes}")
+    size = mesh.shape[axis]
+    user = tuple((re.compile(pat), tuple(spec)) for pat, spec in (rules or ()))
+
+    def dim_for(name, x):
+        if not isinstance(x, torch.Tensor):
+            return None
+        for pat, spec in user:
+            if pat.search(name):
+                d = _spec_dim(name, x, spec, mesh)
+                if d is not False:
+                    return d
+        for pat, fn in _TP_RULES:
+            if pat.search(name):
+                spec = fn(x)
+                if spec == ():
+                    return None
+                if spec is not None and x.shape[spec] % size == 0:
+                    return spec
+        if x.dim() == 0 or x.numel() < min_size:
+            return None
+        order = _flax_order(name, x)
+        d = _largest_dim(tuple(x.shape[i] for i in order), size)
+        return None if d is None else order[d]
+
+    return tree_map_named(dim_for, tree)
+
+
+def ep_rules(state, mesh: Mesh):
+    """``strategy="ep"``'s rules (``_ep_rules``): the expert-stacked MoE
+    leaves sharded on their expert dim over ``ep``, everything else
+    replicated; None for a state with no such leaf (its problem stays
+    replicated)."""
+    if "ep" not in mesh.shape:
+        raise ValueError("strategy='ep' needs a mesh with an 'ep' axis: pass "
+                         "EngineConfig(mesh_shape=(('dp', N), ('ep', M))) "
+                         f"(got axes {tuple(mesh.shape)})")
+    size = mesh.shape["ep"]
+    matched = [(path_str(p), x) for p, x in tree_paths(state.get("params", {}))
+               if isinstance(x, torch.Tensor) and MOE_EXPERT_LEAF.search(path_str(p))]
+    if not matched:
+        return None
+    for name, x in matched:
+        if x.shape[0] % size:
+            raise ValueError(f"strategy='ep': {name} has {x.shape[0]} experts, not divisible "
+                             f"by the ep axis size {size}")
+    return ((MOE_EXPERT_LEAF.pattern, ("ep",)), (r".*", ()))
+
+
+def strategy_matches(strategy: str, state) -> bool:
+    """Whether a problem's state has the layout ``strategy`` shards (ep:
+    expert-stacked ``moe/*`` leaves)."""
+    if strategy == "ep":
+        return any(isinstance(x, torch.Tensor) and MOE_EXPERT_LEAF.search(path_str(p))
+                   for p, x in tree_paths(state.get("params") or {}))
+    return True
+
+
 SHARDED_KEYS = {"zero": ("opt_state",),
-                "fsdp": ("params", "grad_acc", "last_grad", "opt_state")}
+                "fsdp": ("params", "grad_acc", "last_grad", "opt_state"),
+                "tp": ("params", "grad_acc", "last_grad", "opt_state"),
+                "ep": ("params", "grad_acc", "last_grad", "opt_state")}
 
 
-def state_shard_dims(state, mesh: Mesh, strategy: str = "dp"):
+def shard_axis(strategy: str) -> str:
+    """The axis a strategy's shards live on: ``"model"`` under tp/ep,
+    ``"dp"`` otherwise."""
+    return "model" if strategy in MODEL_STRATEGIES else "dp"
+
+
+def state_shard_dims(state, mesh: Mesh, strategy: str = "dp", rules=None):
     """``{state key: tree of shard dims}`` for the keys ``strategy`` shards
     (``betty_tpu/parallel/mesh.py:314-346``): none under dp/distributed;
     ``opt_state`` under zero; ``params``, ``grad_acc``, ``last_grad`` and
-    ``opt_state`` under fsdp, leaves of ``FSDP_MIN_SIZE`` elements or more.
+    ``opt_state`` under fsdp (leaves of ``FSDP_MIN_SIZE`` elements or more,
+    over ``dp``), tp (``tp_shardings`` with ``rules``, over the model axis)
+    and ep (``ep_rules``; nothing for a state without MoE leaves).
     ``extra`` and ``sched_step`` stay replicated."""
-    if strategy in MODEL_PARALLEL_STRATEGIES:
+    if strategy in UNPORTED_STRATEGIES:
         raise model_parallel_error(f"strategy {strategy!r}")
     if strategy in ("dp", "distributed", "default"):
         return {}
     if strategy not in SHARDED_KEYS:
         raise ValueError(f"unknown strategy {strategy!r}")
+    if strategy == "ep":
+        rules = ep_rules(state, mesh)
+        if rules is None:
+            return {}
+    if strategy in MODEL_STRATEGIES:
+        return {k: tp_shardings(state[k], mesh, rules=rules)
+                for k in SHARDED_KEYS[strategy] if k in state}
     return {k: fsdp_shardings(state[k], mesh, min_size=FSDP_MIN_SIZE)
             for k in SHARDED_KEYS[strategy] if k in state}
 
 
-def shard_tree(tree, dims, mesh: Mesh):
+def _axis_coords(mesh: Mesh, axis: str):
+    if axis == "model":
+        return mesh.model_size, mesh.model_index
+    return mesh.dp_size, mesh.dp_index
+
+
+def shard_tree(tree, dims, mesh: Mesh, axis: str = "dp"):
     """This rank's shard of every leaf of ``tree`` with a dim in ``dims``
-    (a contiguous copy); other leaves unchanged."""
+    (a contiguous copy) over ``axis`` (``"dp"`` or ``"model"``); other
+    leaves unchanged."""
     if dims is None:
         return tree
+    n, idx = _axis_coords(mesh, axis)
 
     def take(x, d):
         if d is None:
             return x
-        return x.chunk(mesh.dp_size, dim=d)[mesh.dp_index].contiguous()
+        return x.chunk(n, dim=d)[idx].contiguous()
 
     return tree_map(take, tree, dims)
 
 
-def full_shape_like(tree, dims, mesh: Mesh):
+def full_shape_like(tree, dims, mesh: Mesh, axis: str = "dp"):
     """Empty tensors of the whole shape in place of the shards of ``tree``
     (templates for a checkpoint restore; no communication)."""
     if dims is None:
         return tree
+    n, _ = _axis_coords(mesh, axis)
 
     def full(x, d):
         if d is None:
             return x
         shape = list(x.shape)
-        shape[d] *= mesh.dp_size
+        shape[d] *= n
         return torch.empty(shape, dtype=x.dtype, device=x.device)
 
     return tree_map(full, tree, dims)
 
 
-def shard_state(state, mesh: Mesh, strategy: str = "dp"):
+def shard_state(state, mesh: Mesh, strategy: str = "dp", rules=None):
     """One problem's state placed for ``strategy``: the keys of
     ``state_shard_dims`` cut to this rank's shards, the rest as is
     (replicated: every rank builds it from the same seed)."""
     out = dict(state)
-    for k, dims in state_shard_dims(state, mesh, strategy).items():
-        out[k] = shard_tree(state[k], dims, mesh)
+    axis = shard_axis(strategy)
+    for k, dims in state_shard_dims(state, mesh, strategy, rules).items():
+        out[k] = shard_tree(state[k], dims, mesh, axis)
     return out
 
 
 def make_global_batch(local_batch, mesh: Mesh, axis=None):
-    """The global batch, on every rank: the ranks' local batches
+    """The global batch, on every rank: the batch ranks' local batches
     concatenated along the leading axis in rank order, as JAX's
     ``make_array_from_process_local_data`` lays them out (``axis``: the
-    batch axes, default every rank)."""
+    batch axes, default ``dcn`` and ``dp``)."""
     from betty_tpu_torch.parallel.collectives import all_gather_cat
 
     sharding = batch_sharding(mesh, axis)
-    group = mesh.group if len(sharding.axes) == len(mesh.axes) else mesh.dp_group
+    every = len(sharding.axes) == len([n for n, _ in mesh.axes if n not in MODEL_AXES])
+    group = mesh.batch_group if every else mesh.dp_group
     return tree_map(lambda x: all_gather_cat(x, group) if isinstance(x, torch.Tensor) else x,
                     local_batch)
 
@@ -327,14 +603,19 @@ def active(mesh: Optional[Mesh]):
         _ACTIVE = saved
 
 
-def world_size() -> int:
-    """Ranks of the bound mesh (1 without one)."""
-    return 1 if _ACTIVE is None else _ACTIVE.world
+def batch_world() -> int:
+    """The batch ranks of the bound mesh, dcn x dp (1 without one)."""
+    return 1 if _ACTIVE is None else _ACTIVE.batch_world
 
 
-def rank() -> int:
-    """This rank in the bound mesh (0 without one)."""
-    return 0 if _ACTIVE is None else _ACTIVE.rank
+def batch_rank() -> int:
+    """This rank's batch index in the bound mesh (0 without one)."""
+    return 0 if _ACTIVE is None else _ACTIVE.batch_index
+
+
+def model_mesh() -> Optional[Mesh]:
+    """The bound mesh if it has a model axis (tp/ep), else None."""
+    return _ACTIVE if _ACTIVE is not None and _ACTIVE.model_axis is not None else None
 
 
 def is_rank_zero() -> bool:
@@ -344,13 +625,14 @@ def is_rank_zero() -> bool:
 
 def local_rows(shape, draw, dim: int = 0):
     """This rank's rows of a draw over the global batch: ``draw(global
-    shape)`` with the batch axis ``dim`` ``shape[dim] x world`` long, rows
-    ``rank::world`` kept (the ranks' local batches hold the global batch's
-    examples ``rank::world`` under ``shard_loader`` with ``shuffle=False``).
+    shape)`` with the batch axis ``dim`` ``shape[dim] x batch world`` long,
+    rows ``batch index::batch world`` kept (the ranks' local batches hold
+    the global batch's examples so under ``shard_loader`` with
+    ``shuffle=False``; the ranks of one model group draw the same rows).
     With no mesh this is ``draw(shape)``."""
-    w = world_size()
+    w = batch_world()
     shape = list(shape)
     shape[dim] *= w
     idx = [slice(None)] * len(shape)
-    idx[dim] = slice(rank(), None, w)
+    idx[dim] = slice(batch_rank(), None, w)
     return draw(tuple(shape))[tuple(idx)]

@@ -46,6 +46,22 @@ leaf is reduce-scattered to its shard, and the optimizer steps the shards. Under
 optimizer state is sharded: the optimizer steps this rank's shard of the
 parameters and the new parameters are all-gathered. ``full_state`` gives
 the whole tensors of a state; ``state_dict`` hands them out.
+
+Under tp and ep (a mesh with a ``mdl`` or ``ep`` axis) the state keeps
+this rank's shards over the model axis (``_shard_axis`` ``"model"``), and
+the update computes on them: the context holds the shards, the module
+computes on the ones it declares (``FunctionalModule.local_dim``: the
+transformer's heads and MLP columns, the MoE's experts) and
+``Problem.forward`` gathers the others where they are used, differentiably.
+Gradients, HVPs and hypergradient vectors come out in the same layout and
+are averaged over the batch ranks only; the solvers' inner products count
+a shard's partial sums over the model group (``parallel.sharded_dot``,
+``model_dims``); the optimizer steps the shards. ``compute_state`` is a
+state in the update's layout (whole under zero/fsdp, the shards under
+tp/ep). The hooks (``grad_callback``, ``param_callback``) see whole tensors
+under every strategy, as in the reference: under tp/ep every problem's
+parameters (and the owner's gradients) are gathered over the model group
+for a hook and its edits cut back to the shards.
 """
 
 import abc
@@ -234,8 +250,10 @@ class Problem(abc.ABC):
         self._trace_grads = None
         self._meta_mask = None
         self._update_fns: Dict[Any, Callable] = {}
-        # state key -> tree of shard dims (None: replicated) under zero/fsdp
+        # state key -> tree of shard dims (None: replicated) under zero/fsdp/tp/ep,
+        # over the "dp" axis (zero/fsdp) or the "model" axis (tp/ep)
         self._shard_dims: Dict[str, Any] = {}
+        self._shard_axis = "dp"
 
         # per-problem random stream, derived stably from the name
         self._rng_seed = zlib.crc32(name.encode()) & 0x7FFFFFFF
@@ -382,17 +400,17 @@ class Problem(abc.ABC):
 
         from betty_tpu_torch.data.loader import ArrayLoader, shard_loader
 
-        self.train_data_loader = [shard_loader(dl, mesh.rank, mesh.world)
+        self.train_data_loader = [shard_loader(dl, mesh.batch_index, mesh.batch_world)
                                   if isinstance(dl, ArrayLoader) else dl
                                   for dl in self.train_data_loader]
         unsharded = [type(dl).__name__ for dl in self.train_data_loader
                      if not isinstance(dl, ArrayLoader)]
-        if unsharded:
+        if unsharded and mesh.batch_world > 1:
             from betty_tpu_torch.logging import get_logger
 
             get_logger().warning(
                 f"[Betty-Torch] problem {self._name!r}: loaders {unsharded} cannot be "
-                f"auto-sharded across {mesh.world} ranks; each rank will contribute an "
+                f"auto-sharded across {mesh.batch_world} batch ranks; each will contribute an "
                 "identical local batch (duplicated examples in the global batch). Shard "
                 "these loaders per rank yourself, or use ArrayLoader.")
         lens = [len(dl) if hasattr(dl, "__len__") else -1 for dl in self.train_data_loader]
@@ -446,8 +464,9 @@ class Problem(abc.ABC):
             entry = _TRACE_CTX[self._name]
             params, extra = entry["params"], entry["extra"]
         else:
-            st = self.full_state(self.state, ("params",))
+            st = self.compute_state(self.state, ("params",))
             params, extra = st["params"], st["extra"]
+        params = self._gather_on_use(params)
 
         variables = {"params": params, **extra}
         if self.precision in ("fp16", "bf16") and not _FORCE_FP32:
@@ -522,14 +541,14 @@ class Problem(abc.ABC):
     def full_state(self, state=None, keys=None):
         """``state`` (default this problem's) with the whole tensors of its
         shards (``keys``: only those state keys). A collective under
-        zero/fsdp: every rank calls it."""
+        zero/fsdp/tp/ep: every rank calls it."""
         state = self.state if state is None else state
         if not self._shard_dims:
             return state
         out = dict(state)
         for k, dims in self._shard_dims.items():
             if k in out and (keys is None or k in keys):
-                out[k] = parallel.gather_shards(out[k], dims, self._mesh())
+                out[k] = parallel.gather_shards(out[k], dims, self._mesh(), self._shard_axis)
         return out
 
     def shard_full_state(self, state):
@@ -540,7 +559,7 @@ class Problem(abc.ABC):
         out = dict(state)
         for k, dims in self._shard_dims.items():
             if k in out:
-                out[k] = parallel.mesh.shard_tree(out[k], dims, self._mesh())
+                out[k] = parallel.mesh.shard_tree(out[k], dims, self._mesh(), self._shard_axis)
         return out
 
     def full_state_like(self, state):
@@ -551,8 +570,36 @@ class Problem(abc.ABC):
         out = dict(state)
         for k, dims in self._shard_dims.items():
             if k in out:
-                out[k] = parallel.mesh.full_shape_like(out[k], dims, self._mesh())
+                out[k] = parallel.mesh.full_shape_like(out[k], dims, self._mesh(),
+                                                       self._shard_axis)
         return out
+
+    def _model_sharded(self) -> bool:
+        return self._shard_axis == "model" and bool(self._shard_dims)
+
+    def compute_state(self, state=None, keys=None):
+        """``state`` in the layout the update computes on: whole tensors
+        under zero/fsdp (``full_state``), this rank's shards under tp/ep."""
+        if self._model_sharded():
+            return self.state if state is None else state
+        return self.full_state(state, keys)
+
+    def model_dims(self):
+        """The parameters' shard dims over the model axis (tp/ep), or None:
+        what ``parallel.sharded_dot`` needs for a vector over them."""
+        return self._shard_dims.get("params") if self._model_sharded() else None
+
+    def _gather_on_use(self, params):
+        """Under tp/ep, the whole tensors of the sharded parameters the
+        module does not compute on as shards (``FunctionalModule.local_dim``),
+        gathered over the model group, differentiably; the rest as given."""
+        dims = self.model_dims()
+        if not dims:
+            return params
+        local = self.module_fn.local_dim
+        gather = utils.tree_map_named(
+            lambda name, d: None if d is None or local(name) == d else d, dims)
+        return parallel.gather_shards(params, gather, self._mesh(), "model")
 
     def _param_shard_dims(self):
         """The parameters' shard dims where the optimizer steps shards:
@@ -570,7 +617,7 @@ class Problem(abc.ABC):
         losses averaged over the ranks; under fsdp the sharded leaves of
         the gradient reduce-scattered to this rank's shards."""
         mesh = self._mesh()
-        dims = self._shard_dims.get("params")
+        dims = self._shard_dims.get("params") if self._shard_axis == "dp" else None
         if dims:
             dgrad = parallel.reduce_scatter_mean(dgrad, dims, mesh)
             v_by_child, loss_dict = parallel.grad_mean((v_by_child, loss_dict), mesh)
@@ -633,7 +680,8 @@ class Problem(abc.ABC):
             if mesh is not None:  # fsdp: every problem's parameters whole for the update
                 for p in problem._engine.problems:
                     if p.name in ctx:
-                        ctx[p.name]["params"] = p.full_state(states[p.name], ("params",))["params"]
+                        ctx[p.name]["params"] = p.compute_state(states[p.name],
+                                                                ("params",))["params"]
             gas = float(problem.gas)
 
             def direct_loss(own_params, child_params):
@@ -665,7 +713,7 @@ class Problem(abc.ABC):
             if has_paths:
                 hyper = compute_path_grads(problem, ctx, states, batch, path_batches, rng,
                                            gas, v_by_child=v_by_child)
-                if "params" in problem._shard_dims:
+                if "params" in problem._shard_dims and problem._shard_axis == "dp":
                     hyper = parallel.mesh.shard_tree(hyper, problem._shard_dims["params"], mesh)
                 grads = tree_add(grads, hyper)
 
@@ -678,10 +726,10 @@ class Problem(abc.ABC):
 
             cross_updates = {}
             if problem.is_implemented("grad_callback"):
-                # the hook sees whole tensors; under fsdp they are cut back
+                # the hook sees whole tensors, cut back to the shards after
                 whole = problem.full_state(state, ("params", "grad_acc"))
                 problem._trace_grads = whole["grad_acc"]
-                hook_ctx = dict(ctx)
+                hook_ctx = problem._whole_ctx(ctx)
                 hook_ctx[problem._name] = {"params": whole["params"], "extra": state["extra"]}
                 with _CtxBinding(hook_ctx, None, rng):
                     problem.grad_callback()
@@ -724,19 +772,20 @@ class Problem(abc.ABC):
         dims = self._shard_dims if sharded else {}
         mesh = self._mesh()
         pdims = dims.get("params")
+        axis = self._shard_axis
         if self.gradient_clipping > 0.0:
             # the global norm of the whole gradient, as in dp
-            whole = parallel.gather_shards(grads, pdims, mesh) if pdims else grads
+            whole = parallel.gather_shards(grads, pdims, mesh, axis) if pdims else grads
             grads = clip_by_global_norm(whole, self.gradient_clipping)
             if pdims:
-                grads = parallel.mesh.shard_tree(grads, pdims, mesh)
+                grads = parallel.mesh.shard_tree(grads, pdims, mesh, axis)
 
         if self.is_implemented("custom_optimizer_step"):
             whole = self.full_state({**state, "grad_acc": grads}) if dims else \
                 {**state, "grad_acc": grads}
             new_params = self.custom_optimizer_step(whole["params"], whole["grad_acc"], whole)
             if pdims:
-                new_params = parallel.mesh.shard_tree(new_params, pdims, mesh)
+                new_params = parallel.mesh.shard_tree(new_params, pdims, mesh, axis)
             new_opt_state = state["opt_state"]
         elif "opt_state" in dims and not pdims:
             # zero: step this rank's shard of the parameters, gather the result
@@ -759,21 +808,34 @@ class Problem(abc.ABC):
             state["last_grad"] = grads  # SAMA reads the gradient of this step
 
         if self.is_implemented("param_callback"):
-            base = {k: dict(v) for k, v in ctx.items()}
-            whole = parallel.gather_shards(state["params"], pdims, mesh) if pdims else \
+            base = {k: dict(v) for k, v in (self._whole_ctx(ctx) if sharded else ctx).items()}
+            # the hook sees whole tensors, cut back to the shards after
+            whole = parallel.gather_shards(state["params"], pdims, mesh, axis) if pdims else \
                 state["params"]
             base[self._name] = {"params": whole, "extra": state["extra"]}
             with _CtxBinding(base, None, rng):
                 self.param_callback()
                 new_params = _TRACE_CTX[self._name]["params"]
-                state["params"] = (parallel.mesh.shard_tree(new_params, pdims, mesh) if pdims
-                                   else new_params)
+                state["params"] = (parallel.mesh.shard_tree(new_params, pdims, mesh, axis)
+                                   if pdims else new_params)
                 state["extra"] = _TRACE_CTX[self._name]["extra"]
                 cross = _collect_cross_ctx(_TRACE_CTX, base, self._name)
                 cross_updates.update(self._cut_cross(cross) if sharded else cross)
 
         state["grad_acc"] = tree_zeros_like(state["grad_acc"])
         return state, cross_updates
+
+    def _whole_ctx(self, ctx):
+        """A copy of the update's context with the tp/ep problems' parameters
+        gathered whole over the model group, as a hook sees them (a
+        collective: every rank calls its hooks)."""
+        ctx = dict(ctx)
+        if self._mesh() is not None:
+            for p in self._engine.problems:
+                if p._model_sharded() and p.name in ctx:
+                    ctx[p.name] = {**ctx[p.name],
+                                   "params": p.full_state(ctx[p.name], ("params",))["params"]}
+        return ctx
 
     def _cut_cross(self, cross):
         """Cross-problem edits of a hook (whole parameters) cut to each

@@ -54,6 +54,19 @@ def tree_paths(tree, prefix=()):
         yield prefix, tree
 
 
+def tree_map_named(fn, tree, *rest, prefix=()):
+    """``fn(name, leaf, *rest leaves)`` leafwise, ``name`` the leaf's keys
+    joined by "/" (a parameter's name as ``param_groups`` selectors and
+    ``Config.shard_rules`` see it)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_named(fn, tree[k], *(r[k] for r in rest), prefix=prefix + (k,))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_named(fn, t, *(r[i] for r in rest), prefix=prefix + (i,))
+                          for i, t in enumerate(tree))
+    return fn("/".join(str(k) for k in prefix), tree, *rest)
+
+
 def tree_add(a, b):
     """a + b, leafwise. ``None``-tolerant on either side (treated as zero)."""
     if a is None:

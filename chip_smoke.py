@@ -13,6 +13,8 @@
     python3 chip_smoke.py --phases kernels,pruning,ppo  # ... ImageNet data pruning, PPO
     python3 chip_smoke.py --phases kernels,moe,tutorials  # ... Switch MoE, the tutorials
     python3 chip_smoke.py --phases kernels,dist    # ... dp/zero/fsdp over torch.distributed
+    python3 chip_smoke.py --phases kernels,mp      # ... tp/ep (world of one, two gloo ranks)
+    python3 chip_smoke.py --mp-four                # four cards: tp and ep over NCCL
 
 Phases:
 
@@ -142,19 +144,19 @@ Phases:
 10. nas: DARTS architecture search (``examples/neural_architecture_search.py``)
    and its evaluation phase (``examples/nas_eval.py``), which launch no
    kernel of the port (cuDNN and PyTorch convolutions, pools, BatchNorm).
-   Small float64 runs (cuDNN deterministic): the search at C4 L3 B8 for 4
+   Small float64 runs (cuDNN deterministic): the search at C4 L3 B8 for 3
    meta-periods under roll-back and the evaluation phase (DARTS_V2 C4 L4
-   B8, auxiliary head, cutout, drop-path 0, 4 steps) on the card against
+   B8, auxiliary head, cutout, drop-path 0, 3 steps) on the card against
    the CPU from the same weights within 1e-9, and compiled against driver
    mode on the card bit for bit. Then the search at the published DARTS
    width (C16 L8 B64, float32, TF32 off; 1,401 leaves and 929 BatchNorms
-   held), driver mode then compiled: 2 + 2 timed periods and a profiled
+   held), driver mode then compiled: 1 + 1 timed periods and a profiled
    one each (period, busy, idle, launches, device time by op class, peak
-   memory, capture), fixed-batch losses of the first periods within 1e-3
+   memory, capture), fixed-batch losses of the first period within 1e-3
    between the modes, a genotype of 8 + 8 edges, 0 launches of B1-B8; and
    the evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2 C36 L20
    B96, auxiliary 0.4, drop-path 0.2, cutout 16, grad clip 5) in both
-   modes, 2 + 2 timed steps and a profiled one. Each of its lines carries
+   modes, 1 + 1 timed steps and a profiled one. Each of its lines carries
    the card's name and power limit.
 11. robust: robust NAS (``examples/robust_nas.py``: the DARTS search whose
    classifier loss adds the input-Jacobian and CURE terms, second order
@@ -265,12 +267,33 @@ Phases:
    bit, B1/B2 at 432/288 in both, each period, the peak memory, and one
    profiled period of each with the collective calls and the NCCL kernels
    (at one rank NCCL runs them as device copies) with their device time;
-   then the small reweighting run under dp and zero against default, and
-   compiled fsdp against driver, bit for bit. Before it, two ranks on the one card
+   then the north star under tp at ``dp:1,mdl:1`` against that `default`
+   run, the MoE at Switch-Base-8's widths under ``ep:1`` and compiled tp
+   (the mp checks of a world of one, phase 18); then the small reweighting
+   run under dp and zero against default, and compiled fsdp against
+   driver, bit for bit. Before it, two ranks on the one card
    over gloo with CUDA tensors (NCCL takes one rank a device): tutorial 5's
    program in float64 under dp, zero and fsdp, held to this process's
    one-process run on the global batch (1e-10) and zero/fsdp to dp bit for
    bit.
+18. mp: tensor and expert parallelism. Two gloo ranks on the card with
+   CUDA tensors: the small transformer under tp at ``mdl:2`` with the fp32
+   flash kernels (losses within 1e-5 relative; the parameters' distance
+   from one process's within ``MP_FLASH_REL_TOL`` of how far they moved)
+   and in float64 (1e-10), the test's MoE under ep at ``ep:2`` in float64
+   (1e-10), each against this process's one-process run. The world of one
+   over NCCL runs in the dist phase's (phase 17), after its `default` north
+   star: the north star under tp at ``dp:1,mdl:1`` against `default` (the
+   parameters' distance within ``MP_NORTH_REL_TOL`` of how far they moved,
+   the 12 losses within 5e-2: the row-parallel biases are added after the
+   sum, in bf16), B1/B2 432/288, a profiled period with the collective
+   calls; the host cost of one row-parallel sum; the MoE at Switch-Base-8's
+   widths under ``ep:1`` against default (``MP_MOE_TOL``); compiled tp at
+   small width against driver, bit for bit.
+   ``--mp-four`` (four cards, NCCL, one rank a card) runs the MoE under
+   ``ep:4`` against one process and the north star under tp at ``mdl:4``
+   and ``dp:2,mdl:2``: periods, peak a card, NCCL kernels of a profiled
+   period.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -1172,7 +1195,7 @@ def _quartiles(xs):
     return q(0.25), q(0.5), q(0.75)
 
 
-def mwn_slice_phase(warmup=3, steady=20):
+def mwn_slice_phase(warmup=3, steady=10):
     """The example's defaults on the card (ResNet-32, B128, MWN 100 hidden,
     darts, unroll 1, fp32, SGD/Adam) with the data on the device:
     ``warmup`` meta-periods, then ``steady`` timed ones (median and spread
@@ -1555,7 +1578,7 @@ def _cell_line(tag, seconds, report, peak, skip):
             "peak_gib": peak}
 
 
-def compiled_mwn_cell(warmup=3, steady=10):
+def compiled_mwn_cell(warmup=2, steady=5):
     """The MWN flagship (ResNet-32 B128, darts, unroll 1, fp32, data on the
     device), driver mode and compiled blocks (one replay a period) in
     turns: driver, compiled, compiled, driver; ``warmup`` + ``steady``
@@ -1570,7 +1593,8 @@ def compiled_mwn_cell(warmup=3, steady=10):
         engine = ex.build_engine(ex.parse_args(argv))
         engine.config.block_periods = 1
         tag = f"[compiled mwn {mode} {i}]"
-        seconds, report, peak = _timed_run(engine, 1, warmup + steady + 1, tag, _op_class)
+        seconds, report, peak = _timed_run(engine, 1, warmup + steady + 1, tag, _op_class,
+                                           profiled="card")
         out.setdefault(mode, []).append(_cell_line(tag, seconds, report, peak, warmup))
         if mode == "compiled":
             r = engine.block_runner
@@ -1615,7 +1639,7 @@ def compiled_sama_cell():
         reset, counters = _counters("sama")
         with _CaptureWatch(counters) as watch:
             reset()
-            seconds, report, peak = _timed_run(engine, unroll, periods, tag)
+            seconds, report, peak = _timed_run(engine, unroll, periods, tag, profiled="card")
         launches = {k: c.launches for k, c in counters.items()}
         out[mode] = _cell_line(tag, seconds, report, peak, 1)
         per_period = {k: v // periods for k, v in launches.items()}
@@ -1830,7 +1854,7 @@ def _param_norm(states, name):
     return float(torch.sqrt(sum((t.double() ** 2).sum() for t in states[name]["params"].values())))
 
 
-def itd_full_cell(variant, unroll, warmup=2, steady=3):
+def itd_full_cell(variant, unroll, warmup=1, steady=2):
     """The flagship's defaults (ResNet-32 B128, fp32, TF32 off, SGD 0.1
     nesterov with weight decay 5e-4 under a MultiStepLR at the reference's
     milestones 10000 and 13000, Adam 1e-5, data on the device) as
@@ -1854,7 +1878,8 @@ def itd_full_cell(variant, unroll, warmup=2, steady=3):
         engine.config.block_periods = 1
         fa.reset_launch_counts()
         vec.reset_launch_counts()
-        seconds, report, peak = _timed_run(engine, unroll, periods, tag, _op_class)
+        seconds, report, peak = _timed_run(engine, unroll, periods, tag, _op_class,
+                                           profiled="card")
         ours = {**{k: f.launches for k, f in fa.KERNELS.items()},
                 **{k: getattr(vec, k).launches for k in VECTOR_KERNELS}}
         out[mode] = _cell_line(tag, seconds, report, peak, warmup)
@@ -2084,7 +2109,7 @@ def sama_checkpoint_cell(periods=2, cut=1):
             "save_peak_gib": save["peak_gib"], "err": err}
 
 
-def mwn_checkpoint_cell(periods=16, cut=8, warmup=3):
+def mwn_checkpoint_cell(periods=10, cut=5, warmup=3):
     """The MWN flagship (ResNet-32 B128, float32, compiled, one replay a
     period) with ``cudnn.deterministic``: ``periods`` uninterrupted, then
     ``cut`` saved and resumed to ``periods`` by ``auto_resume``; the two are
@@ -2114,7 +2139,8 @@ def mwn_checkpoint_cell(periods=16, cut=8, warmup=3):
                     engine.run()
                     torch.cuda.synchronize()
                 else:
-                    seconds, report, peak = _timed_run(engine, 1, periods, tag, _op_class)
+                    seconds, report, peak = _timed_run(engine, 1, periods, tag, _op_class,
+                                                       profiled="card")
                     out[label] = _cell_line(tag, seconds, report, peak, warmup)
                 assert engine.classifier.count == (cut if label == "cut" else periods)
                 losses[label] = _fixed_losses(engine)
@@ -2302,7 +2328,7 @@ NAS_SMALL_SEARCH = ["--channels", "4", "--layers", "3", "--batch_size", "8", "--
 NAS_SMALL_EVAL = ["--init_channels", "4", "--layers", "4", "--batch_size", "8", "--train_size",
                   "32", "--epochs", "1", "--auxiliary", "--cutout", "--drop_path_prob", "0.0",
                   "--valid_every_epochs", "100"]
-NAS_PERIODS = 4
+NAS_PERIODS = 3  # cut from 4 for the time limit
 NAS_SEARCH_LEAVES = 1_401  # 1,399 of the supernet at C16 L8 and the two alphas
 NAS_SEARCH_BATCHNORMS = 929
 
@@ -2427,7 +2453,7 @@ def _nas_eval_loss(engine):
         return float(engine.network.eval_loss(ctx, batch)[0])
 
 
-def nas_search_cell(card, warmup=2, steady=2):
+def nas_search_cell(card, warmup=1, steady=1):
     """The DARTS search at its published width (C16 L8 B64, float32, TF32
     off; SGD 0.025 momentum 0.9 with cosine LR, Adam 3e-4 on the alphas,
     unroll 1, roll-back; synthetic CIFAR in the default host loaders),
@@ -2496,7 +2522,7 @@ def nas_search_cell(card, warmup=2, steady=2):
     return out
 
 
-def nas_eval_cell(card, warmup=2, steady=2):
+def nas_eval_cell(card, warmup=1, steady=1):
     """The evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2, C36
     L20 B96, auxiliary head 0.4, drop-path 0.2, cutout 16, grad clip 5,
     float32, TF32 off): driver mode, then compiled blocks (one replay a
@@ -2709,7 +2735,7 @@ ROBUST_SEARCH_LEAVES = 550  # 548 of the supernet at C16 L3 and the two alphas
 ROBUST_SEARCH_BATCHNORMS = 359
 
 
-def robust_full_cell(card, warmup=2, steady=2):
+def robust_full_cell(card, warmup=1, steady=1):
     """The robust search at the DARTS search widths, depth cut to
     ``ROBUST_SEARCH_LAYERS`` cells (C16 L3 B32: a normal cell and two
     reduction cells; both regularizers, lambda_j 0.1, lambda_c 0.01; SGD
@@ -2807,7 +2833,7 @@ def robust_full_cell(card, warmup=2, steady=2):
     return out
 
 
-def sanas_cell(card, periods=20):
+def sanas_cell(card, periods=10):
     """SANAS at the JAX example's defaults (dim 32, 5 classes, n 512, batch
     64, MLP [64, 5], 3 PGD steps, unroll 2 and 2) in driver mode for
     ``periods`` outer periods: finite losses of all three problems, the
@@ -3329,7 +3355,7 @@ def _transform_device_ms(engine):
     return sum(t for t, _, _ in kernels), sum(c for _, c, _ in kernels)
 
 
-def pruning_cell(name, card, warmup=3, steady=5):
+def pruning_cell(name, card, warmup=2, steady=5):
     """ImageNet data pruning at the JAX example's defaults (ResNet-50, B32,
     224x224, 1,000 classes, ``--gas 1``, TF32 off, ``--device_data``),
     ``name``: fp32 in driver mode and compiled, ``--augment device``
@@ -3734,7 +3760,7 @@ def _moe_split(prof, tokens, slots, experts):
     return split or None
 
 
-def moe_cell(card, name, argv, modes, warmup=3, steady=8):
+def moe_cell(card, name, argv, modes, warmup=2, steady=5):
     """The program at Switch-Base-8's widths (d_model 768, d_ff 3072, 8
     experts, capacity factor 1.25, 4,096 tokens a step), TF32 off, in each of
     ``modes``: ``warmup`` + ``steady`` timed periods (2 steps each) and one
@@ -3879,8 +3905,8 @@ def moe_phase(card):
 # driver iteration of 1 and 2 takes about 16 ms on the card (3,000: 49 s each)
 # and the moe and tutorials phases are held to 120 s together
 TUTORIAL_ITERS = {  # 1, 2, 3 and 4 cut from 3,000, 3,000, 1,000 and 2,000 for the time limit
-    "1_quick_start": 250, "1_quick_start --baseline": 250, "2_validation": 250,
-    "3_logging": 250, "4_memory_optimization": 250, "8_custom_solver": 100,
+    "1_quick_start": 150, "1_quick_start --baseline": 150, "2_validation": 150,
+    "3_logging": 150, "4_memory_optimization": 150, "8_custom_solver": 100,
 }
 
 
@@ -3976,7 +4002,7 @@ def tutorial_run(card, key):
     return {"seconds": seconds, "losses": losses, **extra}
 
 
-def tutorial6_run(card, iters=512):
+def tutorial6_run(card, iters=128):
     """Tutorial 6's four configurations at its defaults (``run_all``: each
     from a fresh engine, the card synchronised around its run, the capture
     included): meta-steps/s each."""
@@ -4112,7 +4138,7 @@ def _dist_wait(tag, procs, deadline):
                 p.wait()
     for rank, (p, out) in enumerate(zip(procs, outs)):
         for line in out.splitlines():
-            if line.startswith("[dist") or "Error" in line or "error" in line:
+            if line.startswith(("[dist", "[mp")) or "Error" in line or "error" in line:
                 log(f"{tag} rank {rank}: {line}")
         assert p.returncode == 0, f"{tag}: rank {rank} exited {p.returncode}:\n{out[-3000:]}"
 
@@ -4137,18 +4163,38 @@ def _t5_engine(strategy, batch):
 
 
 def _whole_params(engine):
-    return {p.name: {k: v.detach().cpu().clone() for k, v in p.full_state()["params"].items()}
+    from betty_tpu_torch.utils import tree_map
+
+    return {p.name: tree_map(lambda v: v.detach().cpu().clone(), p.full_state()["params"])
             for p in engine.problems}
 
 
-def _north_run(strategy, tag):
-    """Two north-star meta-periods under ``strategy``: ``(params on the
-    card, losses, periods, peak bytes, launches, engine)``."""
+def _rel_apart(got, want, start):
+    """``(|got - want| / |want - start|, |want - start|)``, L2 norms over
+    every leaf in float64: how far two runs from one start end apart,
+    against how far the reference moved (1 for a run that never stepped)."""
+    from betty_tpu_torch.utils import tree_leaves
+
+    apart = moved = 0.0
+    for n in want:
+        for g, w, s0 in zip(tree_leaves(got[n]), tree_leaves(want[n]), tree_leaves(start[n])):
+            w = w.double()
+            apart += float(((g.to(w.device).double() - w) ** 2).sum())
+            moved += float(((w - s0.to(w.device).double()) ** 2).sum())
+    moved = math.sqrt(moved)
+    return (math.sqrt(apart) / moved if moved > 0 else math.inf), moved
+
+
+def _north_run(strategy, tag, extra=(), start=None):
+    """Two north-star meta-periods under ``strategy`` (``extra``: more
+    arguments, a ``--mesh``): ``(params on the card, losses, periods, peak
+    bytes, launches, engine)``. ``start``: a dict filled with the whole
+    parameters before the run, on the host."""
     import torch
     from betty_tpu_torch.examples import bert_data_reweighting as ex
 
     t0 = time.time()
-    engine = ex.build_engine(ex.parse_args(NORTH_ARGV + ["--strategy", strategy]))
+    engine = ex.build_engine(ex.parse_args(NORTH_ARGV + ["--strategy", strategy] + list(extra)))
     torch.cuda.synchronize()
     log(f"{tag} build_engine {time.time() - t0:.1f} s")
     losses, ends = [], []
@@ -4164,6 +4210,8 @@ def _north_run(strategy, tag):
             return out
 
         prob.one_step_descent = record
+    if start is not None:
+        start.update(_whole_params(engine))
     reset, counters = _counters("sama")
     torch.cuda.reset_peak_memory_stats()
     reset()
@@ -4216,10 +4264,11 @@ def _dist_north(go):
     parallel.maybe_init_distributed("cuda", timeout=DIST_OP_TIMEOUT)
     assert torch.distributed.get_backend() == "nccl" and torch.distributed.get_world_size() == 1
     calls = _count_collectives()
-    runs = {}
+    runs, start = {}, {}
     for strategy in ("default", "fsdp"):
         tag = f"[dist north {strategy}]"
-        params, losses, periods, peak, launches, engine = _north_run(strategy, tag)
+        params, losses, periods, peak, launches, engine = _north_run(
+            strategy, tag, start=start if strategy == "default" else None)
         log(f"{tag} meta-period seconds {periods} (the first includes warm-up); peak "
             f"{peak / 2**30:.2f} GiB; launches {launches}")
         assert launches == SAMA_S128, (launches, SAMA_S128)
@@ -4250,7 +4299,10 @@ def _dist_north(go):
     log(f"[dist north] fsdp vs default at a world of one: parameters bit-equal {same}, "
         f"{len(la)} losses bit-equal {same_losses}")
     assert same and same_losses
-    del runs, pa, pb
+    del runs, pb
+    _free()
+    _mp_world_one((pa, la), start, calls)  # the mp checks of a world of one
+    del pa, start
     _free()
     # dp and zero at small width, the same check
     argv = SMALL_ARGV + ["--hypergradient", "sama", "--flash", "--dropout", "0.1",
@@ -4328,6 +4380,13 @@ def dist_worker(mode, out):
         _dist_north(out)
     elif mode == "gloo2":
         _dist_gloo2(out)
+    elif mode == "mpgloo2":
+        _mp_gloo2(out)
+    elif mode == "fourmoe":
+        _mp_four_moe(out)
+    elif mode.startswith("four:"):
+        mesh, batch = mode[len("four:"):].rsplit(":", 1)
+        _mp_four_rank(mesh, int(batch), out)
     else:
         raise ValueError(f"unknown dist worker mode {mode!r}")
     torch.distributed.destroy_process_group()
@@ -4384,6 +4443,420 @@ def _dist_gloo2_check(card, gloo, out, deadline, t0):
         f"on the global batch: max |param diff| {errs} (tol 1e-10); zero/fsdp bit-equal to dp "
         f"{same}; moved from the start {moved:.3e}; {time.time() - t0:.1f} s")
     assert max(errs.values()) <= 1e-10 and all(same.values()) and moved > 0
+
+
+# ---------------------------------------------------------------------------
+# mp: tensor and expert parallelism (tp, ep) over torch.distributed
+# ---------------------------------------------------------------------------
+
+MP_TP_WORLD_ONE = ["--mesh", "dp:1,mdl:1"]
+# tp against default at a world of one (bf16 steps): not bit for bit (the
+# row-parallel products add their bias after the sum; the solver's norm sums
+# the shards' partial dots apart), so the differences are bounded: the
+# parameters' distance from default's (L2, every leaf) against how far
+# default's moved (``_rel_apart``: 1 for a run that never stepped), and the
+# 12 losses; each bound about 3x its reading on an H100 (1.689e-2, 7.812e-3)
+MP_NORTH_REL_TOL, MP_NORTH_LOSS_TOL = 5e-2, 2e-2
+MP_MOE_ARGV = ["--train_iters", "8", "--device", "cuda"]  # Switch-Base-8 widths, 4 periods
+# ep against default at a world of one (fp32): the combine adds zeros to
+# each token's one product, but darts' norm sums the expert shards' partial
+# dots apart, so the step size eps differs in its last bits (max |param
+# diff| 1.192e-7 on an H100)
+MP_MOE_TOL = 5e-7
+MP_SMALL_MOE = ["--dim", "16", "--hidden", "32", "--experts", "4", "--tokens", "64",
+                "--val_tokens", "32", "--dense", "--train_iters", "4", "--device", "cuda"]
+MP_GLOO_ARGV = SMALL_ARGV + ["--hypergradient", "sama", "--device", "cuda", "--train_iters",
+                             "8"]
+MP_GLOO_MESH = ["--strategy", "tp", "--mesh", "dp:1,mdl:2"]
+# fp32 flash, two ranks against one process: the losses (relative), and
+# the parameters' distance from one process's against how far they moved
+# (``_rel_apart``; Adam's normalized step, about lr a step, takes either
+# sign for an element whose gradient is within rounding of 0, so a max
+# |diff| is as large as the step; the float64 runs, held to 1e-10, show the
+# arithmetic is the same); on an H100 2.549e-7 and 3.622e-3
+MP_FLASH_LOSS_TOL, MP_FLASH_REL_TOL = 1e-5, 1e-2
+MP_F64_TOL = 1e-10
+
+
+def _record_losses(engine):
+    """A list that each problem step's loss is appended to, in order."""
+    losses = []
+    for prob in engine.problems:
+        orig = prob.one_step_descent
+
+        def record(*a, _orig=orig, **kw):
+            out = _orig(*a, **kw)
+            losses.append(float(out["loss"]))
+            return out
+
+        prob.one_step_descent = record
+    return losses
+
+
+def _cast_engine(engine, dtype, moe=False):
+    """The engine's states (and the MoE program's batches) in ``dtype``."""
+    import torch
+    from betty_tpu_torch.utils import tree_map
+
+    engine.states = tree_map(lambda t: t.to(dtype) if torch.is_tensor(t) and t.is_floating_point()
+                             else t, engine.states)
+    if moe:
+        for prob in engine.problems:
+            (x, y), = prob.train_data_loader[0]
+            prob.train_data_loader[0][0] = (x.to(dtype), y)
+    return engine
+
+
+def _mp_engine(kind, extra=()):
+    """The mp phase's small programs: ``flash`` (fp32, the flash kernels),
+    ``f64`` (float64, plain attention) and ``moe`` (float64, the test's MoE
+    widths)."""
+    import torch
+    from betty_tpu_torch.examples import bert_data_reweighting as bert
+    from betty_tpu_torch.examples import moe_reweighting as moe
+
+    if kind == "moe":
+        return _cast_engine(moe.build_engine(moe.parse_args(MP_SMALL_MOE + list(extra))),
+                            torch.float64, moe=True)
+    engine = bert.build_engine(bert.parse_args(
+        MP_GLOO_ARGV + (["--flash"] if kind == "flash" else []) + list(extra)))
+    return engine if kind == "flash" else _cast_engine(engine, torch.float64)
+
+
+def _mp_gloo2(out):
+    """One of two ranks on the one card over gloo (CUDA tensors): the small
+    transformer under tp at ``mdl:2`` with the fp32 flash kernels and in
+    float64, and the MoE at ``ep:2`` in float64; rank 0 saves the whole
+    parameters."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    parallel.maybe_init_distributed("cuda", backend="gloo", timeout=DIST_OP_TIMEOUT)
+    reset, counters = _counters("sama")
+    got = {}
+    for kind, extra in (("flash", MP_GLOO_MESH), ("f64", MP_GLOO_MESH),
+                        ("moe", ["--strategy", "ep", "--mesh", "dp:1,ep:2"])):
+        t0 = time.time()
+        engine = _mp_engine(kind, extra)
+        losses = _record_losses(engine)
+        reset()
+        engine.run()
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        got[kind] = (_whole_params(engine), losses)
+        params = engine.states["inner" if kind == "moe" else "classifier"]["params"]
+        held = {k: list(v.shape) for k, v in list(params.get("moe", params).items())[:5]}
+        log(f"[mp gloo2 {kind}] rank {torch.distributed.get_rank()}: {time.time() - t0:.2f} s, "
+            f"holds {held}, flash launches {launches}")
+        if kind == "flash" and engine.device.type == "cuda":
+            assert launches.get("flash_single_fwd", 0) > 0, launches
+        del engine
+    if torch.distributed.get_rank() == 0:
+        torch.save(got, out)
+    torch.distributed.barrier()
+
+
+def _mp_gloo2_check(card, gloo, out, deadline, t0):
+    """The two-rank leg against this process's one-process runs."""
+    import torch
+    from betty_tpu_torch.utils import tree_leaves
+
+    ref = {}
+    for kind in ("flash", "f64", "moe"):
+        engine = _mp_engine(kind)
+        start = _whole_params(engine)
+        losses = _record_losses(engine)
+        engine.run()
+        ref[kind] = (_whole_params(engine), start, losses)
+        del engine
+    _dist_wait("[mp gloo2]", gloo, deadline)
+    got = torch.load(out, weights_only=True)
+
+    def err(a, b):
+        return max(float((x.double() - y.double()).abs().max())
+                   for n in a for x, y in zip(tree_leaves(a[n]), tree_leaves(b[n])))
+
+    errs = {k: err(got[k][0], ref[k][0]) for k in ref}
+    moved = {k: err(ref[k][0], ref[k][1]) for k in ref}
+    rel = {k: _rel_apart(got[k][0], ref[k][0], ref[k][1])[0] for k in ref}
+    dloss = {k: max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got[k][1], ref[k][2]))
+             for k in ref}
+    log(f"[mp gloo2] [{card}] two ranks (gloo, CUDA tensors) against one process: max |param "
+        f"diff| {errs} (f64 and moe tol {MP_F64_TOL}); |got - one process| / |one process - "
+        f"start| {rel} (flash tol {MP_FLASH_REL_TOL}); max relative loss diff {dloss} (flash "
+        f"tol {MP_FLASH_LOSS_TOL}); moved from the start (max) {moved}; "
+        f"{time.time() - t0:.1f} s")
+    assert all(moved[k] > 0 for k in ref), moved
+    assert errs["f64"] <= MP_F64_TOL and errs["moe"] <= MP_F64_TOL, errs
+    assert rel["flash"] <= MP_FLASH_REL_TOL, rel
+    assert all(len(got[k][1]) == len(ref[k][2]) for k in ref)
+    assert dloss["flash"] <= MP_FLASH_LOSS_TOL, dloss
+
+
+def _mp_call_cost(n=200):
+    """Host milliseconds a call of the row-parallel sum (*g* over one rank:
+    a clone and an NCCL all-reduce) and of the clone alone, on the north
+    star's bf16 activation [32, 128, 1024], and the device time a call."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    mesh = parallel.make_mesh((("dp", 1), ("mdl", 1)))
+    x = torch.randn(32, 128, 1024, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for name, fn in (("clone", torch.clone),
+                     ("g", lambda t: parallel.reduce_from_model(t, mesh))):
+        for _ in range(10):
+            fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(x)
+        host = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        out[name] = (host, (time.perf_counter() - t0) / n * 1e3)
+    log("[mp north] host ms / wall ms a call over one rank (bf16 [32, 128, 1024], "
+        f"{n} calls): clone {out['clone'][0]:.4f} / {out['clone'][1]:.4f}, g (clone and "
+        f"NCCL all-reduce) {out['g'][0]:.4f} / {out['g'][1]:.4f}")
+
+
+def _mp_north_run(strategy, extra, calls):
+    """Two north-star meta-periods under ``strategy`` and a profiled third
+    (NCCL kernels and device copies, the collective calls by kind):
+    ``(params, losses)``."""
+    tag = f"[mp north {strategy}]"
+    params, losses, periods, peak, launches, engine = _north_run(strategy, tag, extra)
+    log(f"{tag} meta-period seconds {periods} (the first includes warm-up); peak "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    assert launches == SAMA_S128, (launches, SAMA_S128)
+    assert all(math.isfinite(float(x)) for _, x in losses)
+    if strategy == "tp":
+        dims = engine.classifier._shard_dims["params"]
+        q = engine.states["classifier"]["params"]["blocks.0.attn.query.kernel"]
+        log(f"{tag} {sum(d is not None for d in dims.values())} of {len(dims)} classifier "
+            f"leaves sharded over mdl (one rank: whole); query kernel held "
+            f"{tuple(q.shape)} on dim {dims['blocks.0.attn.query.kernel']}")
+    calls.clear()
+    rep = profile_period(engine, 5, tag, classify=_nccl_kind)
+    kernels = (rep or {}).get("kernels", [])
+    for kind in ("nccl", "copy DtoD"):
+        ks = [(t, c) for t, c, n in kernels if _nccl_kind(n) == kind]
+        log(f"{tag} {kind} in the profiled period: {sum(c for _, c in ks)} launches, "
+            f"{sum(t for t, _ in ks):.3f} ms device time")
+    log(f"{tag} collective calls in the profiled period: {dict(calls)}")
+    assert (calls.get("all_reduce", 0) > 0) or strategy == "default", calls
+    del engine
+    _free()
+    return params, losses
+
+
+def _mp_world_one(default, start, calls):
+    """World of one over NCCL: the north star under tp (``dp:1,mdl:1``)
+    against ``default`` (its ``(params, losses)``, both from the whole
+    parameters ``start``), the MoE at Switch-Base-8's widths under ep
+    (``dp:1,ep:1``) against default, compiled tp at small width against
+    driver mode. Run by the dist phase's world of one after its `default`
+    north star."""
+    import torch
+    from betty_tpu_torch.examples import bert_data_reweighting as ex
+    from betty_tpu_torch.examples import moe_reweighting as moe
+
+    pb, lb = _mp_north_run("tp", MP_TP_WORLD_ONE, calls)
+    _mp_call_cost()
+    pa, la = default
+    same = all(torch.equal(pa[n][k], pb[n][k]) for n in pa for k in pa[n])
+    dparam = max(float((pa[n][k].double() - pb[n][k].double()).abs().max())
+                 for n in pa for k in pa[n])
+    rel, moved = _rel_apart(pb, pa, start)
+    dloss = max(abs(float(a[1]) - float(b[1])) for a, b in zip(la, lb))
+    log(f"[mp north] tp vs default at a world of one: parameters bit-equal {same}, max |param "
+        f"diff| {dparam:.3e}, |tp - default| / |default - start| {rel:.4e} (bound "
+        f"{MP_NORTH_REL_TOL}; |default - start| {moved:.4e}), {len(la)} losses, max |loss "
+        f"diff| {dloss:.3e} (bound {MP_NORTH_LOSS_TOL})")
+    assert len(la) == len(lb) == 12 and all(a[0] == b[0] for a, b in zip(la, lb))
+    assert moved > 0 and rel <= MP_NORTH_REL_TOL and dloss <= MP_NORTH_LOSS_TOL
+    del pa, pb, default
+    _free()
+    # the MoE at Switch-Base-8's widths, fp32: ep over one rank against default
+    moes = {}
+    for strategy, extra in (("default", []), ("ep", ["--strategy", "ep", "--mesh", "dp:1,ep:1"])):
+        engine = moe.build_engine(moe.parse_args(MP_MOE_ARGV + extra))
+        if strategy == "default":
+            moe_start = _whole_params(engine)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        engine.run()
+        torch.cuda.synchronize()
+        moes[strategy] = _whole_params(engine)
+        log(f"[mp moe {strategy}] Switch-Base-8 widths, 8 steps {time.time() - t0:.3f} s "
+            "(the first period includes warm-up)")
+        del engine
+    from betty_tpu_torch.utils import tree_leaves
+
+    pairs = [(a, b) for n in moes["default"] for a, b in
+             zip(tree_leaves(moes["ep"][n]), tree_leaves(moes["default"][n]))]
+    same = all(torch.equal(a, b) for a, b in pairs)
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    rel, moved = _rel_apart(moes["ep"], moes["default"], moe_start)
+    log(f"[mp moe] ep vs default at a world of one: bit-equal {same}, max |param diff| "
+        f"{diff:.3e} (bound {MP_MOE_TOL}), |ep - default| / |default - start| {rel:.4e} "
+        f"(|default - start| {moved:.4e})")
+    assert moved > 0 and diff <= MP_MOE_TOL
+    # compiled tp at small width: the period's NCCL calls captured
+    argv = SMALL_ARGV + ["--hypergradient", "sama", "--flash", "--dropout", "0.1",
+                         "--device", "cuda", "--strategy", "tp"] + MP_TP_WORLD_ONE
+    small = {}
+    for compiled in (False, True):
+        engine = ex.build_engine(ex.parse_args(
+            argv + ["--train_iters", "12"] + (["--compile_blocks"] if compiled else [])))
+        engine.run()
+        small[compiled] = _whole_params(engine)
+        if compiled:
+            runner = engine.block_runner
+            log(f"[mp compiled] tp compiled: captures {runner.captures}, replays "
+                f"{runner.replays}, periods {runner.periods_run}, capture "
+                f"{runner.capture_seconds:.2f} s")
+            assert runner.periods_run > 0 and runner.captures == 1
+        del engine
+    eq = all(torch.equal(small[True][n][k], t) for n, st in small[False].items()
+             for k, t in st.items())
+    log(f"[mp compiled] tp compiled vs driver at a world of one: bit-equal {eq}")
+    assert eq
+
+
+def mp_phase(card):
+    """The two-rank leg and its one-process references, here (the world of
+    one runs in the dist phase's)."""
+    t0 = time.time()
+    deadline = t0 + DIST_TIMEOUT
+    os.makedirs("build", exist_ok=True)
+    out = os.path.abspath(os.path.join("build", "mp_gloo2.pt"))
+    if os.path.exists(out):
+        os.remove(out)
+    gloo = _dist_launch("mpgloo2", 2, out)
+    try:
+        _mp_gloo2_check(card, gloo, out, deadline, t0)
+    finally:
+        for p in gloo:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"[mp] [{card}] phase done in {time.time() - t0:.1f} s")
+
+
+MP_FOUR_MESHES = (("dp:1,mdl:4", 32), ("dp:2,mdl:2", 16))  # (mesh, a dp rank's batch)
+
+
+def _mp_four_rank(mesh, batch, out):
+    """One rank of the four-card north star under tp: two meta-periods,
+    then one profiled; rank 0 writes the readings."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    parallel.maybe_init_distributed("cuda", timeout=DIST_OP_TIMEOUT)
+    calls = _count_collectives()
+    argv = ["--mesh", mesh, "--batch_size", str(batch)]
+    params, losses, periods, peak, launches, engine = _north_run("tp", f"[mp four {mesh}]",
+                                                                 argv)
+    calls.clear()
+    rep = profile_period(engine, 5, f"[mp four {mesh}]", classify=_nccl_kind)
+    kernels = (rep or {}).get("kernels", [])
+    nccl = [(t, c) for t, c, n in kernels if _nccl_kind(n) == "nccl"]
+    q = engine.states["classifier"]["params"]["blocks.0.attn.query.kernel"]
+    reading = {"mesh": mesh, "rank": torch.distributed.get_rank(), "periods": periods,
+               "peak_mib": peak / 2**20, "launches": launches, "calls": dict(calls),
+               "nccl_launches": sum(c for _, c in nccl), "nccl_ms": sum(t for t, _ in nccl),
+               "query_kernel": list(q.shape),
+               "finite": all(math.isfinite(float(x)) for _, x in losses)}
+    readings = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(readings, reading)
+    if torch.distributed.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(readings, f)
+    torch.distributed.barrier()
+
+
+def _mp_four_moe(out):
+    """One rank of the MoE program at Switch-Base-8's widths under ``ep:4``
+    (2 experts a card): 2 warm-up periods, 8 timed, one profiled; rank 0
+    then runs the one-process program and compares."""
+    import torch
+    from betty_tpu_torch import parallel
+    from betty_tpu_torch.examples import moe_reweighting as moe
+
+    parallel.maybe_init_distributed("cuda", timeout=DIST_OP_TIMEOUT)
+    calls = _count_collectives()
+    argv = ["--device", "cuda", "--train_iters", "20"]
+    engine = moe.build_engine(moe.parse_args(argv + ["--strategy", "ep", "--mesh", "ep:4"]))
+    ends = []
+    orig = engine.outer.one_step_descent
+
+    def record(*a, **kw):
+        res = orig(*a, **kw)
+        torch.cuda.synchronize()
+        ends.append(time.time())
+        return res
+
+    engine.outer.one_step_descent = record
+    torch.cuda.reset_peak_memory_stats()
+    engine.run()
+    periods = [b - a for a, b in zip(ends[1:], ends[2:])]
+    peak = torch.cuda.max_memory_allocated()
+    calls.clear()
+    rep = profile_period(engine, 2, "[mp four moe]", classify=_nccl_kind)
+    nccl = [(t, c) for t, c, n in (rep or {}).get("kernels", []) if _nccl_kind(n) == "nccl"]
+    got = _whole_params(engine)
+    reading = {"rank": torch.distributed.get_rank(), "periods": periods, "peak_mib": peak / 2**20,
+               "calls": dict(calls), "nccl_launches": sum(c for _, c in nccl),
+               "nccl_ms": sum(t for t, _ in nccl),
+               "w1": list(engine.states["inner"]["params"]["moe"]["w1"].shape)}
+    del engine
+    if torch.distributed.get_rank() == 0:
+        ref = moe.build_engine(moe.parse_args(argv + ["--train_iters", "22"]))
+        ref.run()
+        from betty_tpu_torch.utils import tree_leaves
+
+        want = _whole_params(ref)
+        reading["max_abs_err"] = max(float((a - b).abs().max()) for n in want for a, b in
+                                     zip(tree_leaves(got[n]), tree_leaves(want[n])))
+    readings = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(readings, reading)
+    if torch.distributed.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(readings, f)
+    torch.distributed.barrier()
+
+
+def mp_four(card):
+    """``--mp-four``: the north star under tp on four cards, one rank a card
+    over NCCL, at each of ``MP_FOUR_MESHES`` (the global batch 32): period,
+    NCCL kernels' device time of a profiled period, peak a card; then the
+    MoE at Switch-Base-8's widths under ``ep:4`` against one process."""
+    import torch
+
+    assert torch.cuda.device_count() >= 4, "--mp-four needs four cards"
+    os.makedirs("build", exist_ok=True)
+    out = os.path.abspath(os.path.join("build", "mp_four_moe.json"))
+    _dist_wait("[mp four moe]", _dist_launch("fourmoe", 4, out), time.time() + DIST_TIMEOUT)
+    with open(out) as f:
+        readings = json.load(f)
+    for r in readings:
+        log(f"[mp four moe] [{card}] rank {r['rank']}: periods (2 steps) {r['periods']} s, peak "
+            f"{r['peak_mib']:.0f} MiB, w1 {r['w1']}, NCCL {r['nccl_launches']} launches "
+            f"{r['nccl_ms']:.3f} ms in the profiled period, calls {r['calls']}")
+    log(f"[mp four moe] against one process (fp32, 22 steps): max |param diff| "
+        f"{readings[0]['max_abs_err']:.3e} (bound {MP_MOE_TOL})")
+    assert readings[0]["max_abs_err"] <= MP_MOE_TOL
+    for mesh, batch in MP_FOUR_MESHES:
+        out = os.path.abspath(os.path.join("build", f"mp_four_{mesh.replace(',', '_')}.json"))
+        procs = _dist_launch(f"four:{mesh}:{batch}", 4, out)
+        _dist_wait(f"[mp four {mesh}]", procs, time.time() + DIST_TIMEOUT)
+        with open(out) as f:
+            readings = json.load(f)
+        for r in readings:
+            log(f"[mp four {mesh}] [{card}] rank {r['rank']}: meta-periods {r['periods']} s, "
+                f"peak {r['peak_mib']:.0f} MiB, query kernel {r['query_kernel']}, NCCL "
+                f"{r['nccl_launches']} launches {r['nccl_ms']:.3f} ms in the profiled period, "
+                f"calls {r['calls']}, flash launches {r['launches']}")
+        assert all(r["finite"] for r in readings)
 
 
 # the port's kernels by their own symbol names (csrc/*.cu), for the profile
@@ -4552,7 +5025,7 @@ def sass_report(lib_paths, head_dims):
 
 
 PHASES = ("kernels", "slice", "long", "mwn", "compiled", "itd", "checkpoint", "remat", "nas",
-          "robust", "programs", "pruning", "ppo", "moe", "tutorials", "dist")
+          "robust", "programs", "pruning", "ppo", "moe", "tutorials", "dist", "mp")
 # exact launch counts of the two SAMA runs over two meta-periods: per period
 # 216 attention forwards and 144 backwards (5 bf16 classifier steps of 24
 # layers, then SAMA's fp32 passes), one kernel each, B4 and B5 both per
@@ -4593,9 +5066,12 @@ def main(argv=None):
                          "teacher, device augmentation), ppo (PPO with its rollout env), moe "
                          "(the Switch MoE layer under a Meta-Weight-Net at Switch-Base-8 "
                          "widths), tutorials (test_install, the tutorials, prefetch_to_device), "
-                         "dist (the data-parallel strategies over torch.distributed)")
+                         "dist (the data-parallel strategies over torch.distributed), mp "
+                         "(tensor and expert parallelism)")
     ap.add_argument("--dist-worker", nargs=2, metavar=("MODE", "OUT"), default=None,
                     help="one rank of the dist phase (run by the dist phase itself)")
+    ap.add_argument("--mp-four", action="store_true",
+                    help="only the four-card north star under tp (needs four cards)")
     args = ap.parse_args(argv)
     if args.dist_worker:
         return dist_worker(*args.dist_worker)
@@ -4616,6 +5092,12 @@ def main(argv=None):
 
     card = card_line()
     log(f"[setup] card: {card}")
+    if args.mp_four:
+        from betty_tpu_torch.ops import _build as build
+
+        build.build_all()
+        mp_four(card)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -4693,6 +5175,9 @@ def main(argv=None):
     if "dist" in phases:
         marks.append(("dist", time.time()))
         dist_phase(card)
+    if "mp" in phases:
+        marks.append(("mp", time.time()))
+        mp_phase(card)
 
     marks.append(("end", time.time()))
     log("[timing] seconds by phase: " + ", ".join(

@@ -31,7 +31,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "betty_tpu", "examples", "mwn_data", "vision_data",
              "common")
 TUTORIALS = ("1_quick_start", "2_validation", "3_logging", "4_memory_optimization",
-             "5_distributed_training", "6_performance", "8_custom_solver")
+             "5_distributed_training", "6_performance", "7_model_parallelism",
+             "8_custom_solver")
 
 
 def _imports(path):
@@ -70,15 +71,16 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
 
 def test_unported_options_raise(monkeypatch):
     assert EngineConfig(compile_blocks=True).compile_blocks  # ported: accepted
-    # ported: the data-parallel strategies; tensor/pipeline/expert/sequence
-    # parallelism and meshes with their axes still raise
-    for s in ("dp", "distributed", "zero", "fsdp"):
+    # ported: the data-parallel strategies, tensor and expert parallelism;
+    # pipeline and sequence parallelism and meshes with their axes still raise
+    for s in ("dp", "distributed", "zero", "fsdp", "tp", "ep"):
         assert EngineConfig(strategy=s).strategy == s
-    for s in ("tp", "pp", "ep", "sp"):
+    assert EngineConfig(strategy="tp", mesh_shape=(("dp", 1), ("mdl", 2))).strategy == "tp"
+    for s in ("pp", "sp"):
         with pytest.raises(NotImplementedError, match="§A.7"):
             EngineConfig(strategy=s)
     with pytest.raises(NotImplementedError, match="§A.7"):
-        EngineConfig(strategy="dp", mesh_shape=(("dp", 1), ("mdl", 2)))
+        EngineConfig(strategy="dp", mesh_shape=(("dp", 1), ("pp", 2)))
     # ported: parameter groups build a grouped optimizer
     from betty_tpu_torch import optim
 
@@ -109,8 +111,10 @@ def test_unported_options_raise(monkeypatch):
     assert mwn.build_engine(args).checkpoint_dir == "ckpt"
     assert tex.build_engine(tex.parse_args(small + ["--checkpoint_dir", "ckpt"])) \
         .checkpoint_dir == "ckpt"
+    # tp is ported, but needs a model axis on the mesh, which this example
+    # does not lay out
     args = mwn.parse_args(["--device", "cpu", "--stage_sizes", "1,1,1", "--strategy", "tp"])
-    with pytest.raises(NotImplementedError, match="§A.7"):
+    with pytest.raises(ValueError, match="model axis"):
         mwn.build_engine(args)
     # compiled blocks are ported: both examples build an engine with them
     assert tex.build_engine(tex.parse_args(small + ["--compile_blocks"])).config.compile_blocks

@@ -21,7 +21,7 @@ CPU, over gloo, in float64.
   the one-process values on the global batch.
 * The collectives against their definitions; ``fsdp_shardings`` and
   ``shard_loader`` against the JAX package's; the strategies and mesh axes
-  that are not ported raise.
+  that are not ported (pp, sp) raise.
 
 ``tests/torch_parallel_impl.py`` runs the JAX references (three processes)
 and the ranks (two groups of two, one of four) side by side, each with a
@@ -267,10 +267,12 @@ def test_shard_loader_matches_jax(count):
 
 
 def test_model_parallel_strategies_and_axes_raise():
-    for s in ("tp", "pp", "ep", "sp"):
-        with pytest.raises(NotImplementedError, match="§A.7"):
+    # tp and ep (the mdl and ep axes) are ported; pipeline and sequence
+    # parallelism raise, naming the remaining slice of ROADMAP.md §A.7
+    for s in ("pp", "sp"):
+        with pytest.raises(NotImplementedError, match="§A.7.*pipeline"):
             EngineConfig(strategy=s)
-    for axis in ("mdl", "pp", "ep", "sp"):
+    for axis in ("pp", "sp"):
         with pytest.raises(NotImplementedError, match="§A.7"):
             EngineConfig(strategy="fsdp", mesh_shape=(("dp", 1), (axis, 2)))
         with pytest.raises(NotImplementedError, match="§A.7"):
@@ -278,7 +280,7 @@ def test_model_parallel_strategies_and_axes_raise():
     with pytest.raises(ValueError, match="strategy"):
         EngineConfig(strategy="ddp")
     with pytest.raises(NotImplementedError, match="§A.7"):
-        parallel.state_shard_dims({"params": {}}, Mesh((("dp", 1),), 0, 1), "tp")
+        parallel.state_shard_dims({"params": {}}, Mesh((("dp", 1),), 0, 1), "pp")
 
 
 def test_helpers_are_the_identity_without_a_mesh():

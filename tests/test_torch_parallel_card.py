@@ -1,11 +1,14 @@
-"""The data-parallel strategies on the card: a world of one over NCCL, the
-collectives made over one rank, equal to the one-process run bit for bit;
-and, on a machine with several cards, one rank a card over NCCL. Imports
-no JAX, so it runs where the card is:
+"""The strategies on the card: a world of one over NCCL, the collectives
+made over one rank, equal to the one-process run bit for bit; on a machine
+with several cards, one rank a card over NCCL; on four cards, tensor
+parallelism (tutorial 7's tp mode on ``dp:2,mdl:2``) and expert parallelism
+(the MoE program on ``ep:4``) in float64 against one process on the global
+batch. Imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_parallel_card.py
 
-Skips without a CUDA device (the several-card case: with fewer than two);
+Skips without a CUDA device (the several-card cases: with fewer than two,
+or four, cards);
 ``chip_smoke.py``'s dist phase runs the north star the same way. Each case
 runs in subprocesses of its own (a process joins one process group)."""
 
@@ -117,6 +120,89 @@ torch.distributed.barrier()
 """
 
 
+MP_RANKS = r"""
+import importlib, json, sys
+import torch
+from betty_tpu_torch import parallel
+from betty_tpu_torch.utils import tree_leaves, tree_map
+
+t7 = importlib.import_module("betty_tpu_torch.tutorial.7_model_parallelism")
+moe = importlib.import_module("betty_tpu_torch.examples.moe_reweighting")
+MOE = ["--dim", "16", "--hidden", "32", "--experts", "4", "--tokens", "64", "--val_tokens",
+       "32", "--dense", "--train_iters", "4", "--device", "cuda"]
+parallel.maybe_init_distributed("cuda")
+rank = torch.distributed.get_rank()
+
+
+def f64(engine, batches=False):
+    engine.states = tree_map(lambda t: t.double() if torch.is_tensor(t)
+                             and t.is_floating_point() else t, engine.states)
+    if batches:
+        for p in engine.problems:
+            (x, y), = p.train_data_loader[0]
+            p.train_data_loader[0][0] = (x.double(), y)
+    return engine
+
+
+def run(engine):
+    start = [x.detach().cpu().clone() for p in engine.problems
+             for x in tree_leaves(p.full_state()["params"])]
+    engine.run()
+    end = [x.detach().cpu().clone() for p in engine.problems
+           for x in tree_leaves(p.full_state()["params"])]
+    return start, end, engine
+
+
+def err(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+report = {}
+_, tp, engine = run(f64(t7.build_engine(t7.parse_args(
+    ["--device", "cuda", "--train_iters", "6", "--mesh", "dp:2,mdl:2"]))))
+report["t7_query_kernel"] = list(engine.states["classifier"]["params"]
+                                 ["blocks.0.attn.query.kernel"].shape)
+_, ep, engine = run(f64(moe.build_engine(moe.parse_args(
+    MOE + ["--strategy", "ep", "--mesh", "ep:4"])), batches=True))
+report["moe_w1"] = list(engine.states["inner"]["params"]["moe"]["w1"].shape)
+if rank == 0:
+    start, want, _ = run(f64(t7.build_engine(t7.parse_args(
+        ["--device", "cuda", "--train_iters", "6", "--mesh", "none"]))))
+    report["t7_err"], report["t7_moved"] = err(tp, want), err(want, start)
+    start, want, _ = run(f64(moe.build_engine(moe.parse_args(MOE)), batches=True))
+    report["moe_err"], report["moe_moved"] = err(ep, want), err(want, start)
+    print("REPORT " + json.dumps(report), flush=True)
+torch.distributed.barrier()
+"""
+
+
+def _launch_ranks(script, world, timeout=400):
+    """``world`` ranks of ``script`` (``BETTY_*`` variables, one a card):
+    rank 0's REPORT line, parsed."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, str(world)], cwd=ROOT,
+        env=_env(BETTY_COORDINATOR_ADDRESS=f"localhost:{port}",
+                 BETTY_NUM_PROCESSES=str(world), BETTY_PROCESS_ID=str(rank)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank}:\n{out[-4000:]}"
+    line = [ln for ln in outs[0].splitlines() if ln.startswith("REPORT ")][-1]
+    print(line)
+    return json.loads(line[len("REPORT "):])
+
+
 def _env(**extra):
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK",
@@ -155,28 +241,22 @@ def test_one_rank_a_card_over_nccl():
     world = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if world < 2:
         pytest.skip("needs two or more CUDA cards")
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", RANKS, str(world)], cwd=ROOT,
-        env=_env(BETTY_COORDINATOR_ADDRESS=f"localhost:{port}",
-                 BETTY_NUM_PROCESSES=str(world), BETTY_PROCESS_ID=str(rank)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(world)]
-    try:
-        outs = [p.communicate(timeout=400)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank}:\n{out[-4000:]}"
-    line = [ln for ln in outs[0].splitlines() if ln.startswith("REPORT ")][-1]
-    print(line)
-    report = json.loads(line[len("REPORT "):])
+    report = _launch_ranks(RANKS, world)
     assert report["bert_replicas_equal"] and report["t5_moved"] > 0, report
     assert max(report["t5_err"].values()) <= 1e-10, report
     assert max(report["zero_fsdp_vs_dp"].values()) <= 1e-12, report
+
+
+@pytest.mark.gpu
+def test_tp_and_ep_on_four_cards_over_nccl():
+    """Four ranks, one a card, NCCL: tutorial 7's tp mode on ``dp:2,mdl:2``
+    (half the heads and MLP columns a rank) and the MoE program on ``ep:4``
+    (one expert a rank), float64, within 1e-10 of one process on the global
+    batch."""
+    world = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 4:
+        pytest.skip("needs four CUDA cards")
+    report = _launch_ranks(MP_RANKS, 4)
+    assert report["t7_query_kernel"] == [64, 2, 16] and report["moe_w1"] == [1, 16, 32], report
+    assert report["t7_moved"] > 0 and report["moe_moved"] > 0, report
+    assert report["t7_err"] <= 1e-10 and report["moe_err"] <= 1e-10, report
