@@ -28,8 +28,8 @@ their epoch, and their ``batches_served`` restarts with it.
 
 Across ranks (a strategy over ``torch.distributed``,
 ``betty_tpu/checkpoint.py:54-144, 198-246``): every rank gathers the whole
-tensors of its ZeRO/FSDP shards over ``dp``, or of its tp/ep shards over the
-model axis (``Problem.full_state``, a collective), rank 0 alone writes the
+tensors of its ZeRO/FSDP shards over ``dp``, or of its tp/ep/pp shards over
+the model axis (pp: the stacked blocks of the stages) (``Problem.full_state``, a collective), rank 0 alone writes the
 files, and
 all ranks then meet at a barrier, so no rank reads a checkpoint before it
 is whole. On restore every rank reads the same files and cuts its shards

@@ -49,10 +49,11 @@ holds the live state. A run resumed from it builds a new runner, which
 captures a new graph; its per-step values and seeds derive from the
 restored counts and integer leaves, as every period's do.
 
-Under a strategy over ``torch.distributed`` (data, tensor or expert
-parallel) the period's update functions make their collectives
-(``parallel/collectives.py``: the batch reductions, and tp/ep's model-axis
-sums and gathers) as in driver mode: on the CPU eagerly, on the card
+Under a strategy over ``torch.distributed`` (data, tensor, expert,
+pipeline or sequence parallel) the period's update functions make their
+collectives (``parallel/collectives.py``: the batch reductions, tp/ep's
+model-axis sums and gathers, pp's ring shifts and sp's sequence gathers)
+as in driver mode: on the CPU eagerly, on the card
 inside the captured graph, which replays them (PyTorch captures NCCL
 collectives into a CUDA graph). A capture that fails
 under a strategy raises an error naming the strategy and the failure;

@@ -17,13 +17,18 @@ data-parallel ``"dp"`` (alias ``"distributed"``), ``"zero"`` or ``"fsdp"``;
 tensor-parallel ``"tp"``, whose layouts ``Config.shard_rules`` overrides
 (``(regex, partition-spec tuple)`` pairs, the regex searched in the port's
 leaf names, the spec over the port's dims, as in
-``parallel.tp_shardings``); or expert-parallel ``"ep"``. ``mesh_shape``
-lays the ranks out (``(("dp", N),)`` by default, ``(("dcn", M), ("dp",
-N))``, and for tp and ep a model axis last: ``(("dp", N), ("mdl", M))``
-or ``(("dp", N), ("ep", M))``), and ``autoshard_data`` gives each rank its
-examples of every ``ArrayLoader`` (``data.shard_loader``). ``"pp"`` and
-``"sp"``, and meshes with a ``pp`` or ``sp`` axis, raise
-``NotImplementedError`` (ROADMAP.md §A.7's remaining slice).
+``parallel.tp_shardings``); expert-parallel ``"ep"``; pipeline-parallel
+``"pp"`` (GPipe over the stage-stacked blocks of
+``models.make_pipelined_transformer``); or sequence-parallel ``"sp"``
+(parameters replicated; the module built with ``seq_axis="sp"``).
+``mesh_shape`` lays the ranks out (``(("dp", N),)`` by default, ``(("dcn",
+M), ("dp", N))``, and for the model-parallel strategies one model axis
+last: ``(("dp", N), ("mdl", M))``, ``("ep", M)``, ``("pp", M)`` or
+``("sp", M)``; the data-parallel strategies also take a ``pp`` or ``sp``
+axis, whose module splits the depth or the sequence itself), and
+``autoshard_data`` gives each rank its examples of every ``ArrayLoader``
+(``data.shard_loader``). A mesh with two model axes raises
+``NotImplementedError`` (ROADMAP.md §A.7's composition).
 
 ``EngineConfig.profile_dir`` writes a ``torch.profiler`` trace of the run
 there (``Engine._profiler``).
@@ -132,16 +137,13 @@ class EngineConfig:
     auto_resume: bool = False
 
     def __post_init__(self):
-        from betty_tpu_torch.parallel.mesh import (DP_STRATEGIES, MODEL_STRATEGIES,
-                                                   UNPORTED_AXES, UNPORTED_STRATEGIES,
+        from betty_tpu_torch.parallel.mesh import (DP_STRATEGIES, MODEL_AXES, MODEL_STRATEGIES,
                                                    model_parallel_error)
 
-        if self.strategy in UNPORTED_STRATEGIES:
-            raise model_parallel_error(f"EngineConfig.strategy={self.strategy!r}")
         known = DP_STRATEGIES + MODEL_STRATEGIES
         if self.strategy != "default" and self.strategy not in known:
             raise ValueError(f"EngineConfig.strategy={self.strategy!r}: one of 'default', "
                              + ", ".join(repr(s) for s in known))
-        for name, _ in self.mesh_shape or ():
-            if name in UNPORTED_AXES:
-                raise model_parallel_error(f"EngineConfig.mesh_shape axis {name!r}")
+        model = [name for name, _ in self.mesh_shape or () if name in MODEL_AXES]
+        if len(model) > 1:
+            raise model_parallel_error(f"EngineConfig.mesh_shape {tuple(self.mesh_shape)}")

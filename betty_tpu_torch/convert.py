@@ -19,7 +19,10 @@ carries the architecture logits. ``from_flax_captioner`` maps IUC's
 ``Captioner`` (and JAX's frozen projection, when given) and
 ``from_flax_omniglot`` the Omniglot CNN's variables. ``from_jax_moe`` takes
 the JAX package's MoE parameter dict (``models/moe.py``), whose layouts the
-port keeps.
+port keeps. ``from_jax_pipelined`` takes ``make_pipelined_transformer``'s
+``{"embed", "blocks", "head"}`` tree (the blocks a vmapped flax
+``EncoderBlock``'s, a leading depth axis on every leaf) and keeps the depth
+axis.
 """
 
 import numpy as np
@@ -244,3 +247,28 @@ def from_jax_moe(params, device="cpu", dtype=torch.float32):
     port's ``models/moe.py`` params: the same names and layouts (``router``
     (d, E), ``w1`` (E, d, h), ``b1`` (E, h), ``w2`` (E, h, d), ``b2`` (E, d))."""
     return {k: _t(params[k], device, dtype) for k in ("router", "w1", "b1", "w2", "b2")}
+
+
+def from_jax_pipelined(params, device="cpu", dtype=torch.float32):
+    """The JAX package's ``make_pipelined_transformer`` params -> the port's
+    (``models.make_pipelined_transformer``): ``embed.tok``/``embed.pos``,
+    the stacked ``blocks.*`` (flax ``Dense`` kernels ``(depth, in, out)``
+    transposed to ``(depth, out, in)``, the attention kernels as they are,
+    LayerNorm ``scale`` as ``weight``) and ``head.*``."""
+    blocks = params["blocks"]
+    out = {"embed.tok": _t(params["embed"]["tok"], device, dtype),
+           "embed.pos": _t(params["embed"]["pos"], device, dtype)}
+    for flax_name, name in (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2")):
+        out[f"blocks.{name}.weight"] = _t(blocks[flax_name]["scale"], device, dtype)
+        out[f"blocks.{name}.bias"] = _t(blocks[flax_name]["bias"], device, dtype)
+    attn = blocks["MultiHeadDotProductAttention_0"]
+    for name in ("query", "key", "value", "out"):
+        out[f"blocks.attn.{name}.kernel"] = _t(attn[name]["kernel"], device, dtype)
+        out[f"blocks.attn.{name}.bias"] = _t(attn[name]["bias"], device, dtype)
+    for flax_name, name in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+        out[f"blocks.{name}.weight"] = _t(np.swapaxes(np.asarray(blocks[flax_name]["kernel"]),
+                                                      1, 2), device, dtype)
+        out[f"blocks.{name}.bias"] = _t(blocks[flax_name]["bias"], device, dtype)
+    for k, v in params["head"].items():
+        out[f"head.{k}"] = _t(v, device, dtype)
+    return out

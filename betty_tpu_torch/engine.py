@@ -28,7 +28,7 @@ compiled (a block never spans two checkpoint boundaries, and a save between
 blocks reads the runner's live state).
 
 ``EngineConfig(strategy="dp" | "distributed" | "zero" | "fsdp" | "tp" |
-"ep")`` runs one process a rank (``betty_tpu/engine.py:78-187``):
+"ep" | "pp" | "sp")`` runs one process a rank (``betty_tpu/engine.py:78-187``):
 ``configure_systems`` joins the process group
 (``parallel.maybe_init_distributed``: torchrun's or the ``BETTY_*``
 variables, else a world of one) and builds the mesh of ``mesh_shape``;
@@ -42,10 +42,12 @@ batches. Only rank 0 logs; validation runs on every rank and its numbers
 are averaged over the batch ranks, so the early-stopping decision agrees.
 A strategy other than ``"default"`` with a ``mesh_shape`` of ``None`` puts
 every rank on ``dp``; ``"default"`` with a ``mesh_shape`` runs as ``"dp"``.
-tp needs a model axis (``mdl`` or ``ep``) on the mesh and ep an ``ep``
-axis; the data-parallel strategies take none. Under ep a program none of
-whose problems has expert-stacked MoE leaves raises, as the JAX package's
-engine does.
+tp needs a model axis on the mesh, and ep, pp and sp an axis of their
+name; the data-parallel strategies take no model axis but ``pp`` or ``sp`` (whose
+module splits the depth or the sequence itself). Under pp or ep a program
+none of whose problems has stage-stacked blocks or expert-stacked MoE
+leaves raises, as the JAX package's engine does; a problem that does not
+match is replicated.
 """
 
 import contextlib
@@ -111,16 +113,18 @@ class Engine:
             return
         self.strategy = "dp" if strategy in ("default", "distributed") else strategy
         axes = [n for n, _ in self.config.mesh_shape or ()]
-        model = [n for n in axes if n in ("mdl", "ep")]
+        model = [n for n in axes if n in parallel.mesh.MODEL_AXES]
         if self.strategy == "tp" and not model:
             raise ValueError("strategy='tp' needs a mesh with a model axis: pass "
                              "EngineConfig(mesh_shape=(('dp', N), ('mdl', M))) "
                              f"(got {self.config.mesh_shape})")
-        if self.strategy == "ep" and "ep" not in axes:
-            raise ValueError("strategy='ep' needs a mesh with an 'ep' axis: pass "
-                             "EngineConfig(mesh_shape=(('dp', N), ('ep', M))) "
-                             f"(got {self.config.mesh_shape})")
-        if self.strategy in parallel.DP_STRATEGIES and model:
+        for name in ("ep", "pp", "sp"):
+            if self.strategy == name and name not in axes:
+                raise ValueError(f"strategy={name!r} needs the mesh axis {name!r}: pass "
+                                 f"EngineConfig(mesh_shape=(('dp', N), ('{name}', M))) "
+                                 f"(got {self.config.mesh_shape})")
+        if self.strategy in parallel.DP_STRATEGIES and any(n in parallel.mesh.TP_AXES
+                                                           for n in model):
             raise ValueError(f"strategy={strategy!r} on the mesh {self.config.mesh_shape}: a "
                              f"{model[0]!r} axis is for strategy 'tp' or 'ep'")
         parallel.maybe_init_distributed(self.device)
@@ -166,13 +170,15 @@ class Engine:
                 state = parallel.shard_state(state, self.mesh, self.strategy, rules)
             self.states[problem.name] = state
 
-        if self.strategy == "ep" and not any(
-                parallel.strategy_matches("ep", s) for s in self.states.values()):
+        if self.strategy in ("pp", "ep") and not any(
+                parallel.strategy_matches(self.strategy, s) for s in self.states.values()):
             # no problem's module has the layout: the run would train
-            # unsharded, so fail loudly (betty_tpu/engine.py:172-187)
-            raise ValueError("strategy='ep': no problem's module has expert-stacked parameters "
-                             "under a moe/ subtree (models.moe.init_moe_params); nothing to "
-                             "shard")
+            # unsharded, so fail loudly (betty_tpu/engine.py:172-190)
+            what = ("stage-stacked parameters under blocks. "
+                    "(models.make_pipelined_transformer)" if self.strategy == "pp" else
+                    "expert-stacked parameters under a moe/ subtree (models.moe.init_moe_params)")
+            raise ValueError(f"strategy={self.strategy!r}: no problem's module has {what}; "
+                             "nothing to shard")
 
         self.logger.info(f"Time spent on initialization: {time.time() - start:.3f} (s)")
 

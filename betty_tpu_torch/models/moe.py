@@ -39,7 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from betty_tpu_torch.parallel import copy_to_model, model_mesh, reduce_from_model
+from betty_tpu_torch.parallel import copy_to_model, reduce_from_model
+from betty_tpu_torch.parallel.mesh import tp_mesh
 
 
 def init_moe_params(generator: Optional[torch.Generator], dim: int, hidden: int,
@@ -116,7 +117,7 @@ def moe_ffn(params, x, capacity_factor: float = 1.25, capacity: Optional[int] = 
     gate, onehot, dispatch = route(probs, C, x.dtype)
 
     experts = {k: params[k] for k in ("w1", "b1", "w2", "b2")}
-    mesh = model_mesh()
+    mesh = tp_mesh()
     if mesh is not None and (mesh.model_size == 1 or params["w1"].shape[0] != E):
         experts, x_in, dispatch_in = _local_experts(experts, x, dispatch, E, mesh)
     else:

@@ -57,7 +57,7 @@ installs. Anything else raises ``ValueError``, as JAX's model does. Since each
 block's dropout generator is made from its seed inside the recomputed
 function, remat on and off draw the same masks and compute the same
 numbers (inside a compiled block the recompute takes its own generators
-of the reseeded pool). ``make_pipelined_transformer`` is not ported yet.
+of the reseeded pool).
 
 Under tensor parallelism (a mesh with a model axis bound, ``strategy="tp"``)
 a block computes as Megatron's (arXiv:1909.08053): the attention on its
@@ -74,6 +74,16 @@ group whose main weight (the query kernel, ``fc1``) arrives whole on
 several ranks runs as without tp. Every rank of a model group draws the
 same dropout stream, so the replicated activations get the unsharded run's
 masks.
+
+``make_pipelined_transformer`` (``betty_tpu/models/transformer.py:241-371``)
+is the same encoder with its blocks' parameters STACKED (a leading depth
+dim: ``blocks.attn.query.kernel`` is ``(depth, d, H, Dh)``) beside
+``embed.tok``/``embed.pos`` and ``head.*``, dropout-free, as a
+``FunctionalModule``. Its stack runs one block after another
+(``parallel/pipeline.py::sequential``), as a GPipe pipeline over the bound
+mesh's ``pp`` axis (``gpipe``), or sequence-parallel over its ``sp`` axis
+(``seq_axis="sp"``: each rank's ``L/S`` positions through LayerNorm and the
+MLP, attention on its queries against the keys and values gathered whole).
 """
 
 import functools
@@ -86,7 +96,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from betty_tpu_torch.models.init import lecun_normal_, normal_
 from betty_tpu_torch.ops.flash_attention import flash_attention, reference_attention
-from betty_tpu_torch.parallel import copy_to_model, local_rows, model_mesh, reduce_from_model
+from betty_tpu_torch.parallel import copy_to_model, local_rows, reduce_from_model
+from betty_tpu_torch.parallel.mesh import axis_mesh, tp_mesh
 from betty_tpu_torch.utils import fold_in, seeded_generator
 
 REMAT_POLICIES = (None, "minimal", "dots")
@@ -115,7 +126,7 @@ def _tp_part(x, dim, full, mesh):
 def _tp_mesh(local: int, full: int):
     """The bound model-axis mesh if a group whose main weight holds
     ``local`` of ``full`` rows computes split over it, else None."""
-    mesh = model_mesh()
+    mesh = tp_mesh()
     if mesh is None or (mesh.model_size > 1 and local == full):
         return None
     return mesh
@@ -417,3 +428,184 @@ def roberta_large_config(num_classes: int = 2, max_len: int = 128, use_flash: bo
         vocab_size=50265, max_len=max_len, dim=1024, depth=24, heads=16,
         num_classes=num_classes, use_flash=use_flash, remat=remat, dropout=dropout,
         remat_policy=remat_policy, device=device, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined (stage-stacked) transformer
+# ---------------------------------------------------------------------------
+
+# a block's leaves by the port's names, with their shapes at width d, H heads
+def _block_shapes(dim, heads, mlp_ratio=4):
+    dh, hid = dim // heads, dim * mlp_ratio
+    out = {"ln1.weight": (dim,), "ln1.bias": (dim,)}
+    for name in ("query", "key", "value"):
+        out[f"attn.{name}.kernel"] = (dim, heads, dh)
+        out[f"attn.{name}.bias"] = (heads, dh)
+    out.update({"attn.out.kernel": (heads, dh, dim), "attn.out.bias": (dim,),
+                "ln2.weight": (dim,), "ln2.bias": (dim,), "fc1.weight": (hid, dim),
+                "fc1.bias": (hid,), "fc2.weight": (dim, hid), "fc2.bias": (dim,)})
+    return out
+
+
+def _init_block(dim, heads, seed, device, dtype):
+    """One block's parameters, flax's default initializers (lecun normal
+    kernels, zero biases, unit LayerNorm scales), drawn from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    p = {}
+    for name, shape in _block_shapes(dim, heads).items():
+        t = torch.empty(shape, device=device, dtype=dtype)
+        if name.endswith(("kernel", "fc1.weight", "fc2.weight")):
+            fan_in = shape[0] * shape[1] if name == "attn.out.kernel" else (
+                shape[1] if name.startswith("fc") else shape[0])
+            lecun_normal_(t, fan_in=fan_in, generator=gen)
+        elif name.startswith("ln") and name.endswith("weight"):
+            t.fill_(1.0)
+        else:
+            t.zero_()
+        p[name] = t
+    return p
+
+
+def _pipelined_block(p, carry, seq_mesh=None):
+    """One pre-LN encoder block on the port's names (flax
+    ``EncoderBlock(dim, heads, dropout=0.0)``: LayerNorm epsilon 1e-6, plain
+    attention with the key padding mask, tanh GELU). ``carry``: ``(h,
+    mask)`` with ``mask`` the (B, L) key mask as 0/1 floats. With
+    ``seq_mesh`` (sequence parallel) ``h`` holds this rank's positions and
+    the keys and values are gathered whole."""
+    h, mask = carry
+    d = h.shape[-1]
+    y = F.layer_norm(h, (d,), p["ln1.weight"], p["ln1.bias"], eps=1e-6)
+
+    def proj(name):
+        return (torch.einsum("bld,dhk->bhlk", y, p[f"attn.{name}.kernel"])
+                + p[f"attn.{name}.bias"][None, :, None, :])
+
+    q, k, v = proj("query"), proj("key"), proj("value")
+    if seq_mesh is not None:
+        from betty_tpu_torch.parallel.collectives import seq_gather
+
+        k, v = seq_gather(k, seq_mesh, dim=2), seq_gather(v, seq_mesh, dim=2)
+    o = reference_attention(q, k, v, mask > 0.5)
+    h = h + torch.einsum("bhlk,hkd->bld", o, p["attn.out.kernel"]) + p["attn.out.bias"]
+    y = F.layer_norm(h, (d,), p["ln2.weight"], p["ln2.bias"], eps=1e-6)
+    y = F.linear(F.gelu(F.linear(y, p["fc1.weight"], p["fc1.bias"]), approximate="tanh"),
+                 p["fc2.weight"], p["fc2.bias"])
+    return (h + y, mask)
+
+
+def _mesh_axes(mesh):
+    """The axis names of ``mesh``: a ``parallel.Mesh`` or a mesh shape
+    (``(("dp", 2), ("pp", 4))``, as ``EngineConfig.mesh_shape``)."""
+    if mesh is None:
+        return ()
+    if hasattr(mesh, "shape") and isinstance(mesh.shape, dict):
+        return tuple(mesh.shape)
+    return tuple(n for n, _ in mesh)
+
+
+def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: int = 128,
+                               dim: int = 256, depth: int = 4, heads: int = 8,
+                               num_classes: int = 2, pad_id: int = 1, axis: str = "pp",
+                               num_microbatches=None, seq_axis=None, seed: int = 0,
+                               device=None, dtype=torch.float32):
+    """A transformer classifier whose encoder stack runs as a GPipe
+    pipeline over the mesh's ``axis`` (``parallel/pipeline.py``), as
+    ``betty_tpu.models.make_pipelined_transformer``. Returns a
+    ``FunctionalModule`` with params ``embed.tok`` (V, d), ``embed.pos`` (1,
+    L, d), the stacked ``blocks.*`` (a leading depth dim; the attention
+    kernels ``(d, H, Dh)``/``(H, Dh, d)``, ``fc1``/``fc2`` as ``nn.Linear``
+    weights) and ``head.ln_scale``, ``ln_bias``, ``pool_w`` (d, d),
+    ``pool_b``, ``out_w`` (d, C), ``out_b``.
+
+    ``mesh``: None, a mesh shape (``EngineConfig.mesh_shape``) or a
+    ``parallel.Mesh``. With ``axis`` among its axes the stack runs through
+    ``gpipe`` over the mesh bound when the module is called (the engine's,
+    or one bound with ``parallel.active``), and each rank computes on the
+    stacked blocks it holds: shard them over ``pp`` with ``strategy="pp"``,
+    or ``strategy="tp"`` and ``Config(shard_rules=((r"^blocks",
+    ("pp",)),))``. ``num_microbatches``: M (default the axis size). Without
+    the axis the stack runs one block after another (``sequential``): the
+    same numbers on one device.
+
+    ``seq_axis``: the sequence-parallel mode (not with pipelining): over the
+    mesh's ``seq_axis`` the block input is split on the sequence, LayerNorm
+    and the MLP run on the rank's ``L/S`` positions, attention on its
+    queries against the keys and values gathered whole
+    (``parallel.seq_gather``), and the head's masked pooled sum leaves
+    through *g*. The leaves used on a sequence shard (the stacked blocks,
+    the head's LayerNorm) enter through *f*, so their gradients are summed
+    over the ``sp`` group once; the embedding's come whole through the
+    split's backward (an all-gather), and ``pool_*``/``out_*`` are used on
+    the replicated pooled vector. Megatron-SP (arXiv:2205.05198 §4.2).
+
+    Blocks are dropout-free, as JAX's (microbatching would need a dropout
+    stream a microbatch). ``seed``: the weights' seed (the JAX package's
+    bits come over with ``convert.from_jax_pipelined``)."""
+    from betty_tpu_torch.module import FunctionalModule
+    from betty_tpu_torch.parallel.collectives import seq_split
+    from betty_tpu_torch.parallel.pipeline import gpipe, sequential, stack_block_params
+
+    device = torch.device(device if device is not None else "cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(shape):
+        t = torch.empty(shape, device=device, dtype=dtype)
+        return normal_(t, 0.02, generator=gen)
+
+    blocks = stack_block_params(lambda s: _init_block(dim, heads, s, device, dtype),
+                                fold_in(seed, 1), depth)
+    params = {"embed.tok": normal((vocab_size, dim)), "embed.pos": normal((1, max_len, dim))}
+    params.update({f"blocks.{k}": v for k, v in blocks.items()})
+    params.update({"head.ln_scale": torch.ones(dim, device=device, dtype=dtype),
+                   "head.ln_bias": torch.zeros(dim, device=device, dtype=dtype),
+                   "head.pool_w": normal((dim, dim)),
+                   "head.pool_b": torch.zeros(dim, device=device, dtype=dtype),
+                   "head.out_w": normal((dim, num_classes)),
+                   "head.out_b": torch.zeros(num_classes, device=device, dtype=dtype)})
+
+    axes = _mesh_axes(mesh)
+    pipelined = axis in axes
+    seq_parallel = not pipelined and seq_axis is not None and seq_axis in axes
+    block_names = [k for k in params if k.startswith("blocks.")]
+
+    def apply_fn(variables, input_ids, train=True, rngs=None, mutable=(), **kwargs):
+        p = variables["params"]
+        L = input_ids.shape[1]
+        pad_mask = input_ids != pad_id
+        stacked = {k[len("blocks."):]: p[k] for k in block_names}
+        x = F.embedding(input_ids, p["embed.tok"]) + p["embed.pos"][:, :L]
+        mask = pad_mask.to(x.dtype)
+        ln_scale, ln_bias = p["head.ln_scale"], p["head.ln_bias"]
+        sp = axis_mesh(seq_axis) if seq_parallel else None
+        if pipelined:
+            pp = axis_mesh(axis)
+            if pp is None:
+                raise ValueError(f"make_pipelined_transformer: built for the {axis!r} axis, "
+                                 "called with no mesh of that model axis bound (run it under "
+                                 "the engine or parallel.active)")
+            x, _ = gpipe(_pipelined_block, stacked, (x, mask), pp, axis=axis,
+                         num_microbatches=num_microbatches, depth=depth)
+        elif sp is not None:
+            # the leaves used on this rank's positions: f sums their gradients
+            stacked = {k: copy_to_model(v, sp) for k, v in stacked.items()}
+            ln_scale, ln_bias = copy_to_model(ln_scale, sp), copy_to_model(ln_bias, sp)
+            x, _ = sequential(lambda q, c: _pipelined_block(q, c, sp), stacked,
+                              (seq_split(x, sp, dim=1), mask))
+            pad_mask = seq_split(mask, sp, dim=1) > 0.5
+        else:
+            x, _ = sequential(_pipelined_block, stacked, (x, mask))
+
+        x = F.layer_norm(x, (x.shape[-1],), ln_scale, ln_bias, eps=1e-6)
+        denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
+        summed = (x * pad_mask[..., None]).sum(dim=1)
+        if sp is not None:
+            summed = reduce_from_model(summed, sp)
+        pooled = torch.tanh(summed / denom @ p["head.pool_w"] + p["head.pool_b"])
+        out = pooled @ p["head.out_w"] + p["head.out_b"]
+        return (out, {}) if mutable else out
+
+    # under pp each rank computes on its stage's blocks (dim 0): the
+    # problem does not gather them
+    local = {k: 0 for k in block_names} if pipelined else None
+    return FunctionalModule(apply_fn, {"params": params}, rng_names=(), local_dims=local)

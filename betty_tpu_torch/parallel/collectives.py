@@ -45,11 +45,33 @@ through them. ``sharded_dot`` is the inner product of two parameter trees
 in a tp layout: the shards' partial sums reduced over the model group, the
 replicated leaves counted once.
 
+Pipeline and sequence parallelism (a ``pp`` or ``sp`` axis) add three
+more over the model group, each with a differentiable backward and a
+forward-mode rule:
+
+* ``ring_shift`` (``jax.lax.ppermute`` over the ring ``i -> i + 1``,
+  ``betty_tpu/parallel/pipeline.py:114``): one batched ``isend``/``irecv``
+  call (``dist.batch_isend_irecv``) for the leaves; backward the reverse
+  shift of the cotangents, forward mode the shift of the tangents. Torch
+  refuses a send to one's own rank, so over a group of one the shift is an
+  ``all_gather_into_tensor`` over that group (a copy; on NCCL a device
+  copy), still one collective a call. Gloo sends host memory only: CUDA
+  tensors go through the host there.
+* ``seq_split`` (the rank's ``L/S`` positions of a replicated activation;
+  backward the all-gather of the cotangents) and ``seq_gather`` (the whole
+  sequence of every rank's positions, for the keys and values attention
+  needs; backward the sum-reduce-scatter of the ranks' partial cotangents,
+  forward mode the gather of the tangents). A sequence length the axis
+  does not divide raises.
+
+``CALLS`` counts the ring shifts and sequence gathers made (forward,
+backward and forward mode alike).
+
 A world of one is not special-cased: the collectives are made, over one
 rank.
 """
 
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 import warnings
 
 import torch
@@ -470,3 +492,202 @@ def sharded_dot(a, b, dims=None, mesh=None):
 def sharded_norm(a, dims=None, mesh=None):
     """The global L2 norm of a tree in a tp layout (``sharded_dot``)."""
     return torch.sqrt(sharded_dot(a, a, dims, mesh))
+
+
+# ---------------------------------------------------------------------------
+# pp/sp: the ring shift and the sequence split and gather
+# ---------------------------------------------------------------------------
+
+CALLS = Counter()
+
+
+def _shift(xs, mesh, step):
+    """The model ranks' ``xs`` moved ``step`` places around the ring: this
+    rank receives the tensors of rank ``i - step`` (mod S). One grouped
+    call; over one rank a gather of the group of one."""
+    CALLS["ring_shift"] += 1
+    group, size = mesh.model_group, mesh.model_size
+    xs = [x.detach().contiguous() for x in xs]
+    if size == 1:
+        out = [torch.empty_like(x) for x in xs]
+        for o, x in zip(out, xs):
+            dist.all_gather_into_tensor(o, x, group=group)
+        return out
+    i = mesh.model_index
+    members = dist.get_process_group_ranks(group)
+    dst, src = members[(i + step) % size], members[(i - step) % size]
+    host = dist.get_backend(group) == "gloo" and xs[0].is_cuda
+    send = [x.cpu() for x in xs] if host else xs
+    recv = [torch.empty_like(x) for x in send]
+    ops = [dist.P2POp(dist.isend, x, dst, group) for x in send] + \
+        [dist.P2POp(dist.irecv, r, src, group) for r in recv]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [r.to(x.device) for r, x in zip(recv, xs)] if host else recv
+
+
+class _RingShift(torch.autograd.Function):
+    """``ppermute`` around the model group's ring by ``step``; backward the
+    shift by ``-step`` of the cotangents, forward mode the shift of the
+    tangents."""
+
+    @staticmethod
+    def forward(mesh, step, *xs):
+        return tuple(_shift(xs, mesh, step))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.step = inputs[0], inputs[1]
+        ctx.like = [x.detach() for x in output]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_RingShift.apply(ctx.mesh, -ctx.step,
+                                              *_zeros_for(grads, ctx.like)))
+
+    @staticmethod
+    def jvp(ctx, _mesh, _step, *tangents):
+        return _RingShift.apply(ctx.mesh, ctx.step, *_zeros_for(tangents, ctx.like))
+
+
+def ring_shift(xs, mesh, step: int = 1):
+    """The tensors ``xs`` (a list, the same shapes on every model rank) of
+    the rank ``step`` places before this one on the model group's ring
+    (``jax.lax.ppermute`` with pairs ``(i, (i + step) % S)``),
+    differentiable. Every rank of the group makes the call."""
+    return list(_RingShift.apply(mesh, step, *xs))
+
+
+def _check_seq(n, mesh, dim):
+    if n % mesh.model_size:
+        raise ValueError(f"sequence parallelism: a sequence of {n} positions (dim {dim}) does "
+                         f"not divide over the {mesh.model_size} ranks of the "
+                         f"{mesh.model_axis!r} axis")
+
+
+def _seq_gather(x, mesh, dim):
+    """The model ranks' ``x`` concatenated along ``dim`` in rank order."""
+    CALLS["seq_gather"] += 1
+    front = x.detach().movedim(dim, 0).contiguous()
+    n = mesh.model_size
+    out = torch.empty((n * front.shape[0],) + tuple(front.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, front, group=mesh.model_group)
+    return out.movedim(0, dim)
+
+
+def _seq_reduce_scatter(x, mesh, dim):
+    """This rank's positions along ``dim`` of the model ranks' sum of
+    ``x``."""
+    CALLS["seq_gather"] += 1
+    front = x.detach().movedim(dim, 0).contiguous()
+    n = mesh.model_size
+    out = torch.empty((front.shape[0] // n,) + tuple(front.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, front, group=mesh.model_group)
+    return out.movedim(0, dim)
+
+
+def _seq_part(x, mesh, dim):
+    return x.chunk(mesh.model_size, dim)[mesh.model_index]
+
+
+class _SeqSplit(torch.autograd.Function):
+    """This rank's positions of a replicated activation; backward the
+    all-gather of the cotangents (``_SeqGatherRep``), forward mode the split
+    of the tangents."""
+
+    @staticmethod
+    def forward(x, mesh, dim):
+        return _seq_part(x, mesh, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SeqGatherRep.apply(g, ctx.mesh, ctx.dim), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _mesh, _dim):
+        return _SeqSplit.apply(t, ctx.mesh, ctx.dim)
+
+
+class _SeqGatherRep(torch.autograd.Function):
+    """The all-gather whose result is used alike on every rank (a split's
+    backward): its backward is this rank's part of the replicated
+    cotangent."""
+
+    @staticmethod
+    def forward(x, mesh, dim):
+        return _seq_gather(x, mesh, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SeqSplit.apply(g, ctx.mesh, ctx.dim), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _mesh, _dim):
+        return _SeqGatherRep.apply(t, ctx.mesh, ctx.dim)
+
+
+class _SeqGather(torch.autograd.Function):
+    """The all-gather whose result each rank uses on its own positions
+    (attention's keys and values): backward the sum-reduce-scatter of the
+    ranks' partial cotangents, forward mode the gather of the tangents."""
+
+    @staticmethod
+    def forward(x, mesh, dim):
+        return _seq_gather(x, mesh, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SeqReduceScatter.apply(g, ctx.mesh, ctx.dim), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _mesh, _dim):
+        return _SeqGather.apply(t, ctx.mesh, ctx.dim)
+
+
+class _SeqReduceScatter(torch.autograd.Function):
+    """The sum over the model ranks, this rank's positions kept; backward
+    the gather of the cotangents (``_SeqGather``)."""
+
+    @staticmethod
+    def forward(x, mesh, dim):
+        return _seq_reduce_scatter(x, mesh, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SeqGather.apply(g, ctx.mesh, ctx.dim), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _mesh, _dim):
+        return _SeqReduceScatter.apply(t, ctx.mesh, ctx.dim)
+
+
+def seq_split(x, mesh, dim: int = 1):
+    """This rank's ``L/S`` positions (a contiguous chunk, chunk ``i`` on
+    model rank ``i``) of ``x``, replicated over the model group; backward
+    the all-gather of the cotangents."""
+    _check_seq(x.shape[dim], mesh, dim)
+    return _SeqSplit.apply(x, mesh, dim)
+
+
+def seq_gather(x, mesh, dim: int = 1):
+    """Every model rank's positions of ``x`` along ``dim``, whole, in rank
+    order; backward the sum-reduce-scatter of the cotangents."""
+    return _SeqGather.apply(x, mesh, dim)

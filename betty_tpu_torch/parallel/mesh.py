@@ -1,5 +1,5 @@
-"""Meshes over ``torch.distributed``: the data-parallel strategies and
-tensor and expert parallelism.
+"""Meshes over ``torch.distributed``: the data-parallel strategies, tensor
+and expert parallelism, and pipeline and sequence parallelism.
 
 Counterpart of ``betty_tpu/parallel/mesh.py``. The JAX package drives every
 device from one process and XLA's partitioner inserts the collectives. The
@@ -29,6 +29,17 @@ port runs one process a card (``torchrun``, or the JAX package's
 * **ep**: the expert-stacked MoE leaves (``moe/w1``, ``moe/b1``, ...)
   sharded over the ``ep`` axis, everything else replicated
   (``ep_rules``); a program none of whose problems has such leaves raises.
+* **pp** (GPipe): the stage-stacked ``blocks.*`` leaves of
+  ``models.make_pipelined_transformer`` (a leading depth dim) sharded on
+  that dim over the ``pp`` axis, everything else replicated (``pp_rules``);
+  the module runs its stack through ``parallel/pipeline.py::gpipe``, and a
+  program none of whose problems has such leaves raises. ``strategy="tp"``
+  with ``Config.shard_rules=((r"^blocks", ("pp",)),)`` gives the same
+  layout.
+* **sp** (sequence parallelism): parameters replicated; a module built with
+  ``seq_axis="sp"`` splits its activations on the sequence over the ``sp``
+  axis. ``strategy="dp"`` on a ``(("dp", N), ("sp", M))`` mesh runs it too,
+  as the JAX tutorial does.
 
 A fsdp leaf is sharded by ``fsdp_shardings``'s rule (the JAX package's):
 its largest dimension divisible by the ``dp`` axis size, if it has
@@ -36,8 +47,8 @@ its largest dimension divisible by the ``dp`` axis size, if it has
 that dimension, chunk ``i`` on the rank at ``dp`` coordinate ``i``. A tp or
 ep leaf is cut the same way along its shard dim over the model axis.
 
-A mesh has a ``dp`` axis, optionally a ``dcn`` axis before it and a model
-axis (``mdl`` or ``ep``) after it:
+A mesh has a ``dp`` axis, optionally a ``dcn`` axis before it and one model
+axis (``mdl``, ``ep``, ``pp`` or ``sp``) after it:
 ``EngineConfig.mesh_shape=(("dcn", 2), ("dp", 4))`` or
 ``(("dp", 2), ("mdl", 4))``. Ranks are laid out row-major with the model
 axis innermost, as JAX's ``make_mesh`` reshapes the devices: rank =
@@ -45,9 +56,11 @@ axis innermost, as JAX's ``make_mesh`` reshapes the devices: rank =
 rides ``dcn`` and ``dp``: every reduction over the batch goes over the
 *batch group* (the ranks at this rank's model index), and the model-axis
 collectives over the *model group* (the ranks at this rank's dcn and dp
-index). ZeRO/FSDP shards live on ``dp`` and are replicated across ``dcn``.
-Meshes naming ``pp`` or ``sp`` (pipeline and sequence parallelism) are
-ROADMAP.md §A.7's remaining slice and raise ``NotImplementedError``.
+index). ZeRO/FSDP shards live on ``dp`` and are replicated across ``dcn``. The
+ranks of a ``pp`` or ``sp`` group share one batch, as those of a ``mdl``
+group do. A mesh with two model axes (the JAX package's ``dp x mdl x pp``)
+raises ``NotImplementedError`` (``model_parallel_error``): ROADMAP.md §A.7's
+composition.
 
 The engine binds its mesh while a problem's update, loss or forward runs
 (``active``); the collectives, ``models/batchnorm.py``'s global statistics,
@@ -70,10 +83,12 @@ import torch.distributed as dist
 from betty_tpu_torch.utils import tree_map, tree_map_named, tree_paths
 
 DP_STRATEGIES = ("dp", "distributed", "zero", "fsdp")
-MODEL_STRATEGIES = ("tp", "ep")
-UNPORTED_STRATEGIES = ("pp", "sp")
-MODEL_AXES = ("mdl", "ep")
-UNPORTED_AXES = ("pp", "sp")
+MODEL_STRATEGIES = ("tp", "ep", "pp", "sp")
+MODEL_AXES = ("mdl", "ep", "pp", "sp")
+# the axes a module computes tensor-parallel shards over (the transformer's
+# heads and MLP columns, the MoE's experts); pp and sp split the depth and
+# the sequence instead
+TP_AXES = ("mdl", "ep")
 DEFAULT_TIMEOUT_SECONDS = 600.0
 # the engine's FSDP/ZeRO threshold: leaves under it stay replicated
 FSDP_MIN_SIZE = 2**14
@@ -81,10 +96,9 @@ FSDP_MIN_SIZE = 2**14
 
 def model_parallel_error(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: pipeline and sequence parallelism (pp/sp, the pp and sp mesh axes) are "
-        "ROADMAP.md §A.7's remaining slice (parallel/pipeline.py with "
-        "make_pipelined_transformer, then sp); the port runs dp, distributed, zero, fsdp, "
-        "tp and ep")
+        f"{what}: a mesh with two model axes (the JAX package's dp x mdl x pp composition, "
+        "leaves sharded on two dims) is ROADMAP.md §A.7's composition, not ported; a mesh "
+        "takes one model axis ('mdl', 'ep', 'pp' or 'sp') after 'dp'")
 
 
 def maybe_init_distributed(device=None, backend: Optional[str] = None,
@@ -132,7 +146,8 @@ def maybe_init_distributed(device=None, backend: Optional[str] = None,
 @dataclass(eq=False)
 class Mesh:
     """Ranks on named axes: ``("dp", n)``, with an optional ``("dcn", k)``
-    before it and an optional model axis ``("mdl" | "ep", m)`` after it.
+    before it and an optional model axis ``("mdl" | "ep" | "pp" | "sp", m)``
+    after it.
     ``group`` spans every rank (``None``: the default group);
     ``batch_group`` the ranks at this rank's model index, over which the
     batch reductions go (``None`` without a model axis: every rank);
@@ -156,7 +171,8 @@ class Mesh:
 
     @property
     def model_axis(self) -> Optional[str]:
-        """``"mdl"`` or ``"ep"``, or None for a data-parallel mesh."""
+        """``"mdl"``, ``"ep"``, ``"pp"`` or ``"sp"``, or None for a
+        data-parallel mesh."""
         return next((n for n, _ in self.axes if n in MODEL_AXES), None)
 
     @property
@@ -194,15 +210,17 @@ class Mesh:
 def _check_axes(mesh_shape):
     names = [str(n) for n, _ in mesh_shape]
     for n in names:
-        if n in UNPORTED_AXES:
-            raise model_parallel_error(f"mesh axis {n!r}")
         if n not in ("dcn", "dp") + MODEL_AXES:
-            raise ValueError(f"mesh axis {n!r}: the axes are 'dcn', 'dp', 'mdl' and 'ep'")
+            raise ValueError(f"mesh axis {n!r}: the axes are 'dcn', 'dp', 'mdl', 'ep', 'pp' "
+                             "and 'sp'")
     core = [n for n in names if n not in MODEL_AXES]
     model = [n for n in names if n in MODEL_AXES]
-    if core not in (["dp"], ["dcn", "dp"]) or len(model) > 1 or (model and names[-1] != model[0]):
+    if len(model) > 1:
+        raise model_parallel_error(f"mesh {tuple(mesh_shape)}")
+    if core not in (["dp"], ["dcn", "dp"]) or (model and names[-1] != model[0]):
         raise ValueError(f"mesh {tuple(mesh_shape)}: a 'dp' axis, with an optional 'dcn' axis "
-                         "before it and an optional model axis ('mdl' or 'ep') after it")
+                         "before it and an optional model axis ('mdl', 'ep', 'pp' or 'sp') "
+                         "after it")
 
 
 def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
@@ -417,12 +435,20 @@ def tp_shardings(tree, mesh: Mesh, axis: Optional[str] = None, min_size: int = T
     first that fits wins. Then the default rules (``_TP_RULES``), then
     leaves under ``min_size`` elements stay replicated and larger ones take
     the largest-dim rule, on the flax layout of the tensor (``_flax_order``).
-    ``axis``: the model axis (default the mesh's)."""
+    ``axis``: the model axis (default the mesh's).
+
+    On a ``pp`` or ``sp`` axis only ``rules`` shard: a leaf no rule names
+    stays replicated (the JAX package's ``tp_shardings`` would shard it over
+    ``dp`` by the Megatron rules, ``betty_tpu/parallel/mesh.py:173-174``;
+    the port shards over the model axis only, and the pipelined module
+    computes on whole leaves outside its stacked blocks)."""
     axis = axis or mesh.model_axis
     if axis is None:
-        raise ValueError(f"tp layouts need a model axis ('mdl' or 'ep') on the mesh {mesh.axes}")
+        raise ValueError(f"tp layouts need a model axis ('mdl', 'ep', 'pp' or 'sp') on the mesh "
+                         f"{mesh.axes}")
     size = mesh.shape[axis]
     user = tuple((re.compile(pat), tuple(spec)) for pat, spec in (rules or ()))
+    rules_only = axis not in TP_AXES
 
     def dim_for(name, x):
         if not isinstance(x, torch.Tensor):
@@ -432,6 +458,8 @@ def tp_shardings(tree, mesh: Mesh, axis: Optional[str] = None, min_size: int = T
                 d = _spec_dim(name, x, spec, mesh)
                 if d is not False:
                     return d
+        if rules_only:
+            return None
         for pat, fn in _TP_RULES:
             if pat.search(name):
                 spec = fn(x)
@@ -469,9 +497,45 @@ def ep_rules(state, mesh: Mesh):
     return ((MOE_EXPERT_LEAF.pattern, ("ep",)), (r".*", ()))
 
 
+# Stage-stacked block leaves (``models.make_pipelined_transformer``'s
+# layout: ``blocks.ln1.weight`` with a leading depth dim, not
+# ``TransformerClassifier``'s ``blocks.0.ln1.weight``), the JAX package's
+# ``params["blocks"]``
+PP_STACKED_LEAF = re.compile(r"^blocks[./](?![0-9]+[./])")
+
+
+def _stacked_blocks(state):
+    return [(path_str(p), x) for p, x in tree_paths(state.get("params") or {})
+            if isinstance(x, torch.Tensor) and PP_STACKED_LEAF.search(path_str(p))]
+
+
+def pp_rules(state, mesh: Mesh):
+    """``strategy="pp"``'s rules (``_pp_rules``,
+    ``betty_tpu/parallel/mesh.py:203-235``): the stage-stacked ``blocks.*``
+    leaves sharded on their depth dim over ``pp``, everything else
+    replicated; None for a state without such leaves (its problem stays
+    replicated)."""
+    if "pp" not in mesh.shape:
+        raise ValueError("strategy='pp' needs a mesh with a 'pp' axis: pass "
+                         "EngineConfig(mesh_shape=(('dp', N), ('pp', M))) "
+                         f"(got axes {tuple(mesh.shape)})")
+    matched = _stacked_blocks(state)
+    if not matched:
+        return None
+    size = mesh.shape["pp"]
+    for name, x in matched:
+        if x.dim() == 0 or x.shape[0] % size:
+            raise ValueError(f"strategy='pp': stacked depth {x.shape[0] if x.dim() else 0} of "
+                             f"{name} is not divisible by the pp axis size {size}")
+    return ((PP_STACKED_LEAF.pattern, ("pp",)), (r".*", ()))
+
+
 def strategy_matches(strategy: str, state) -> bool:
-    """Whether a problem's state has the layout ``strategy`` shards (ep:
-    expert-stacked ``moe/*`` leaves)."""
+    """Whether a problem's state has the layout ``strategy`` shards (pp:
+    stage-stacked ``blocks.*`` leaves; ep: expert-stacked ``moe/*``
+    leaves)."""
+    if strategy == "pp":
+        return bool(_stacked_blocks(state))
     if strategy == "ep":
         return any(isinstance(x, torch.Tensor) and MOE_EXPERT_LEAF.search(path_str(p))
                    for p, x in tree_paths(state.get("params") or {}))
@@ -481,11 +545,13 @@ def strategy_matches(strategy: str, state) -> bool:
 SHARDED_KEYS = {"zero": ("opt_state",),
                 "fsdp": ("params", "grad_acc", "last_grad", "opt_state"),
                 "tp": ("params", "grad_acc", "last_grad", "opt_state"),
-                "ep": ("params", "grad_acc", "last_grad", "opt_state")}
+                "ep": ("params", "grad_acc", "last_grad", "opt_state"),
+                "pp": ("params", "grad_acc", "last_grad", "opt_state"),
+                "sp": ()}
 
 
 def shard_axis(strategy: str) -> str:
-    """The axis a strategy's shards live on: ``"model"`` under tp/ep,
+    """The axis a strategy's shards live on: ``"model"`` under tp/ep/pp/sp,
     ``"dp"`` otherwise."""
     return "model" if strategy in MODEL_STRATEGIES else "dp"
 
@@ -495,24 +561,56 @@ def state_shard_dims(state, mesh: Mesh, strategy: str = "dp", rules=None):
     (``betty_tpu/parallel/mesh.py:314-346``): none under dp/distributed;
     ``opt_state`` under zero; ``params``, ``grad_acc``, ``last_grad`` and
     ``opt_state`` under fsdp (leaves of ``FSDP_MIN_SIZE`` elements or more,
-    over ``dp``), tp (``tp_shardings`` with ``rules``, over the model axis)
-    and ep (``ep_rules``; nothing for a state without MoE leaves).
-    ``extra`` and ``sched_step`` stay replicated."""
-    if strategy in UNPORTED_STRATEGIES:
-        raise model_parallel_error(f"strategy {strategy!r}")
+    over ``dp``), tp (``tp_shardings`` with ``rules``, over the model axis),
+    ep (``ep_rules``; nothing for a state without MoE leaves) and pp
+    (``pp_rules``; nothing for a state without stacked blocks); none under
+    sp, whose parameters are replicated. ``extra`` and ``sched_step`` stay
+    replicated."""
     if strategy in ("dp", "distributed", "default"):
         return {}
     if strategy not in SHARDED_KEYS:
         raise ValueError(f"unknown strategy {strategy!r}")
-    if strategy == "ep":
-        rules = ep_rules(state, mesh)
+    if strategy == "sp":
+        if "sp" not in mesh.shape:
+            raise ValueError("strategy='sp' needs a mesh with an 'sp' axis: pass "
+                             "EngineConfig(mesh_shape=(('dp', N), ('sp', M))) and build the "
+                             f"module with seq_axis='sp' (got axes {tuple(mesh.shape)})")
+        return {}
+    if strategy in ("ep", "pp"):
+        rules = (ep_rules if strategy == "ep" else pp_rules)(state, mesh)
         if rules is None:
             return {}
     if strategy in MODEL_STRATEGIES:
-        return {k: tp_shardings(state[k], mesh, rules=rules)
+        params = state.get("params", {})
+        pdims = tp_shardings(params, mesh, rules=rules)
+        return {k: _like_params(state[k], params, pdims,
+                                tp_shardings(state[k], mesh, rules=rules))
                 for k in SHARDED_KEYS[strategy] if k in state}
     return {k: fsdp_shardings(state[k], mesh, min_size=FSDP_MIN_SIZE)
             for k in SHARDED_KEYS[strategy] if k in state}
+
+
+def _same_structure(a, b) -> bool:
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same_structure(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same_structure(x, y) for x, y in zip(a, b))
+    return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and a.shape == b.shape
+
+
+def _like_params(tree, params, pdims, default):
+    """The shard dims of ``tree`` (``grad_acc``, ``last_grad``,
+    ``opt_state``): every subtree shaped as ``params`` (a gradient, an Adam
+    moment) takes the parameters' dims, so a rule anchored at a parameter's
+    name (``^blocks``) shards its moments alike; elsewhere ``default`` (the
+    rules on ``tree``'s own names)."""
+    if _same_structure(tree, params):
+        return pdims
+    if isinstance(tree, dict):
+        return {k: _like_params(v, params, pdims, default[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_like_params(v, params, pdims, d) for v, d in zip(tree, default))
+    return default
 
 
 def _axis_coords(mesh: Mesh, axis: str):
@@ -614,8 +712,20 @@ def batch_rank() -> int:
 
 
 def model_mesh() -> Optional[Mesh]:
-    """The bound mesh if it has a model axis (tp/ep), else None."""
+    """The bound mesh if it has a model axis (tp/ep/pp/sp), else None."""
     return _ACTIVE if _ACTIVE is not None and _ACTIVE.model_axis is not None else None
+
+
+def tp_mesh() -> Optional[Mesh]:
+    """The bound mesh if its model axis splits tensors (``mdl`` or ``ep``:
+    tp's heads and MLP columns, ep's experts), else None."""
+    return _ACTIVE if _ACTIVE is not None and _ACTIVE.model_axis in TP_AXES else None
+
+
+def axis_mesh(axis: str) -> Optional[Mesh]:
+    """The bound mesh if its model axis is ``axis`` (``"pp"``, ``"sp"``),
+    else None."""
+    return _ACTIVE if _ACTIVE is not None and _ACTIVE.model_axis == axis else None
 
 
 def is_rank_zero() -> bool:

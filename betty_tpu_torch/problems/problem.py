@@ -47,11 +47,12 @@ optimizer state is sharded: the optimizer steps this rank's shard of the
 parameters and the new parameters are all-gathered. ``full_state`` gives
 the whole tensors of a state; ``state_dict`` hands them out.
 
-Under tp and ep (a mesh with a ``mdl`` or ``ep`` axis) the state keeps
-this rank's shards over the model axis (``_shard_axis`` ``"model"``), and
-the update computes on them: the context holds the shards, the module
-computes on the ones it declares (``FunctionalModule.local_dim``: the
-transformer's heads and MLP columns, the MoE's experts) and
+Under tp, ep and pp (a mesh with a ``mdl``, ``ep`` or ``pp`` axis) the
+state keeps this rank's shards over the model axis (``_shard_axis``
+``"model"``), and the update computes on them: the context holds the
+shards, the module computes on the ones it declares
+(``FunctionalModule.local_dim``: the transformer's heads and MLP columns,
+the MoE's experts, the pipelined transformer's stage of stacked blocks) and
 ``Problem.forward`` gathers the others where they are used, differentiably.
 Gradients, HVPs and hypergradient vectors come out in the same layout and
 are averaged over the batch ranks only; the solvers' inner products count

@@ -13,8 +13,8 @@
     python3 chip_smoke.py --phases kernels,pruning,ppo  # ... ImageNet data pruning, PPO
     python3 chip_smoke.py --phases kernels,moe,tutorials  # ... Switch MoE, the tutorials
     python3 chip_smoke.py --phases kernels,dist    # ... dp/zero/fsdp over torch.distributed
-    python3 chip_smoke.py --phases kernels,mp      # ... tp/ep (world of one, two gloo ranks)
-    python3 chip_smoke.py --mp-four                # four cards: tp and ep over NCCL
+    python3 chip_smoke.py --phases kernels,mp      # ... tp/ep/pp/sp (two gloo ranks)
+    python3 chip_smoke.py --mp-four                # four cards: pp, sp, tp and ep over NCCL
 
 Phases:
 
@@ -269,7 +269,15 @@ Phases:
    (at one rank NCCL runs them as device copies) with their device time;
    then the north star under tp at ``dp:1,mdl:1`` against that `default`
    run, the MoE at Switch-Base-8's widths under ``ep:1`` and compiled tp
-   (the mp checks of a world of one, phase 18); then the small reweighting
+   (the mp checks of a world of one, phase 18); then tutorial 7's program
+   on ``make_pipelined_transformer`` at RoBERTa-large's widths (fp32, B32
+   S128, darts, ``PP_PERIODS`` meta-periods and a profiled one) under
+   ``default``, ``pp:1`` (GPipe, M 4) and ``sp:1`` from one start, the
+   parameters' distance from default's within ``PP_NORTH_REL_TOL`` of how
+   far they moved and the losses within ``PP_NORTH_LOSS_TOL``, each with its
+   period, peak, ring-shift and gather calls and collective device time,
+   and compiled ``pp:1`` and ``sp:1`` at small width against driver, bit
+   for bit; then the small reweighting
    run under dp and zero against default, and compiled fsdp against
    driver, bit for bit. Before it, two ranks on the one card
    over gloo with CUDA tensors (NCCL takes one rank a device): tutorial 5's
@@ -290,7 +298,12 @@ Phases:
    calls; the host cost of one row-parallel sum; the MoE at Switch-Base-8's
    widths under ``ep:1`` against default (``MP_MOE_TOL``); compiled tp at
    small width against driver, bit for bit.
-   ``--mp-four`` (four cards, NCCL, one rank a card) runs the MoE under
+   The two gloo ranks also run tutorial 7's program small in float64
+   under pp (``pp:2``, M 2) and sp (``sp:2``), darts and CG, against one
+   process (1e-10).
+   ``--mp-four`` (four cards, NCCL, one rank a card) runs tutorial 7's
+   program at RoBERTa-large's widths under ``pp:4`` (M 4 and 8) and
+   ``sp:4`` (``pp_four``), then the MoE under
    ``ep:4`` against one process and the north star under tp at ``mdl:4``
    and ``dp:2,mdl:2``: periods, peak a card, NCCL kernels of a profiled
    period.
@@ -1195,7 +1208,7 @@ def _quartiles(xs):
     return q(0.25), q(0.5), q(0.75)
 
 
-def mwn_slice_phase(warmup=3, steady=10):
+def mwn_slice_phase(warmup=2, steady=6):
     """The example's defaults on the card (ResNet-32, B128, MWN 100 hidden,
     darts, unroll 1, fp32, SGD/Adam) with the data on the device:
     ``warmup`` meta-periods, then ``steady`` timed ones (median and spread
@@ -1631,7 +1644,7 @@ def compiled_sama_cell():
             "--seq_len", "128", "--device_data", "--train_size", "2048", "--meta_size", "512",
             "--device", "cuda", "--flash"]
     out, finals = {}, {}
-    for mode, periods in (("driver", 4), ("compiled", 4)):
+    for mode, periods in (("driver", 3), ("compiled", 3)):  # cut from 4 for the time limit
         tag = f"[compiled sama S128 {mode}]"
         engine = ex.build_engine(ex.parse_args(argv + (["--compile_blocks"]
                                                        if mode == "compiled" else [])))
@@ -1663,7 +1676,7 @@ def compiled_sama_cell():
         del engine
         _free()
     out["param_diff"] = _state_err(finals["driver"], finals["compiled"])
-    log(f"[compiled sama S128] compiled vs driver after 4 periods: max |param diff| "
+    log(f"[compiled sama S128] compiled vs driver after {periods} periods: max |param diff| "
         f"{out['param_diff']:.3e} (reported)")
     return out
 
@@ -1854,7 +1867,7 @@ def _param_norm(states, name):
     return float(torch.sqrt(sum((t.double() ** 2).sum() for t in states[name]["params"].values())))
 
 
-def itd_full_cell(variant, unroll, warmup=1, steady=2):
+def itd_full_cell(variant, unroll, warmup=1, steady=1):
     """The flagship's defaults (ResNet-32 B128, fp32, TF32 off, SGD 0.1
     nesterov with weight decay 5e-4 under a MultiStepLR at the reference's
     milestones 10000 and 13000, Adam 1e-5, data on the device) as
@@ -3355,7 +3368,7 @@ def _transform_device_ms(engine):
     return sum(t for t, _, _ in kernels), sum(c for _, c, _ in kernels)
 
 
-def pruning_cell(name, card, warmup=2, steady=5):
+def pruning_cell(name, card, warmup=1, steady=3):
     """ImageNet data pruning at the JAX example's defaults (ResNet-50, B32,
     224x224, 1,000 classes, ``--gas 1``, TF32 off, ``--device_data``),
     ``name``: fp32 in driver mode and compiled, ``--augment device``
@@ -3905,8 +3918,8 @@ def moe_phase(card):
 # driver iteration of 1 and 2 takes about 16 ms on the card (3,000: 49 s each)
 # and the moe and tutorials phases are held to 120 s together
 TUTORIAL_ITERS = {  # 1, 2, 3 and 4 cut from 3,000, 3,000, 1,000 and 2,000 for the time limit
-    "1_quick_start": 150, "1_quick_start --baseline": 150, "2_validation": 150,
-    "3_logging": 150, "4_memory_optimization": 150, "8_custom_solver": 100,
+    "1_quick_start": 100, "1_quick_start --baseline": 100, "2_validation": 100,
+    "3_logging": 100, "4_memory_optimization": 100, "8_custom_solver": 100,
 }
 
 
@@ -4138,7 +4151,7 @@ def _dist_wait(tag, procs, deadline):
                 p.wait()
     for rank, (p, out) in enumerate(zip(procs, outs)):
         for line in out.splitlines():
-            if line.startswith(("[dist", "[mp")) or "Error" in line or "error" in line:
+            if line.startswith(("[dist", "[mp", "[pp")) or "Error" in line or "error" in line:
                 log(f"{tag} rank {rank}: {line}")
         assert p.returncode == 0, f"{tag}: rank {rank} exited {p.returncode}:\n{out[-3000:]}"
 
@@ -4232,14 +4245,20 @@ def _nccl_kind(name):
     return "copy DtoD" if "memcpy dtod" in name.lower() else "other"
 
 
+_DIST_FUNCS = {}
+
+
 def _count_collectives():
     """Counts of the collective calls the port makes, by name (the
-    ``torch.distributed`` functions wrapped in place)."""
+    ``torch.distributed`` functions wrapped in place until
+    ``_restore_collectives``)."""
     import torch.distributed as dist
 
+    _restore_collectives()
     counts = {}
-    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
-        orig = getattr(dist, name)
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+                 "batch_isend_irecv"):
+        orig = _DIST_FUNCS[name] = getattr(dist, name)
 
         def wrapped(*a, _orig=orig, _name=name, **kw):
             counts[_name] = counts.get(_name, 0) + 1
@@ -4247,6 +4266,14 @@ def _count_collectives():
 
         setattr(dist, name, wrapped)
     return counts
+
+
+def _restore_collectives():
+    import torch.distributed as dist
+
+    for name, fn in _DIST_FUNCS.items():
+        setattr(dist, name, fn)
+    _DIST_FUNCS.clear()
 
 
 def _dist_north(go):
@@ -4304,6 +4331,8 @@ def _dist_north(go):
     _mp_world_one((pa, la), start, calls)  # the mp checks of a world of one
     del pa, start
     _free()
+    _restore_collectives()
+    _pp_world_one()  # the pp checks of a world of one
     # dp and zero at small width, the same check
     argv = SMALL_ARGV + ["--hypergradient", "sama", "--flash", "--dropout", "0.1",
                          "--device", "cuda"]
@@ -4387,6 +4416,10 @@ def dist_worker(mode, out):
     elif mode.startswith("four:"):
         mesh, batch = mode[len("four:"):].rsplit(":", 1)
         _mp_four_rank(mesh, int(batch), out)
+    elif mode.startswith("ppfour:"):
+        pmode, rest = mode[len("ppfour:"):].split(":", 1)
+        mesh, M = rest.rsplit(":", 1)
+        _pp_four_rank(pmode, mesh, int(M) or None, out)
     else:
         raise ValueError(f"unknown dist worker mode {mode!r}")
     torch.distributed.destroy_process_group()
@@ -4550,6 +4583,18 @@ def _mp_gloo2(out):
         if kind == "flash" and engine.device.type == "cuda":
             assert launches.get("flash_single_fwd", 0) > 0, launches
         del engine
+    # pipeline and sequence parallelism: tutorial 7 small, float64
+    for leg in PP_GLOO:
+        for solver in ("darts", "cg"):
+            t0 = time.time()
+            engine = _t7(PP_GLOO[leg] + PP_SMALL[solver], dtype=torch.float64, solver=solver)
+            losses = _record_losses(engine)
+            engine.run()
+            got[f"{leg}_{solver}"] = (_whole_params(engine), losses)
+            q = engine.states["classifier"]["params"]["blocks.attn.query.kernel"]
+            log(f"[mp gloo2 {leg} {solver}] rank {torch.distributed.get_rank()}: "
+                f"{time.time() - t0:.2f} s, holds blocks.attn.query.kernel {list(q.shape)}")
+            del engine
     if torch.distributed.get_rank() == 0:
         torch.save(got, out)
     torch.distributed.barrier()
@@ -4567,6 +4612,15 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0):
         losses = _record_losses(engine)
         engine.run()
         ref[kind] = (_whole_params(engine), start, losses)
+        del engine
+    for solver in ("darts", "cg"):
+        engine = _t7(["--mode", "pp", "--mesh", "none"] + PP_SMALL[solver], dtype=torch.float64,
+                     solver=solver)
+        start = _whole_params(engine)
+        losses = _record_losses(engine)
+        engine.run()
+        for leg in PP_GLOO:  # pp and sp against the same one-process run
+            ref[f"{leg}_{solver}"] = (_whole_params(engine), start, losses)
         del engine
     _dist_wait("[mp gloo2]", gloo, deadline)
     got = torch.load(out, weights_only=True)
@@ -4586,7 +4640,8 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0):
         f"tol {MP_FLASH_LOSS_TOL}); moved from the start (max) {moved}; "
         f"{time.time() - t0:.1f} s")
     assert all(moved[k] > 0 for k in ref), moved
-    assert errs["f64"] <= MP_F64_TOL and errs["moe"] <= MP_F64_TOL, errs
+    f64 = [k for k in ref if k != "flash"]  # f64, moe and the pp/sp legs
+    assert all(errs[k] <= MP_F64_TOL for k in f64), errs
     assert rel["flash"] <= MP_FLASH_REL_TOL, rel
     assert all(len(got[k][1]) == len(ref[k][2]) for k in ref)
     assert dloss["flash"] <= MP_FLASH_LOSS_TOL, dloss
@@ -4742,6 +4797,158 @@ def mp_phase(card):
     log(f"[mp] [{card}] phase done in {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# pp: pipeline and sequence parallelism (pp, sp) over torch.distributed
+# ---------------------------------------------------------------------------
+
+# tutorial 7's program (darts, unroll 1, the MWN reweighter, AdamW 1e-4 /
+# Adam 1e-4) on make_pipelined_transformer at RoBERTa-large's widths, float32,
+# the global batch 32 at S128
+PP_FULL = ["--vocab_size", "50265", "--seq_len", "128", "--dim", "1024", "--depth", "24",
+           "--heads", "16", "--batch_size", "32"]
+PP_PERIODS = 2  # darts meta-periods (one classifier and one reweight step each)
+PP_MODES = {"default": ["--mode", "pp", "--mesh", "none"],
+            "pp": ["--mode", "pp", "--mesh", "dp:1,pp:1", "--num_microbatches", "4"],
+            "sp": ["--mode", "sp", "--mesh", "dp:1,sp:1"]}
+# pp:1 and sp:1 against default at a world of one (fp32 steps; pp's
+# 1,024-row products and sp's split sums round otherwise): the parameters'
+# distance from default's against how far default's moved (``_rel_apart``),
+# and the losses (relative); each bound about 4x the larger reading on an
+# H100 after 4 periods (pp 2.354e-5 and 5.374e-7, sp 8.188e-6 and 1.632e-7)
+PP_NORTH_REL_TOL, PP_NORTH_LOSS_TOL = 1e-4, 2e-6
+# the small float64 legs: two gloo ranks (pp:2 with M 2, sp:2) against one
+# process, darts then CG
+PP_SMALL = {"darts": ["--train_iters", "4"], "cg": ["--train_iters", "1"]}
+PP_GLOO = {"pp": ["--mode", "pp", "--mesh", "dp:1,pp:2", "--num_microbatches", "2"],
+           "sp": ["--mode", "sp", "--mesh", "dp:1,sp:2"]}
+
+
+def _t7(argv, device="cuda", dtype=None, solver="darts"):
+    """Tutorial 7's engine (``argv`` after ``--device``), its states cast to
+    ``dtype`` if given, the classifier's hypergradient ``solver``."""
+    import importlib
+
+    t7 = importlib.import_module("betty_tpu_torch.tutorial.7_model_parallelism")
+    engine = t7.build_engine(t7.parse_args(["--device", device] + list(argv)))
+    if dtype is not None:
+        _cast_engine(engine, dtype)
+    if solver == "cg":
+        engine.classifier.config.type = "cg"
+        engine.classifier.config.cg_iterations = 2
+    return engine
+
+
+def _pp_north_run(mode, argv, start=None):
+    """``PP_PERIODS`` darts meta-periods of the full-width program under
+    ``mode`` (tutorial 7's ``argv``: ``PP_MODES``) and a profiled one:
+    ``(params, losses, periods, peak bytes, engine, profile report,
+    collective calls)``."""
+    import torch
+    from betty_tpu_torch.parallel import collectives
+
+    tag = f"[pp north {mode}]"
+    t0 = time.time()
+    engine = _t7(PP_FULL + argv + ["--train_iters", str(PP_PERIODS)])
+    torch.cuda.synchronize()
+    log(f"{tag} build_engine {time.time() - t0:.1f} s")
+    losses = _record_losses(engine)
+    ends = []
+    orig = engine.reweight.one_step_descent
+
+    def record(*a, **kw):
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        ends.append(time.time())
+        return out
+
+    engine.reweight.one_step_descent = record
+    if start is not None:
+        start.update(_whole_params(engine))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine.run()
+    torch.cuda.synchronize()
+    periods = [b - a for a, b in zip([t0] + ends, ends)]
+    peak = torch.cuda.max_memory_allocated()
+    params = _whole_params(engine)
+    calls = _count_collectives()
+    collectives.CALLS.clear()
+    rep = profile_period(engine, 1, tag, classify=_nccl_kind) or {}
+    calls.update(collectives.CALLS)
+    _restore_collectives()
+    kernels = rep.get("kernels", [])
+    for kind in ("nccl", "copy DtoD"):
+        ks = [(t, c) for t, c, n in kernels if _nccl_kind(n) == kind]
+        log(f"{tag} {kind} in the profiled period: {sum(c for _, c in ks)} launches, "
+            f"{sum(t for t, _ in ks):.3f} ms device time")
+    log(f"{tag} meta-period seconds {[round(x, 4) for x in periods]} (the first includes "
+        f"warm-up); peak {peak / 2**30:.2f} GiB; collective calls in the profiled period "
+        f"{dict(calls)}")
+    assert all(math.isfinite(x) for x in losses), losses
+    return params, losses, periods, peak, engine, rep, dict(calls)
+
+
+def _pp_world_one():
+    """World of one over NCCL (the dist phase's process): tutorial 7's
+    program at RoBERTa-large's widths under ``default`` (the stack run one
+    block after another), ``pp:1`` (GPipe, M 4) and ``sp:1``, from one
+    start; the parameters and losses against default's; then compiled
+    ``pp:1`` and ``sp:1`` at small width against driver mode."""
+    import torch
+
+    start, runs = {}, {}
+    for mode in ("default", "pp", "sp"):
+        params, losses, periods, peak, engine, rep, calls = _pp_north_run(
+            mode, PP_MODES[mode], start if mode == "default" else None)
+        if mode == "pp":
+            q = engine.states["classifier"]["params"]["blocks.attn.query.kernel"]
+            dims = engine.classifier._shard_dims["params"]
+            log(f"[pp north pp] {sum(d is not None for d in dims.values())} of {len(dims)} "
+                f"classifier leaves sharded over pp (one rank: whole); query kernel held "
+                f"{tuple(q.shape)} on dim {dims['blocks.attn.query.kernel']}")
+            # M + S - 1 = 4 ring shifts a forward
+            assert calls.get("ring_shift", 0) > 0, calls
+        if mode == "sp":
+            assert calls.get("seq_gather", 0) > 0, calls
+        runs[mode] = (params, losses)
+        del engine, rep
+        _free()
+    pa, la = runs["default"]
+    for mode in ("pp", "sp"):
+        pb, lb = runs[mode]
+        same = all(torch.equal(pa[n][k], pb[n][k]) for n in pa for k in pa[n])
+        rel, moved = _rel_apart(pb, pa, start)
+        dloss = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lb, la))
+        log(f"[pp north] {mode} vs default at a world of one: parameters bit-equal {same}, "
+            f"|{mode} - default| / |default - start| {rel:.4e} (bound {PP_NORTH_REL_TOL}; "
+            f"|default - start| {moved:.4e}), {len(la)} losses, max relative loss diff "
+            f"{dloss:.3e} (bound {PP_NORTH_LOSS_TOL})")
+        assert len(la) == len(lb) == 2 * (PP_PERIODS + 1)  # and the profiled period
+        assert moved > 0 and rel <= PP_NORTH_REL_TOL and dloss <= PP_NORTH_LOSS_TOL
+    del runs, pa, start
+    _free()
+    # compiled pp:1 and sp:1 at small width: the ring shifts and gathers captured
+    for mode in ("pp", "sp"):
+        small = {}
+        for compiled in (False, True):
+            engine = _t7(PP_MODES[mode] + ["--train_iters", "4"])
+            engine.config.compile_blocks = compiled
+            engine.run()
+            small[compiled] = _whole_params(engine)
+            if compiled:
+                runner = engine.block_runner
+                log(f"[pp compiled] {mode} compiled: captures {runner.captures}, replays "
+                    f"{runner.replays}, periods {runner.periods_run}, capture "
+                    f"{runner.capture_seconds:.2f} s")
+                assert runner.periods_run > 0
+                assert runner.captures == (1 if runner.on_card else 0)
+            del engine
+        eq = all(torch.equal(small[True][n][k], t) for n, st in small[False].items()
+                 for k, t in st.items())
+        log(f"[pp compiled] {mode} compiled vs driver at a world of one: bit-equal {eq}")
+        assert eq
+
+
 MP_FOUR_MESHES = (("dp:1,mdl:4", 32), ("dp:2,mdl:2", 16))  # (mesh, a dp rank's batch)
 
 
@@ -4823,6 +5030,56 @@ def _mp_four_moe(out):
         with open(out, "w") as f:
             json.dump(readings, f)
     torch.distributed.barrier()
+
+
+PP_FOUR = (("pp", "dp:1,pp:4", 4), ("pp", "dp:1,pp:4", 8), ("sp", "dp:1,sp:4", None))
+
+
+def _pp_four_rank(mode, mesh, M, out):
+    """One rank of the four-card full-width tutorial 7 program under pp
+    (``M`` microbatches) or sp: ``PP_PERIODS`` meta-periods, then one
+    profiled; rank 0 writes the readings."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    parallel.maybe_init_distributed("cuda", timeout=DIST_OP_TIMEOUT)
+    argv = ["--mode", mode, "--mesh", mesh] + (["--num_microbatches", str(M)] if M else [])
+    params, losses, periods, peak, engine, rep, calls = _pp_north_run(mode, argv)
+    kernels = rep.get("kernels", [])
+    nccl = [(t, c) for t, c, n in kernels if _nccl_kind(n) == "nccl"]
+    q = engine.states["classifier"]["params"]["blocks.attn.query.kernel"]
+    reading = {"mode": mode, "mesh": mesh, "M": M, "rank": torch.distributed.get_rank(),
+               "periods": periods, "peak_mib": peak / 2**20, "calls": calls,
+               "nccl_launches": sum(c for _, c in nccl), "nccl_ms": sum(t for t, _ in nccl),
+               "busy_ms": rep.get("busy_ms"), "wall_ms": rep.get("wall_ms"),
+               "query_kernel": list(q.shape), "finite": all(math.isfinite(x) for x in losses)}
+    readings = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(readings, reading)
+    if torch.distributed.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(readings, f)
+    torch.distributed.barrier()
+
+
+def pp_four(card):
+    """``--mp-four``'s pipeline and sequence parallel runs: tutorial 7's
+    program at RoBERTa-large's widths under ``pp:4`` (6 blocks a card) at M
+    4 and M 8 and under ``sp:4`` (32 positions a card), one rank a card over
+    NCCL: periods, peak a card, NCCL kernels and their device time a rank
+    in a profiled period."""
+    for mode, mesh, M in PP_FOUR:
+        tag = f"[pp four {mode} {mesh}" + (f" M{M}]" if M else "]")
+        out = os.path.abspath(os.path.join("build", f"pp_four_{mode}_{M}.json"))
+        procs = _dist_launch(f"ppfour:{mode}:{mesh}:{M or 0}", 4, out)
+        _dist_wait(tag, procs, time.time() + DIST_TIMEOUT)
+        with open(out) as f:
+            readings = json.load(f)
+        for r in readings:
+            log(f"{tag} [{card}] rank {r['rank']}: meta-periods {r['periods']} s, peak "
+                f"{r['peak_mib']:.0f} MiB, query kernel {r['query_kernel']}, NCCL "
+                f"{r['nccl_launches']} launches {r['nccl_ms']:.3f} ms in the profiled period "
+                f"(busy {r['busy_ms']} of {r['wall_ms']} ms), calls {r['calls']}")
+        assert all(r["finite"] for r in readings)
 
 
 def mp_four(card):
@@ -5096,6 +5353,9 @@ def main(argv=None):
         from betty_tpu_torch.ops import _build as build
 
         build.build_all()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        pp_four(card)
         mp_four(card)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -71,16 +71,15 @@ def test_port_imports_no_jax_and_nothing_of_betty_tpu():
 
 def test_unported_options_raise(monkeypatch):
     assert EngineConfig(compile_blocks=True).compile_blocks  # ported: accepted
-    # ported: the data-parallel strategies, tensor and expert parallelism;
-    # pipeline and sequence parallelism and meshes with their axes still raise
-    for s in ("dp", "distributed", "zero", "fsdp", "tp", "ep"):
+    # ported: the data-parallel strategies, tensor, expert, pipeline and
+    # sequence parallelism; a mesh with two model axes still raises
+    for s in ("dp", "distributed", "zero", "fsdp", "tp", "ep", "pp", "sp"):
         assert EngineConfig(strategy=s).strategy == s
     assert EngineConfig(strategy="tp", mesh_shape=(("dp", 1), ("mdl", 2))).strategy == "tp"
-    for s in ("pp", "sp"):
-        with pytest.raises(NotImplementedError, match="§A.7"):
-            EngineConfig(strategy=s)
+    for s, axis in (("pp", "pp"), ("sp", "sp"), ("dp", "pp"), ("dp", "sp")):
+        assert EngineConfig(strategy=s, mesh_shape=(("dp", 1), (axis, 2))).mesh_shape[1][0] == axis
     with pytest.raises(NotImplementedError, match="§A.7"):
-        EngineConfig(strategy="dp", mesh_shape=(("dp", 1), ("pp", 2)))
+        EngineConfig(strategy="tp", mesh_shape=(("dp", 1), ("mdl", 2), ("pp", 2)))
     # ported: parameter groups build a grouped optimizer
     from betty_tpu_torch import optim
 

@@ -267,20 +267,24 @@ def test_shard_loader_matches_jax(count):
 
 
 def test_model_parallel_strategies_and_axes_raise():
-    # tp and ep (the mdl and ep axes) are ported; pipeline and sequence
-    # parallelism raise, naming the remaining slice of ROADMAP.md §A.7
-    for s in ("pp", "sp"):
-        with pytest.raises(NotImplementedError, match="§A.7.*pipeline"):
-            EngineConfig(strategy=s)
+    # tp, ep, pp and sp (the mdl, ep, pp and sp axes) are ported; a mesh with
+    # two model axes (the dp x mdl x pp composition) raises, naming ROADMAP.md
+    # §A.7's composition
+    for s in ("tp", "ep", "pp", "sp"):
+        assert EngineConfig(strategy=s).strategy == s
     for axis in ("pp", "sp"):
+        assert EngineConfig(strategy=axis, mesh_shape=(("dp", 1), (axis, 2))).strategy == axis
+        with pytest.raises(NotImplementedError, match="§A.7.*composition"):
+            EngineConfig(strategy="fsdp", mesh_shape=(("dp", 1), ("mdl", 2), (axis, 2)))
         with pytest.raises(NotImplementedError, match="§A.7"):
-            EngineConfig(strategy="fsdp", mesh_shape=(("dp", 1), (axis, 2)))
-        with pytest.raises(NotImplementedError, match="§A.7"):
-            make_mesh((("dp", 1), (axis, 2)))
+            make_mesh((("dp", 1), ("ep", 2), (axis, 2)))
     with pytest.raises(ValueError, match="strategy"):
         EngineConfig(strategy="ddp")
-    with pytest.raises(NotImplementedError, match="§A.7"):
+    # pp on a mesh without its axis names the axis; sp's parameters stay whole
+    with pytest.raises(ValueError, match="'pp'"):
         parallel.state_shard_dims({"params": {}}, Mesh((("dp", 1),), 0, 1), "pp")
+    assert parallel.state_shard_dims({"params": {}}, Mesh((("dp", 1), ("sp", 1)), 0, 1),
+                                     "sp") == {}
 
 
 def test_helpers_are_the_identity_without_a_mesh():

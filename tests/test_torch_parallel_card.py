@@ -1,9 +1,11 @@
 """The strategies on the card: a world of one over NCCL, the collectives
 made over one rank, equal to the one-process run bit for bit; on a machine
 with several cards, one rank a card over NCCL; on four cards, tensor
-parallelism (tutorial 7's tp mode on ``dp:2,mdl:2``) and expert parallelism
-(the MoE program on ``ep:4``) in float64 against one process on the global
-batch. Imports no JAX, so it runs where the card is:
+parallelism (tutorial 7's tp mode on ``dp:2,mdl:2``), expert parallelism
+(the MoE program on ``ep:4``) and pipeline and sequence parallelism
+(tutorial 7's pp and sp modes on ``dp:2,pp:2`` and ``dp:2,sp:2``) in
+float64 against one process on the global batch. Imports no JAX, so it
+runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_parallel_card.py
 
@@ -176,6 +178,48 @@ torch.distributed.barrier()
 """
 
 
+PP_RANKS = r"""
+import importlib, json, sys
+import torch
+from betty_tpu_torch import parallel
+from betty_tpu_torch.utils import tree_leaves, tree_map
+
+t7 = importlib.import_module("betty_tpu_torch.tutorial.7_model_parallelism")
+parallel.maybe_init_distributed("cuda")
+rank = torch.distributed.get_rank()
+
+
+def run(mode, mesh):
+    engine = t7.build_engine(t7.parse_args(["--device", "cuda", "--train_iters", "6", "--mode",
+                                            mode, "--mesh", mesh]))
+    engine.states = tree_map(lambda t: t.double() if torch.is_tensor(t)
+                             and t.is_floating_point() else t, engine.states)
+    start = [x.detach().cpu().clone() for p in engine.problems
+             for x in tree_leaves(p.full_state()["params"])]
+    engine.run()
+    end = [x.detach().cpu().clone() for p in engine.problems
+           for x in tree_leaves(p.full_state()["params"])]
+    return start, end, engine
+
+
+def err(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+report = {}
+_, pp, engine = run("pp", "dp:2,pp:2")
+report["pp_query_kernel"] = list(engine.states["classifier"]["params"]
+                                 ["blocks.attn.query.kernel"].shape)
+_, sp, _ = run("sp", "dp:2,sp:2")
+if rank == 0:
+    start, want, _ = run("pp", "none")  # the one-process run of both modes
+    report["pp_err"], report["sp_err"] = err(pp, want), err(sp, want)
+    report["moved"] = err(want, start)
+    print("REPORT " + json.dumps(report), flush=True)
+torch.distributed.barrier()
+"""
+
+
 def _launch_ranks(script, world, timeout=400):
     """``world`` ranks of ``script`` (``BETTY_*`` variables, one a card):
     rank 0's REPORT line, parsed."""
@@ -260,3 +304,17 @@ def test_tp_and_ep_on_four_cards_over_nccl():
     assert report["t7_query_kernel"] == [64, 2, 16] and report["moe_w1"] == [1, 16, 32], report
     assert report["t7_moved"] > 0 and report["moe_moved"] > 0, report
     assert report["t7_err"] <= 1e-10 and report["moe_err"] <= 1e-10, report
+
+
+@pytest.mark.gpu
+def test_pp_and_sp_on_four_cards_over_nccl():
+    """Four ranks, one a card, NCCL: tutorial 7's pp mode on ``dp:2,pp:2``
+    (2 of the 4 stacked blocks a rank, M 4) and its sp mode on ``dp:2,sp:2``
+    (8 of the 16 positions a rank), float64, within 1e-10 of one process on
+    the global batch."""
+    world = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 4:
+        pytest.skip("needs four CUDA cards")
+    report = _launch_ranks(PP_RANKS, 4)
+    assert report["pp_query_kernel"] == [2, 64, 4, 16] and report["moved"] > 0, report
+    assert report["pp_err"] <= 1e-10 and report["sp_err"] <= 1e-10, report
