@@ -24,11 +24,14 @@ leaf names, the spec over the port's dims, as in
 ``mesh_shape`` lays the ranks out (``(("dp", N),)`` by default, ``(("dcn",
 M), ("dp", N))``, and for the model-parallel strategies one model axis
 last: ``(("dp", N), ("mdl", M))``, ``("ep", M)``, ``("pp", M)`` or
-``("sp", M)``; the data-parallel strategies also take a ``pp`` or ``sp``
-axis, whose module splits the depth or the sequence itself), and
-``autoshard_data`` gives each rank its examples of every ``ArrayLoader``
-(``data.shard_loader``). A mesh with two model axes raises
-``NotImplementedError`` (ROADMAP.md §A.7's composition).
+``("sp", M)``, or two, as the JAX package's ``(("dp", N), ("mdl", M),
+("pp", S))`` under ``"tp"`` with two-dim ``shard_rules``
+(``models.COMPOSED_SHARD_RULES``); the data-parallel strategies also take
+a ``pp`` or ``sp`` axis, whose module splits the depth or the sequence
+itself), and ``autoshard_data`` gives each rank its examples of every
+``ArrayLoader`` (``data.shard_loader``). Three model axes raise
+``NotImplementedError`` (ROADMAP.md §A.8), as does a module that does not
+compute on a second model axis (``sp``, the MoE).
 
 ``EngineConfig.profile_dir`` writes a ``torch.profiler`` trace of the run
 there (``Engine._profiler``).
@@ -137,13 +140,10 @@ class EngineConfig:
     auto_resume: bool = False
 
     def __post_init__(self):
-        from betty_tpu_torch.parallel.mesh import (DP_STRATEGIES, MODEL_AXES, MODEL_STRATEGIES,
-                                                   model_parallel_error)
+        from betty_tpu_torch.parallel.mesh import DP_STRATEGIES, MODEL_STRATEGIES, check_axes
 
         known = DP_STRATEGIES + MODEL_STRATEGIES
         if self.strategy != "default" and self.strategy not in known:
             raise ValueError(f"EngineConfig.strategy={self.strategy!r}: one of 'default', "
                              + ", ".join(repr(s) for s in known))
-        model = [name for name, _ in self.mesh_shape or () if name in MODEL_AXES]
-        if len(model) > 1:
-            raise model_parallel_error(f"EngineConfig.mesh_shape {tuple(self.mesh_shape)}")
+        check_axes(self.mesh_shape)

@@ -17,8 +17,8 @@ data-parallel mesh every HVP and the cross term are averaged over the ranks
 the same on every rank. Under tp/ep the vectors are held as shards: the
 dots count each shard's partial sum over the model group and each
 replicated leaf once (``parallel.sharded_dot``), and the fused loop ravels
-the sharded and the replicated leaves into two segments, runs B6/B7 on
-each and sums the sharded segment's partial dots over the model group
+the sharded and the replicated leaves into segments, runs B6/B7 on each
+and sums a sharded segment's partial dots over the model ranks of its axes
 before the step size or ``beta`` is formed.
 """
 
@@ -81,21 +81,27 @@ def cg(vector, curr, prev, ctx, states, curr_batch, rng):
 def _cg_loop_fused(vector, hvp_fn, config, dims):
     """The same recurrence on the raveled vector through the B6/B7 kernels.
     On a tp layout the sharded leaves and the replicated ones are raveled
-    into two segments, B6/B7 launched on each, and the sharded segment's
-    partial dots summed over the model group (one all-reduce for both of
-    B6's) before they are used; with no shards there is one segment."""
+    into segments (one for each set of model axes the leaves are cut over,
+    ``collectives.reduction_groups``: two on one model axis, up to four on
+    ``mdl x pp``), B6/B7 launched on each, and a sharded segment's partial
+    dots summed over the model ranks of its axes (one all-reduce for both
+    of B6's) before they are used; with no shards there is one segment."""
     from betty_tpu_torch.ops.vector import cg_fused_step, fused_dot2, tree_ravel, tree_unravel
 
     alpha_s = config.cg_alpha
+    mesh = parallel.mesh.model_mesh()
+    groups = parallel.collectives.reduction_groups(vector, dims, mesh)
     leaves = tree_leaves(vector)
-    seg_of = ([0 if d is not None else 1 for d in parallel.collectives.dims_of(vector, dims)]
-              if dims else [1] * len(leaves))
-    templates = [[x for x, k in zip(leaves, seg_of) if k == s] for s in (0, 1)]
-    live = [s for s in (0, 1) if templates[s]]
+    seg_of = [None] * len(leaves)
+    for k, idx in groups.items():
+        for i in idx:
+            seg_of[i] = k
+    templates = {k: [leaves[i] for i in idx] for k, idx in groups.items()}
+    live = list(groups)
 
     def ravel(tree):
         parts = tree_leaves(tree)
-        return {s: tree_ravel([x for x, k in zip(parts, seg_of) if k == s])[0] for s in live}
+        return {k: tree_ravel([parts[i] for i in idx])[0] for k, idx in groups.items()}
 
     def unravel(flats):
         parts = {s: iter(tree_unravel(templates[s], flats[s])) for s in live}
@@ -104,12 +110,13 @@ def _cg_loop_fused(vector, hvp_fn, config, dims):
 
     def total(partials):
         """The global values of the segments' partial dots (a tuple a
-        segment): the sharded segment's summed over the model group."""
+        segment): a sharded segment's summed over the model ranks of its
+        axes."""
         out = None
         for s in live:
             v = partials[s]
-            if s == 0:
-                v = parallel.reduce_from_model(torch.stack(v)).unbind()
+            if s:
+                v = parallel.collectives.reduce_over(torch.stack(v), s, mesh).unbind()
             out = v if out is None else tuple(a + b for a, b in zip(out, v))
         return out
 

@@ -81,9 +81,12 @@ dim: ``blocks.attn.query.kernel`` is ``(depth, d, H, Dh)``) beside
 ``embed.tok``/``embed.pos`` and ``head.*``, dropout-free, as a
 ``FunctionalModule``. Its stack runs one block after another
 (``parallel/pipeline.py::sequential``), as a GPipe pipeline over the bound
-mesh's ``pp`` axis (``gpipe``), or sequence-parallel over its ``sp`` axis
-(``seq_axis="sp"``: each rank's ``L/S`` positions through LayerNorm and the
-MLP, attention on its queries against the keys and values gathered whole).
+mesh's ``pp`` axis (``gpipe``; beside a ``mdl`` axis each stage computes
+the tensor-parallel block above over ``mdl``: ``_heads_qkv``,
+``_heads_out`` and ``_mlp`` serve both encoders), or sequence-parallel
+over its ``sp`` axis (``seq_axis="sp"``: each rank's ``L/S`` positions
+through LayerNorm and the MLP, attention on its queries against the keys
+and values gathered whole).
 """
 
 import functools
@@ -97,7 +100,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from betty_tpu_torch.models.init import lecun_normal_, normal_
 from betty_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from betty_tpu_torch.parallel import copy_to_model, local_rows, reduce_from_model
-from betty_tpu_torch.parallel.mesh import axis_mesh, tp_mesh
+from betty_tpu_torch.parallel.mesh import (MODEL_AXES, Cut, axis_mesh, current,
+                                           model_parallel_error, tp_mesh)
 from betty_tpu_torch.utils import fold_in, seeded_generator
 
 REMAT_POLICIES = (None, "minimal", "dots")
@@ -142,6 +146,49 @@ def _dropout(x, rate, generator):
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _heads_qkv(x, kernels, biases, heads, tp=None):
+    """q, k, v ``(B, H', L, Dh)`` of ``x`` (B, L, d) with the kernels
+    ``(d, H, Dh)`` and biases ``(H, Dh)``: every head without ``tp``; with
+    it (a model-axis mesh) this rank's H/m heads, ``x`` through *f*, each
+    kernel and bias taken as its head chunk or cut from the whole
+    (``_tp_part``; three whole biases through one *f*)."""
+    if tp is not None:
+        x = copy_to_model(x, tp)
+        if all(b.shape[0] == heads for b in biases) and tp.model_size > 1:
+            # whole biases (the default layout shards them on Dh and they
+            # are gathered): one f for the three, then this rank's heads
+            biases = copy_to_model(torch.stack(biases), tp).chunk(
+                tp.model_size, 1)[tp.model_index].unbind(0)
+        else:
+            biases = [_tp_part(b, 0, heads, tp) for b in biases]
+        kernels = [_tp_part(k, 1, heads, tp) for k in kernels]
+    return tuple(torch.einsum("bld,dhk->bhlk", x, k) + b[None, :, None, :]
+                 for k, b in zip(kernels, biases))
+
+
+def _heads_out(o, kernel, bias, heads, tp=None):
+    """The output projection (B, H', L, Dh) -> (B, L, d), kernel ``(H, Dh,
+    d)``; with ``tp`` row parallel on this rank's heads, the partial
+    products summed over the model group (*g*) before the bias."""
+    if tp is None:
+        return torch.einsum("bhlk,hkd->bld", o, kernel) + bias
+    kernel = _tp_part(kernel, 0, heads, tp)
+    return reduce_from_model(torch.einsum("bhlk,hkd->bld", o, kernel), tp) + bias
+
+
+def _mlp(y, w1, b1, w2, b2, hidden, tp=None):
+    """``fc2(gelu(fc1(y)))`` on ``nn.Linear`` weights; with ``tp`` ``fc1``
+    column parallel (this rank's ``hidden/m`` rows of ``w1`` and ``b1``, y
+    through *f*), GELU local, ``fc2`` row parallel and summed over the
+    model group (*g*), its bias after the sum."""
+    if tp is None:
+        return F.linear(F.gelu(F.linear(y, w1, b1), approximate="tanh"), w2, b2)
+    w1, b1 = _tp_part(w1, 0, hidden, tp), _tp_part(b1, 0, hidden, tp)
+    w2 = _tp_part(w2, 1, hidden, tp)
+    h = F.gelu(F.linear(copy_to_model(y, tp), w1, b1), approximate="tanh")
+    return reduce_from_model(F.linear(h, w2), tp) + b2
+
+
 class _HeadProj(nn.Module):
     """q/k/v projection (B, L, d) -> (B, H, L, Dh); kernel (d, H, Dh),
     bias (H, Dh)."""
@@ -153,17 +200,8 @@ class _HeadProj(nn.Module):
         self.bias = nn.Parameter(torch.zeros(heads, head_dim, device=device))
         lecun_normal_(self.kernel, fan_in=dim, generator=generator)
 
-    def forward(self, x, tp=None, bias=None):
-        """``tp``: the model-axis mesh whose rank's heads to project (x
-        then came through *f*; ``bias``: those heads' bias, if the caller
-        cut it), or None for every head."""
-        kernel = self.kernel
-        if tp is not None:
-            kernel = _tp_part(kernel, 1, self.heads, tp)
-            if bias is None:
-                bias = _tp_part(self.bias, 0, self.heads, tp)
-        bias = self.bias if bias is None else bias
-        return torch.einsum("bld,dhk->bhlk", x, kernel) + bias[None, :, None, :]
+    def forward(self, x):
+        return _heads_qkv(x, [self.kernel], [self.bias], self.heads)[0]
 
 
 class _OutProj(nn.Module):
@@ -179,12 +217,8 @@ class _OutProj(nn.Module):
 
     def forward(self, o, tp=None):
         """``tp``: the model-axis mesh whose rank's heads ``o`` holds (row
-        parallel: the partial products summed over the model group before
-        the bias), or None."""
-        if tp is None:
-            return torch.einsum("bhlk,hkd->bld", o, self.kernel) + self.bias
-        kernel = _tp_part(self.kernel, 0, self.heads, tp)
-        return reduce_from_model(torch.einsum("bhlk,hkd->bld", o, kernel), tp) + self.bias
+        parallel), or None."""
+        return _heads_out(o, self.kernel, self.bias, self.heads, tp)
 
 
 class FlashSelfAttention(nn.Module):
@@ -219,19 +253,8 @@ class FlashSelfAttention(nn.Module):
     def project(self, x):
         """q, k, v of ``x`` on this rank's heads (all of them without tp)."""
         projs = (self.query, self.key, self.value)
-        tp = self.tp_mesh()
-        if tp is None:
-            return tuple(proj(x) for proj in projs)
-        x = copy_to_model(x, tp)
-        biases = [proj.bias for proj in projs]
-        if all(b.shape[0] == self.num_heads for b in biases) and tp.model_size > 1:
-            # whole biases (the default layout shards them on Dh and they
-            # are gathered): one f for the three, then this rank's heads
-            biases = copy_to_model(torch.stack(biases), tp).chunk(
-                tp.model_size, 1)[tp.model_index].unbind(0)
-        else:
-            biases = [None] * 3
-        return tuple(proj(x, tp, b) for proj, b in zip(projs, biases))
+        return _heads_qkv(x, [p.kernel for p in projs], [p.bias for p in projs],
+                          self.num_heads, self.tp_mesh())
 
     def attend(self, q, k, v, kv_mask=None, generator=None):
         """The attention of projected ``(B, H, L, Dh)`` q, k, v, before the
@@ -341,15 +364,8 @@ class EncoderBlock(nn.Module):
         """Output projection, both residual branches and the MLP; the
         attention's own dropout (plain path) drew from ``generator`` first."""
         x = x + _dropout(self.attn.out(o, self.attn.tp_mesh()), self.dropout, generator)
-        tp = _tp_mesh(self.fc1.weight.shape[0], self.hidden)
-        if tp is None:
-            y = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
-        else:  # fc1 column-parallel, fc2 row-parallel, its bias after the sum
-            w1 = _tp_part(self.fc1.weight, 0, self.hidden, tp)
-            b1 = _tp_part(self.fc1.bias, 0, self.hidden, tp)
-            w2 = _tp_part(self.fc2.weight, 1, self.hidden, tp)
-            h = F.gelu(F.linear(copy_to_model(self.ln2(x), tp), w1, b1), approximate="tanh")
-            y = reduce_from_model(F.linear(h, w2), tp) + self.fc2.bias
+        y = _mlp(self.ln2(x), self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias,
+                 self.hidden, _tp_mesh(self.fc1.weight.shape[0], self.hidden))
         return x + _dropout(y, self.dropout, generator)
 
 
@@ -466,31 +482,64 @@ def _init_block(dim, heads, seed, device, dtype):
     return p
 
 
-def _pipelined_block(p, carry, seq_mesh=None):
+_QKV = ("query", "key", "value")
+
+# the dim of each stacked block leaf that tensor parallelism cuts (heads,
+# MLP rows or columns) after the leading depth dim
+_PIPELINED_TP_DIMS = {**{f"attn.{n}.kernel": 2 for n in _QKV},
+                      **{f"attn.{n}.bias": 1 for n in _QKV},
+                      "attn.out.kernel": 1, "fc1.weight": 1, "fc1.bias": 1, "fc2.weight": 2}
+
+# The JAX package's ``_COMPOSED_RULES`` (tests/test_composed.py:208-220) on
+# the port's names: the stacked attention kernels cut on the stage dim over
+# ``pp`` and on heads over ``mdl``, the stacked MLP column- then
+# row-parallel (``nn.Linear`` weights: the transposes of flax's
+# ``Dense_0``/``Dense_1`` kernels), every other stacked leaf on ``pp``
+# alone, the rest replicated
+COMPOSED_SHARD_RULES = (
+    (r"^blocks\.attn\.(query|key|value)\.kernel$", ("pp", None, "mdl", None)),
+    (r"^blocks\.attn\.out\.kernel$", ("pp", "mdl", None, None)),
+    (r"^blocks\.fc1\.weight$", ("pp", "mdl", None)),
+    (r"^blocks\.fc2\.weight$", ("pp", None, "mdl")),
+    (r"^blocks", ("pp",)),
+    (r".*", ()),
+)
+PP_SHARD_RULES = ((r"^blocks", ("pp",)),)
+
+
+def pipelined_shard_rules(mesh=None):
+    """``Config.shard_rules`` for ``make_pipelined_transformer`` under
+    ``strategy="tp"`` on ``mesh`` (a mesh shape or ``parallel.Mesh``):
+    ``COMPOSED_SHARD_RULES`` on a mesh with ``mdl`` and ``pp`` axes, the
+    stacked blocks over ``pp`` otherwise."""
+    axes = _mesh_axes(mesh)
+    return COMPOSED_SHARD_RULES if "mdl" in axes and "pp" in axes else PP_SHARD_RULES
+
+
+def _pipelined_block(p, carry, seq_mesh=None, tp=None, heads=None, hidden=None):
     """One pre-LN encoder block on the port's names (flax
     ``EncoderBlock(dim, heads, dropout=0.0)``: LayerNorm epsilon 1e-6, plain
     attention with the key padding mask, tanh GELU). ``carry``: ``(h,
     mask)`` with ``mask`` the (B, L) key mask as 0/1 floats. With
     ``seq_mesh`` (sequence parallel) ``h`` holds this rank's positions and
-    the keys and values are gathered whole."""
+    the keys and values are gathered whole. With ``tp`` (the ``mdl`` view
+    of a composed mesh) the block computes Megatron's tensor parallelism on
+    this rank's ``heads/m`` heads and ``hidden/m`` MLP columns, each leaf
+    taken as its chunk or cut from the whole (``_heads_qkv``, ``_heads_out``,
+    ``_mlp``)."""
     h, mask = carry
     d = h.shape[-1]
     y = F.layer_norm(h, (d,), p["ln1.weight"], p["ln1.bias"], eps=1e-6)
-
-    def proj(name):
-        return (torch.einsum("bld,dhk->bhlk", y, p[f"attn.{name}.kernel"])
-                + p[f"attn.{name}.bias"][None, :, None, :])
-
-    q, k, v = proj("query"), proj("key"), proj("value")
+    q, k, v = _heads_qkv(y, [p[f"attn.{n}.kernel"] for n in _QKV],
+                         [p[f"attn.{n}.bias"] for n in _QKV], heads, tp)
     if seq_mesh is not None:
         from betty_tpu_torch.parallel.collectives import seq_gather
 
         k, v = seq_gather(k, seq_mesh, dim=2), seq_gather(v, seq_mesh, dim=2)
     o = reference_attention(q, k, v, mask > 0.5)
-    h = h + torch.einsum("bhlk,hkd->bld", o, p["attn.out.kernel"]) + p["attn.out.bias"]
+    h = h + _heads_out(o, p["attn.out.kernel"], p["attn.out.bias"], heads, tp)
     y = F.layer_norm(h, (d,), p["ln2.weight"], p["ln2.bias"], eps=1e-6)
-    y = F.linear(F.gelu(F.linear(y, p["fc1.weight"], p["fc1.bias"]), approximate="tanh"),
-                 p["fc2.weight"], p["fc2.bias"])
+    y = _mlp(y, p["fc1.weight"], p["fc1.bias"], p["fc2.weight"], p["fc2.bias"], hidden, tp)
     return (h + y, mask)
 
 
@@ -527,6 +576,15 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
     ("pp",)),))``. ``num_microbatches``: M (default the axis size). Without
     the axis the stack runs one block after another (``sequential``): the
     same numbers on one device.
+
+    On a mesh with ``mdl`` and ``pp`` axes (the JAX package's ``dp x mdl x
+    pp``) each stage's blocks compute Megatron's tensor parallelism over
+    the ``mdl`` group (``_pipelined_block`` with the ``mdl`` view): shard
+    them with ``strategy="tp"`` and ``Config(shard_rules=
+    COMPOSED_SHARD_RULES)`` (``pipelined_shard_rules``), the stage dim over
+    ``pp`` and heads or MLP columns over ``mdl``. A leaf whole over ``mdl``
+    is cut where it is used, so ``strategy="pp"`` there gives the same
+    numbers with the blocks replicated over ``mdl``.
 
     ``seq_axis``: the sequence-parallel mode (not with pipelining): over the
     mesh's ``seq_axis`` the block input is split on the sequence, LayerNorm
@@ -565,9 +623,14 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
                    "head.out_b": torch.zeros(num_classes, device=device, dtype=dtype)})
 
     axes = _mesh_axes(mesh)
+    composed = len([a for a in axes if a in MODEL_AXES]) > 1
     pipelined = axis in axes
     seq_parallel = not pipelined and seq_axis is not None and seq_axis in axes
+    if seq_parallel and composed:
+        raise model_parallel_error(f"make_pipelined_transformer(seq_axis={seq_axis!r}) on the "
+                                   f"mesh {mesh}: sequence parallelism")
     block_names = [k for k in params if k.startswith("blocks.")]
+    hidden = params["blocks.fc1.weight"].shape[1]
 
     def apply_fn(variables, input_ids, train=True, rngs=None, mutable=(), **kwargs):
         p = variables["params"]
@@ -577,6 +640,9 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
         x = F.embedding(input_ids, p["embed.tok"]) + p["embed.pos"][:, :L]
         mask = pad_mask.to(x.dtype)
         ln_scale, ln_bias = p["head.ln_scale"], p["head.ln_bias"]
+        bound = current()
+        if seq_parallel and bound is not None and bound.composed:
+            raise model_parallel_error("make_pipelined_transformer: sequence parallelism")
         sp = axis_mesh(seq_axis) if seq_parallel else None
         if pipelined:
             pp = axis_mesh(axis)
@@ -584,7 +650,9 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
                 raise ValueError(f"make_pipelined_transformer: built for the {axis!r} axis, "
                                  "called with no mesh of that model axis bound (run it under "
                                  "the engine or parallel.active)")
-            x, _ = gpipe(_pipelined_block, stacked, (x, mask), pp, axis=axis,
+            block = functools.partial(_pipelined_block, tp=axis_mesh("mdl"), heads=heads,
+                                      hidden=hidden)
+            x, _ = gpipe(block, stacked, (x, mask), pp, axis=axis,
                          num_microbatches=num_microbatches, depth=depth)
         elif sp is not None:
             # the leaves used on this rank's positions: f sums their gradients
@@ -605,7 +673,14 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
         out = pooled @ p["head.out_w"] + p["head.out_b"]
         return (out, {}) if mutable else out
 
-    # under pp each rank computes on its stage's blocks (dim 0): the
-    # problem does not gather them
-    local = {k: 0 for k in block_names} if pipelined else None
+    # under pp each rank computes on its stage's blocks (dim 0), and beside
+    # a mdl axis on its heads and MLP columns too: the problem gathers
+    # neither
+    local = None
+    if pipelined and composed:
+        local = {k: Cut(((0, axis),) + (((_PIPELINED_TP_DIMS[k[7:]], "mdl"),)
+                                        if k[7:] in _PIPELINED_TP_DIMS else ()))
+                 for k in block_names}
+    elif pipelined:
+        local = {k: 0 for k in block_names}
     return FunctionalModule(apply_fn, {"params": params}, rng_names=(), local_dims=local)

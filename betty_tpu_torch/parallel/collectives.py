@@ -43,7 +43,10 @@ identity backward), where the model ranks' partial results are summed.
 Each has a forward-mode rule, so the ``torch.func`` HVPs differentiate
 through them. ``sharded_dot`` is the inner product of two parameter trees
 in a tp layout: the shards' partial sums reduced over the model group, the
-replicated leaves counted once.
+replicated leaves counted once. On two model axes (``dp x mdl x pp``) each
+collective runs over one axis's view of the mesh (``Mesh.view``), a leaf
+cut on two dims is gathered over each axis in turn, and ``sharded_dot``
+reduces each leaf's partial sum over the ranks of the axes it is cut on.
 
 Pipeline and sequence parallelism (a ``pp`` or ``sp`` axis) add three
 more over the model group, each with a differentiable backward and a
@@ -317,9 +320,13 @@ def gather_shards(tree, dims, mesh, axis: str = "dp"):
     ``dims`` is not None), gathered in shard order over ``axis``: ``"dp"``
     (FSDP; backward the sum over ``dp`` of the cotangents, reduce-scattered
     to the shards) or ``"model"`` (tp/ep; backward this rank's slice of the
-    cotangent). One collective a dtype, differentiable."""
+    cotangent). One collective a dtype, differentiable. On two model axes
+    a leaf cut on two dims (a ``mesh.Cut``) is gathered over each of its
+    axes in turn, one collective a dtype an axis."""
     if not dims:
         return tree
+    if axis == "model" and mesh.composed and mesh.view_axis is None:
+        return _gather_axes(tree, dims, mesh)
     leaves, dlist, groups = _flat_by_dtype(tree, dims)
     out = list(leaves)
     for idx in groups.values():
@@ -330,6 +337,18 @@ def gather_shards(tree, dims, mesh, axis: str = "dp"):
         for i, w in zip(idx, whole):
             out[i] = w
     return _rebuild(tree, out)
+
+
+def _gather_axes(tree, dims, mesh):
+    """``gather_shards`` over the model axes of a composed mesh: for each
+    axis, the leaves cut over it gathered over its view (the dims of the
+    other axis stay cut until their turn)."""
+    for name in mesh.model_axes:
+        along = tree_map(lambda _x, d: next((dim for dim, a in mesh_mod.cut_pairs(d, mesh)
+                                             if a == name), None), tree, dims)
+        if any(d is not None for d in tree_leaves(along)):
+            tree = gather_shards(tree, along, mesh.view(name), "model")
+    return tree
 
 
 def reduce_scatter_mean(tree, dims, mesh):
@@ -419,14 +438,14 @@ def copy_to_model(x, mesh=None):
     """*f* over the model group of ``mesh`` (default the bound one);
     identity without a model axis."""
     mesh = mesh if mesh is not None else mesh_mod.model_mesh()
-    return x if mesh is None or mesh.model_axis is None else _CopyToModel.apply(x, mesh)
+    return x if mesh is None or not mesh.model_axes else _CopyToModel.apply(x, mesh)
 
 
 def reduce_from_model(x, mesh=None):
     """*g* over the model group of ``mesh`` (default the bound one);
     identity without a model axis."""
     mesh = mesh if mesh is not None else mesh_mod.model_mesh()
-    return x if mesh is None or mesh.model_axis is None else _ReduceFromModel.apply(x, mesh)
+    return x if mesh is None or not mesh.model_axes else _ReduceFromModel.apply(x, mesh)
 
 
 class _GatherModelFlat(torch.autograd.Function):
@@ -471,22 +490,45 @@ def _promote(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def reduction_groups(tree, dims, mesh):
+    """``{model axes: [leaf indices]}`` of ``tree`` in ``dims``'s layout:
+    the leaves cut over the same axes together, the sharded ones first and
+    the replicated ones (``()``) last, so that each group's partial sums
+    are reduced over the model ranks of its axes (``mesh.over``) once."""
+    groups = OrderedDict()
+    for i, d in enumerate(dims_of(tree, dims) if dims else [None] * len(tree_leaves(tree))):
+        axes = tuple(a for a in mesh.model_axes
+                     if a in {n for _, n in mesh_mod.cut_pairs(d, mesh)}) if mesh else ()
+        groups.setdefault(axes, []).append(i)
+    return OrderedDict(sorted(groups.items(), key=lambda kv: not kv[0]))
+
+
+def reduce_over(x, axes, mesh):
+    """``x`` summed over the model ranks of ``axes`` (*g*; ``()``: as it
+    is)."""
+    return _ReduceFromModel.apply(x, mesh.over(axes)) if axes else x
+
+
 def sharded_dot(a, b, dims=None, mesh=None):
     """``<vec(a), vec(b)>`` of two trees held in a tp layout (``dims``: the
-    leaves' shard dims over the model axis, None where replicated): the
-    sharded leaves' local dots summed over the model group, plus the
-    replicated leaves' once; in at least float32, differentiable. Without
-    sharded leaves (or a model axis) ``utils.tree_dot``."""
+    leaves' shard dims over the model axes, None where replicated): the
+    sharded leaves' local dots summed over the model ranks of their axes
+    (a leaf cut on ``mdl`` and ``pp`` over the whole model group, one cut
+    on ``pp`` alone over the ``pp`` group: the ``mdl`` ranks hold it
+    alike), plus the replicated leaves' once; in at least float32,
+    differentiable. Without sharded leaves (or a model axis)
+    ``utils.tree_dot``."""
     mesh = mesh if mesh is not None else mesh_mod.model_mesh()
     dlist = dims_of(a, dims) if dims else []
     if mesh is None or not any(d is not None for d in dlist):
         return tree_dot(a, b)
-    sharded, rep = [], []
-    for x, y, d in zip(tree_leaves(a), tree_leaves(b), dlist):
-        dot = torch.dot(_promote(x).reshape(-1), _promote(y).reshape(-1))
-        (rep if d is None else sharded).append(dot)
-    total = _ReduceFromModel.apply(torch.stack(sharded).sum(), mesh)
-    return total + torch.stack(rep).sum() if rep else total
+    dots = [torch.dot(_promote(x).reshape(-1), _promote(y).reshape(-1))
+            for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    total = None
+    for axes, idx in reduction_groups(a, dims, mesh).items():
+        part = reduce_over(torch.stack([dots[i] for i in idx]).sum(), axes, mesh)
+        total = part if total is None else total + part
+    return total
 
 
 def sharded_norm(a, dims=None, mesh=None):

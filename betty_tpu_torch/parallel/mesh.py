@@ -47,20 +47,34 @@ its largest dimension divisible by the ``dp`` axis size, if it has
 that dimension, chunk ``i`` on the rank at ``dp`` coordinate ``i``. A tp or
 ep leaf is cut the same way along its shard dim over the model axis.
 
-A mesh has a ``dp`` axis, optionally a ``dcn`` axis before it and one model
-axis (``mdl``, ``ep``, ``pp`` or ``sp``) after it:
-``EngineConfig.mesh_shape=(("dcn", 2), ("dp", 4))`` or
-``(("dp", 2), ("mdl", 4))``. Ranks are laid out row-major with the model
-axis innermost, as JAX's ``make_mesh`` reshapes the devices: rank =
-(dcn index x dp size + dp index) x model size + model index. The batch
-rides ``dcn`` and ``dp``: every reduction over the batch goes over the
-*batch group* (the ranks at this rank's model index), and the model-axis
+A mesh has a ``dp`` axis, optionally a ``dcn`` axis before it and up to
+two model axes (``mdl``, ``ep``, ``pp`` or ``sp``) after it:
+``EngineConfig.mesh_shape=(("dcn", 2), ("dp", 4))``, ``(("dp", 2), ("mdl",
+4))`` or the JAX package's composition ``(("dp", 2), ("mdl", 2), ("pp",
+2))``. Ranks are laid out row-major, the last axis innermost, as JAX's
+``make_mesh`` reshapes the devices: rank = (dcn index x dp size + dp
+index) x model size + model index, and on two model axes model index =
+first axis's index x second's size + second's index. The batch rides
+``dcn`` and ``dp``: every reduction over the batch goes over the *batch
+group* (the ranks at this rank's model coordinates), and the model-axis
 collectives over the *model group* (the ranks at this rank's dcn and dp
-index). ZeRO/FSDP shards live on ``dp`` and are replicated across ``dcn``. The
-ranks of a ``pp`` or ``sp`` group share one batch, as those of a ``mdl``
-group do. A mesh with two model axes (the JAX package's ``dp x mdl x pp``)
-raises ``NotImplementedError`` (``model_parallel_error``): ROADMAP.md §A.7's
-composition.
+index, every model axis). ZeRO/FSDP shards live on ``dp`` and are
+replicated across ``dcn``. The ranks of a ``pp`` or ``sp`` group share one
+batch, as those of a ``mdl`` group do.
+
+On two model axes every axis also has its own group (the ranks at this
+rank's batch index and other model index), and ``Mesh.view(axis)`` is the
+mesh seen along one of them: its ``model_axis``, ``model_group``,
+``model_size`` and ``model_index`` are that axis's, its batch coordinates
+the mesh's. ``tp_mesh()`` and ``axis_mesh("pp")`` return such views, so
+the model-axis collectives run over one axis unchanged. A leaf is then cut
+on a dim for each axis (``Cut``: on ``dp x mdl x pp`` the stage dim over
+``pp`` and the head or column dim over ``mdl``). The composition computed
+is ``mdl x pp`` on ``models.make_pipelined_transformer`` (Megatron tensor
+parallelism inside each GPipe stage); a module built for ``sp`` or an MoE
+beside a second model axis, an ITD replay on one, and three model axes
+raise ``NotImplementedError`` (``model_parallel_error``, naming ROADMAP.md
+§A.8).
 
 The engine binds its mesh while a problem's update, loss or forward runs
 (``active``); the collectives, ``models/batchnorm.py``'s global statistics,
@@ -70,12 +84,13 @@ the global weight normaliser of ``examples/bert_data_reweighting.py``
 """
 
 import contextlib
+import dataclasses
 import datetime
 import math
 import os
 import re
-from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -95,10 +110,13 @@ FSDP_MIN_SIZE = 2**14
 
 
 def model_parallel_error(what: str) -> NotImplementedError:
+    """The error of a composition of model axes the port does not compute
+    (ROADMAP.md §A.8): the computed one is ``mdl x pp`` on the pipelined
+    transformer."""
     return NotImplementedError(
-        f"{what}: a mesh with two model axes (the JAX package's dp x mdl x pp composition, "
-        "leaves sharded on two dims) is ROADMAP.md §A.7's composition, not ported; a mesh "
-        "takes one model axis ('mdl', 'ep', 'pp' or 'sp') after 'dp'")
+        f"{what}: not computed on a mesh with more than one model axis (ROADMAP.md §A.8, "
+        "compositions left uncomputed); the port composes 'mdl' and 'pp' on "
+        "models.make_pipelined_transformer")
 
 
 def maybe_init_distributed(device=None, backend: Optional[str] = None,
@@ -146,15 +164,18 @@ def maybe_init_distributed(device=None, backend: Optional[str] = None,
 @dataclass(eq=False)
 class Mesh:
     """Ranks on named axes: ``("dp", n)``, with an optional ``("dcn", k)``
-    before it and an optional model axis ``("mdl" | "ep" | "pp" | "sp", m)``
+    before it and up to two model axes (``"mdl" | "ep" | "pp" | "sp"``)
     after it.
     ``group`` spans every rank (``None``: the default group);
-    ``batch_group`` the ranks at this rank's model index, over which the
-    batch reductions go (``None`` without a model axis: every rank);
-    ``model_group`` the ranks at this rank's dcn and dp index;
-    ``dp_group`` the ranks of this rank's dcn slice (and model index), over
-    which ZeRO/FSDP shard; ``dcn_group`` the ranks at this rank's dp (and
-    model) index."""
+    ``batch_group`` the ranks at this rank's model coordinates, over which
+    the batch reductions go (``None`` without a model axis: every rank);
+    ``model_group`` the ranks at this rank's dcn and dp index (every model
+    axis; in a view, the viewed axis's ranks); ``dp_group`` the ranks of
+    this rank's dcn slice (and model coordinates), over which ZeRO/FSDP
+    shard; ``dcn_group`` the ranks at this rank's dp (and model)
+    coordinates. ``axis_groups``: on two model axes, each axis's group and
+    the whole model group (``"model"``); ``view_axis``: the axis a view
+    (``view``) sees."""
 
     axes: Tuple[Tuple[str, int], ...]
     rank: int
@@ -164,35 +185,66 @@ class Mesh:
     dcn_group: Optional[object] = None
     batch_group: Optional[object] = None
     model_group: Optional[object] = None
+    axis_groups: Dict[str, object] = field(default_factory=dict, repr=False)
+    view_axis: Optional[str] = None
+    _views: Dict[str, "Mesh"] = field(default_factory=dict, repr=False)
 
     @property
     def shape(self):
         return dict(self.axes)
 
     @property
+    def model_axes(self) -> Tuple[str, ...]:
+        """The model axes, in the mesh's order."""
+        return tuple(n for n, _ in self.axes if n in MODEL_AXES)
+
+    @property
+    def composed(self) -> bool:
+        """Two model axes (the JAX package's ``dp x mdl x pp``)."""
+        return len(self.model_axes) > 1
+
+    @property
     def model_axis(self) -> Optional[str]:
-        """``"mdl"``, ``"ep"``, ``"pp"`` or ``"sp"``, or None for a
-        data-parallel mesh."""
-        return next((n for n, _ in self.axes if n in MODEL_AXES), None)
+        """``"mdl"``, ``"ep"``, ``"pp"`` or ``"sp"``: the model axis, or the
+        viewed one on two model axes (None for a data-parallel mesh or a
+        composed one seen whole)."""
+        if self.view_axis is not None:
+            return self.view_axis
+        axes = self.model_axes
+        return axes[0] if len(axes) == 1 else None
+
+    @property
+    def _model_world(self) -> int:
+        return math.prod(self.shape[a] for a in self.model_axes)
 
     @property
     def model_size(self) -> int:
-        axis = self.model_axis
-        return 1 if axis is None else self.shape[axis]
+        """The ranks of the model group (a view's: its axis's)."""
+        if self.view_axis is not None:
+            return self.shape[self.view_axis]
+        return self._model_world
 
     @property
     def model_index(self) -> int:
-        return self.rank % self.model_size
+        """This rank's place in the model group."""
+        if self.view_axis is not None:
+            return self.axis_index(self.view_axis)
+        return self.rank % self._model_world
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on the model axis ``axis``."""
+        inner = math.prod(self.shape[a] for a in self.model_axes[self.model_axes.index(axis) + 1:])
+        return (self.rank // inner) % self.shape[axis]
 
     @property
     def batch_world(self) -> int:
         """The ranks a batch is split over (dcn x dp)."""
-        return self.world // self.model_size
+        return self.world // self._model_world
 
     @property
     def batch_index(self) -> int:
         """This rank's place among them: dcn index x dp size + dp index."""
-        return self.rank // self.model_size
+        return self.rank // self._model_world
 
     @property
     def dp_size(self) -> int:
@@ -206,8 +258,34 @@ class Mesh:
     def dcn_size(self) -> int:
         return self.shape.get("dcn", 1)
 
+    def view(self, axis: str) -> "Mesh":
+        """The mesh seen along the model axis ``axis``: its model group,
+        size and index are that axis's (this mesh on one model axis)."""
+        if axis not in self.model_axes:
+            raise ValueError(f"mesh {self.axes} has no model axis {axis!r}")
+        if len(self.model_axes) == 1 or axis == self.view_axis:
+            return self
+        if axis not in self._views:
+            self._views[axis] = dataclasses.replace(self, view_axis=axis,
+                                                    model_group=self.axis_groups.get(axis))
+        return self._views[axis]
 
-def _check_axes(mesh_shape):
+    def over(self, axes) -> "Mesh":
+        """The mesh whose model group spans the model axes ``axes``: a view
+        for one, the whole mesh for every one."""
+        axes = tuple(a for a in self.model_axes if a in set(axes))
+        if len(axes) == 1:
+            return self.view(axes[0])
+        if not axes or len(self.model_axes) == 1 or self.view_axis is None:
+            return self
+        return dataclasses.replace(self, view_axis=None, model_group=self.axis_groups.get("model"))
+
+
+def check_axes(mesh_shape):
+    """Raise for a ``mesh_shape`` that ``make_mesh`` does not lay out (no
+    process group needed; None is the default mesh)."""
+    if mesh_shape is None:
+        return
     names = [str(n) for n, _ in mesh_shape]
     for n in names:
         if n not in ("dcn", "dp") + MODEL_AXES:
@@ -215,12 +293,13 @@ def _check_axes(mesh_shape):
                              "and 'sp'")
     core = [n for n in names if n not in MODEL_AXES]
     model = [n for n in names if n in MODEL_AXES]
-    if len(model) > 1:
-        raise model_parallel_error(f"mesh {tuple(mesh_shape)}")
-    if core not in (["dp"], ["dcn", "dp"]) or (model and names[-1] != model[0]):
+    if len(model) > 2:
+        raise model_parallel_error(f"mesh {tuple(mesh_shape)} (three model axes)")
+    if core not in (["dp"], ["dcn", "dp"]) or names[len(core):] != model or \
+            len(set(model)) != len(model):
         raise ValueError(f"mesh {tuple(mesh_shape)}: a 'dp' axis, with an optional 'dcn' axis "
-                         "before it and an optional model axis ('mdl', 'ep', 'pp' or 'sp') "
-                         "after it")
+                         "before it and up to two different model axes ('mdl', 'ep', 'pp' or "
+                         "'sp') after it")
 
 
 def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
@@ -228,8 +307,7 @@ def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
     ``dp`` axis. Joins the group first (``maybe_init_distributed``) if
     there is none. Every rank must call it, in the same order as its other
     group calls (sub-groups are made here)."""
-    if mesh_shape is not None:
-        _check_axes(mesh_shape)
+    check_axes(mesh_shape)
     if not dist.is_initialized():
         maybe_init_distributed()
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -253,7 +331,7 @@ def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
                 g = dist.new_group([(i * dp + k) * m + j for i in range(dcn)])
                 if k == mesh.dp_index and j == mesh.model_index:
                     mesh.dcn_group = g
-    if mesh.model_axis is not None:
+    if mesh.model_axes:
         batch = world // m
         for j in range(m):
             g = dist.new_group([b * m + j for b in range(batch)])
@@ -263,6 +341,18 @@ def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
             g = dist.new_group([b * m + j for j in range(m)])
             if b == mesh.batch_index:
                 mesh.model_group = g
+        if mesh.composed:
+            mesh.axis_groups["model"] = mesh.model_group
+            (a0, s0), (a1, s1) = [(a, mesh.shape[a]) for a in mesh.model_axes]
+            for b in range(batch):
+                for other in range(s1):  # the first axis's groups: one a second-axis index
+                    g = dist.new_group([b * m + i * s1 + other for i in range(s0)])
+                    if b == mesh.batch_index and other == mesh.axis_index(a1):
+                        mesh.axis_groups[a0] = g
+                for other in range(s0):
+                    g = dist.new_group([b * m + other * s1 + j for j in range(s1)])
+                    if b == mesh.batch_index and other == mesh.axis_index(a0):
+                        mesh.axis_groups[a1] = g
         if dcn == 1:
             mesh.dp_group = mesh.batch_group
     return mesh
@@ -287,7 +377,7 @@ def batch_coordinates(mesh_shape=None) -> Tuple[int, int]:
     if not dist.is_initialized():
         return 0, 1
     world, rank = dist.get_world_size(), dist.get_rank()
-    m = next((int(s) for n, s in (mesh_shape or ()) if n in MODEL_AXES), 1)
+    m = math.prod(int(s) for n, s in (mesh_shape or ()) if n in MODEL_AXES)
     return rank // m, world // m
 
 
@@ -306,7 +396,7 @@ class Sharding:
             return x
         n = math.prod(self.mesh.shape[a] for a in self.axes)
         if set(self.axes) <= set(MODEL_AXES):
-            idx = self.mesh.model_index
+            idx = self.mesh.over(self.axes).model_index
         elif n == self.mesh.batch_world:
             idx = self.mesh.batch_index
         else:
@@ -399,11 +489,43 @@ def _flax_order(name: str, x) -> Tuple[int, ...]:
     return tuple(range(x.dim()))
 
 
-def _spec_dim(name, x, spec, mesh: Mesh) -> Optional[int]:
+@dataclass(frozen=True)
+class Cut:
+    """A leaf's shard on a mesh with two model axes: cut along dim
+    ``pairs[k][0]`` over model axis ``pairs[k][1]`` for each k (chunk ``i``
+    of a dim on the rank at that axis's coordinate ``i``). A leaf of a
+    tree of shard dims, where one model axis has an int."""
+
+    pairs: Tuple[Tuple[int, str], ...]
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return tuple(a for _, a in self.pairs)
+
+
+def cut_pairs(d, mesh: Mesh, axis: str = "model") -> Tuple[Tuple[int, str], ...]:
+    """``((dim, axis name), ...)`` of a shard dim ``d`` (None, an int over
+    ``axis``: ``"model"``, the mesh's model axis, or ``"dp"``; or a
+    ``Cut``)."""
+    if d is None:
+        return ()
+    if isinstance(d, Cut):
+        return d.pairs
+    return ((d, mesh.model_axis if axis == "model" else "dp"),)
+
+
+def _axis_size_index(mesh: Mesh, name: str):
+    if name == "dp":
+        return mesh.dp_size, mesh.dp_index
+    return mesh.shape[name], mesh.axis_index(name)
+
+
+def _spec_dim(name, x, spec, mesh: Mesh):
     """The dim a partition-spec tuple shards ``x`` on, if the spec fits
-    (each named dim divisible by the size of its axes); raises for a spec
-    the port cannot lay out (more than one sharded dim, an axis other than
-    the model axis)."""
+    (each named dim divisible by the size of its axes): an int on one model
+    axis, a ``Cut`` on two (each model axis named at most once); raises for
+    a spec the port cannot lay out (more than one sharded dim on one model
+    axis, an axis other than the model axes, two axes on one dim)."""
     dims = []
     for d, names in enumerate(spec):
         if names is None:
@@ -418,10 +540,18 @@ def _spec_dim(name, x, spec, mesh: Mesh) -> Optional[int]:
         dims.append((d, ns))
     if not dims:
         return None
-    if len(dims) > 1 or dims[0][1] != (mesh.model_axis,):
-        raise ValueError(f"shard rule {tuple(spec)} for {name!r}: the port shards a leaf along "
-                         f"one dim over the model axis {mesh.model_axis!r} only")
-    return dims[0][0]
+    if not mesh.composed:
+        if len(dims) > 1 or dims[0][1] != (mesh.model_axis,):
+            raise ValueError(f"shard rule {tuple(spec)} for {name!r}: the port shards a leaf "
+                             f"along one dim over the model axis {mesh.model_axis!r} only")
+        return dims[0][0]
+    named = [ns for _, ns in dims]
+    if any(len(ns) != 1 or ns[0] not in mesh.model_axes for ns in named) or \
+            len({ns[0] for ns in named}) != len(named):
+        raise ValueError(f"shard rule {tuple(spec)} for {name!r}: on the mesh {mesh.axes} the "
+                         f"port cuts a leaf along one dim for each model axis "
+                         f"{mesh.model_axes}, each named once")
+    return Cut(tuple((d, ns[0]) for d, ns in dims))
 
 
 def tp_shardings(tree, mesh: Mesh, axis: Optional[str] = None, min_size: int = TP_MIN_SIZE,
@@ -437,18 +567,22 @@ def tp_shardings(tree, mesh: Mesh, axis: Optional[str] = None, min_size: int = T
     the largest-dim rule, on the flax layout of the tensor (``_flax_order``).
     ``axis``: the model axis (default the mesh's).
 
-    On a ``pp`` or ``sp`` axis only ``rules`` shard: a leaf no rule names
-    stays replicated (the JAX package's ``tp_shardings`` would shard it over
-    ``dp`` by the Megatron rules, ``betty_tpu/parallel/mesh.py:173-174``;
-    the port shards over the model axis only, and the pipelined module
-    computes on whole leaves outside its stacked blocks)."""
-    axis = axis or mesh.model_axis
-    if axis is None:
+    On a ``pp`` or ``sp`` axis, and on two model axes, only ``rules``
+    shard: a leaf no rule names stays replicated (the JAX package's
+    ``tp_shardings`` would shard it over ``dp`` by the Megatron rules,
+    ``betty_tpu/parallel/mesh.py:173-174``; the port shards over the model
+    axes only, and the pipelined module computes on whole leaves outside
+    its stacked blocks). On two model axes a sharded leaf's dims are a
+    ``Cut``: ``("pp", None, "mdl", None)`` cuts dim 0 over ``pp`` and dim
+    2 over ``mdl``."""
+    if not mesh.model_axes:
         raise ValueError(f"tp layouts need a model axis ('mdl', 'ep', 'pp' or 'sp') on the mesh "
                          f"{mesh.axes}")
-    size = mesh.shape[axis]
+    axis = axis or mesh.model_axis
     user = tuple((re.compile(pat), tuple(spec)) for pat, spec in (rules or ()))
+    # two model axes: the rules alone shard
     rules_only = axis not in TP_AXES
+    size = 1 if axis is None else mesh.shape[axis]
 
     def dim_for(name, x):
         if not isinstance(x, torch.Tensor):
@@ -613,24 +747,21 @@ def _like_params(tree, params, pdims, default):
     return default
 
 
-def _axis_coords(mesh: Mesh, axis: str):
-    if axis == "model":
-        return mesh.model_size, mesh.model_index
-    return mesh.dp_size, mesh.dp_index
-
-
 def shard_tree(tree, dims, mesh: Mesh, axis: str = "dp"):
     """This rank's shard of every leaf of ``tree`` with a dim in ``dims``
-    (a contiguous copy) over ``axis`` (``"dp"`` or ``"model"``); other
-    leaves unchanged."""
+    (a contiguous copy) over ``axis`` (``"dp"`` or ``"model"``; a ``Cut``
+    along each of its dims over its axis); other leaves unchanged."""
     if dims is None:
         return tree
-    n, idx = _axis_coords(mesh, axis)
 
     def take(x, d):
-        if d is None:
+        pairs = cut_pairs(d, mesh, axis)
+        if not pairs:
             return x
-        return x.chunk(n, dim=d)[idx].contiguous()
+        for dim, name in pairs:
+            n, idx = _axis_size_index(mesh, name)
+            x = x.chunk(n, dim=dim)[idx]
+        return x.contiguous()
 
     return tree_map(take, tree, dims)
 
@@ -640,13 +771,14 @@ def full_shape_like(tree, dims, mesh: Mesh, axis: str = "dp"):
     (templates for a checkpoint restore; no communication)."""
     if dims is None:
         return tree
-    n, _ = _axis_coords(mesh, axis)
 
     def full(x, d):
-        if d is None:
+        pairs = cut_pairs(d, mesh, axis)
+        if not pairs:
             return x
         shape = list(x.shape)
-        shape[d] *= n
+        for dim, name in pairs:
+            shape[dim] *= _axis_size_index(mesh, name)[0]
         return torch.empty(shape, dtype=x.dtype, device=x.device)
 
     return tree_map(full, tree, dims)
@@ -713,19 +845,26 @@ def batch_rank() -> int:
 
 def model_mesh() -> Optional[Mesh]:
     """The bound mesh if it has a model axis (tp/ep/pp/sp), else None."""
-    return _ACTIVE if _ACTIVE is not None and _ACTIVE.model_axis is not None else None
+    return _ACTIVE if _ACTIVE is not None and _ACTIVE.model_axes else None
+
+
+def tp_view(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` seen along its axis that splits tensors (``mdl`` or ``ep``:
+    tp's heads and MLP columns, ep's experts), else None."""
+    axis = None if mesh is None else next((a for a in mesh.model_axes if a in TP_AXES), None)
+    return None if axis is None else mesh.view(axis)
 
 
 def tp_mesh() -> Optional[Mesh]:
-    """The bound mesh if its model axis splits tensors (``mdl`` or ``ep``:
-    tp's heads and MLP columns, ep's experts), else None."""
-    return _ACTIVE if _ACTIVE is not None and _ACTIVE.model_axis in TP_AXES else None
+    """The bound mesh seen along its axis that splits tensors
+    (``tp_view``), else None."""
+    return tp_view(_ACTIVE)
 
 
 def axis_mesh(axis: str) -> Optional[Mesh]:
-    """The bound mesh if its model axis is ``axis`` (``"pp"``, ``"sp"``),
-    else None."""
-    return _ACTIVE if _ACTIVE is not None and _ACTIVE.model_axis == axis else None
+    """The bound mesh seen along its model axis ``axis`` (``"pp"``,
+    ``"sp"``, ``"mdl"``), else None."""
+    return _ACTIVE.view(axis) if _ACTIVE is not None and axis in _ACTIVE.model_axes else None
 
 
 def is_rank_zero() -> bool:

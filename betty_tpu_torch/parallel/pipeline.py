@@ -37,6 +37,15 @@ then discards: the values are those of JAX's schedule.
 
 With a ``dp`` axis each dp rank pipelines the microbatches of its own rows
 (``betty_tpu/parallel/pipeline.py:84-89``, where the batch rides ``dp``).
+
+On a mesh with a second model axis (``dp x mdl x pp``) the pipeline runs
+over the ``pp`` view (``Mesh.view``): the ring, *f* and *g* over this
+rank's ``pp`` group, while ``block_apply`` may make collectives over the
+other axis (the pipelined transformer's Megatron *f*/*g* over ``mdl``). A
+stage's ``mdl`` ranks share its step, so they run the same blocks on the
+same rows (zero in a bubble) and make the same collectives in one order.
+A leaf this rank holds is cut on dim 0 to its stage's blocks, and on its
+other dims as the layout puts it (the block takes its heads or columns).
 """
 
 from typing import Callable, Optional
@@ -92,6 +101,8 @@ def gpipe(block_apply: Callable, stacked_params, x, mesh=None, axis: str = "pp",
     the bound one). Returns the carry after all blocks, replicated over
     ``axis``."""
     mesh = mesh if mesh is not None else mesh_mod.current()
+    if mesh is not None and axis in mesh.model_axes:
+        mesh = mesh.view(axis)  # on two model axes: the ring over this axis
     if mesh is None or axis not in mesh.shape or mesh.model_axis != axis:
         raise ValueError(f"gpipe: needs a mesh whose model axis is {axis!r} (got "
                          f"{None if mesh is None else mesh.axes})")

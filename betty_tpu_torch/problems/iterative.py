@@ -119,6 +119,10 @@ class IterativeProblem(Problem):
         the context ``ctx``; returns the post-unroll parameters. ``data``
         comes from :meth:`get_unroll_data` (or a compiled block's record of
         the same)."""
+        mesh = self._mesh()
+        if mesh is not None and mesh.composed:
+            raise parallel.mesh.model_parallel_error(
+                f"IterativeProblem {self.name}: an ITD replay")
         start = self.full_state({"params": data["start_params"],
                                  "opt_state": data["start_opt_state"]})
         with _CtxBinding(ctx, None, rng):

@@ -54,6 +54,9 @@ shards, the module computes on the ones it declares
 (``FunctionalModule.local_dim``: the transformer's heads and MLP columns,
 the MoE's experts, the pipelined transformer's stage of stacked blocks) and
 ``Problem.forward`` gathers the others where they are used, differentiably.
+On two model axes (``dp x mdl x pp``) a leaf may be cut on two dims
+(``parallel.Cut``): the gathers, cuts and templates go over each axis, and
+the gather on use takes only the cuts the module does not compute on.
 Gradients, HVPs and hypergradient vectors come out in the same layout and
 are averaged over the batch ranks only; the solvers' inner products count
 a shard's partial sums over the model group (``parallel.sharded_dot``,
@@ -597,10 +600,23 @@ class Problem(abc.ABC):
         dims = self.model_dims()
         if not dims:
             return params
-        local = self.module_fn.local_dim
-        gather = utils.tree_map_named(
-            lambda name, d: None if d is None or local(name) == d else d, dims)
-        return parallel.gather_shards(params, gather, self._mesh(), "model")
+        mesh = self._mesh()
+        if not mesh.composed:
+            local = self.module_fn.local_dim
+            gather = utils.tree_map_named(
+                lambda name, d: None if d is None or local(name) == d else d, dims)
+            return parallel.gather_shards(params, gather, mesh, "model")
+
+        def rest(name, d):
+            # two model axes: gather the cuts the module does not take as
+            # they are (an int local dim is a tp dim, over mdl or ep)
+            local = self.module_fn.local_dim(name)
+            pairs = parallel.mesh.cut_pairs(local, parallel.mesh.tp_view(mesh) or mesh)
+            left = tuple(p for p in parallel.mesh.cut_pairs(d, mesh) if p not in pairs)
+            return parallel.mesh.Cut(left) if left else None
+
+        gather = utils.tree_map_named(rest, dims)
+        return parallel.gather_shards(params, gather, mesh, "model")
 
     def _param_shard_dims(self):
         """The parameters' shard dims where the optimizer steps shards:

@@ -15,7 +15,12 @@ splits the model, with one config line:
                  over the ``pp`` axis under ``strategy="tp"``; 4
                  microbatches flow through the stages by ring shifts, and
                  every hypergradient solver differentiates through the
-                 pipeline.
+                 pipeline. On a mesh with a ``mdl`` axis too
+                 (``--mesh dp:2,mdl:2,pp:2``, the JAX package's ``dp x mdl
+                 x pp``) each stage computes Megatron tensor parallelism
+                 over ``mdl``, its leaves cut on two dims by
+                 ``models.COMPOSED_SHARD_RULES`` (the stage dim over
+                 ``pp``, heads and MLP columns over ``mdl``).
 * ``--mode sp``  sequence parallelism: the same module built with
                  ``seq_axis="sp"`` splits its activations on the sequence
                  over the ``sp`` axis (LayerNorm and the MLP on a rank's
@@ -37,7 +42,8 @@ sequence). One process a rank (gloo on the CPU, NCCL on the card;
     torchrun --nproc_per_node 8 -m betty_tpu_torch.tutorial.7_model_parallelism \\
         --device cpu --mode tp          # or --mode pp, --mode sp
 
-``--mesh`` sets another layout (``--mesh dp:1,pp:2``), ``--mesh none``
+``--mesh`` sets another layout (``--mesh dp:1,pp:2``, ``--mesh
+dp:1,mdl:2,pp:2`` for pp on two model axes), ``--mesh none``
 runs the same program in one process on the global batch. The widths
 (``--vocab_size``, ``--seq_len``, ``--dim``, ``--depth``, ``--heads``), the
 global batch and the microbatches are options; the defaults are the JAX
@@ -52,7 +58,7 @@ import torch.nn.functional as F
 
 from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.models import (MetaWeightNet, TransformerClassifier,
-                                   make_pipelined_transformer)
+                                   make_pipelined_transformer, pipelined_shard_rules)
 from betty_tpu_torch.module import from_torch
 from betty_tpu_torch.utils import require_device
 
@@ -107,8 +113,10 @@ def build_engine(args):
         module = make_pipelined_transformer(parallel.mesh_shape(mesh), **widths, seed=0,
                                             num_microbatches=args.num_microbatches,
                                             device=device)
-        # the stage-stacked blocks (a leading depth axis) sharded over pp
-        clf_config = Config(type="darts", unroll_steps=1, shard_rules=((r"^blocks", ("pp",)),))
+        # the stage-stacked blocks (a leading depth axis) sharded over pp,
+        # and beside a mdl axis their heads and MLP columns over mdl
+        clf_config = Config(type="darts", unroll_steps=1,
+                            shard_rules=pipelined_shard_rules(parallel.mesh_shape(mesh)))
     else:  # sp: parameters replicated, activations split on the sequence
         module = make_pipelined_transformer(parallel.mesh_shape(mesh), **widths, seed=0,
                                             seq_axis="sp", device=device)

@@ -14,7 +14,7 @@
     python3 chip_smoke.py --phases kernels,moe,tutorials  # ... Switch MoE, the tutorials
     python3 chip_smoke.py --phases kernels,dist    # ... dp/zero/fsdp over torch.distributed
     python3 chip_smoke.py --phases kernels,mp      # ... tp/ep/pp/sp (two gloo ranks)
-    python3 chip_smoke.py --mp-four                # four cards: pp, sp, tp and ep over NCCL
+    python3 chip_smoke.py --mp-four                # four cards: mdl x pp, pp, sp, tp, ep
 
 Phases:
 
@@ -277,6 +277,9 @@ Phases:
    far they moved and the losses within ``PP_NORTH_LOSS_TOL``, each with its
    period, peak, ring-shift and gather calls and collective device time,
    and compiled ``pp:1`` and ``sp:1`` at small width against driver, bit
+   for bit; the composed mesh at a world of one (``dp:1,mdl:1,pp:1``,
+   tutorial 7's pp mode with ``models.COMPOSED_SHARD_RULES``) small in
+   float64 against ``default`` (1e-10) and compiled against driver, bit
    for bit; then the small reweighting
    run under dp and zero against default, and compiled fsdp against
    driver, bit for bit. Before it, two ranks on the one card
@@ -300,13 +303,19 @@ Phases:
    small width against driver, bit for bit.
    The two gloo ranks also run tutorial 7's program small in float64
    under pp (``pp:2``, M 2) and sp (``sp:2``), darts and CG, against one
-   process (1e-10).
+   process (1e-10); beside them four gloo ranks on the card run it on the
+   composed mesh ``mdl:2,pp:2`` (M 2), darts and CG, against the same
+   one-process runs (1e-10).
    ``--mp-four`` (four cards, NCCL, one rank a card) runs tutorial 7's
-   program at RoBERTa-large's widths under ``pp:4`` (M 4 and 8) and
-   ``sp:4`` (``pp_four``), then the MoE under
-   ``ep:4`` against one process and the north star under tp at ``mdl:4``
-   and ``dp:2,mdl:2``: periods, peak a card, NCCL kernels of a profiled
-   period.
+   program at RoBERTa-large's widths on the composed mesh ``mdl:2,pp:2``
+   (M 4; ``composed_four``: rank 0 first runs one card's ``default`` from
+   the same start, and the composed run is held to it on ``|run - default|
+   / |default - start|`` within ``COMPOSED_NORTH_REL_TOL`` and the losses
+   within ``COMPOSED_NORTH_LOSS_TOL``), under ``pp:4`` (M 4 and 8) and
+   ``sp:4`` (``pp_four``), then the MoE under ``ep:4`` against one process
+   and the north star under tp at ``mdl:4`` and ``dp:2,mdl:2``: periods,
+   busy, idle, launches, peak a card, the collective calls by group and
+   the NCCL kernels by kind of a profiled period.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -4248,10 +4257,28 @@ def _nccl_kind(name):
 _DIST_FUNCS = {}
 
 
-def _count_collectives():
+def _nccl_op(name):
+    """The collective of an NCCL kernel (``AllReduce``, ``SendRecv``: the
+    ring shifts, ``AllGather``, ``ReduceScatter``), else None."""
+    m = re.search(r"nccl\w*?(AllReduce|SendRecv|AllGather|ReduceScatter|Broadcast)", name)
+    return m.group(1) if m else None
+
+
+def _group_labels(mesh):
+    """``{id(process group): the mesh's name for it}``: ``batch``, ``model``
+    and, on two model axes, each axis's."""
+    if mesh is None:
+        return {}
+    labels = {id(mesh.batch_group): "batch", id(mesh.model_group): "model"}
+    labels.update({id(g): a for a, g in mesh.axis_groups.items()})
+    return labels
+
+
+def _count_collectives(groups=None):
     """Counts of the collective calls the port makes, by name (the
     ``torch.distributed`` functions wrapped in place until
-    ``_restore_collectives``)."""
+    ``_restore_collectives``); with ``groups`` (``_group_labels``) by name
+    and the group's label."""
     import torch.distributed as dist
 
     _restore_collectives()
@@ -4261,7 +4288,10 @@ def _count_collectives():
         orig = _DIST_FUNCS[name] = getattr(dist, name)
 
         def wrapped(*a, _orig=orig, _name=name, **kw):
-            counts[_name] = counts.get(_name, 0) + 1
+            key = _name
+            if groups and "group" in kw:
+                key = f"{_name}:{groups.get(id(kw['group']), 'other')}"
+            counts[key] = counts.get(key, 0) + 1
             return _orig(*a, **kw)
 
         setattr(dist, name, wrapped)
@@ -4411,6 +4441,10 @@ def dist_worker(mode, out):
         _dist_gloo2(out)
     elif mode == "mpgloo2":
         _mp_gloo2(out)
+    elif mode == "mpgloo4":
+        _mp_gloo4(out)
+    elif mode == "composedfour":
+        _composed_four_rank(out)
     elif mode == "fourmoe":
         _mp_four_moe(out)
     elif mode.startswith("four:"):
@@ -4600,7 +4634,32 @@ def _mp_gloo2(out):
     torch.distributed.barrier()
 
 
-def _mp_gloo2_check(card, gloo, out, deadline, t0):
+def _mp_gloo4(out):
+    """One of four ranks on the one card over gloo (CUDA tensors):
+    tutorial 7's program small in float64 on the composed mesh
+    ``mdl:2,pp:2``, darts then CG; rank 0 saves the whole parameters."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    parallel.maybe_init_distributed("cuda", backend="gloo", timeout=DIST_OP_TIMEOUT)
+    got = {}
+    for leg in PP_GLOO4:
+        for solver in ("darts", "cg"):
+            t0 = time.time()
+            engine = _t7(PP_GLOO4[leg] + PP_SMALL[solver], dtype=torch.float64, solver=solver)
+            losses = _record_losses(engine)
+            engine.run()
+            got[f"{leg}_{solver}"] = (_whole_params(engine), losses)
+            q = engine.states["classifier"]["params"]["blocks.attn.query.kernel"]
+            log(f"[mp gloo4 {leg} {solver}] rank {torch.distributed.get_rank()}: "
+                f"{time.time() - t0:.2f} s, holds blocks.attn.query.kernel {list(q.shape)}")
+            del engine
+    if torch.distributed.get_rank() == 0:
+        torch.save(got, out)
+    torch.distributed.barrier()
+
+
+def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None):
     """The two-rank leg against this process's one-process runs."""
     import torch
     from betty_tpu_torch.utils import tree_leaves
@@ -4619,11 +4678,14 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0):
         start = _whole_params(engine)
         losses = _record_losses(engine)
         engine.run()
-        for leg in PP_GLOO:  # pp and sp against the same one-process run
+        for leg in list(PP_GLOO) + list(PP_GLOO4):  # against the same one-process run
             ref[f"{leg}_{solver}"] = (_whole_params(engine), start, losses)
         del engine
     _dist_wait("[mp gloo2]", gloo, deadline)
     got = torch.load(out, weights_only=True)
+    if gloo4 is not None:
+        _dist_wait("[mp gloo4]", gloo4, deadline)
+        got.update(torch.load(out4, weights_only=True))
 
     def err(a, b):
         return max(float((x.double() - y.double()).abs().max())
@@ -4634,7 +4696,8 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0):
     rel = {k: _rel_apart(got[k][0], ref[k][0], ref[k][1])[0] for k in ref}
     dloss = {k: max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got[k][1], ref[k][2]))
              for k in ref}
-    log(f"[mp gloo2] [{card}] two ranks (gloo, CUDA tensors) against one process: max |param "
+    log(f"[mp gloo2] [{card}] two ranks (gloo, CUDA tensors; four for the composed mesh) "
+        f"against one process: max |param "
         f"diff| {errs} (f64 and moe tol {MP_F64_TOL}); |got - one process| / |one process - "
         f"start| {rel} (flash tol {MP_FLASH_REL_TOL}); max relative loss diff {dloss} (flash "
         f"tol {MP_FLASH_LOSS_TOL}); moved from the start (max) {moved}; "
@@ -4784,13 +4847,16 @@ def mp_phase(card):
     deadline = t0 + DIST_TIMEOUT
     os.makedirs("build", exist_ok=True)
     out = os.path.abspath(os.path.join("build", "mp_gloo2.pt"))
-    if os.path.exists(out):
-        os.remove(out)
+    out4 = os.path.abspath(os.path.join("build", "mp_gloo4.pt"))
+    for f in (out, out4):
+        if os.path.exists(f):
+            os.remove(f)
     gloo = _dist_launch("mpgloo2", 2, out)
+    gloo4 = _dist_launch("mpgloo4", 4, out4)
     try:
-        _mp_gloo2_check(card, gloo, out, deadline, t0)
+        _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4, out4)
     finally:
-        for p in gloo:
+        for p in gloo + gloo4:
             if p.poll() is None:
                 p.kill()
                 p.wait()
@@ -4809,18 +4875,24 @@ PP_FULL = ["--vocab_size", "50265", "--seq_len", "128", "--dim", "1024", "--dept
 PP_PERIODS = 2  # darts meta-periods (one classifier and one reweight step each)
 PP_MODES = {"default": ["--mode", "pp", "--mesh", "none"],
             "pp": ["--mode", "pp", "--mesh", "dp:1,pp:1", "--num_microbatches", "4"],
-            "sp": ["--mode", "sp", "--mesh", "dp:1,sp:1"]}
+            "sp": ["--mode", "sp", "--mesh", "dp:1,sp:1"],
+            # the dp x mdl x pp composition at a world of one: Megatron inside
+            # each GPipe stage, the leaves cut on two dims (each over one rank)
+            "composed": ["--mode", "pp", "--mesh", "dp:1,mdl:1,pp:1", "--num_microbatches",
+                         "4"]}
 # pp:1 and sp:1 against default at a world of one (fp32 steps; pp's
 # 1,024-row products and sp's split sums round otherwise): the parameters'
 # distance from default's against how far default's moved (``_rel_apart``),
 # and the losses (relative); each bound about 4x the larger reading on an
 # H100 after 4 periods (pp 2.354e-5 and 5.374e-7, sp 8.188e-6 and 1.632e-7)
 PP_NORTH_REL_TOL, PP_NORTH_LOSS_TOL = 1e-4, 2e-6
-# the small float64 legs: two gloo ranks (pp:2 with M 2, sp:2) against one
-# process, darts then CG
-PP_SMALL = {"darts": ["--train_iters", "4"], "cg": ["--train_iters", "1"]}
+# the small float64 legs: two gloo ranks (pp:2 with M 2, sp:2) and four
+# (the composed mdl:2,pp:2) against one process, darts then CG
+PP_SMALL = {"darts": ["--train_iters", "2"], "cg": ["--train_iters", "1"]}
 PP_GLOO = {"pp": ["--mode", "pp", "--mesh", "dp:1,pp:2", "--num_microbatches", "2"],
            "sp": ["--mode", "sp", "--mesh", "dp:1,sp:2"]}
+# four gloo ranks on the card: the composed mesh, the same program and check
+PP_GLOO4 = {"composed": ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2", "--num_microbatches", "2"]}
 
 
 def _t7(argv, device="cuda", dtype=None, solver="darts"):
@@ -4871,7 +4943,7 @@ def _pp_north_run(mode, argv, start=None):
     periods = [b - a for a, b in zip([t0] + ends, ends)]
     peak = torch.cuda.max_memory_allocated()
     params = _whole_params(engine)
-    calls = _count_collectives()
+    calls = _count_collectives(_group_labels(engine.mesh))
     collectives.CALLS.clear()
     rep = profile_period(engine, 1, tag, classify=_nccl_kind) or {}
     calls.update(collectives.CALLS)
@@ -4881,6 +4953,14 @@ def _pp_north_run(mode, argv, start=None):
         ks = [(t, c) for t, c, n in kernels if _nccl_kind(n) == kind]
         log(f"{tag} {kind} in the profiled period: {sum(c for _, c in ks)} launches, "
             f"{sum(t for t, _ in ks):.3f} ms device time")
+    rep["nccl_ops"] = {}
+    for t, c, n in kernels:
+        op = _nccl_op(n)
+        if op:
+            prev = rep["nccl_ops"].get(op, (0, 0.0))
+            rep["nccl_ops"][op] = (prev[0] + c, prev[1] + t)
+    if rep["nccl_ops"]:
+        log(f"{tag} NCCL kernels by collective (launches, ms): {rep['nccl_ops']}")
     log(f"{tag} meta-period seconds {[round(x, 4) for x in periods]} (the first includes "
         f"warm-up); peak {peak / 2**30:.2f} GiB; collective calls in the profiled period "
         f"{dict(calls)}")
@@ -4927,8 +5007,31 @@ def _pp_world_one():
         assert moved > 0 and rel <= PP_NORTH_REL_TOL and dloss <= PP_NORTH_LOSS_TOL
     del runs, pa, start
     _free()
-    # compiled pp:1 and sp:1 at small width: the ring shifts and gathers captured
-    for mode in ("pp", "sp"):
+    # the composed mesh small in float64 against default: the same arithmetic
+    # up to the order of a few sums
+    comp = {}
+    for mode in ("default", "composed"):
+        engine = _t7(PP_MODES[mode] + ["--train_iters", "2"], dtype=torch.float64)
+        first = _whole_params(engine)
+        engine.run()
+        comp[mode] = (first, _whole_params(engine))
+        if mode == "composed":
+            q = engine.states["classifier"]["params"]["blocks.attn.query.kernel"]
+            dims = engine.classifier._shard_dims["params"]
+            log(f"[pp composed] dp:1,mdl:1,pp:1 at a world of one: query kernel held "
+                f"{tuple(q.shape)}, cut {dims['blocks.attn.query.kernel']}")
+        del engine
+    err = max(float((a - b).abs().max()) for n in comp["default"][1]
+              for a, b in zip(comp["composed"][1][n].values(), comp["default"][1][n].values()))
+    moved = max(float((a - b).abs().max()) for n in comp["default"][1]
+                for a, b in zip(comp["default"][1][n].values(), comp["default"][0][n].values()))
+    log(f"[pp composed] composed vs default at a world of one (float64, small): max |param "
+        f"diff| {err:.3e} (tol {MP_F64_TOL}), moved {moved:.3e}")
+    assert err <= MP_F64_TOL and moved > 0
+    del comp
+    # compiled pp:1, sp:1 and the composed mesh at small width: the ring
+    # shifts, gathers and f/g captured
+    for mode in ("pp", "sp", "composed"):
         small = {}
         for compiled in (False, True):
             engine = _t7(PP_MODES[mode] + ["--train_iters", "4"])
@@ -5080,6 +5183,99 @@ def pp_four(card):
                 f"{r['nccl_launches']} launches {r['nccl_ms']:.3f} ms in the profiled period "
                 f"(busy {r['busy_ms']} of {r['wall_ms']} ms), calls {r['calls']}")
         assert all(r["finite"] for r in readings)
+
+
+# the composed mesh on four cards: tutorial 7's program at RoBERTa-large's
+# widths (PP_FULL, fp32) on mdl:2,pp:2, M 4 (12 blocks a stage, 8 of the 16
+# heads and 2,048 of the 4,096 MLP columns a card)
+COMPOSED_FOUR = ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2", "--num_microbatches", "4"]
+# against one card's default from the same start after PP_PERIODS periods
+# (and the profiled one): the parameters' distance from default's against
+# how far default's moved (``_rel_apart``), and the losses (relative). Set
+# before the first four-card run: pp:1 read 2.918e-5 and 3.003e-7 after 2
+# periods (PR 20), and the row-parallel sums over two cards round the
+# products otherwise again
+COMPOSED_NORTH_REL_TOL, COMPOSED_NORTH_LOSS_TOL = 1e-3, 1e-4
+
+
+def _composed_four_rank(out):
+    """One rank of the four-card composed run: rank 0 first runs one card's
+    ``default`` (the whole stack one block after another) from the same
+    start, then every rank runs the program on ``mdl:2,pp:2``; rank 0
+    writes the readings and the comparison."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    parallel.maybe_init_distributed("cuda", timeout=DIST_OP_TIMEOUT)
+    rank = torch.distributed.get_rank()
+    want = None
+    if rank == 0:
+        start = {}
+        params, losses, periods, peak, engine, rep, _ = _pp_north_run(
+            "default", PP_MODES["default"], start)
+        want = {"params": params, "losses": losses, "start": start, "periods": periods,
+                "peak_mib": peak / 2**20, "busy_ms": rep.get("busy_ms"),
+                "wall_ms": rep.get("wall_ms"), "launches": rep.get("launches")}
+        del engine, rep
+        _free()
+    torch.distributed.barrier()
+    # rank 0's profiled period also holds the wait for the other ranks'
+    # first profiler start (its own started in the default run): read busy
+    # and idle on ranks 1 to 3
+    params, losses, periods, peak, engine, rep, calls = _pp_north_run("composed", COMPOSED_FOUR)
+    q = engine.states["classifier"]["params"]["blocks.attn.query.kernel"]
+    w2 = engine.states["classifier"]["params"]["blocks.fc2.weight"]
+    reading = {"rank": rank, "periods": periods, "peak_mib": peak / 2**20, "calls": calls,
+               "nccl_ops": rep.get("nccl_ops", {}), "busy_ms": rep.get("busy_ms"),
+               "wall_ms": rep.get("wall_ms"), "launches": rep.get("launches"),
+               "query_kernel": list(q.shape), "fc2_weight": list(w2.shape),
+               "finite": all(math.isfinite(x) for x in losses)}
+    if rank == 0:
+        rel, moved = _rel_apart(params, want["params"], want["start"])
+        dloss = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, want["losses"]))
+        reading.update(rel=rel, moved=moved, dloss=dloss, n_losses=len(losses),
+                       default={k: want[k] for k in ("periods", "peak_mib", "busy_ms",
+                                                     "wall_ms", "launches")})
+    del engine, params
+    readings = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(readings, reading)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(readings, f)
+    torch.distributed.barrier()
+
+
+def composed_four(card):
+    """``--mp-four``'s composed run: tutorial 7's program at RoBERTa-large's
+    widths on ``mdl:2,pp:2`` (M 4), one rank a card over NCCL, held to one
+    card's ``default``: periods, busy, idle, launches, peak a card, the
+    collective calls by group and the NCCL kernels by collective of a
+    profiled period."""
+    tag = "[composed four mdl:2,pp:2 M4]"
+    out = os.path.abspath(os.path.join("build", "composed_four.json"))
+    if os.path.exists(out):
+        os.remove(out)
+    _dist_wait(tag, _dist_launch("composedfour", 4, out), time.time() + DIST_TIMEOUT)
+    with open(out) as f:
+        readings = json.load(f)
+    d = readings[0]["default"]
+    log(f"{tag} [{card}] one card's default: meta-periods {d['periods']} s, peak "
+        f"{d['peak_mib']:.0f} MiB, busy {d['busy_ms']} of {d['wall_ms']} ms, {d['launches']} "
+        "launches in the profiled period")
+    for r in readings:
+        log(f"{tag} [{card}] rank {r['rank']}: meta-periods {r['periods']} s, peak "
+            f"{r['peak_mib']:.0f} MiB, query kernel {r['query_kernel']}, fc2 weight "
+            f"{r['fc2_weight']}, busy {r['busy_ms']} of {r['wall_ms']} ms, {r['launches']} "
+            f"launches; NCCL by collective (launches, ms) {r['nccl_ops']}; calls {r['calls']}")
+    r = readings[0]
+    log(f"{tag} [{card}] against one card's default: |composed - default| / |default - start| "
+        f"{r['rel']:.4e} (bound {COMPOSED_NORTH_REL_TOL}; |default - start| {r['moved']:.4e}), "
+        f"{r['n_losses']} losses, max relative loss diff {r['dloss']:.3e} (bound "
+        f"{COMPOSED_NORTH_LOSS_TOL})")
+    assert all(x["finite"] for x in readings)
+    assert r["query_kernel"] == [12, 1024, 8, 64] and r["fc2_weight"] == [12, 1024, 2048], r
+    assert r["moved"] > 0 and r["rel"] <= COMPOSED_NORTH_REL_TOL
+    assert r["dloss"] <= COMPOSED_NORTH_LOSS_TOL
 
 
 def mp_four(card):
@@ -5328,7 +5524,8 @@ def main(argv=None):
     ap.add_argument("--dist-worker", nargs=2, metavar=("MODE", "OUT"), default=None,
                     help="one rank of the dist phase (run by the dist phase itself)")
     ap.add_argument("--mp-four", action="store_true",
-                    help="only the four-card north star under tp (needs four cards)")
+                    help="only the four-card runs: the composed mdl:2,pp:2 mesh, pp, sp, tp "
+                         "and ep (needs four cards)")
     args = ap.parse_args(argv)
     if args.dist_worker:
         return dist_worker(*args.dist_worker)
@@ -5355,6 +5552,9 @@ def main(argv=None):
         build.build_all()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        assert torch.cuda.device_count() >= 4, "--mp-four needs four cards"
+        os.makedirs("build", exist_ok=True)
+        composed_four(card)
         pp_four(card)
         mp_four(card)
         return 0

@@ -267,17 +267,21 @@ def test_shard_loader_matches_jax(count):
 
 
 def test_model_parallel_strategies_and_axes_raise():
-    # tp, ep, pp and sp (the mdl, ep, pp and sp axes) are ported; a mesh with
-    # two model axes (the dp x mdl x pp composition) raises, naming ROADMAP.md
-    # §A.7's composition
+    # tp, ep, pp and sp (the mdl, ep, pp and sp axes) are ported, and a mesh
+    # with two model axes (the dp x mdl x pp composition) is accepted; three
+    # model axes raise, naming ROADMAP.md §A.8
     for s in ("tp", "ep", "pp", "sp"):
         assert EngineConfig(strategy=s).strategy == s
     for axis in ("pp", "sp"):
         assert EngineConfig(strategy=axis, mesh_shape=(("dp", 1), (axis, 2))).strategy == axis
-        with pytest.raises(NotImplementedError, match="§A.7.*composition"):
-            EngineConfig(strategy="fsdp", mesh_shape=(("dp", 1), ("mdl", 2), (axis, 2)))
-        with pytest.raises(NotImplementedError, match="§A.7"):
-            make_mesh((("dp", 1), ("ep", 2), (axis, 2)))
+        two = (("dp", 1), ("mdl", 2), (axis, 2))
+        assert EngineConfig(strategy="tp", mesh_shape=two).mesh_shape == two
+        with pytest.raises(NotImplementedError, match="three model axes.*§A.8"):
+            EngineConfig(strategy="fsdp", mesh_shape=two + (("ep", 2),))
+        with pytest.raises(NotImplementedError, match="§A.8"):
+            make_mesh((("dp", 1), ("ep", 2), (axis, 2), ("mdl", 2)))
+        with pytest.raises(ValueError, match="different model axes"):
+            make_mesh((("dp", 1), (axis, 2), (axis, 2)))
     with pytest.raises(ValueError, match="strategy"):
         EngineConfig(strategy="ddp")
     # pp on a mesh without its axis names the axis; sp's parameters stay whole

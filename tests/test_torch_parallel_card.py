@@ -2,9 +2,10 @@
 made over one rank, equal to the one-process run bit for bit; on a machine
 with several cards, one rank a card over NCCL; on four cards, tensor
 parallelism (tutorial 7's tp mode on ``dp:2,mdl:2``), expert parallelism
-(the MoE program on ``ep:4``) and pipeline and sequence parallelism
-(tutorial 7's pp and sp modes on ``dp:2,pp:2`` and ``dp:2,sp:2``) in
-float64 against one process on the global batch. Imports no JAX, so it
+(the MoE program on ``ep:4``), pipeline and sequence parallelism
+(tutorial 7's pp and sp modes on ``dp:2,pp:2`` and ``dp:2,sp:2``) and the
+composed mesh (its pp mode on ``dp:1,mdl:2,pp:2``) in float64 against one
+process on the global batch. Imports no JAX, so it
 runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_parallel_card.py
@@ -178,7 +179,7 @@ torch.distributed.barrier()
 """
 
 
-PP_RANKS = r"""
+T7_RANKS = r"""
 import importlib, json, sys
 import torch
 from betty_tpu_torch import parallel
@@ -204,7 +205,9 @@ def run(mode, mesh):
 
 def err(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
+"""
 
+PP_RANKS = T7_RANKS + r"""
 
 report = {}
 _, pp, engine = run("pp", "dp:2,pp:2")
@@ -215,6 +218,22 @@ if rank == 0:
     start, want, _ = run("pp", "none")  # the one-process run of both modes
     report["pp_err"], report["sp_err"] = err(pp, want), err(sp, want)
     report["moved"] = err(want, start)
+    print("REPORT " + json.dumps(report), flush=True)
+torch.distributed.barrier()
+"""
+
+# the composed mesh: tutorial 7's pp mode on dp:1,mdl:2,pp:2 (2 of the 4
+# stacked blocks and 2 of the 4 heads a rank, M 4)
+COMPOSED_RANKS = T7_RANKS + r"""
+
+report = {}
+_, got, engine = run("pp", "dp:1,mdl:2,pp:2")
+params = engine.states["classifier"]["params"]
+report["query_kernel"] = list(params["blocks.attn.query.kernel"].shape)
+report["fc2_weight"] = list(params["blocks.fc2.weight"].shape)
+if rank == 0:
+    start, want, _ = run("pp", "none")
+    report["err"], report["moved"] = err(got, want), err(want, start)
     print("REPORT " + json.dumps(report), flush=True)
 torch.distributed.barrier()
 """
@@ -318,3 +337,17 @@ def test_pp_and_sp_on_four_cards_over_nccl():
     report = _launch_ranks(PP_RANKS, 4)
     assert report["pp_query_kernel"] == [2, 64, 4, 16] and report["moved"] > 0, report
     assert report["pp_err"] <= 1e-10 and report["sp_err"] <= 1e-10, report
+
+
+@pytest.mark.gpu
+def test_composed_mdl_pp_on_four_cards_over_nccl():
+    """Four ranks, one a card, NCCL: tutorial 7's pp mode on the composed
+    mesh ``dp:1,mdl:2,pp:2`` (Megatron tensor parallelism over ``mdl``
+    inside each GPipe stage; 2 of the 4 stacked blocks and 2 of the 4 heads
+    a rank), float64, within 1e-10 of one process on the global batch."""
+    world = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 4:
+        pytest.skip("needs four CUDA cards")
+    report = _launch_ranks(COMPOSED_RANKS, 4)
+    assert report["query_kernel"] == [2, 64, 2, 16] and report["fc2_weight"] == [2, 64, 128]
+    assert report["moved"] > 0 and report["err"] <= 1e-10, report

@@ -144,11 +144,15 @@ def test_pp_rules_shard_the_stacked_blocks_only():
 
 
 def test_composed_mesh_raises_naming_the_roadmap():
+    """The ``dp x mdl x pp`` composition is computed (tests/test_torch_composed.py);
+    three model axes still raise, naming ROADMAP.md §A.8."""
     composed = (("dp", 2), ("mdl", 2), ("pp", 2))
-    with pytest.raises(NotImplementedError, match="§A.7.*composition"):
-        EngineConfig(strategy="tp", mesh_shape=composed)
-    with pytest.raises(NotImplementedError, match="§A.7"):
-        parallel.make_mesh(composed)
+    assert EngineConfig(strategy="tp", mesh_shape=composed).mesh_shape == composed
+    three = composed + (("sp", 2),)
+    with pytest.raises(NotImplementedError, match="§A.8.*compositions left uncomputed"):
+        EngineConfig(strategy="tp", mesh_shape=three)
+    with pytest.raises(NotImplementedError, match="§A.8"):
+        parallel.make_mesh(three)
 
 
 def test_gpipe_checks_depth_and_batch():

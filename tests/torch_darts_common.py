@@ -137,27 +137,73 @@ def compare(jmod, tnet, inputs, dtype, extra=(), train=True, nchw=True):
     (an op, a cell), else NHWC like flax (a network). Returns the errors by name, each relative
     to max(1, max|flax|), the parameter gradient's to the largest entry of
     the whole tree."""
+    want = jax_results(jmod, tnet, inputs, dtype, extra, train)
+    return errors(port_results(tnet, inputs, dtype, extra, train, nchw), want)
+
+
+def float32_errors(jmod, tnet, inputs, extra=(), nchw=True):
+    """The port's float32 errors and the JAX package's own float32 errors,
+    both against flax run in float64 on the same weights, inputs and
+    cotangents (rounded to float32 first, so that both measure the
+    arithmetic alone): ``(port's errs, JAX's errs)``, named and scaled as
+    ``compare``'s, in train mode."""
+    want = jax_results(jmod, tnet, inputs, torch.float64, extra, True, rounded=np.float32)
+    port = errors(port_results(tnet, inputs, torch.float32, extra, True, nchw), want)
+    own = errors(jax_results(jmod, tnet, inputs, torch.float32, extra, True), want)
+    return port, own
+
+
+def errors(got, want):
+    """The differences of two result dicts (``jax_results``'s names): each
+    relative to max(1, max|want|), the parameter gradients' to the largest
+    entry of the whole tree."""
+    assert set(got) == set(want), (sorted(set(got) ^ set(want)))
+    assert got["outs"] == want["outs"]  # the same outputs are None
+    want = {k: v for k, v in want.items() if k != "outs"}
+    grads = [k for k in want if k.startswith("grad ") and not k.startswith("grad x")
+             and not k.startswith("grad extra")]
+    # one scale for the parameter gradient: its largest entry
+    scale = max([1.0] + [float(np.abs(want[k]).max()) for k in grads])
+    errs = {}
+    for k, v in want.items():
+        if k in grads:
+            errs[k] = float(np.abs(np.asarray(got[k], np.float64) - v).max()) / scale
+        else:
+            errs[k] = _rel(got[k], v)
+    return errs
+
+
+def _r_like(i, shape, rounded=None):
+    r = np.random.RandomState(5 + i).randn(*shape)
+    return r if rounded is None else r.astype(rounded).astype(np.float64)
+
+
+def jax_results(jmod, tnet, inputs, dtype, extra=(), train=True, rounded=None):
+    """flax ``jmod`` on the port's weights of ``tnet`` in ``dtype``: the
+    outputs (NHWC), the new running statistics and the gradients of
+    sum(out * R) to the params (by the port's names), the inputs (NHWC) and
+    the extra arrays, as float64 numpy arrays by name. ``rounded``: a numpy
+    dtype the inputs, extras and cotangents are rounded through first."""
     import jax
 
     with jax.enable_x64(dtype == torch.float64):
-        return _compare(jmod, tnet, inputs, dtype, extra, train, nchw)
+        return _jax_results(jmod, tnet, inputs, dtype, extra, train, rounded)
 
 
-def _compare(jmod, tnet, inputs, dtype, extra, train, nchw):
+def _jax_results(jmod, tnet, inputs, dtype, extra, train, rounded):
     import jax
     import jax.numpy as jnp
 
     jd = jnp.float64 if dtype == torch.float64 else jnp.float32
+    rnd = (lambda a: a) if rounded is None else \
+        (lambda a: np.asarray(a).astype(rounded).astype(np.float64))  # noqa: E731
     params, stats = module_state(tnet, dtype)
     variables = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jd), to_flax(tnet, params, stats))
-    cast = lambda x: jnp.asarray(x, jd) if isinstance(x, np.ndarray) else x  # noqa: E731
-    xs_j = [jnp.asarray(x, jd) for x in inputs]
+    cast = lambda x: jnp.asarray(rnd(x), jd) if isinstance(x, np.ndarray) else x  # noqa: E731
+    xs_j = [jnp.asarray(rnd(x), jd) for x in inputs]
     # arrays and dicts of them are differentiated; numbers stay constants
     static = [not isinstance(e, (np.ndarray, dict)) for e in extra]
     ex_j = [None if st else jax.tree_util.tree_map(cast, e) for st, e in zip(static, extra)]
-
-    def r_like(i, shape):
-        return np.random.RandomState(5 + i).randn(*shape)
 
     def jloss(p, xs, ex):
         ex = [e if st else x for st, e, x in zip(static, extra, ex)]
@@ -167,7 +213,7 @@ def _compare(jmod, tnet, inputs, dtype, extra, train, nchw):
         else:
             out, mut = jmod.apply(v, *xs, *ex, train=False), {}
         outs = out if isinstance(out, tuple) else (out,)
-        loss = sum(jnp.sum(o * jnp.asarray(r_like(i, o.shape), jd))
+        loss = sum(jnp.sum(o * jnp.asarray(_r_like(i, o.shape, rounded), jd))
                    for i, o in enumerate(outs) if o is not None)
         return loss, (outs, mut)
 
@@ -176,7 +222,31 @@ def _compare(jmod, tnet, inputs, dtype, extra, train, nchw):
             variables.get("params", {}), xs_j, ex_j)
     else:
         _, (jouts, jmut) = jloss(variables.get("params", {}), xs_j, ex_j)
+    res = {f"out {i}": np.asarray(o, np.float64) for i, o in enumerate(jouts) if o is not None}
+    res["outs"] = [o is None for o in jouts]
+    if not train:
+        return res
+    want_stats = convert.from_flax_darts(
+        {"params": _host(variables.get("params", {})),
+         "batch_stats": _host(jmut.get("batch_stats", {}))}, tnet, dtype=torch.float64)[1]
+    assert set(want_stats) == set(stats)
+    res.update({f"stat {k}": v.numpy() for k, v in want_stats.items()})
+    want_grads = convert.from_flax_darts(
+        {"params": _host(jgrads[0]), "batch_stats": _host(variables["batch_stats"])}, tnet,
+        dtype=torch.float64)[0]
+    assert set(want_grads) == set(params)
+    res.update({f"grad {k}": v.numpy() for k, v in want_grads.items()})
+    res.update({f"grad x{i}": np.asarray(g, np.float64) for i, g in enumerate(jgrads[1])})
+    jex = [np.asarray(t, np.float64) for e in jgrads[2] if e is not None
+           for t in jax.tree_util.tree_leaves(e)]
+    res.update({f"grad extra {i}": g for i, g in enumerate(jex)})
+    return res
 
+
+def port_results(tnet, inputs, dtype, extra=(), train=True, nchw=True):
+    """The port's ``tnet`` on the same: ``jax_results``'s names and
+    layouts (outputs and input gradients NHWC)."""
+    params, stats = module_state(tnet, dtype)
     p = {k: t.clone().requires_grad_(train) for k, t in params.items()}
     layout = (lambda t: t.permute(0, 3, 1, 2)) if nchw else (lambda t: t)  # noqa: E731
     xs_t = [layout(torch.tensor(x, dtype=dtype)).requires_grad_(train) for x in inputs]
@@ -184,47 +254,26 @@ def _compare(jmod, tnet, inputs, dtype, extra, train, nchw):
     out, new = port_apply(tnet, p, stats, *xs_t, *ex_t, train=train)
     outs = out if isinstance(out, tuple) else (out,)
     nhwc = [o.permute(0, 2, 3, 1) if o is not None and o.dim() == 4 else o for o in outs]
-    errs = {}
-    assert len(nhwc) == len(jouts)
-    for i, (o, jo) in enumerate(zip(nhwc, jouts)):
-        assert (o is None) == (jo is None)
-        if o is not None:
-            errs[f"out {i}"] = _rel(o.detach().numpy(), jo)
+    res = {f"out {i}": o.detach().double().numpy() for i, o in enumerate(nhwc) if o is not None}
+    res["outs"] = [o is None for o in nhwc]
     if not train:
         assert not new
-        return errs
+        return res
 
-    loss = sum((o * torch.tensor(r_like(i, o.shape), dtype=dtype)).sum()
+    loss = sum((o * torch.tensor(_r_like(i, o.shape), dtype=dtype)).sum()
                for i, o in enumerate(nhwc) if o is not None)
     ex_leaves = [t for e in ex_t for t in _leaves(e)]
     leaves = list(p.values()) + xs_t + ex_leaves
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-    tgrads = dict(zip(p, grads))
-
-    want_stats = convert.from_flax_darts(
-        {"params": _host(variables.get("params", {})),
-         "batch_stats": _host(jmut.get("batch_stats", {}))}, tnet, dtype=torch.float64)[1]
-    assert set(new) == set(want_stats) == set(stats)
-    for k, v in want_stats.items():
-        errs[f"stat {k}"] = _rel(new[k].detach().numpy(), v.numpy())
-    want_grads = convert.from_flax_darts(
-        {"params": _host(jgrads[0]), "batch_stats": _host(variables["batch_stats"])}, tnet,
-        dtype=torch.float64)[0]
-    assert set(want_grads) == set(params)
-    # one scale for the parameter gradient: its largest entry
-    scale = max([1.0] + [float(v.abs().max()) for v in want_grads.values()])
-    for k, v in want_grads.items():
-        errs[f"grad {k}"] = float((tgrads[k] - v).abs().max()) / scale
-    for i, g in enumerate(jgrads[1]):
-        g_t = grads[len(p) + i]
-        errs[f"grad x{i}"] = _rel((g_t.permute(0, 2, 3, 1) if nchw else g_t).numpy(), g)
-    jex = [np.asarray(t) for e in jgrads[2] if e is not None
-           for t in jax.tree_util.tree_leaves(e)]
-    for i, (g, jg) in enumerate(zip(grads[len(p) + len(xs_t):], jex)):
-        errs[f"grad extra {i}"] = _rel(g.numpy(), jg)
-    assert len(jex) == len(ex_leaves)
-    return errs
+    assert set(new) == set(stats)
+    res.update({f"stat {k}": v.detach().double().numpy() for k, v in new.items()})
+    res.update({f"grad {k}": g.double().numpy() for k, g in zip(p, grads)})
+    for i, g in enumerate(grads[len(p):len(p) + len(xs_t)]):
+        res[f"grad x{i}"] = (g.permute(0, 2, 3, 1) if nchw else g).double().numpy()
+    for i, g in enumerate(grads[len(p) + len(xs_t):]):
+        res[f"grad extra {i}"] = g.double().numpy()
+    return res
 
 
 def assert_within(errs, dtype):

@@ -180,10 +180,12 @@ def pipelined_module(mesh_spec, M=None, sp=False):
                                       seq_axis="sp" if sp else None, dtype=torch.float64)
 
 
-def port_engine(case, strategy, mesh_spec, init, M=None, sp=False, iters=ITERS, **engine_kw):
+def port_engine(case, strategy, mesh_spec, init, M=None, sp=False, iters=ITERS, rules=None,
+                **engine_kw):
     """tests/test_pp.py's ``_run_engine`` program on the port, float64,
     from the JAX package's initial weights; each batch rank loads its rows
-    ``index::count`` of the global batch."""
+    ``index::count`` of the global batch. ``rules``: the classifier's
+    ``shard_rules`` under ``"tp"`` (default ``PP_RULES``)."""
     import torch
 
     from betty_tpu_torch import Config, Engine, EngineConfig, optim, parallel
@@ -204,7 +206,7 @@ def port_engine(case, strategy, mesh_spec, init, M=None, sp=False, iters=ITERS, 
                      optimizer=engine_kw.pop("optimizer", optim.sgd(lr=0.05)),
                      train_data_loader=loader(64, 0),
                      config=Config(unroll_steps=UNROLL, **SOLVERS[case],
-                                   shard_rules=PP_RULES if strategy == "tp" else None))
+                                   shard_rules=(rules or PP_RULES) if strategy == "tp" else None))
     rw = Reweight("reweight", module=from_torch(MetaWeightNet()),
                   optimizer=optim.adam(lr=1e-3), train_data_loader=loader(32, 1),
                   config=Config())
@@ -446,11 +448,13 @@ REF_CASES = tuple(SOLVERS)
 TIMEOUT = 300
 
 
-def launch(work, groups):
+def launch(work, groups, script=None, worlds=None):
     """Start the three JAX references and the rank groups ``groups`` (names
     of ``GROUPS``) side by side (torchrun's variables, gloo, one thread a
     process), wait for all of them (a failure or a timeout raises) and load
-    their JSON results."""
+    their JSON results. ``script``: the file whose ``rank`` mode the ranks
+    run (default this one); ``worlds``: each group's ranks (default 4 for a
+    ``dp2`` group, else 2)."""
     import subprocess
 
     from test_torch_parallel import _env, _free_port
@@ -461,14 +465,14 @@ def launch(work, groups):
             [sys.executable, __file__, "ref", os.path.join(work, f"ref_{case}.json"), case],
             env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for group in groups:
-        world = 4 if group.startswith("dp2") else 2
+        world = worlds[group] if worlds else 4 if group.startswith("dp2") else 2
         port = _free_port()
         for rank in range(world):
             env = _env(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
                        MASTER_PORT=str(port))
             procs.append((f"{group} rank {rank}", subprocess.Popen(
-                [sys.executable, __file__, "rank", os.path.join(work, f"{group}.json"), work,
-                 group], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                [sys.executable, script or __file__, "rank", os.path.join(work, f"{group}.json"),
+                 work, group], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
     outputs, deadline = {}, time.time() + TIMEOUT
     try:
