@@ -32,14 +32,17 @@ compiled blocks.
 ``b1``, ``w2`` and ``b2`` and computes on them, routing on every token
 (``models/moe.py``). ``--strategy tp`` takes the JAX test's route to the
 same layout: ``Config.shard_rules`` on the inner problem naming ``ep`` for
-the expert leaves and replicating the rest. The loaders are the step's
+the expert leaves and replicating the rest. On a mesh with a ``mdl`` axis
+too (``--strategy tp --mesh dp:1,ep:2,mdl:2``) the rules are
+``MOE_COMPOSED_SHARD_RULES``: each rank holds E/ep experts and h/mdl of
+each one's hidden columns (expert plus tensor parallelism). The loaders are the step's
 whole token batch, so every ``dp`` rank runs all of it (the routing's
 capacities and buffer positions are over the step's tokens, which a split
 would change); the mean of the ranks' losses is the one-process loss. One
 process a rank:
 
     torchrun --nproc_per_node 4 -m betty_tpu_torch.examples.moe_reweighting \
-        --strategy ep --mesh ep:4
+        --strategy ep --mesh ep:4            # or --strategy tp --mesh dp:1,ep:2,mdl:2
 """
 
 import argparse
@@ -51,7 +54,8 @@ import torch.nn.functional as F
 
 from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.models.mlp import MetaWeightNet
-from betty_tpu_torch.models.moe import init_moe_params, moe_ffn, moe_ffn_dense
+from betty_tpu_torch.models.moe import (MOE_COMPOSED_SHARD_RULES, init_moe_params, moe_ffn,
+                                       moe_ffn_dense)
 from betty_tpu_torch.module import from_fn, from_torch
 from betty_tpu_torch.utils import require_device
 
@@ -69,8 +73,15 @@ def make_data(tokens, val_tokens, dim):
 
 
 CAPACITY_FACTOR = 1.25  # Switch-Base-8's
-# ``--strategy tp``'s layout of the inner problem (tests/test_ep.py's rules)
+# ``--strategy tp``'s layout of the inner problem (tests/test_ep.py's rules;
+# on a mesh with a ``mdl`` axis too, ``MOE_COMPOSED_SHARD_RULES``)
 EP_SHARD_RULES = ((r"moe/(w[12]|b[12])$", ("ep",)), (r".*", ()))
+
+
+def shard_rules(mesh_shape):
+    """``--strategy tp``'s rules on ``mesh_shape``."""
+    axes = [n for n, _ in mesh_shape or ()]
+    return MOE_COMPOSED_SHARD_RULES if "mdl" in axes else EP_SHARD_RULES
 
 
 def classifier(params, tokens, dense=False):
@@ -116,7 +127,8 @@ def build_engine(args):
         optimizer=optim.sgd(lr=0.05),
         train_data_loader=[on_device(x, y)],
         config=Config(type="darts", unroll_steps=2, precision=args.precision,
-                      shard_rules=EP_SHARD_RULES if args.strategy == "tp" else None),
+                      shard_rules=shard_rules(parallel.mesh_shape(args.mesh))
+                      if args.strategy == "tp" else None),
     )
     outer = Outer(
         name="outer",
@@ -150,7 +162,8 @@ def parse_args(argv=None):
                    help="ep: the experts over the 'ep' mesh axis; tp: the same layout "
                         "through Config.shard_rules")
     p.add_argument("--mesh", default=None,
-                   help="rank layout as 'name:size,...', e.g. 'dp:2,ep:2' or 'ep:4'")
+                   help="rank layout as 'name:size,...', e.g. 'dp:2,ep:2', 'ep:4' or "
+                        "'dp:1,ep:2,mdl:2'")
     p.add_argument("--compile_blocks", action="store_true",
                    help="compiled blocks: one CUDA graph replay a meta-period")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")

@@ -31,6 +31,19 @@ tokens enter the split computation through *f*
 (``parallel.copy_to_model``), whose backward sums the ranks' cotangents.
 An expert leaf that arrives whole on several ranks (a layout that does not
 shard it) keeps the one-rank path.
+
+On two model axes (``parallel.mesh.moe_axes``) the experts go over ``ep``
+(else ``mdl``) and, beside ``ep``, each expert's hidden columns over
+``mdl``: a rank holds E/ep experts and h/mdl of their columns (``w1`` [E/ep,
+d, h/mdl], ``b1`` [E/ep, h/mdl], ``w2`` [E/ep, h/mdl, d], ``b2`` [E/ep, d];
+``MOE_COMPOSED_SHARD_RULES``), as Megatron's MLP inside expert
+parallelism. The tokens enter through *f* over both axes, the expert
+products run on the local block, the second product's partial sums are
+reduced over ``mdl`` (*g*) before ``b2`` is added (once, as the
+transformer's ``fc2`` bias), and the combine is reduced over ``ep``.
+``Problem.forward`` hands the leaves over cut so
+(``parallel.mesh.moe_local_dim``); a ``pp`` or ``sp`` axis beside them
+repeats the layer. Routing stays whole on every rank, as on one.
 """
 
 import math
@@ -40,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from betty_tpu_torch.parallel import copy_to_model, reduce_from_model
-from betty_tpu_torch.parallel.mesh import current, model_parallel_error, tp_mesh
+from betty_tpu_torch.parallel.mesh import MOE_COMPOSED_SHARD_RULES  # noqa: F401
+from betty_tpu_torch.parallel.mesh import current, moe_axes
 
 
 def init_moe_params(generator: Optional[torch.Generator], dim: int, hidden: int,
@@ -117,19 +131,19 @@ def moe_ffn(params, x, capacity_factor: float = 1.25, capacity: Optional[int] = 
     gate, onehot, dispatch = route(probs, C, x.dtype)
 
     experts = {k: params[k] for k in ("w1", "b1", "w2", "b2")}
-    bound = current()
-    if bound is not None and bound.composed:
-        raise model_parallel_error("models.moe.moe_ffn: the MoE")
-    mesh = tp_mesh()
-    if mesh is not None and (mesh.model_size == 1 or params["w1"].shape[0] != E):
-        experts, x_in, dispatch_in = _local_experts(experts, x, dispatch, E, mesh)
+    mesh, hidden = _split_meshes(current(), E, experts["w1"])
+    if mesh is not None:
+        experts, x_in, dispatch_in = _local_experts(experts, x, dispatch, E, mesh, hidden)
     else:
-        mesh, x_in, dispatch_in = None, x, dispatch
+        x_in, dispatch_in = x, dispatch
     expert_in = torch.einsum("tec,td->ecd", dispatch_in, x_in)       # [E, C, d]
     h = F.gelu(torch.einsum("ecd,edh->ech", expert_in, experts["w1"])
                + experts["b1"][:, None, :], approximate="tanh")
-    expert_out = (torch.einsum("ech,ehd->ecd", h, experts["w2"])
-                  + experts["b2"][:, None, :])                       # [E, C, d]
+    expert_out = torch.einsum("ech,ehd->ecd", h, experts["w2"])
+    if hidden is not None:
+        # row parallel over the hidden columns: the sum first, b2 once
+        expert_out = reduce_from_model(expert_out, hidden)
+    expert_out = expert_out + experts["b2"][:, None, :]              # [E, C, d]
     combined = torch.einsum("tec,ecd->td", dispatch_in, expert_out)
     if mesh is not None:
         combined = reduce_from_model(combined, mesh)
@@ -141,11 +155,26 @@ def moe_ffn(params, x, capacity_factor: float = 1.25, capacity: Optional[int] = 
     return y, aux
 
 
-def _local_experts(experts, x, dispatch, E, mesh):
+def _split_meshes(bound, E, w1):
+    """``(expert mesh, hidden mesh)``: the views of the bound mesh the layer
+    splits its experts and (beside ``ep``) their hidden columns over, None
+    for an axis it does not split; both None where the experts arrive whole
+    on several ranks (the one-rank path)."""
+    expert, hidden = moe_axes(bound)
+    if expert is None:
+        return None, None
+    mesh = bound.view(expert)
+    if mesh.model_size > 1 and w1.shape[0] == E:
+        return None, None
+    return mesh, None if hidden is None else bound.view(hidden)
+
+
+def _local_experts(experts, x, dispatch, E, mesh, hidden=None):
     """``(this rank's expert leaves, x through f, this rank's dispatch
     columns)``: the leaves arrive as their E/m chunk or whole (then through
-    f and cut). The dispatch is built from comparisons and carries no
-    gradient."""
+    f and cut); beside a ``hidden`` view, cut on their hidden columns too,
+    and ``x`` through f over both axes. The dispatch is built from
+    comparisons and carries no gradient."""
     m, i = mesh.model_size, mesh.model_index
     if E % m:
         raise ValueError(f"expert parallelism: {E} experts do not divide over {m} ranks")
@@ -155,7 +184,8 @@ def _local_experts(experts, x, dispatch, E, mesh):
             w = copy_to_model(w, mesh).chunk(m, 0)[i]
         local[k] = w
     n = E // m
-    return local, copy_to_model(x, mesh), dispatch[:, i * n:(i + 1) * n]
+    group = mesh if hidden is None else current().over((mesh.model_axis, hidden.model_axis))
+    return local, copy_to_model(x, group), dispatch[:, i * n:(i + 1) * n]
 
 
 def moe_ffn_dense(params, x):

@@ -86,7 +86,8 @@ the tensor-parallel block above over ``mdl``: ``_heads_qkv``,
 ``_heads_out`` and ``_mlp`` serve both encoders), or sequence-parallel
 over its ``sp`` axis (``seq_axis="sp"``: each rank's ``L/S`` positions
 through LayerNorm and the MLP, attention on its queries against the keys
-and values gathered whole).
+and values gathered whole; beside a ``mdl`` axis on its heads and MLP
+columns too, Megatron-SP).
 """
 
 import functools
@@ -100,8 +101,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from betty_tpu_torch.models.init import lecun_normal_, normal_
 from betty_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from betty_tpu_torch.parallel import copy_to_model, local_rows, reduce_from_model
-from betty_tpu_torch.parallel.mesh import (MODEL_AXES, Cut, axis_mesh, current,
-                                           model_parallel_error, tp_mesh)
+from betty_tpu_torch.parallel.mesh import MODEL_AXES, Cut, axis_mesh, tp_mesh
 from betty_tpu_torch.utils import fold_in, seeded_generator
 
 REMAT_POLICIES = (None, "minimal", "dots")
@@ -504,16 +504,29 @@ COMPOSED_SHARD_RULES = (
     (r"^blocks", ("pp",)),
     (r".*", ()),
 )
+# Megatron-SP on ``(dp, mdl, sp)`` (arXiv:2205.05198 §4.2): the same cuts
+# over ``mdl`` with the stage dim left whole (tests/test_composed.py's
+# ``_COMPOSED_RULES`` with "pp" replaced by None), every other leaf whole
+SP_COMPOSED_SHARD_RULES = (
+    (r"^blocks\.attn\.(query|key|value)\.kernel$", (None, None, "mdl", None)),
+    (r"^blocks\.attn\.out\.kernel$", (None, "mdl", None, None)),
+    (r"^blocks\.fc1\.weight$", (None, "mdl", None)),
+    (r"^blocks\.fc2\.weight$", (None, None, "mdl")),
+    (r".*", ()),
+)
 PP_SHARD_RULES = ((r"^blocks", ("pp",)),)
 
 
 def pipelined_shard_rules(mesh=None):
     """``Config.shard_rules`` for ``make_pipelined_transformer`` under
     ``strategy="tp"`` on ``mesh`` (a mesh shape or ``parallel.Mesh``):
-    ``COMPOSED_SHARD_RULES`` on a mesh with ``mdl`` and ``pp`` axes, the
-    stacked blocks over ``pp`` otherwise."""
+    ``COMPOSED_SHARD_RULES`` on a mesh with ``mdl`` and ``pp`` axes,
+    ``SP_COMPOSED_SHARD_RULES`` on one with ``mdl`` and ``sp``, the stacked
+    blocks over ``pp`` otherwise."""
     axes = _mesh_axes(mesh)
-    return COMPOSED_SHARD_RULES if "mdl" in axes and "pp" in axes else PP_SHARD_RULES
+    if "mdl" in axes and "pp" in axes:
+        return COMPOSED_SHARD_RULES
+    return SP_COMPOSED_SHARD_RULES if "mdl" in axes and "sp" in axes else PP_SHARD_RULES
 
 
 def _pipelined_block(p, carry, seq_mesh=None, tp=None, heads=None, hidden=None):
@@ -586,16 +599,24 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
     is cut where it is used, so ``strategy="pp"`` there gives the same
     numbers with the blocks replicated over ``mdl``.
 
-    ``seq_axis``: the sequence-parallel mode (not with pipelining): over the
-    mesh's ``seq_axis`` the block input is split on the sequence, LayerNorm
-    and the MLP run on the rank's ``L/S`` positions, attention on its
-    queries against the keys and values gathered whole
+    ``seq_axis``: the sequence-parallel mode (not with pipelining: beside
+    the pipeline's axis it is ignored, as in JAX, and its ranks repeat the
+    stages' work): over the mesh's ``seq_axis`` the block input is split on
+    the sequence, LayerNorm and the MLP run on the rank's ``L/S`` positions,
+    attention on its queries against the keys and values gathered whole
     (``parallel.seq_gather``), and the head's masked pooled sum leaves
     through *g*. The leaves used on a sequence shard (the stacked blocks,
     the head's LayerNorm) enter through *f*, so their gradients are summed
     over the ``sp`` group once; the embedding's come whole through the
     split's backward (an all-gather), and ``pool_*``/``out_*`` are used on
-    the replicated pooled vector. Megatron-SP (arXiv:2205.05198 §4.2).
+    the replicated pooled vector. Beside a ``mdl`` axis each block also
+    computes Megatron's tensor parallelism over it (Megatron-SP,
+    arXiv:2205.05198 §4.2): its ``heads/m`` heads and ``hidden/m`` MLP
+    columns on its positions, the keys and values gathered over ``sp``
+    alone; shard the blocks with ``strategy="tp"`` and
+    ``Config(shard_rules=SP_COMPOSED_SHARD_RULES)``, or keep them whole
+    with ``strategy="sp"`` (each rank cuts its heads where it uses them).
+    Any other model axis (``ep``) repeats the work.
 
     Blocks are dropout-free, as JAX's (microbatching would need a dropout
     stream a microbatch). ``seed``: the weights' seed (the JAX package's
@@ -623,12 +644,8 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
                    "head.out_b": torch.zeros(num_classes, device=device, dtype=dtype)})
 
     axes = _mesh_axes(mesh)
-    composed = len([a for a in axes if a in MODEL_AXES]) > 1
     pipelined = axis in axes
     seq_parallel = not pipelined and seq_axis is not None and seq_axis in axes
-    if seq_parallel and composed:
-        raise model_parallel_error(f"make_pipelined_transformer(seq_axis={seq_axis!r}) on the "
-                                   f"mesh {mesh}: sequence parallelism")
     block_names = [k for k in params if k.startswith("blocks.")]
     hidden = params["blocks.fc1.weight"].shape[1]
 
@@ -640,9 +657,6 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
         x = F.embedding(input_ids, p["embed.tok"]) + p["embed.pos"][:, :L]
         mask = pad_mask.to(x.dtype)
         ln_scale, ln_bias = p["head.ln_scale"], p["head.ln_bias"]
-        bound = current()
-        if seq_parallel and bound is not None and bound.composed:
-            raise model_parallel_error("make_pipelined_transformer: sequence parallelism")
         sp = axis_mesh(seq_axis) if seq_parallel else None
         if pipelined:
             pp = axis_mesh(axis)
@@ -658,8 +672,9 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
             # the leaves used on this rank's positions: f sums their gradients
             stacked = {k: copy_to_model(v, sp) for k, v in stacked.items()}
             ln_scale, ln_bias = copy_to_model(ln_scale, sp), copy_to_model(ln_bias, sp)
-            x, _ = sequential(lambda q, c: _pipelined_block(q, c, sp), stacked,
-                              (seq_split(x, sp, dim=1), mask))
+            block = functools.partial(_pipelined_block, seq_mesh=sp, tp=axis_mesh("mdl"),
+                                      heads=heads, hidden=hidden)
+            x, _ = sequential(block, stacked, (seq_split(x, sp, dim=1), mask))
             pad_mask = seq_split(mask, sp, dim=1) > 0.5
         else:
             x, _ = sequential(_pipelined_block, stacked, (x, mask))
@@ -674,13 +689,19 @@ def make_pipelined_transformer(mesh=None, *, vocab_size: int = 50265, max_len: i
         return (out, {}) if mutable else out
 
     # under pp each rank computes on its stage's blocks (dim 0), and beside
-    # a mdl axis on its heads and MLP columns too: the problem gathers
-    # neither
+    # a mdl axis (with pp or sp) on its heads and MLP columns too: the
+    # problem gathers neither
+    composed = len([a for a in axes if a in MODEL_AXES]) > 1
+
+    def cut(k):
+        pairs = ((0, axis),) if pipelined else ()
+        if "mdl" in axes and k[7:] in _PIPELINED_TP_DIMS:
+            pairs += ((_PIPELINED_TP_DIMS[k[7:]], "mdl"),)
+        return Cut(pairs) if pairs else None
+
     local = None
-    if pipelined and composed:
-        local = {k: Cut(((0, axis),) + (((_PIPELINED_TP_DIMS[k[7:]], "mdl"),)
-                                        if k[7:] in _PIPELINED_TP_DIMS else ()))
-                 for k in block_names}
+    if composed and (pipelined or seq_parallel):
+        local = {k: cut(k) for k in block_names}
     elif pipelined:
         local = {k: 0 for k in block_names}
     return FunctionalModule(apply_fn, {"params": params}, rng_names=(), local_dims=local)

@@ -22,8 +22,10 @@ re-evaluations rely on it).
 ``FunctionalModule.local_dim(name)`` is the dim along which the module
 computes on a tp/ep shard of parameter ``name`` itself (None: it takes the
 whole tensor, which ``Problem.forward`` gathers): the expert-stacked MoE
-leaves (``models/moe.py``) for every module, and what an ``nn.Module``'s
-``tensor_parallel_dims()`` declares (``models/transformer.py``).
+leaves (``models/moe.py``; on two model axes their experts and hidden
+columns, ``parallel.mesh.moe_local_dim``) for every module, and what an
+``nn.Module``'s ``tensor_parallel_dims()`` declares
+(``models/transformer.py``).
 """
 
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -31,12 +33,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from betty_tpu_torch.parallel.mesh import MOE_EXPERT_LEAF
-
-
-def _moe_local_dim(name: str) -> Optional[int]:
-    """``moe_ffn`` computes on its rank's experts (dim 0)."""
-    return 0 if MOE_EXPERT_LEAF.search(name) else None
+from betty_tpu_torch.parallel.mesh import moe_local_dim
 
 
 class FunctionalModule:
@@ -56,10 +53,11 @@ class FunctionalModule:
         self.rng_names = tuple(rng_names)
         self.local_dims = dict(local_dims or {})
 
-    def local_dim(self, name: str) -> Optional[int]:
-        """The dim the module computes a tp/ep shard of ``name`` on, or None."""
+    def local_dim(self, name: str, mesh=None):
+        """The dim the module computes a tp/ep shard of ``name`` on (on two
+        model axes of ``mesh`` a ``parallel.Cut``), or None."""
         d = self.local_dims.get(name)
-        return d if d is not None else _moe_local_dim(name)
+        return d if d is not None else moe_local_dim(name, mesh)
 
     def init(self, rng=None) -> Dict[str, Any]:
         return self.variables

@@ -43,10 +43,12 @@ identity backward), where the model ranks' partial results are summed.
 Each has a forward-mode rule, so the ``torch.func`` HVPs differentiate
 through them. ``sharded_dot`` is the inner product of two parameter trees
 in a tp layout: the shards' partial sums reduced over the model group, the
-replicated leaves counted once. On two model axes (``dp x mdl x pp``) each
-collective runs over one axis's view of the mesh (``Mesh.view``), a leaf
-cut on two dims is gathered over each axis in turn, and ``sharded_dot``
-reduces each leaf's partial sum over the ranks of the axes it is cut on.
+replicated leaves counted once. On two model axes (``dp x mdl x pp``,
+``mdl x sp``, ``ep x mdl``) each collective runs over one axis's view of
+the mesh (``Mesh.view``) or over both (``Mesh.over``), a leaf cut on two
+dims is gathered over each axis in turn (``cut_whole`` cuts a whole leaf
+where a module computes on its cut), and ``sharded_dot`` reduces each
+leaf's partial sum over the ranks of the axes it is cut on.
 
 Pipeline and sequence parallelism (a ``pp`` or ``sp`` axis) add three
 more over the model group, each with a differentiable backward and a
@@ -349,6 +351,26 @@ def _gather_axes(tree, dims, mesh):
         if any(d is not None for d in tree_leaves(along)):
             tree = gather_shards(tree, along, mesh.view(name), "model")
     return tree
+
+
+def cut_whole(tree, dims, mesh):
+    """This rank's cut of each whole leaf of ``tree`` whose dim in ``dims``
+    is a ``mesh.Cut`` (the other leaves as they are): the leaf through *f*
+    over the model ranks of the cut's axes, then its chunk along each dim
+    over its axis, so that the backward sums those ranks' cotangents of
+    the whole tensor (the inverse of ``gather_shards`` over the model
+    axes, where a module computes on a cut the layout leaves whole)."""
+    def take(x, d):
+        pairs = mesh_mod.cut_pairs(d, mesh)
+        if not pairs:
+            return x
+        x = copy_to_model(x, mesh.over([a for _, a in pairs]))
+        for dim, name in pairs:
+            view = mesh.view(name)
+            x = x.chunk(view.model_size, dim)[view.model_index]
+        return x
+
+    return tree_map(take, tree, dims) if dims else tree
 
 
 def reduce_scatter_mean(tree, dims, mesh):

@@ -69,12 +69,22 @@ mesh seen along one of them: its ``model_axis``, ``model_group``,
 the mesh's. ``tp_mesh()`` and ``axis_mesh("pp")`` return such views, so
 the model-axis collectives run over one axis unchanged. A leaf is then cut
 on a dim for each axis (``Cut``: on ``dp x mdl x pp`` the stage dim over
-``pp`` and the head or column dim over ``mdl``). The composition computed
-is ``mdl x pp`` on ``models.make_pipelined_transformer`` (Megatron tensor
-parallelism inside each GPipe stage); a module built for ``sp`` or an MoE
-beside a second model axis, an ITD replay on one, and three model axes
-raise ``NotImplementedError`` (``model_parallel_error``, naming ROADMAP.md
-§A.8).
+``pp`` and the head or column dim over ``mdl``). The compositions computed:
+
+* ``mdl x pp`` on ``models.make_pipelined_transformer``: Megatron tensor
+  parallelism inside each GPipe stage (``models.COMPOSED_SHARD_RULES``);
+* ``mdl x sp`` on the same module built with ``seq_axis="sp"``:
+  Megatron-SP, the heads and MLP columns over ``mdl`` and the positions
+  over ``sp`` (``models.SP_COMPOSED_SHARD_RULES``);
+* ``ep x mdl`` on the Switch MoE (``models/moe.py``): the experts over
+  ``ep`` and each expert's hidden columns over ``mdl``
+  (``MOE_COMPOSED_SHARD_RULES``);
+* an axis a module does not split repeats its work: ``sp`` beside ``pp``
+  (pipelining wins, as in JAX), ``ep`` beside the encoder, ``pp`` or ``sp``
+  beside the MoE.
+
+An ITD replay on two model axes and three model axes raise
+``NotImplementedError`` (``model_parallel_error``, naming ROADMAP.md §A.8).
 
 The engine binds its mesh while a problem's update, loss or forward runs
 (``active``); the collectives, ``models/batchnorm.py``'s global statistics,
@@ -111,12 +121,13 @@ FSDP_MIN_SIZE = 2**14
 
 def model_parallel_error(what: str) -> NotImplementedError:
     """The error of a composition of model axes the port does not compute
-    (ROADMAP.md §A.8): the computed one is ``mdl x pp`` on the pipelined
-    transformer."""
+    (ROADMAP.md §A.8): an ITD replay on two model axes, and three model
+    axes."""
     return NotImplementedError(
-        f"{what}: not computed on a mesh with more than one model axis (ROADMAP.md §A.8, "
-        "compositions left uncomputed); the port composes 'mdl' and 'pp' on "
-        "models.make_pipelined_transformer")
+        f"{what}: not computed (ROADMAP.md §A.8, compositions left uncomputed: an ITD "
+        "replay on two model axes, three model axes); the port composes two model axes "
+        "as 'mdl' x 'pp' and 'mdl' x 'sp' on models.make_pipelined_transformer and "
+        "'ep' x 'mdl' on the MoE")
 
 
 def maybe_init_distributed(device=None, backend: Optional[str] = None,
@@ -469,6 +480,47 @@ TP_MIN_SIZE = 2**12
 # ``_MOE_EXPERT_LEAF``): one definition for the sharder, the matcher and
 # the module that computes on them.
 MOE_EXPERT_LEAF = re.compile(r"(^|/)moe/(w[0-9]+|b[0-9]+)$")
+# The MoE on ``(dp, ep, mdl)``: tests/test_ep.py's rules with the ``mdl`` dim
+# added, the experts over ``ep`` and each expert's hidden columns over
+# ``mdl`` (``w1`` [E, d, h], ``b1`` [E, h], ``w2`` [E, h, d]; ``b2`` [E, d]
+# on ``ep`` alone), the rest whole
+MOE_COMPOSED_SHARD_RULES = (
+    (r"(^|/)moe/w1$", ("ep", None, "mdl")),
+    (r"(^|/)moe/b1$", ("ep", "mdl")),
+    (r"(^|/)moe/w2$", ("ep", "mdl", None)),
+    (r"(^|/)moe/b2$", ("ep",)),
+    (r".*", ()),
+)
+# the dim of each expert leaf that the hidden axis cuts beside the experts
+_MOE_HIDDEN_DIMS = {"w1": 2, "b1": 1, "w2": 1}
+
+
+def moe_axes(mesh) -> Tuple[Optional[str], Optional[str]]:
+    """``(expert axis, hidden axis)`` the MoE splits over on ``mesh``: the
+    experts over ``ep`` (else ``mdl``), and beside ``ep`` each expert's
+    hidden columns over ``mdl``; None where the mesh has no such axis (the
+    ``pp`` and ``sp`` ranks repeat the layer)."""
+    axes = () if mesh is None else mesh.model_axes
+    if "ep" in axes:
+        return "ep", ("mdl" if "mdl" in axes else None)
+    return ("mdl" if "mdl" in axes else None), None
+
+
+def moe_local_dim(name: str, mesh=None):
+    """The dim ``models/moe.py`` computes an expert leaf ``name`` on as a
+    shard (the expert dim), or on two model axes its ``Cut`` (``w1`` on
+    ``((0, "ep"), (2, "mdl"))`` on ``(dp, ep, mdl)``); None for another
+    leaf, or a mesh without an expert axis."""
+    if not MOE_EXPERT_LEAF.search(name):
+        return None
+    if mesh is None or not mesh.composed:
+        return 0
+    expert, hidden = moe_axes(mesh)
+    if expert is None:
+        return None
+    leaf = name.rsplit("/", 1)[-1]
+    extra = ((_MOE_HIDDEN_DIMS[leaf], hidden),) if hidden and leaf in _MOE_HIDDEN_DIMS else ()
+    return Cut(((0, expert),) + extra)
 
 
 def path_str(path) -> str:
@@ -614,7 +666,10 @@ def ep_rules(state, mesh: Mesh):
     """``strategy="ep"``'s rules (``_ep_rules``): the expert-stacked MoE
     leaves sharded on their expert dim over ``ep``, everything else
     replicated; None for a state with no such leaf (its problem stays
-    replicated)."""
+    replicated). Beside a ``mdl`` axis the leaves stay whole over it (the
+    JAX package's placement); the MoE cuts each expert's hidden columns
+    over ``mdl`` where it computes (``moe_local_dim``).
+    ``MOE_COMPOSED_SHARD_RULES`` under ``strategy="tp"`` holds them cut so."""
     if "ep" not in mesh.shape:
         raise ValueError("strategy='ep' needs a mesh with an 'ep' axis: pass "
                          "EngineConfig(mesh_shape=(('dp', N), ('ep', M))) "
@@ -850,8 +905,9 @@ def model_mesh() -> Optional[Mesh]:
 
 def tp_view(mesh: Optional[Mesh]) -> Optional[Mesh]:
     """``mesh`` seen along its axis that splits tensors (``mdl`` or ``ep``:
-    tp's heads and MLP columns, ep's experts), else None."""
-    axis = None if mesh is None else next((a for a in mesh.model_axes if a in TP_AXES), None)
+    tp's heads and MLP columns, ep's experts; ``mdl`` where it has both),
+    else None."""
+    axis = None if mesh is None else next((a for a in TP_AXES if a in mesh.model_axes), None)
     return None if axis is None else mesh.view(axis)
 
 

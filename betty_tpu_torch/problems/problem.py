@@ -54,9 +54,12 @@ shards, the module computes on the ones it declares
 (``FunctionalModule.local_dim``: the transformer's heads and MLP columns,
 the MoE's experts, the pipelined transformer's stage of stacked blocks) and
 ``Problem.forward`` gathers the others where they are used, differentiably.
-On two model axes (``dp x mdl x pp``) a leaf may be cut on two dims
-(``parallel.Cut``): the gathers, cuts and templates go over each axis, and
-the gather on use takes only the cuts the module does not compute on.
+On two model axes (``dp x mdl x pp``, ``mdl x sp``, ``ep x mdl``) a leaf
+may be cut on two dims (``parallel.Cut``): the gathers, cuts and templates
+go over each axis, and the module receives each leaf cut as it declares:
+the gather on use takes only the cuts the module does not compute on, and
+a leaf the layout leaves whole where the module computes on a cut is cut
+through *f* (``parallel.cut_whole``).
 Gradients, HVPs and hypergradient vectors come out in the same layout and
 are averaged over the batch ranks only; the solvers' inner products count
 a shard's partial sums over the model group (``parallel.sharded_dot``,
@@ -596,7 +599,8 @@ class Problem(abc.ABC):
     def _gather_on_use(self, params):
         """Under tp/ep, the whole tensors of the sharded parameters the
         module does not compute on as shards (``FunctionalModule.local_dim``),
-        gathered over the model group, differentiably; the rest as given."""
+        gathered over the model group, differentiably; the rest as given
+        (on two model axes cut as the module declares)."""
         dims = self.model_dims()
         if not dims:
             return params
@@ -607,16 +611,28 @@ class Problem(abc.ABC):
                 lambda name, d: None if d is None or local(name) == d else d, dims)
             return parallel.gather_shards(params, gather, mesh, "model")
 
+        # two model axes: the module receives each leaf cut as it declares
+        # (an int local dim is a tp dim, over mdl or ep): the cuts it does
+        # not take are gathered, and those it takes where the layout leaves
+        # the leaf whole are cut through f (``parallel.cut_whole``)
+        view = parallel.mesh.tp_view(mesh) or mesh
+
+        def pairs(name, d):
+            local = parallel.mesh.cut_pairs(self.module_fn.local_dim(name, mesh), view)
+            return parallel.mesh.cut_pairs(d, mesh), tuple(p for p in local if p[1] in mesh.shape)
+
         def rest(name, d):
-            # two model axes: gather the cuts the module does not take as
-            # they are (an int local dim is a tp dim, over mdl or ep)
-            local = self.module_fn.local_dim(name)
-            pairs = parallel.mesh.cut_pairs(local, parallel.mesh.tp_view(mesh) or mesh)
-            left = tuple(p for p in parallel.mesh.cut_pairs(d, mesh) if p not in pairs)
+            have, local = pairs(name, d)
+            left = tuple(p for p in have if p not in local)
             return parallel.mesh.Cut(left) if left else None
 
-        gather = utils.tree_map_named(rest, dims)
-        return parallel.gather_shards(params, gather, mesh, "model")
+        def whole(name, d):
+            have, local = pairs(name, d)
+            take = tuple(p for p in local if p not in have)
+            return parallel.mesh.Cut(take) if take else None
+
+        params = parallel.gather_shards(params, utils.tree_map_named(rest, dims), mesh, "model")
+        return parallel.cut_whole(params, utils.tree_map_named(whole, dims), mesh)
 
     def _param_shard_dims(self):
         """The parameters' shard dims where the optimizer steps shards:

@@ -25,7 +25,15 @@ splits the model, with one config line:
                  ``seq_axis="sp"`` splits its activations on the sequence
                  over the ``sp`` axis (LayerNorm and the MLP on a rank's
                  positions, attention against the keys and values gathered
-                 whole), under ``strategy="dp"``.
+                 whole), under ``strategy="dp"``. On a mesh with a ``mdl``
+                 axis too (``--mesh dp:1,mdl:2,sp:2``) each block computes
+                 Megatron-SP (arXiv:2205.05198 §4.2): its heads and MLP
+                 columns over ``mdl`` on its positions over ``sp``, the
+                 leaves cut over ``mdl`` by
+                 ``models.SP_COMPOSED_SHARD_RULES`` under
+                 ``strategy="tp"``; beside ``pp`` or ``ep`` the ``sp``
+                 ranks (or the ``ep`` ranks) repeat the work, under
+                 ``strategy="sp"``.
 
 Expert parallelism (``strategy="ep"``) is ``examples/moe_reweighting.py
 --strategy ep``.
@@ -43,7 +51,8 @@ sequence). One process a rank (gloo on the CPU, NCCL on the card;
         --device cpu --mode tp          # or --mode pp, --mode sp
 
 ``--mesh`` sets another layout (``--mesh dp:1,pp:2``, ``--mesh
-dp:1,mdl:2,pp:2`` for pp on two model axes), ``--mesh none``
+dp:1,mdl:2,pp:2`` for pp on two model axes, ``--mesh dp:1,mdl:2,sp:2`` for
+Megatron-SP), ``--mesh none``
 runs the same program in one process on the global batch. The widths
 (``--vocab_size``, ``--seq_len``, ``--dim``, ``--depth``, ``--heads``), the
 global batch and the microbatches are options; the defaults are the JAX
@@ -117,10 +126,17 @@ def build_engine(args):
         # and beside a mdl axis their heads and MLP columns over mdl
         clf_config = Config(type="darts", unroll_steps=1,
                             shard_rules=pipelined_shard_rules(parallel.mesh_shape(mesh)))
-    else:  # sp: parameters replicated, activations split on the sequence
+    else:  # sp: activations split on the sequence
         module = make_pipelined_transformer(parallel.mesh_shape(mesh), **widths, seed=0,
                                             seq_axis="sp", device=device)
-        strategy = "dp"
+        axes = [n for n, _ in parallel.mesh_shape(mesh) or ()]
+        if "mdl" in axes:
+            # Megatron-SP: the heads and MLP columns cut over mdl
+            clf_config = Config(type="darts", unroll_steps=1,
+                                shard_rules=pipelined_shard_rules(parallel.mesh_shape(mesh)))
+        else:
+            # parameters replicated
+            strategy = "sp" if {"pp", "ep"} & set(axes) else "dp"
     data = dict(batch=args.batch_size, vocab=args.vocab_size, length=args.seq_len)
     classifier = Classifier(
         name="classifier",

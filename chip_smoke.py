@@ -304,18 +304,24 @@ Phases:
    The two gloo ranks also run tutorial 7's program small in float64
    under pp (``pp:2``, M 2) and sp (``sp:2``), darts and CG, against one
    process (1e-10); beside them four gloo ranks on the card run it on the
-   composed mesh ``mdl:2,pp:2`` (M 2), darts and CG, against the same
-   one-process runs (1e-10).
+   composed mesh ``mdl:2,pp:2`` (M 2) and as Megatron-SP on ``mdl:2,sp:2``,
+   darts and CG, against the same one-process runs, and the test's MoE
+   under tp on ``ep:2,mdl:2`` (experts over ``ep``, their hidden columns
+   over ``mdl``) against its one-process run (1e-10 each).
    ``--mp-four`` (four cards, NCCL, one rank a card) runs tutorial 7's
    program at RoBERTa-large's widths on the composed mesh ``mdl:2,pp:2``
-   (M 4; ``composed_four``: rank 0 first runs one card's ``default`` from
-   the same start, and the composed run is held to it on ``|run - default|
-   / |default - start|`` within ``COMPOSED_NORTH_REL_TOL`` and the losses
-   within ``COMPOSED_NORTH_LOSS_TOL``), under ``pp:4`` (M 4 and 8) and
-   ``sp:4`` (``pp_four``), then the MoE under ``ep:4`` against one process
-   and the north star under tp at ``mdl:4`` and ``dp:2,mdl:2``: periods,
-   busy, idle, launches, peak a card, the collective calls by group and
-   the NCCL kernels by kind of a profiled period.
+   (M 4) and as Megatron-SP on ``mdl:2,sp:2`` (``composed_four``: rank 0
+   first runs one card's ``default`` from the same start, and each run is
+   held to it on ``|run - default| / |default - start|`` and the losses,
+   within ``COMPOSED_NORTH_REL_TOL``/``COMPOSED_NORTH_LOSS_TOL`` and
+   ``SP_MDL_NORTH_REL_TOL``/``SP_MDL_NORTH_LOSS_TOL``), under ``pp:4`` (M 4
+   and 8) and ``sp:4`` (``pp_four``), then the MoE at Switch-Base-8's
+   widths under ``ep:4`` (against one process within ``MP_MOE_TOL``) and
+   under tp on ``ep:2,mdl:2`` (within ``MOE_MDL_REL_TOL`` and
+   ``MOE_MDL_LOSS_TOL``), and the north star under tp at ``mdl:4`` and
+   ``dp:2,mdl:2``: periods, busy, idle, launches, peak a card, the
+   collective calls by group and the NCCL kernels by kind of a profiled
+   period.
 
 Each run reads the launch counts of its kernels, set to 0 just before it,
 and holds them to the counts its code path implies.
@@ -4264,6 +4270,18 @@ def _nccl_op(name):
     return m.group(1) if m else None
 
 
+def _nccl_ops(kernels):
+    """``{collective: (launches, device ms)}`` of the NCCL kernels among a
+    profile's ``(ms, launches, name)``."""
+    ops = {}
+    for t, c, n in kernels:
+        op = _nccl_op(n)
+        if op:
+            prev = ops.get(op, (0, 0.0))
+            ops[op] = (prev[0] + c, prev[1] + t)
+    return ops
+
+
 def _group_labels(mesh):
     """``{id(process group): the mesh's name for it}``: ``batch``, ``model``
     and, on two model axes, each axis's."""
@@ -4637,7 +4655,8 @@ def _mp_gloo2(out):
 def _mp_gloo4(out):
     """One of four ranks on the one card over gloo (CUDA tensors):
     tutorial 7's program small in float64 on the composed mesh
-    ``mdl:2,pp:2``, darts then CG; rank 0 saves the whole parameters."""
+    ``mdl:2,pp:2`` and on ``mdl:2,sp:2`` (Megatron-SP), darts then CG, and
+    the test's MoE on ``ep:2,mdl:2``; rank 0 saves the whole parameters."""
     import torch
     from betty_tpu_torch import parallel
 
@@ -4654,6 +4673,15 @@ def _mp_gloo4(out):
             log(f"[mp gloo4 {leg} {solver}] rank {torch.distributed.get_rank()}: "
                 f"{time.time() - t0:.2f} s, holds blocks.attn.query.kernel {list(q.shape)}")
             del engine
+    t0 = time.time()
+    engine = _mp_engine("moe", MP_MOE_MDL)
+    losses = _record_losses(engine)
+    engine.run()
+    got["moe_mdl"] = (_whole_params(engine), losses)
+    held = {k: list(v.shape) for k, v in engine.states["inner"]["params"]["moe"].items()}
+    log(f"[mp gloo4 moe_mdl] rank {torch.distributed.get_rank()}: {time.time() - t0:.2f} s, "
+        f"holds {held}")
+    del engine
     if torch.distributed.get_rank() == 0:
         torch.save(got, out)
     torch.distributed.barrier()
@@ -4681,6 +4709,7 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None):
         for leg in list(PP_GLOO) + list(PP_GLOO4):  # against the same one-process run
             ref[f"{leg}_{solver}"] = (_whole_params(engine), start, losses)
         del engine
+    ref["moe_mdl"] = ref["moe"]
     _dist_wait("[mp gloo2]", gloo, deadline)
     got = torch.load(out, weights_only=True)
     if gloo4 is not None:
@@ -4696,7 +4725,7 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None):
     rel = {k: _rel_apart(got[k][0], ref[k][0], ref[k][1])[0] for k in ref}
     dloss = {k: max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got[k][1], ref[k][2]))
              for k in ref}
-    log(f"[mp gloo2] [{card}] two ranks (gloo, CUDA tensors; four for the composed mesh) "
+    log(f"[mp gloo2] [{card}] two ranks (gloo, CUDA tensors; four for the composed meshes) "
         f"against one process: max |param "
         f"diff| {errs} (f64 and moe tol {MP_F64_TOL}); |got - one process| / |one process - "
         f"start| {rel} (flash tol {MP_FLASH_REL_TOL}); max relative loss diff {dloss} (flash "
@@ -4891,8 +4920,13 @@ PP_NORTH_REL_TOL, PP_NORTH_LOSS_TOL = 1e-4, 2e-6
 PP_SMALL = {"darts": ["--train_iters", "2"], "cg": ["--train_iters", "1"]}
 PP_GLOO = {"pp": ["--mode", "pp", "--mesh", "dp:1,pp:2", "--num_microbatches", "2"],
            "sp": ["--mode", "sp", "--mesh", "dp:1,sp:2"]}
-# four gloo ranks on the card: the composed mesh, the same program and check
-PP_GLOO4 = {"composed": ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2", "--num_microbatches", "2"]}
+# four gloo ranks on the card: the composed mesh and Megatron-SP, the same
+# program and check
+PP_GLOO4 = {"composed": ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2", "--num_microbatches", "2"],
+            "sp_mdl": ["--mode", "sp", "--mesh", "dp:1,mdl:2,sp:2"]}
+# and the test's MoE with its experts over ep and their hidden columns over
+# mdl, against the one-process MoE run
+MP_MOE_MDL = ["--strategy", "tp", "--mesh", "dp:1,ep:2,mdl:2"]
 
 
 def _t7(argv, device="cuda", dtype=None, solver="darts"):
@@ -4953,12 +4987,7 @@ def _pp_north_run(mode, argv, start=None):
         ks = [(t, c) for t, c, n in kernels if _nccl_kind(n) == kind]
         log(f"{tag} {kind} in the profiled period: {sum(c for _, c in ks)} launches, "
             f"{sum(t for t, _ in ks):.3f} ms device time")
-    rep["nccl_ops"] = {}
-    for t, c, n in kernels:
-        op = _nccl_op(n)
-        if op:
-            prev = rep["nccl_ops"].get(op, (0, 0.0))
-            rep["nccl_ops"][op] = (prev[0] + c, prev[1] + t)
+    rep["nccl_ops"] = _nccl_ops(kernels)
     if rep["nccl_ops"]:
         log(f"{tag} NCCL kernels by collective (launches, ms): {rep['nccl_ops']}")
     log(f"{tag} meta-period seconds {[round(x, 4) for x in periods]} (the first includes "
@@ -5086,52 +5115,70 @@ def _mp_four_rank(mesh, batch, out):
 
 def _mp_four_moe(out):
     """One rank of the MoE program at Switch-Base-8's widths under ``ep:4``
-    (2 experts a card): 2 warm-up periods, 8 timed, one profiled; rank 0
-    then runs the one-process program and compares."""
+    (2 experts a card) and under tp on ``ep:2,mdl:2`` (4 experts and half
+    of each one's hidden columns a card): 2 warm-up periods, 8 timed, one
+    profiled each; rank 0 then runs the one-process program from the same
+    start and compares."""
     import torch
     from betty_tpu_torch import parallel
     from betty_tpu_torch.examples import moe_reweighting as moe
+    from betty_tpu_torch.utils import tree_leaves
 
     parallel.maybe_init_distributed("cuda", timeout=DIST_OP_TIMEOUT)
-    calls = _count_collectives()
     argv = ["--device", "cuda", "--train_iters", "20"]
-    engine = moe.build_engine(moe.parse_args(argv + ["--strategy", "ep", "--mesh", "ep:4"]))
-    ends = []
-    orig = engine.outer.one_step_descent
+    rank = torch.distributed.get_rank()
+    readings, runs = {}, {}
+    for leg, extra in MOE_FOUR:
+        engine = moe.build_engine(moe.parse_args(argv + extra))
+        losses = _record_losses(engine)
+        ends = []
+        orig = engine.outer.one_step_descent
 
-    def record(*a, **kw):
-        res = orig(*a, **kw)
-        torch.cuda.synchronize()
-        ends.append(time.time())
-        return res
+        def record(*a, _orig=orig, **kw):
+            res = _orig(*a, **kw)
+            torch.cuda.synchronize()
+            ends.append(time.time())
+            return res
 
-    engine.outer.one_step_descent = record
-    torch.cuda.reset_peak_memory_stats()
-    engine.run()
-    periods = [b - a for a, b in zip(ends[1:], ends[2:])]
-    peak = torch.cuda.max_memory_allocated()
-    calls.clear()
-    rep = profile_period(engine, 2, "[mp four moe]", classify=_nccl_kind)
-    nccl = [(t, c) for t, c, n in (rep or {}).get("kernels", []) if _nccl_kind(n) == "nccl"]
-    got = _whole_params(engine)
-    reading = {"rank": torch.distributed.get_rank(), "periods": periods, "peak_mib": peak / 2**20,
-               "calls": dict(calls), "nccl_launches": sum(c for _, c in nccl),
-               "nccl_ms": sum(t for t, _ in nccl),
-               "w1": list(engine.states["inner"]["params"]["moe"]["w1"].shape)}
-    del engine
-    if torch.distributed.get_rank() == 0:
+        engine.outer.one_step_descent = record
+        torch.cuda.reset_peak_memory_stats()
+        engine.run()
+        periods = [b - a for a, b in zip(ends[1:], ends[2:])]
+        peak = torch.cuda.max_memory_allocated()
+        calls = _count_collectives(_group_labels(engine.mesh))
+        rep = profile_period(engine, 2, f"[mp four moe {leg}]", classify=_nccl_kind) or {}
+        _restore_collectives()
+        nccl = [(t, c) for t, c, n in rep.get("kernels", []) if _nccl_kind(n) == "nccl"]
+        runs[leg] = (_whole_params(engine), losses)
+        readings[leg] = {
+            "rank": rank, "periods": periods, "peak_mib": peak / 2**20, "calls": dict(calls),
+            "nccl_launches": sum(c for _, c in nccl), "nccl_ms": sum(t for t, _ in nccl),
+            "nccl_ops": _nccl_ops(rep.get("kernels", [])), "busy_ms": rep.get("busy_ms"),
+            "wall_ms": rep.get("wall_ms"), "launches": rep.get("launches"),
+            "held": {k: list(v.shape) for k, v in engine.states["inner"]["params"]["moe"].items()},
+            "finite": all(math.isfinite(x) for x in losses)}
+        del engine
+        _free()
+    if rank == 0:
         ref = moe.build_engine(moe.parse_args(argv + ["--train_iters", "22"]))
+        start = _whole_params(ref)
+        want_losses = _record_losses(ref)
         ref.run()
-        from betty_tpu_torch.utils import tree_leaves
-
         want = _whole_params(ref)
-        reading["max_abs_err"] = max(float((a - b).abs().max()) for n in want for a, b in
-                                     zip(tree_leaves(got[n]), tree_leaves(want[n])))
-    readings = [None] * torch.distributed.get_world_size()
-    torch.distributed.all_gather_object(readings, reading)
-    if torch.distributed.get_rank() == 0:
+        got, losses = runs["ep4"]
+        readings["ep4"]["max_abs_err"] = max(
+            float((a - b).abs().max()) for n in want
+            for a, b in zip(tree_leaves(got[n]), tree_leaves(want[n])))
+        got, losses = runs["moe_mdl"]
+        rel, moved = _rel_apart(got, want, start)
+        dloss = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, want_losses))
+        readings["moe_mdl"].update(rel=rel, moved=moved, dloss=dloss, n_losses=len(losses),
+                                   n_want=len(want_losses))
+    gathered = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(gathered, readings)
+    if rank == 0:
         with open(out, "w") as f:
-            json.dump(readings, f)
+            json.dump(gathered, f)
     torch.distributed.barrier()
 
 
@@ -5185,10 +5232,13 @@ def pp_four(card):
         assert all(r["finite"] for r in readings)
 
 
-# the composed mesh on four cards: tutorial 7's program at RoBERTa-large's
+# the composed meshes on four cards: tutorial 7's program at RoBERTa-large's
 # widths (PP_FULL, fp32) on mdl:2,pp:2, M 4 (12 blocks a stage, 8 of the 16
-# heads and 2,048 of the 4,096 MLP columns a card)
+# heads and 2,048 of the 4,096 MLP columns a card), and as Megatron-SP on
+# mdl:2,sp:2 (every block, 8 heads and 2,048 columns a card, 64 of the 128
+# positions)
 COMPOSED_FOUR = ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2", "--num_microbatches", "4"]
+SP_MDL_FOUR = ["--mode", "sp", "--mesh", "dp:1,mdl:2,sp:2"]
 # against one card's default from the same start after PP_PERIODS periods
 # (and the profiled one): the parameters' distance from default's against
 # how far default's moved (``_rel_apart``), and the losses (relative). Set
@@ -5196,13 +5246,23 @@ COMPOSED_FOUR = ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2", "--num_microbatche
 # periods (PR 20), and the row-parallel sums over two cards round the
 # products otherwise again
 COMPOSED_NORTH_REL_TOL, COMPOSED_NORTH_LOSS_TOL = 1e-3, 1e-4
+# Megatron-SP, set before its first run: sp:1 read 8.188e-6 and 1.632e-7, the
+# composed mesh 5.234e-5 and 4.004e-7 (PERF.md §6); the row-parallel sums over
+# mdl and the split sums over sp round otherwise again
+SP_MDL_NORTH_REL_TOL, SP_MDL_NORTH_LOSS_TOL = 1e-3, 1e-4
+# (leg, argv, held query kernel, held fc2 weight, bounds)
+COMPOSED_FOUR_LEGS = (
+    ("composed", COMPOSED_FOUR, [12, 1024, 8, 64], [12, 1024, 2048],
+     (COMPOSED_NORTH_REL_TOL, COMPOSED_NORTH_LOSS_TOL)),
+    ("sp_mdl", SP_MDL_FOUR, [24, 1024, 8, 64], [24, 1024, 2048],
+     (SP_MDL_NORTH_REL_TOL, SP_MDL_NORTH_LOSS_TOL)))
 
 
 def _composed_four_rank(out):
-    """One rank of the four-card composed run: rank 0 first runs one card's
+    """One rank of the four-card composed runs: rank 0 first runs one card's
     ``default`` (the whole stack one block after another) from the same
-    start, then every rank runs the program on ``mdl:2,pp:2``; rank 0
-    writes the readings and the comparison."""
+    start, then every rank runs the program on ``mdl:2,pp:2`` and on
+    ``mdl:2,sp:2``; rank 0 writes the readings and the comparisons."""
     import torch
     from betty_tpu_torch import parallel
 
@@ -5219,24 +5279,30 @@ def _composed_four_rank(out):
         del engine, rep
         _free()
     torch.distributed.barrier()
-    # rank 0's profiled period also holds the wait for the other ranks'
-    # first profiler start (its own started in the default run): read busy
-    # and idle on ranks 1 to 3
-    params, losses, periods, peak, engine, rep, calls = _pp_north_run("composed", COMPOSED_FOUR)
-    q = engine.states["classifier"]["params"]["blocks.attn.query.kernel"]
-    w2 = engine.states["classifier"]["params"]["blocks.fc2.weight"]
-    reading = {"rank": rank, "periods": periods, "peak_mib": peak / 2**20, "calls": calls,
-               "nccl_ops": rep.get("nccl_ops", {}), "busy_ms": rep.get("busy_ms"),
-               "wall_ms": rep.get("wall_ms"), "launches": rep.get("launches"),
-               "query_kernel": list(q.shape), "fc2_weight": list(w2.shape),
-               "finite": all(math.isfinite(x) for x in losses)}
+    # rank 0's first profiled period also holds the wait for the other
+    # ranks' first profiler start (its own started in the default run): read
+    # busy and idle on ranks 1 to 3
+    reading = {"rank": rank, "legs": {}}
+    for leg, argv, *_ in COMPOSED_FOUR_LEGS:
+        params, losses, periods, peak, engine, rep, calls = _pp_north_run(leg, argv)
+        q = engine.states["classifier"]["params"]["blocks.attn.query.kernel"]
+        w2 = engine.states["classifier"]["params"]["blocks.fc2.weight"]
+        r = {"periods": periods, "peak_mib": peak / 2**20, "calls": calls,
+             "nccl_ops": rep.get("nccl_ops", {}), "busy_ms": rep.get("busy_ms"),
+             "wall_ms": rep.get("wall_ms"), "launches": rep.get("launches"),
+             "query_kernel": list(q.shape), "fc2_weight": list(w2.shape),
+             "finite": all(math.isfinite(x) for x in losses)}
+        if rank == 0:
+            rel, moved = _rel_apart(params, want["params"], want["start"])
+            dloss = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, want["losses"]))
+            r.update(rel=rel, moved=moved, dloss=dloss, n_losses=len(losses))
+        reading["legs"][leg] = r
+        del engine, params, rep
+        _free()
+        torch.distributed.barrier()
     if rank == 0:
-        rel, moved = _rel_apart(params, want["params"], want["start"])
-        dloss = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, want["losses"]))
-        reading.update(rel=rel, moved=moved, dloss=dloss, n_losses=len(losses),
-                       default={k: want[k] for k in ("periods", "peak_mib", "busy_ms",
-                                                     "wall_ms", "launches")})
-    del engine, params
+        reading["default"] = {k: want[k] for k in ("periods", "peak_mib", "busy_ms", "wall_ms",
+                                                   "launches")}
     readings = [None] * torch.distributed.get_world_size()
     torch.distributed.all_gather_object(readings, reading)
     if rank == 0:
@@ -5246,36 +5312,52 @@ def _composed_four_rank(out):
 
 
 def composed_four(card):
-    """``--mp-four``'s composed run: tutorial 7's program at RoBERTa-large's
-    widths on ``mdl:2,pp:2`` (M 4), one rank a card over NCCL, held to one
-    card's ``default``: periods, busy, idle, launches, peak a card, the
-    collective calls by group and the NCCL kernels by collective of a
-    profiled period."""
-    tag = "[composed four mdl:2,pp:2 M4]"
+    """``--mp-four``'s composed runs: tutorial 7's program at RoBERTa-large's
+    widths on ``mdl:2,pp:2`` (M 4) and on ``mdl:2,sp:2`` (Megatron-SP), one
+    rank a card over NCCL, each held to one card's ``default``: periods,
+    busy, idle, launches, peak a card, the collective calls by group and the
+    NCCL kernels by collective of a profiled period."""
+    tag = "[composed four]"
     out = os.path.abspath(os.path.join("build", "composed_four.json"))
     if os.path.exists(out):
         os.remove(out)
-    _dist_wait(tag, _dist_launch("composedfour", 4, out), time.time() + DIST_TIMEOUT)
+    _dist_wait(tag, _dist_launch("composedfour", 4, out), time.time() + 2 * DIST_TIMEOUT)
     with open(out) as f:
         readings = json.load(f)
     d = readings[0]["default"]
     log(f"{tag} [{card}] one card's default: meta-periods {d['periods']} s, peak "
         f"{d['peak_mib']:.0f} MiB, busy {d['busy_ms']} of {d['wall_ms']} ms, {d['launches']} "
         "launches in the profiled period")
-    for r in readings:
-        log(f"{tag} [{card}] rank {r['rank']}: meta-periods {r['periods']} s, peak "
-            f"{r['peak_mib']:.0f} MiB, query kernel {r['query_kernel']}, fc2 weight "
-            f"{r['fc2_weight']}, busy {r['busy_ms']} of {r['wall_ms']} ms, {r['launches']} "
-            f"launches; NCCL by collective (launches, ms) {r['nccl_ops']}; calls {r['calls']}")
-    r = readings[0]
-    log(f"{tag} [{card}] against one card's default: |composed - default| / |default - start| "
-        f"{r['rel']:.4e} (bound {COMPOSED_NORTH_REL_TOL}; |default - start| {r['moved']:.4e}), "
-        f"{r['n_losses']} losses, max relative loss diff {r['dloss']:.3e} (bound "
-        f"{COMPOSED_NORTH_LOSS_TOL})")
-    assert all(x["finite"] for x in readings)
-    assert r["query_kernel"] == [12, 1024, 8, 64] and r["fc2_weight"] == [12, 1024, 2048], r
-    assert r["moved"] > 0 and r["rel"] <= COMPOSED_NORTH_REL_TOL
-    assert r["dloss"] <= COMPOSED_NORTH_LOSS_TOL
+    for leg, argv, query, fc2, (rel_tol, loss_tol) in COMPOSED_FOUR_LEGS:
+        ltag = f"[{leg} four {argv[3]}]"
+        for reading in readings:
+            r = reading["legs"][leg]
+            log(f"{ltag} [{card}] rank {reading['rank']}: meta-periods {r['periods']} s, peak "
+                f"{r['peak_mib']:.0f} MiB, query kernel {r['query_kernel']}, fc2 weight "
+                f"{r['fc2_weight']}, busy {r['busy_ms']} of {r['wall_ms']} ms, {r['launches']} "
+                f"launches; NCCL by collective (launches, ms) {r['nccl_ops']}; calls "
+                f"{r['calls']}")
+        r = readings[0]["legs"][leg]
+        log(f"{ltag} [{card}] against one card's default: |{leg} - default| / |default - "
+            f"start| {r['rel']:.4e} (bound {rel_tol}; |default - start| {r['moved']:.4e}), "
+            f"{r['n_losses']} losses, max relative loss diff {r['dloss']:.3e} (bound "
+            f"{loss_tol})")
+        assert all(x["legs"][leg]["finite"] for x in readings)
+        assert r["query_kernel"] == query and r["fc2_weight"] == fc2, r
+        assert r["moved"] > 0 and r["rel"] <= rel_tol
+        assert r["dloss"] <= loss_tol
+
+
+# the MoE at Switch-Base-8's widths on four cards: ep:4 (2 experts a card)
+# and, under tp with MOE_COMPOSED_SHARD_RULES, ep:2,mdl:2 (4 experts and
+# 1,536 of each one's 3,072 hidden columns a card)
+MOE_FOUR = (("ep4", ["--strategy", "ep", "--mesh", "ep:4"]),
+            ("moe_mdl", ["--strategy", "tp", "--mesh", "dp:1,ep:2,mdl:2"]))
+# ep:2,mdl:2 against one process (fp32, 22 steps), set before its first run:
+# the parameters' distance from the one-process run's against how far it
+# moved (``_rel_apart``) and the losses (relative); the w2 products summed
+# over two cards round otherwise, and a routing near-tie may then flip
+MOE_MDL_REL_TOL, MOE_MDL_LOSS_TOL = 1e-3, 1e-4
 
 
 def mp_four(card):
@@ -5291,13 +5373,27 @@ def mp_four(card):
     _dist_wait("[mp four moe]", _dist_launch("fourmoe", 4, out), time.time() + DIST_TIMEOUT)
     with open(out) as f:
         readings = json.load(f)
-    for r in readings:
-        log(f"[mp four moe] [{card}] rank {r['rank']}: periods (2 steps) {r['periods']} s, peak "
-            f"{r['peak_mib']:.0f} MiB, w1 {r['w1']}, NCCL {r['nccl_launches']} launches "
-            f"{r['nccl_ms']:.3f} ms in the profiled period, calls {r['calls']}")
-    log(f"[mp four moe] against one process (fp32, 22 steps): max |param diff| "
-        f"{readings[0]['max_abs_err']:.3e} (bound {MP_MOE_TOL})")
-    assert readings[0]["max_abs_err"] <= MP_MOE_TOL
+    for leg, extra in MOE_FOUR:
+        tag = f"[mp four moe {extra[-1]}]"
+        for rank in readings:
+            r = rank[leg]
+            log(f"{tag} [{card}] rank {r['rank']}: periods (2 steps) {r['periods']} s, peak "
+                f"{r['peak_mib']:.0f} MiB, holds {r['held']}, busy {r['busy_ms']} of "
+                f"{r['wall_ms']} ms, {r['launches']} launches; NCCL by collective (launches, "
+                f"ms) {r['nccl_ops']} in the profiled period; calls {r['calls']}")
+        assert all(rank[leg]["finite"] for rank in readings)
+    r = readings[0]["ep4"]
+    log(f"[mp four moe ep:4] against one process (fp32, 22 steps): max |param diff| "
+        f"{r['max_abs_err']:.3e} (bound {MP_MOE_TOL})")
+    assert r["max_abs_err"] <= MP_MOE_TOL
+    r = readings[0]["moe_mdl"]
+    log(f"[mp four moe dp:1,ep:2,mdl:2] against one process (fp32, 22 steps): |moe_mdl - "
+        f"default| / |default - start| {r['rel']:.4e} (bound {MOE_MDL_REL_TOL}; |default - "
+        f"start| {r['moved']:.4e}), {r['n_losses']} losses, max relative loss diff "
+        f"{r['dloss']:.3e} (bound {MOE_MDL_LOSS_TOL})")
+    assert r["held"]["w1"] == [4, 768, 1536] and r["held"]["b2"] == [4, 768], r["held"]
+    assert r["n_losses"] == r["n_want"] and r["moved"] > 0
+    assert r["rel"] <= MOE_MDL_REL_TOL and r["dloss"] <= MOE_MDL_LOSS_TOL
     for mesh, batch in MP_FOUR_MESHES:
         out = os.path.abspath(os.path.join("build", f"mp_four_{mesh.replace(',', '_')}.json"))
         procs = _dist_launch(f"four:{mesh}:{batch}", 4, out)

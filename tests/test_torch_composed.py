@@ -193,26 +193,24 @@ def test_strategy_pp_ep_replicate_non_matching_problems():
 
 
 def test_uncomputed_compositions_raise_naming_the_roadmap():
-    """sp or an MoE beside a second model axis, an ITD replay on one, and
-    three model axes raise ``NotImplementedError`` naming ROADMAP.md §A.8,
-    before any collective; nothing falls back."""
+    """An ITD replay on two model axes and three model axes raise
+    ``NotImplementedError`` naming ROADMAP.md §A.8, before any collective;
+    a module built for ``sp`` beside a second model axis and the MoE beside
+    one build and run (tests/test_torch_composed_sp_moe.py holds their
+    values), and nothing falls back."""
     from betty_tpu_torch.models import init_moe_params, moe_ffn
     from betty_tpu_torch.problems.iterative import IterativeProblem
 
-    sp_mesh = (("dp", 1), ("mdl", 2), ("sp", 2))
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        make_pipelined_transformer(sp_mesh, vocab_size=64, max_len=8, dim=16, depth=2, heads=2,
-                                   seq_axis="sp")
-    module = make_pipelined_transformer((("dp", 1), ("sp", 2)), vocab_size=64, max_len=8,
-                                        dim=16, depth=2, heads=2, seq_axis="sp")
-    ids = torch.randint(2, 64, (4, 8))
-    with parallel.active(Mesh((("dp", 1), ("pp", 2), ("sp", 2)), rank=0, world=4)):
-        with pytest.raises(NotImplementedError, match="sequence parallelism.*§A.8"):
-            module.apply(module.variables, ids, train=False)
+    for sp_mesh in ((("dp", 1), ("mdl", 2), ("sp", 2)), (("dp", 1), ("pp", 2), ("sp", 2))):
+        module = make_pipelined_transformer(sp_mesh, vocab_size=64, max_len=8, dim=16, depth=2,
+                                            heads=2, seq_axis="sp")
+        assert module.local_dims  # the blocks it computes on as cuts
     params = init_moe_params(torch.Generator().manual_seed(0), 8, 16, 4)
+    # experts whole on every rank of the (dp, pp, ep) mesh: the one-rank
+    # path, no collective
     with parallel.active(Mesh((("dp", 1), ("pp", 2), ("ep", 2)), rank=0, world=4)):
-        with pytest.raises(NotImplementedError, match="MoE.*§A.8"):
-            moe_ffn(params, torch.randn(16, 8))
+        y, _ = moe_ffn(params, torch.randn(16, 8))
+    assert y.shape == (16, 8)
     for shape in ((("dp", 1), ("mdl", 2), ("pp", 2), ("sp", 2)),
                   (("dp", 1), ("mdl", 2), ("ep", 2), ("pp", 2))):
         with pytest.raises(NotImplementedError, match="three model axes.*§A.8"):

@@ -3,9 +3,10 @@ made over one rank, equal to the one-process run bit for bit; on a machine
 with several cards, one rank a card over NCCL; on four cards, tensor
 parallelism (tutorial 7's tp mode on ``dp:2,mdl:2``), expert parallelism
 (the MoE program on ``ep:4``), pipeline and sequence parallelism
-(tutorial 7's pp and sp modes on ``dp:2,pp:2`` and ``dp:2,sp:2``) and the
-composed mesh (its pp mode on ``dp:1,mdl:2,pp:2``) in float64 against one
-process on the global batch. Imports no JAX, so it
+(tutorial 7's pp and sp modes on ``dp:2,pp:2`` and ``dp:2,sp:2``), the
+composed mesh (its pp mode on ``dp:1,mdl:2,pp:2``), Megatron-SP (its sp
+mode on ``dp:1,mdl:2,sp:2``) and the MoE on ``dp:1,ep:2,mdl:2`` in float64
+against one process on the global batch. Imports no JAX, so it
 runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_parallel_card.py
@@ -239,6 +240,49 @@ torch.distributed.barrier()
 """
 
 
+# sequence parallelism and the MoE beside a second model axis: tutorial 7's
+# sp mode on dp:1,mdl:2,sp:2 (Megatron-SP: 2 of the 4 heads and 128 of the
+# 256 MLP columns a rank, 8 of the 16 positions) and the MoE program under tp
+# on dp:1,ep:2,mdl:2 (2 of the 4 experts and 16 of each one's 32 hidden
+# columns a rank)
+SP_MOE_MDL_RANKS = T7_RANKS + r"""
+moe = importlib.import_module("betty_tpu_torch.examples.moe_reweighting")
+MOE = ["--dim", "16", "--hidden", "32", "--experts", "4", "--tokens", "64", "--val_tokens",
+       "32", "--dense", "--train_iters", "4", "--device", "cuda"]
+
+
+def moe_run(extra):
+    engine = moe.build_engine(moe.parse_args(MOE + extra))
+    engine.states = tree_map(lambda t: t.double() if torch.is_tensor(t)
+                             and t.is_floating_point() else t, engine.states)
+    for p in engine.problems:
+        (x, y), = p.train_data_loader[0]
+        p.train_data_loader[0][0] = (x.double(), y)
+    start = [x.detach().cpu().clone() for p in engine.problems
+             for x in tree_leaves(p.full_state()["params"])]
+    engine.run()
+    end = [x.detach().cpu().clone() for p in engine.problems
+           for x in tree_leaves(p.full_state()["params"])]
+    return start, end, engine
+
+
+report = {}
+_, sp, engine = run("sp", "dp:1,mdl:2,sp:2")
+params = engine.states["classifier"]["params"]
+report["query_kernel"] = list(params["blocks.attn.query.kernel"].shape)
+report["fc2_weight"] = list(params["blocks.fc2.weight"].shape)
+_, ep, engine = moe_run(["--strategy", "tp", "--mesh", "dp:1,ep:2,mdl:2"])
+report["moe_w1"] = list(engine.states["inner"]["params"]["moe"]["w1"].shape)
+if rank == 0:
+    start, want, _ = run("pp", "none")
+    report["sp_err"], report["sp_moved"] = err(sp, want), err(want, start)
+    start, want, _ = moe_run([])
+    report["moe_err"], report["moe_moved"] = err(ep, want), err(want, start)
+    print("REPORT " + json.dumps(report), flush=True)
+torch.distributed.barrier()
+"""
+
+
 def _launch_ranks(script, world, timeout=400):
     """``world`` ranks of ``script`` (``BETTY_*`` variables, one a card):
     rank 0's REPORT line, parsed."""
@@ -351,3 +395,20 @@ def test_composed_mdl_pp_on_four_cards_over_nccl():
     report = _launch_ranks(COMPOSED_RANKS, 4)
     assert report["query_kernel"] == [2, 64, 2, 16] and report["fc2_weight"] == [2, 64, 128]
     assert report["moved"] > 0 and report["err"] <= 1e-10, report
+
+
+@pytest.mark.gpu
+def test_sp_mdl_and_ep_mdl_on_four_cards_over_nccl():
+    """Four ranks, one a card, NCCL: tutorial 7's sp mode on
+    ``dp:1,mdl:2,sp:2`` (Megatron-SP) and the MoE program under tp on
+    ``dp:1,ep:2,mdl:2`` (experts over ``ep``, their hidden columns over
+    ``mdl``), float64, each within 1e-10 of one process on the global
+    batch."""
+    world = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 4:
+        pytest.skip("needs four CUDA cards")
+    report = _launch_ranks(SP_MOE_MDL_RANKS, 4)
+    assert report["query_kernel"] == [4, 64, 2, 16] and report["fc2_weight"] == [4, 64, 128]
+    assert report["moe_w1"] == [2, 16, 16]
+    assert report["sp_moved"] > 0 and report["sp_err"] <= 1e-10, report
+    assert report["moe_moved"] > 0 and report["moe_err"] <= 1e-10, report

@@ -316,14 +316,14 @@ def case_details(mesh_spec, init, work_dir, res, rank):
     parallel.mesh  # noqa: B018 (the package stays imported for the ranks' groups)
 
 
-def moe_engine(strategy, mesh, init):
+def moe_engine(strategy, mesh, init, extra=()):
     import torch
 
     from betty_tpu_torch.examples import moe_reweighting as tex
     from betty_tpu_torch.utils import tree_map
 
     engine = tex.build_engine(tex.parse_args(MOE_ARGV + ["--strategy", strategy] + (
-        ["--mesh", mesh] if mesh else [])))
+        ["--mesh", mesh] if mesh else []) + list(extra)))
     _f64_states(engine)
     for p in engine.problems:
         st = dict(engine.states[p.name])
