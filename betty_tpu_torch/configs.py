@@ -30,8 +30,9 @@ last: ``(("dp", N), ("mdl", M))``, ``("ep", M)``, ``("pp", M)`` or
 a ``pp`` or ``sp`` axis, whose module splits the depth or the sequence
 itself), and ``autoshard_data`` gives each rank its examples of every
 ``ArrayLoader`` (``data.shard_loader``). Three model axes raise
-``NotImplementedError`` (ROADMAP.md §A.8), as does a module that does not
-compute on a second model axis (``sp``, the MoE).
+``NotImplementedError`` (ROADMAP.md §A.8); on two, every strategy runs,
+ITD replays included, and an axis a module does not split repeats its
+work.
 
 ``EngineConfig.profile_dir`` writes a ``torch.profiler`` trace of the run
 there (``Engine._profiler``).

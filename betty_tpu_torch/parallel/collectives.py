@@ -43,12 +43,13 @@ identity backward), where the model ranks' partial results are summed.
 Each has a forward-mode rule, so the ``torch.func`` HVPs differentiate
 through them. ``sharded_dot`` is the inner product of two parameter trees
 in a tp layout: the shards' partial sums reduced over the model group, the
-replicated leaves counted once. On two model axes (``dp x mdl x pp``,
-``mdl x sp``, ``ep x mdl``) each collective runs over one axis's view of
-the mesh (``Mesh.view``) or over both (``Mesh.over``), a leaf cut on two
-dims is gathered over each axis in turn (``cut_whole`` cuts a whole leaf
-where a module computes on its cut), and ``sharded_dot`` reduces each
-leaf's partial sum over the ranks of the axes it is cut on.
+replicated leaves counted once (``clip_by_sharded_norm`` clips by it). On
+two model axes (``dp x mdl x pp``, ``mdl x sp``, ``ep x mdl``) each
+collective runs over one axis's view of the mesh (``Mesh.view``) or over
+both (``Mesh.over``), a leaf cut on two dims is gathered over each axis in
+turn (``cut_whole`` cuts a whole leaf where a module computes on its cut),
+and ``sharded_dot`` reduces each leaf's partial sum over the ranks of the
+axes it is cut on.
 
 Pipeline and sequence parallelism (a ``pp`` or ``sp`` axis) add three
 more over the model group, each with a differentiable backward and a
@@ -556,6 +557,22 @@ def sharded_dot(a, b, dims=None, mesh=None):
 def sharded_norm(a, dims=None, mesh=None):
     """The global L2 norm of a tree in a tp layout (``sharded_dot``)."""
     return torch.sqrt(sharded_dot(a, a, dims, mesh))
+
+
+def clip_by_sharded_norm(tree, max_norm, dims, mesh):
+    """``utils.clip_by_global_norm`` of a tree in a tp layout, on the
+    shards: the whole tree's norm (``sharded_norm``), and the scale entering
+    each leaf cut over model axes through *f* over them, so that a
+    derivative of the clipped tree (an ITD replay's) sums the ranks' parts
+    of the norm's cotangent. No gather."""
+    scale = torch.clamp(max_norm / (sharded_norm(tree, dims, mesh) + 1e-6), max=1.0)
+
+    def clip(x, d):
+        axes = [a for _, a in mesh_mod.cut_pairs(d, mesh)]
+        s = copy_to_model(scale, mesh.over(axes)) if axes else scale
+        return x * s.to(x.dtype)
+
+    return tree_map(clip, tree, dims)
 
 
 # ---------------------------------------------------------------------------

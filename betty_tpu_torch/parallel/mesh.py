@@ -83,8 +83,8 @@ on a dim for each axis (``Cut``: on ``dp x mdl x pp`` the stage dim over
   (pipelining wins, as in JAX), ``ep`` beside the encoder, ``pp`` or ``sp``
   beside the MoE.
 
-An ITD replay on two model axes and three model axes raise
-``NotImplementedError`` (``model_parallel_error``, naming ROADMAP.md §A.8).
+Three model axes raise ``NotImplementedError`` (``model_parallel_error``,
+naming ROADMAP.md §A.8).
 
 The engine binds its mesh while a problem's update, loss or forward runs
 (``active``); the collectives, ``models/batchnorm.py``'s global statistics,
@@ -121,13 +121,12 @@ FSDP_MIN_SIZE = 2**14
 
 def model_parallel_error(what: str) -> NotImplementedError:
     """The error of a composition of model axes the port does not compute
-    (ROADMAP.md §A.8): an ITD replay on two model axes, and three model
-    axes."""
+    (ROADMAP.md §A.8): three model axes."""
     return NotImplementedError(
-        f"{what}: not computed (ROADMAP.md §A.8, compositions left uncomputed: an ITD "
-        "replay on two model axes, three model axes); the port composes two model axes "
-        "as 'mdl' x 'pp' and 'mdl' x 'sp' on models.make_pipelined_transformer and "
-        "'ep' x 'mdl' on the MoE")
+        f"{what}: not computed (ROADMAP.md §A.8, compositions left uncomputed: three model "
+        "axes); the port composes two model axes as 'mdl' x 'pp' and 'mdl' x 'sp' on "
+        "models.make_pipelined_transformer and 'ep' x 'mdl' on the MoE, ITD replays "
+        "included")
 
 
 def maybe_init_distributed(device=None, backend: Optional[str] = None,

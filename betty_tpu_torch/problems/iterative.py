@@ -22,12 +22,24 @@ the running sum, and the optimizer step of ``_apply_optimizer`` (clipping,
 ``custom_optimizer_step``, ``param_callback``, ``last_grad``), with the
 scheduler frozen during a ``roll_back`` unroll as the eager steps freeze it.
 
-Under a data-parallel strategy each micro-step's gradient in the replay
-goes through the differentiable all-reduce (``parallel.all_reduce_tree``),
-whose backward is itself an all-reduce; with the mean over the ranks of the
-parent's gradient that gives the gradient of the global objective. Under
-zero/fsdp the replay starts from the whole tensors of the recorded state
-and steps whole tensors.
+The replay computes in the layout of the eager update (``compute_state``).
+Each micro-step's gradient goes through the differentiable all-reduce over
+the batch ranks (``parallel.all_reduce_tree``), whose backward is itself an
+all-reduce; with the mean over the ranks of the parent's gradient that
+gives the gradient of the global objective. Under zero/fsdp the replay
+starts from the whole tensors of the recorded state and steps whole
+tensors. Under tp, ep, pp and sp with model-sharded leaves, and on two
+model axes, it starts from this rank's shards of the recorded state (no
+gather), hands them to the loss as the eager step does (``Problem.forward``
+gathers or cuts on use, differentiably), keeps each gradient in the
+shards' layout, steps the shards (``_apply_optimizer``: the clipping norm
+from the shards, ``parallel.clip_by_sharded_norm``; the hooks on whole
+tensors gathered differentiably and cut back through *f*) and returns the
+shards. Every collective on that path (*f*, *g*, the gathers and cuts, the
+ring shifts, the sequence gathers) has a backward made of collectives, so
+the parent's backward, which runs through the replay's
+``create_graph=True`` gradients, is a double backward through them, made
+by every rank in one order.
 
 MAML-style meta-initialization: override ``unroll_init(self, start_params)``
 to return the initial inner parameters as a function of other problems'
@@ -48,7 +60,7 @@ from typing import Any, Dict, List, Optional
 
 from betty_tpu_torch import parallel
 from betty_tpu_torch.problems.problem import Problem, _CtxBinding
-from betty_tpu_torch.utils import StepSeed, tree_add, tree_zeros_like, value_and_grad
+from betty_tpu_torch.utils import StepSeed, tree_add, tree_map, tree_zeros_like, value_and_grad
 
 
 def unroll_data(start, start_count, batches):
@@ -116,17 +128,16 @@ class IterativeProblem(Problem):
 
     def replay_unroll(self, ctx, data, rng=None):
         """This problem's last unroll again, as a differentiable function of
-        the context ``ctx``; returns the post-unroll parameters. ``data``
-        comes from :meth:`get_unroll_data` (or a compiled block's record of
-        the same)."""
-        mesh = self._mesh()
-        if mesh is not None and mesh.composed:
-            raise parallel.mesh.model_parallel_error(
-                f"IterativeProblem {self.name}: an ITD replay")
-        start = self.full_state({"params": data["start_params"],
-                                 "opt_state": data["start_opt_state"]})
+        the context ``ctx``; returns the post-unroll parameters in the
+        update's layout (``compute_state``: this rank's shards under the
+        model-parallel strategies). ``data`` comes from
+        :meth:`get_unroll_data` (or a compiled block's record of the
+        same)."""
+        sharded = self._model_sharded()
+        start = self.compute_state({"params": data["start_params"],
+                                    "opt_state": data["start_opt_state"]})
         with _CtxBinding(ctx, None, rng):
-            init_params = self.unroll_init(start["params"])
+            init_params = self._in_layout(self.unroll_init(start["params"]), start["params"])
 
         batches = data["batches"]
         gas = self.gas
@@ -165,19 +176,13 @@ class IterativeProblem(Problem):
 
                 (_, mutated), g = value_and_grad(loss_fn, state["params"], argnums=0,
                                                  has_aux=True, create_graph=True)
+                # in the parameters' layout, averaged over the batch ranks
                 grad_acc = tree_add(grad_acc, parallel.all_reduce_tree(g, "mean"))
                 if mutated:
                     extra = {**extra, **mutated}
                 if self.is_implemented("grad_callback"):
-                    # the eager steps call the hook on the running sum after
-                    # every micro-step; its edits flow through the replay
-                    self._trace_grads = grad_acc
-                    cc = dict(ctx)
-                    cc[self.name] = {"params": state["params"], "extra": extra}
-                    with _CtxBinding(cc, None, r):
-                        self.grad_callback()
-                    grad_acc = self._trace_grads
-                    self._trace_grads = None
+                    grad_acc = self._replay_grad_callback(ctx, state["params"], grad_acc,
+                                                          extra, r, sharded)
 
             step_state = dict(state)
             step_state["extra"] = extra
@@ -190,8 +195,37 @@ class IterativeProblem(Problem):
             c[self.name] = {"params": state["params"], "extra": extra}
             # cross-problem edits of param_callback apply on the eager path
             # only: the replay returns this problem's parameters
-            step_state, _ = self._apply_optimizer(step_state, c, rng, sharded=False)
+            step_state, _ = self._apply_optimizer(step_state, c, rng, sharded=sharded)
             if advance:
                 step_state["sched_step"] = step_state["sched_step"] + 1
             state = step_state
         return state["params"]
+
+    def _in_layout(self, params, start_params):
+        """``unroll_init``'s parameters in the replay's layout: under the
+        model-parallel strategies a leaf at the whole shape of a sharded
+        one (another problem's parameters, held whole) is cut to this
+        rank's shard through *f* (``parallel.cut_whole``), so the gradient
+        reaches every rank's part of it."""
+        if params is start_params or not self._model_sharded():
+            return params
+        dims = tree_map(lambda x, s, d: None if tuple(x.shape) == tuple(s.shape) else d,
+                        params, start_params, self._shard_dims["params"])
+        return parallel.cut_whole(params, dims, self._mesh())
+
+    def _replay_grad_callback(self, ctx, params, grad_acc, extra, rng, sharded):
+        """``grad_callback`` on the replay's running sum, as the eager step
+        calls it: on whole tensors, gathered differentiably under the
+        model-parallel strategies and cut back through *f*, so its edits
+        flow through the replay."""
+        cc = dict(ctx)
+        if sharded:
+            cc = self._whole_ctx({name: e for name, e in ctx.items() if name != self.name})
+            whole = self.full_state({"params": params, "grad_acc": grad_acc})
+            params, grad_acc = whole["params"], whole["grad_acc"]
+        self._trace_grads = grad_acc
+        cc[self.name] = {"params": params, "extra": extra}
+        with _CtxBinding(cc, None, rng):
+            self.grad_callback()
+        grad_acc, self._trace_grads = self._trace_grads, None
+        return self._cut_model(grad_acc) if sharded else grad_acc

@@ -68,7 +68,12 @@ state in the update's layout (whole under zero/fsdp, the shards under
 tp/ep). The hooks (``grad_callback``, ``param_callback``) see whole tensors
 under every strategy, as in the reference: under tp/ep every problem's
 parameters (and the owner's gradients) are gathered over the model group
-for a hook and its edits cut back to the shards.
+for a hook and its edits cut back to the shards (through *f*,
+``_cut_model``). Every step of the update over the model axes is
+differentiable, the clipping norm taken from the shards
+(``parallel.clip_by_sharded_norm``), so an ITD replay
+(``problems/iterative.py``) runs the same update on the shards inside a
+parent's graph.
 """
 
 import abc
@@ -797,8 +802,11 @@ class Problem(abc.ABC):
         ``(new_state, cross_updates)``; ``cross_updates`` carries params/extra
         that ``param_callback`` set on other problems. ``sharded``: ``state``
         is in the engine's layout (under zero/fsdp the optimizer steps this
-        rank's shards); False for a state of whole tensors (an ITD
-        replay)."""
+        rank's shards); False for a state of whole tensors (an ITD replay
+        under zero/fsdp). Over the model axes every step is differentiable
+        (an ITD replay steps the shards): the clipping norm is the shards'
+        (``parallel.clip_by_sharded_norm``), and what a hook or
+        ``custom_optimizer_step`` gives whole is cut back through *f*."""
         global _TRACE_CTX
         grads = state["grad_acc"]
         cross_updates = {}
@@ -806,19 +814,27 @@ class Problem(abc.ABC):
         mesh = self._mesh()
         pdims = dims.get("params")
         axis = self._shard_axis
+        # whole tensors cut back to this rank's shards (over the model axes
+        # through f: differentiable in an ITD replay)
+        cut = self._cut_model if axis == "model" else \
+            (lambda tree: parallel.mesh.shard_tree(tree, pdims, mesh, axis))
         if self.gradient_clipping > 0.0:
             # the global norm of the whole gradient, as in dp
-            whole = parallel.gather_shards(grads, pdims, mesh, axis) if pdims else grads
-            grads = clip_by_global_norm(whole, self.gradient_clipping)
-            if pdims:
-                grads = parallel.mesh.shard_tree(grads, pdims, mesh, axis)
+            if pdims and axis == "model":
+                grads = parallel.clip_by_sharded_norm(grads, self.gradient_clipping, pdims,
+                                                      mesh)
+            else:
+                whole = parallel.gather_shards(grads, pdims, mesh, axis) if pdims else grads
+                grads = clip_by_global_norm(whole, self.gradient_clipping)
+                if pdims:
+                    grads = cut(grads)
 
         if self.is_implemented("custom_optimizer_step"):
             whole = self.full_state({**state, "grad_acc": grads}) if dims else \
                 {**state, "grad_acc": grads}
             new_params = self.custom_optimizer_step(whole["params"], whole["grad_acc"], whole)
             if pdims:
-                new_params = parallel.mesh.shard_tree(new_params, pdims, mesh, axis)
+                new_params = cut(new_params)
             new_opt_state = state["opt_state"]
         elif "opt_state" in dims and not pdims:
             # zero: step this rank's shard of the parameters, gather the result
@@ -849,14 +865,22 @@ class Problem(abc.ABC):
             with _CtxBinding(base, None, rng):
                 self.param_callback()
                 new_params = _TRACE_CTX[self._name]["params"]
-                state["params"] = (parallel.mesh.shard_tree(new_params, pdims, mesh, axis)
-                                   if pdims else new_params)
+                state["params"] = cut(new_params) if pdims else new_params
                 state["extra"] = _TRACE_CTX[self._name]["extra"]
                 cross = _collect_cross_ctx(_TRACE_CTX, base, self._name)
                 cross_updates.update(self._cut_cross(cross) if sharded else cross)
 
         state["grad_acc"] = tree_zeros_like(state["grad_acc"])
         return state, cross_updates
+
+    def _cut_model(self, params):
+        """Whole tensors of this problem's model-sharded parameters (or a
+        tree like them) cut to this rank's shards through *f*
+        (``parallel.cut_whole``): the values ``shard_full_state`` gives,
+        and a derivative through the cut (an ITD replay's) sums the model
+        ranks' parts of the whole tensor's cotangent."""
+        cut = parallel.cut_whole(params, self._shard_dims["params"], self._mesh())
+        return tree_map(lambda x: x.contiguous(), cut)
 
     def _whole_ctx(self, ctx):
         """A copy of the update's context with the tp/ep problems' parameters

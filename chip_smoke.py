@@ -13,8 +13,9 @@
     python3 chip_smoke.py --phases kernels,pruning,ppo  # ... ImageNet data pruning, PPO
     python3 chip_smoke.py --phases kernels,moe,tutorials  # ... Switch MoE, the tutorials
     python3 chip_smoke.py --phases kernels,dist    # ... dp/zero/fsdp over torch.distributed
-    python3 chip_smoke.py --phases kernels,mp      # ... tp/ep/pp/sp (two gloo ranks)
-    python3 chip_smoke.py --mp-four                # four cards: mdl x pp, pp, sp, tp, ep
+    python3 chip_smoke.py --phases kernels,mp      # ... tp/ep/pp/sp and ITD (gloo ranks)
+    python3 chip_smoke.py --mp-four                # four cards: mdl x pp, mdl x sp (and ITD),
+                                                   # pp, sp, tp, ep
 
 Phases:
 
@@ -307,14 +308,21 @@ Phases:
    composed mesh ``mdl:2,pp:2`` (M 2) and as Megatron-SP on ``mdl:2,sp:2``,
    darts and CG, against the same one-process runs, and the test's MoE
    under tp on ``ep:2,mdl:2`` (experts over ``ep``, their hidden columns
-   over ``mdl``) against its one-process run (1e-10 each).
+   over ``mdl``) against its one-process run (1e-10 each). Both groups
+   also run ITD replays on the shards (``itd_variant``: the classifier or
+   the MoE's inner problem an ``IterativeProblem`` with SGD, the parent
+   ``first_order=False``): tutorial 7's tp program on ``mdl:2`` (two ranks),
+   its composed ``mdl:2,pp:2`` and the MoE on ``ep:2,mdl:2`` (four), in
+   float64 against one process (1e-10).
    ``--mp-four`` (four cards, NCCL, one rank a card) runs tutorial 7's
    program at RoBERTa-large's widths on the composed mesh ``mdl:2,pp:2``
    (M 4) and as Megatron-SP on ``mdl:2,sp:2`` (``composed_four``: rank 0
    first runs one card's ``default`` from the same start, and each run is
    held to it on ``|run - default| / |default - start|`` and the losses,
    within ``COMPOSED_NORTH_REL_TOL``/``COMPOSED_NORTH_LOSS_TOL`` and
-   ``SP_MDL_NORTH_REL_TOL``/``SP_MDL_NORTH_LOSS_TOL``), under ``pp:4`` (M 4
+   ``SP_MDL_NORTH_REL_TOL``/``SP_MDL_NORTH_LOSS_TOL``), the same program
+   made ITD on ``mdl:2,sp:2`` against one card's ITD run (``itd_four``,
+   within ``ITD_SP_MDL_REL_TOL``/``ITD_SP_MDL_LOSS_TOL``), under ``pp:4`` (M 4
    and 8) and ``sp:4`` (``pp_four``), then the MoE at Switch-Base-8's
    widths under ``ep:4`` (against one process within ``MP_MOE_TOL``) and
    under tp on ``ep:2,mdl:2`` (within ``MOE_MDL_REL_TOL`` and
@@ -1752,6 +1760,43 @@ def mwn_variant(argv, variant, engine_config=None):
                                         "l2u": {classifier: [reweight]}},
                           device=base.device)
     engine.test_data = base.test_data
+    return engine
+
+
+def itd_variant(base, child="classifier", parent="reweight", optimizer=None):
+    """A built two-problem engine ``base`` rebuilt through the public API as
+    ITD: ``child`` an ``IterativeProblem`` carrying its own
+    ``training_step``, module, loader and config (``optimizer``: its new
+    optimizer, SGD for ITD through Adam's sqrt at a zero moment gives NaN;
+    None keeps its own), ``parent`` with ``Config(first_order=False)``;
+    under ``base``'s engine config (mesh and strategy). The states start
+    from ``base``'s parameters in their layout and dtype."""
+    import dataclasses
+
+    import betty_tpu_torch
+    from betty_tpu_torch.utils import tree_zeros_like
+
+    problems = {p.name: p for p in base.problems}
+    c, p = problems[child], problems[parent]
+    cls = type(f"ITD{type(c).__name__}", (betty_tpu_torch.IterativeProblem,),
+               {"training_step": type(c).training_step})
+    new_c = cls(child, module=c.module_fn, optimizer=optimizer or c.optimizer,
+                train_data_loader=c.train_data_loader[0], config=c.config)
+    new_p = type(p)(parent, module=p.module_fn, optimizer=p.optimizer,
+                    train_data_loader=p.train_data_loader[0],
+                    config=dataclasses.replace(p.config, first_order=False))
+    engine = betty_tpu_torch.Engine(config=base.config, problems=[new_p, new_c],
+                                    dependencies={"u2l": {new_p: [new_c]},
+                                                  "l2u": {new_c: [new_p]}},
+                                    device=base.device)
+    for prob in engine.problems:
+        old = base.states[prob.name]
+        st = dict(engine.states[prob.name])
+        st.update(params=old["params"], extra=old["extra"],
+                  grad_acc=tree_zeros_like(old["params"]),
+                  opt_state=(prob.optimizer.init(old["params"]) if prob is new_c
+                             else old["opt_state"]))
+        engine.states[prob.name] = st
     return engine
 
 
@@ -4130,15 +4175,34 @@ DIST_T5_ARGV = ["--device", "cuda", "--train_iters", "12", "--no_shuffle", "--ba
 DIST_T5_BATCH = 64  # a rank's batch: the one-process run loads twice that
 
 
+def _free_port():
+    """A free local TCP port below the ephemeral range. A port the system
+    hands out (``bind`` to 0) comes from that range, where the outgoing
+    connections of other processes (NCCL's, a store's clients) take their
+    local ports too, and one took it before rank 0 listened on it
+    (EADDRINUSE on four cards)."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    for port in random.sample(range(max(1024, low - 10000), low), 100):
+        with socket.socket() as sock:
+            try:
+                sock.bind(("localhost", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free local port below the ephemeral range")
+
+
 def _dist_launch(mode, world, out, extra_env=None):
     """``world`` ranks of ``--dist-worker mode out`` on a free local port,
     started together: the ``Popen``s."""
-    import socket
-
-    sock = socket.socket()
-    sock.bind(("localhost", 0))
-    port = sock.getsockname()[1]
-    sock.close()
+    port = _free_port()
     procs = []
     for rank in range(world):
         env = dict(os.environ, BETTY_COORDINATOR_ADDRESS=f"localhost:{port}",
@@ -4463,6 +4527,8 @@ def dist_worker(mode, out):
         _mp_gloo4(out)
     elif mode == "composedfour":
         _composed_four_rank(out)
+    elif mode == "itdfour":
+        _itd_four_rank(out)
     elif mode == "fourmoe":
         _mp_four_moe(out)
     elif mode.startswith("four:"):
@@ -4550,8 +4616,9 @@ MP_MOE_ARGV = ["--train_iters", "8", "--device", "cuda"]  # Switch-Base-8 widths
 MP_MOE_TOL = 5e-7
 MP_SMALL_MOE = ["--dim", "16", "--hidden", "32", "--experts", "4", "--tokens", "64",
                 "--val_tokens", "32", "--dense", "--train_iters", "4", "--device", "cuda"]
+# 4 steps, 2 meta-periods (8 before the ITD legs took their time)
 MP_GLOO_ARGV = SMALL_ARGV + ["--hypergradient", "sama", "--device", "cuda", "--train_iters",
-                             "8"]
+                             "4"]
 MP_GLOO_MESH = ["--strategy", "tp", "--mesh", "dp:1,mdl:2"]
 # fp32 flash, two ranks against one process: the losses (relative), and
 # the parameters' distance from one process's against how far they moved
@@ -4611,7 +4678,8 @@ def _mp_engine(kind, extra=()):
 def _mp_gloo2(out):
     """One of two ranks on the one card over gloo (CUDA tensors): the small
     transformer under tp at ``mdl:2`` with the fp32 flash kernels and in
-    float64, and the MoE at ``ep:2`` in float64; rank 0 saves the whole
+    float64, the MoE at ``ep:2`` in float64, tutorial 7's pp and sp legs
+    and an ITD replay under tp (``itd_tp``); rank 0 saves the whole
     parameters."""
     import torch
     from betty_tpu_torch import parallel
@@ -4647,6 +4715,8 @@ def _mp_gloo2(out):
             log(f"[mp gloo2 {leg} {solver}] rank {torch.distributed.get_rank()}: "
                 f"{time.time() - t0:.2f} s, holds blocks.attn.query.kernel {list(q.shape)}")
             del engine
+    # an ITD replay under tp, on the shards
+    _itd_leg("[mp gloo2 itd_tp]", "itd_tp", lambda: _itd_t7(MP_ITD_T7["itd_tp"][0]), got)
     if torch.distributed.get_rank() == 0:
         torch.save(got, out)
     torch.distributed.barrier()
@@ -4655,8 +4725,9 @@ def _mp_gloo2(out):
 def _mp_gloo4(out):
     """One of four ranks on the one card over gloo (CUDA tensors):
     tutorial 7's program small in float64 on the composed mesh
-    ``mdl:2,pp:2`` and on ``mdl:2,sp:2`` (Megatron-SP), darts then CG, and
-    the test's MoE on ``ep:2,mdl:2``; rank 0 saves the whole parameters."""
+    ``mdl:2,pp:2`` and on ``mdl:2,sp:2`` (Megatron-SP), darts then CG, the
+    test's MoE on ``ep:2,mdl:2``, and ITD replays on ``mdl:2,pp:2`` and
+    ``ep:2,mdl:2``; rank 0 saves the whole parameters."""
     import torch
     from betty_tpu_torch import parallel
 
@@ -4682,6 +4753,10 @@ def _mp_gloo4(out):
     log(f"[mp gloo4 moe_mdl] rank {torch.distributed.get_rank()}: {time.time() - t0:.2f} s, "
         f"holds {held}")
     del engine
+    # ITD replays on two model axes, on the shards
+    _itd_leg("[mp gloo4 itd_composed]", "itd_composed",
+             lambda: _itd_t7(MP_ITD_T7["itd_composed"][0]), got)
+    _itd_leg("[mp gloo4 itd_moe_mdl]", "itd_moe_mdl", lambda: _itd_moe(MP_MOE_MDL), got)
     if torch.distributed.get_rank() == 0:
         torch.save(got, out)
     torch.distributed.barrier()
@@ -4710,6 +4785,14 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None):
             ref[f"{leg}_{solver}"] = (_whole_params(engine), start, losses)
         del engine
     ref["moe_mdl"] = ref["moe"]
+    for key, build in [(k, lambda a=argv[1]: _itd_t7(a)) for k, argv in MP_ITD_T7.items()] + [
+            ("itd_moe_mdl", _itd_moe)]:
+        engine = build()
+        start = _whole_params(engine)
+        losses = _record_losses(engine)
+        engine.run()
+        ref[key] = (_whole_params(engine), start, losses)
+        del engine
     _dist_wait("[mp gloo2]", gloo, deadline)
     got = torch.load(out, weights_only=True)
     if gloo4 is not None:
@@ -4732,7 +4815,7 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None):
         f"tol {MP_FLASH_LOSS_TOL}); moved from the start (max) {moved}; "
         f"{time.time() - t0:.1f} s")
     assert all(moved[k] > 0 for k in ref), moved
-    f64 = [k for k in ref if k != "flash"]  # f64, moe and the pp/sp legs
+    f64 = [k for k in ref if k != "flash"]  # f64, moe, the pp/sp and ITD legs
     assert all(errs[k] <= MP_F64_TOL for k in f64), errs
     assert rel["flash"] <= MP_FLASH_REL_TOL, rel
     assert all(len(got[k][1]) == len(ref[k][2]) for k in ref)
@@ -4927,6 +5010,17 @@ PP_GLOO4 = {"composed": ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2", "--num_mic
 # and the test's MoE with its experts over ep and their hidden columns over
 # mdl, against the one-process MoE run
 MP_MOE_MDL = ["--strategy", "tp", "--mesh", "dp:1,ep:2,mdl:2"]
+# ITD replays under model parallelism, float64 against one process
+# (MP_F64_TOL): the classifier an IterativeProblem with SGD at ITD_LR, the
+# reweighter first_order=False (``itd_variant``); tutorial 7's program small
+# on dp:1,mdl:2 (tp, dropout 0; the two ranks) and dp:1,mdl:2,pp:2 (the four),
+# leg -> (the ranks' argv, the one-process run's argv), and the MoE on
+# ep:2,mdl:2 (``itd_moe_mdl``, the four)
+ITD_LR = 0.05
+MP_ITD_T7 = {"itd_tp": (["--mode", "tp", "--mesh", "dp:1,mdl:2", "--dropout", "0"],
+                        ["--mode", "tp", "--mesh", "none", "--dropout", "0"]),
+             "itd_composed": (["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2",
+                               "--num_microbatches", "2"], ["--mode", "pp", "--mesh", "none"])}
 
 
 def _t7(argv, device="cuda", dtype=None, solver="darts"):
@@ -4944,17 +5038,57 @@ def _t7(argv, device="cuda", dtype=None, solver="darts"):
     return engine
 
 
-def _pp_north_run(mode, argv, start=None):
-    """``PP_PERIODS`` darts meta-periods of the full-width program under
-    ``mode`` (tutorial 7's ``argv``: ``PP_MODES``) and a profiled one:
-    ``(params, losses, periods, peak bytes, engine, profile report,
-    collective calls)``."""
+def _itd_t7(argv):
+    """Tutorial 7's program small in float64 (``argv``: mode and mesh), made
+    ITD with SGD at ITD_LR, 2 steps."""
     import torch
+    from betty_tpu_torch import optim
+
+    return itd_variant(_t7(argv + ["--train_iters", "2"], dtype=torch.float64),
+                       optimizer=optim.sgd(lr=ITD_LR))
+
+
+def _itd_moe(extra=()):
+    """The test's MoE program (float64) made ITD (its SGD kept)."""
+    return itd_variant(_mp_engine("moe", extra), "inner", "outer")
+
+
+def _itd_leg(tag, key, build, got):
+    """Run the ITD engine ``build()`` and keep its whole parameters and
+    losses under ``key``; log the elements of the child's parameters this
+    rank holds and steps against the whole."""
+    import torch
+    from betty_tpu_torch.utils import tree_leaves
+
+    t0 = time.time()
+    engine = build()
+    losses = _record_losses(engine)
+    engine.run()
+    got[key] = (_whole_params(engine), losses)
+    child = next(p for p in engine.problems if p._parents)
+    held = sum(v.numel() for v in tree_leaves(engine.states[child.name]["params"]))
+    whole = sum(v.numel() for v in tree_leaves(got[key][0][child.name]))
+    log(f"{tag} rank {torch.distributed.get_rank()}: {time.time() - t0:.2f} s, holds {held} of "
+        f"the {whole} elements of {child.name}'s parameters")
+    del engine
+
+
+def _pp_north_run(mode, argv, start=None, itd=False):
+    """``PP_PERIODS`` darts meta-periods of the full-width program under
+    ``mode`` (tutorial 7's ``argv``: ``PP_MODES``) and a profiled one
+    (``itd``: the program made ITD, the classifier's SGD at
+    ``ITD_FULL_LR``): ``(params, losses, periods, peak bytes, engine,
+    profile report, collective calls)``."""
+    import torch
+    from betty_tpu_torch import optim
     from betty_tpu_torch.parallel import collectives
 
     tag = f"[pp north {mode}]"
     t0 = time.time()
     engine = _t7(PP_FULL + argv + ["--train_iters", str(PP_PERIODS)])
+    if itd:
+        engine = itd_variant(engine, optimizer=optim.sgd(lr=ITD_FULL_LR))
+        _free()  # the darts engine it was built from (its AdamW moments) is garbage
     torch.cuda.synchronize()
     log(f"{tag} build_engine {time.time() - t0:.1f} s")
     losses = _record_losses(engine)
@@ -5348,6 +5482,95 @@ def composed_four(card):
         assert r["dloss"] <= loss_tol
 
 
+# ITD at RoBERTa-large's widths: tutorial 7's program with the classifier
+# an IterativeProblem (SGD at ITD_FULL_LR: at 1e-2 both losses rose over 3
+# periods on one card), the reweighter first_order=False, unroll 1, on one
+# card (the whole stack one block after another) and on dp:1,mdl:2,sp:2
+# (Megatron-SP) on four cards from the same start. Bounds set before the
+# first four-card run: against one card the parameters' distance
+# (``_rel_apart``) and the losses (relative); the darts leg read 5.506e-5
+# and 3.003e-7, and SGD's step keeps the rounding of the row-parallel and
+# split sums in proportion
+ITD_FULL_LR = 1e-3
+ITD_SP_MDL_REL_TOL, ITD_SP_MDL_LOSS_TOL = 1e-3, 1e-4
+
+
+def _itd_four_rank(out):
+    """One rank of the four-card ITD leg: rank 0 first runs one card's
+    unsharded ITD run, then every rank runs it on ``mdl:2,sp:2``; rank 0
+    writes the readings and the comparison."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    parallel.maybe_init_distributed("cuda", timeout=DIST_OP_TIMEOUT)
+    rank = torch.distributed.get_rank()
+    readings = {}
+
+    def reading(params, losses, periods, peak, rep, calls):
+        return {"periods": periods, "peak_mib": peak / 2**20, "calls": calls,
+                "busy_ms": rep.get("busy_ms"), "wall_ms": rep.get("wall_ms"),
+                "launches": rep.get("launches"), "nccl_ops": rep.get("nccl_ops", {}),
+                "finite": all(math.isfinite(x) for x in losses)}
+
+    if rank == 0:
+        start = {}
+        params, losses, periods, peak, engine, rep, calls = _pp_north_run(
+            "itd default", PP_MODES["default"], start, itd=True)
+        want = {"params": params, "losses": losses, "start": start}
+        readings["default"] = reading(params, losses, periods, peak, rep, calls)
+        del engine, rep
+        _free()
+    torch.distributed.barrier()
+    params, losses, periods, peak, engine, rep, calls = _pp_north_run(
+        "itd sp_mdl", SP_MDL_FOUR, itd=True)
+    r = reading(params, losses, periods, peak, rep, calls)
+    r["query_kernel"] = list(engine.states["classifier"]["params"]
+                             ["blocks.attn.query.kernel"].shape)
+    if rank == 0:
+        r["rel"], r["moved"] = _rel_apart(params, want["params"], want["start"])
+        r["dloss"] = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, want["losses"]))
+        r["n_losses"], r["n_want"] = len(losses), len(want["losses"])
+    readings["sp_mdl"] = {"rank": rank, **r}
+    del engine, params, rep
+    _free()
+    gathered = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(gathered, readings)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(gathered, f)
+    torch.distributed.barrier()
+
+
+def itd_four(card):
+    """``--mp-four``'s ITD leg (``itd_sp_mdl``): tutorial 7's program made
+    ITD at RoBERTa-large's widths on ``mdl:2,sp:2``, one rank a card over
+    NCCL, held to one card's unsharded ITD run: periods, peak a card,
+    launches and the collective calls by group of a profiled period, for
+    both."""
+    tag = "[itd four]"
+    out = os.path.abspath(os.path.join("build", "itd_four.json"))
+    if os.path.exists(out):
+        os.remove(out)
+    _dist_wait(tag, _dist_launch("itdfour", 4, out), time.time() + 2 * DIST_TIMEOUT)
+    with open(out) as f:
+        readings = json.load(f)
+    for name, r in [("one card", readings[0]["default"])] + [
+            (f"rank {x['sp_mdl']['rank']} dp:1,mdl:2,sp:2", x["sp_mdl"]) for x in readings]:
+        log(f"{tag} [{card}] {name}: meta-periods {r['periods']} s, peak "
+            f"{r['peak_mib'] / 1024:.2f} GiB, busy {r['busy_ms']} of {r['wall_ms']} ms, "
+            f"{r['launches']} launches, NCCL by collective (launches, ms) {r['nccl_ops']}, "
+            f"collective calls {r['calls']} in the profiled period")
+    r = readings[0]["sp_mdl"]
+    log(f"{tag} [{card}] itd_sp_mdl against one card's ITD run: |sp_mdl - one card| / |one "
+        f"card - start| {r['rel']:.4e} (bound {ITD_SP_MDL_REL_TOL}; |one card - start| "
+        f"{r['moved']:.4e}), {r['n_losses']} losses, max relative loss diff {r['dloss']:.3e} "
+        f"(bound {ITD_SP_MDL_LOSS_TOL})")
+    assert readings[0]["default"]["finite"] and all(x["sp_mdl"]["finite"] for x in readings)
+    assert r["query_kernel"] == [24, 1024, 8, 64], r["query_kernel"]
+    assert r["n_losses"] == r["n_want"] and r["moved"] > 0
+    assert r["rel"] <= ITD_SP_MDL_REL_TOL and r["dloss"] <= ITD_SP_MDL_LOSS_TOL
+
+
 # the MoE at Switch-Base-8's widths on four cards: ep:4 (2 experts a card)
 # and, under tp with MOE_COMPOSED_SHARD_RULES, ep:2,mdl:2 (4 experts and
 # 1,536 of each one's 3,072 hidden columns a card)
@@ -5620,8 +5843,8 @@ def main(argv=None):
     ap.add_argument("--dist-worker", nargs=2, metavar=("MODE", "OUT"), default=None,
                     help="one rank of the dist phase (run by the dist phase itself)")
     ap.add_argument("--mp-four", action="store_true",
-                    help="only the four-card runs: the composed mdl:2,pp:2 mesh, pp, sp, tp "
-                         "and ep (needs four cards)")
+                    help="only the four-card runs: the composed mdl:2,pp:2 mesh, Megatron-SP "
+                         "(darts and ITD), pp, sp, tp and ep (needs four cards)")
     args = ap.parse_args(argv)
     if args.dist_worker:
         return dist_worker(*args.dist_worker)
@@ -5650,9 +5873,13 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
         assert torch.cuda.device_count() >= 4, "--mp-four needs four cards"
         os.makedirs("build", exist_ok=True)
-        composed_four(card)
-        pp_four(card)
-        mp_four(card)
+        seconds = {}
+        for name, leg in (("composed", composed_four), ("itd", itd_four), ("pp", pp_four),
+                          ("mp", mp_four)):
+            t0 = time.time()
+            leg(card)
+            seconds[name] = round(time.time() - t0, 1)
+        log(f"[timing] --mp-four seconds by leg: {seconds}")
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

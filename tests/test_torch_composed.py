@@ -193,13 +193,16 @@ def test_strategy_pp_ep_replicate_non_matching_problems():
 
 
 def test_uncomputed_compositions_raise_naming_the_roadmap():
-    """An ITD replay on two model axes and three model axes raise
-    ``NotImplementedError`` naming ROADMAP.md §A.8, before any collective;
-    a module built for ``sp`` beside a second model axis and the MoE beside
-    one build and run (tests/test_torch_composed_sp_moe.py holds their
-    values), and nothing falls back."""
+    """Three model axes raise ``NotImplementedError`` naming ROADMAP.md
+    §A.8, before any collective; a module built for ``sp`` beside a second
+    model axis and the MoE beside one build and run
+    (tests/test_torch_composed_sp_moe.py holds their values), and an ITD
+    replay on two model axes runs (tests/test_torch_itd_parallel.py holds
+    its values on the shards); nothing falls back."""
+    from betty_tpu_torch import optim
     from betty_tpu_torch.models import init_moe_params, moe_ffn
-    from betty_tpu_torch.problems.iterative import IterativeProblem
+    from betty_tpu_torch.module import from_fn
+    from betty_tpu_torch.problems.iterative import IterativeProblem, unroll_data
 
     for sp_mesh in ((("dp", 1), ("mdl", 2), ("sp", 2)), (("dp", 1), ("pp", 2), ("sp", 2))):
         module = make_pipelined_transformer(sp_mesh, vocab_size=64, max_len=8, dim=16, depth=2,
@@ -220,9 +223,20 @@ def test_uncomputed_compositions_raise_naming_the_roadmap():
 
     class Inner(IterativeProblem):
         def training_step(self, batch):
-            return batch
+            return 0.5 * torch.sum((self.module() - batch) ** 2)
 
-    inner = Inner("inner")
+    # a replay of two SGD steps on the composed mesh (its leaf replicated,
+    # its loss bound to the mesh, no collective): differentiable in the start
+    inner = Inner("inner", module=from_fn(lambda p: p["w"], {"w": torch.zeros(3)}),
+                  optimizer=optim.sgd(lr=0.1))
     inner._engine = type("E", (), {"mesh": Mesh(COMPOSED, rank=0, world=8)})()
-    with pytest.raises(NotImplementedError, match="ITD replay.*§A.8"):
-        inner.replay_unroll({}, {})
+    inner.module_fn = inner._user_module
+    w0 = torch.tensor([1.0, 2.0, 3.0], requires_grad=True)
+    target = torch.tensor([0.0, 1.0, -1.0])
+    start = {"params": {"w": w0}, "opt_state": inner.optimizer.init({"w": w0}), "sched_step": 0,
+             "extra": {}}
+    out = inner.replay_unroll({"inner": {"params": {"w": w0}, "extra": {}}},
+                              unroll_data(start, 0, [target, target]))["w"]
+    assert torch.allclose(out, target + 0.81 * (w0 - target))
+    (g,) = torch.autograd.grad(out.sum(), w0)
+    assert torch.allclose(g, torch.full((3,), 0.81))

@@ -63,7 +63,10 @@ def data(n=64, seed=0):
 # ---------------------------------------------------------------------------
 
 
-def jax_engine(case):
+def jax_engine(case, module=None):
+    """tests/test_pp.py's ``_run_engine`` program (``module``: the
+    classifier's, default the sequential ``make_pipelined_transformer`` at
+    CFG) and the classifier's module."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -85,7 +88,8 @@ def jax_engine(case):
             return jnp.mean(self.reweight(jax.lax.stop_gradient(ce)) * ce)
 
     (ids, y), (mids, my) = data(64, 0), data(32, 1)
-    module = make_pipelined_transformer(None, **CFG, rng=jax.random.PRNGKey(0))
+    if module is None:
+        module = make_pipelined_transformer(None, **CFG, rng=jax.random.PRNGKey(0))
     mwn = from_flax(MetaWeightNet(), jnp.zeros((8,)), rng=jax.random.PRNGKey(1),
                     train_kwarg="train")
     clf = Classifier("classifier", module=module, optimizer=optim.sgd(lr=0.05),
