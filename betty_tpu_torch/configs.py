@@ -24,15 +24,15 @@ leaf names, the spec over the port's dims, as in
 ``mesh_shape`` lays the ranks out (``(("dp", N),)`` by default, ``(("dcn",
 M), ("dp", N))``, and for the model-parallel strategies one model axis
 last: ``(("dp", N), ("mdl", M))``, ``("ep", M)``, ``("pp", M)`` or
-``("sp", M)``, or two, as the JAX package's ``(("dp", N), ("mdl", M),
-("pp", S))`` under ``"tp"`` with two-dim ``shard_rules``
-(``models.COMPOSED_SHARD_RULES``); the data-parallel strategies also take
-a ``pp`` or ``sp`` axis, whose module splits the depth or the sequence
+``("sp", M)``, or up to four different ones, as the JAX package's
+``(("dp", N), ("mdl", M), ("pp", S))`` under ``"tp"`` with two-dim
+``shard_rules`` (``models.COMPOSED_SHARD_RULES``) or ``(("dp", 1), ("mdl",
+2), ("pp", 2), ("sp", 2))``; the data-parallel strategies also take a
+``pp`` or ``sp`` axis, whose module splits the depth or the sequence
 itself), and ``autoshard_data`` gives each rank its examples of every
-``ArrayLoader`` (``data.shard_loader``). Three model axes raise
-``NotImplementedError`` (ROADMAP.md §A.8); on two, every strategy runs,
-ITD replays included, and an axis a module does not split repeats its
-work.
+``ArrayLoader`` (``data.shard_loader``). On every such mesh every strategy
+runs, ITD replays included, and an axis a module does not split repeats
+its work.
 
 ``EngineConfig.profile_dir`` writes a ``torch.profiler`` trace of the run
 there (``Engine._profiler``).

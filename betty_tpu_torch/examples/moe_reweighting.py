@@ -35,7 +35,9 @@ same layout: ``Config.shard_rules`` on the inner problem naming ``ep`` for
 the expert leaves and replicating the rest. On a mesh with a ``mdl`` axis
 too (``--strategy tp --mesh dp:1,ep:2,mdl:2``) the rules are
 ``MOE_COMPOSED_SHARD_RULES``: each rank holds E/ep experts and h/mdl of
-each one's hidden columns (expert plus tensor parallelism). The loaders are the step's
+each one's hidden columns (expert plus tensor parallelism); a ``pp`` or
+``sp`` axis beside them (``--mesh dp:1,ep:2,mdl:2,pp:2``, eight ranks, or
+``dp:1,ep:2,mdl:2,pp:2,sp:2``, sixteen) repeats the layer. The loaders are the step's
 whole token batch, so every ``dp`` rank runs all of it (the routing's
 capacities and buffer positions are over the step's tokens, which a split
 would change); the mean of the ranks' losses is the one-process loss. One

@@ -83,7 +83,8 @@ def _cg_loop_fused(vector, hvp_fn, config, dims):
     On a tp layout the sharded leaves and the replicated ones are raveled
     into segments (one for each set of model axes the leaves are cut over,
     ``collectives.reduction_groups``: two on one model axis, up to four on
-    ``mdl x pp``), B6/B7 launched on each, and a sharded segment's partial
+    ``mdl x pp`` and on ``mdl x pp x sp``, whose ``sp`` ranks hold the
+    same segments), B6/B7 launched on each, and a sharded segment's partial
     dots summed over the model ranks of its axes (one all-reduce for both
     of B6's) before they are used; with no shards there is one segment."""
     from betty_tpu_torch.ops.vector import cg_fused_step, fused_dot2, tree_ravel, tree_unravel

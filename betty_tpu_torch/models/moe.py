@@ -32,12 +32,13 @@ tokens enter the split computation through *f*
 An expert leaf that arrives whole on several ranks (a layout that does not
 shard it) keeps the one-rank path.
 
-On two model axes (``parallel.mesh.moe_axes``) the experts go over ``ep``
+On several model axes (``parallel.mesh.moe_axes``) the experts go over ``ep``
 (else ``mdl``) and, beside ``ep``, each expert's hidden columns over
 ``mdl``: a rank holds E/ep experts and h/mdl of their columns (``w1`` [E/ep,
 d, h/mdl], ``b1`` [E/ep, h/mdl], ``w2`` [E/ep, h/mdl, d], ``b2`` [E/ep, d];
 ``MOE_COMPOSED_SHARD_RULES``), as Megatron's MLP inside expert
-parallelism. The tokens enter through *f* over both axes, the expert
+parallelism. The tokens enter through *f* over both axes (their pair's group,
+``Mesh.over``: a third axis repeats the layer and stays out of it), the expert
 products run on the local block, the second product's partial sums are
 reduced over ``mdl`` (*g*) before ``b2`` is added (once, as the
 transformer's ``fc2`` bias), and the combine is reduced over ``ep``.
@@ -173,7 +174,8 @@ def _local_experts(experts, x, dispatch, E, mesh, hidden=None):
     """``(this rank's expert leaves, x through f, this rank's dispatch
     columns)``: the leaves arrive as their E/m chunk or whole (then through
     f and cut); beside a ``hidden`` view, cut on their hidden columns too,
-    and ``x`` through f over both axes. The dispatch is built from
+    and ``x`` through f over both axes (the pair's group, not the whole
+    model group: a ``pp`` or ``sp`` axis beside them repeats the layer). The dispatch is built from
     comparisons and carries no gradient."""
     m, i = mesh.model_size, mesh.model_index
     if E % m:

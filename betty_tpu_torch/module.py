@@ -22,7 +22,7 @@ re-evaluations rely on it).
 ``FunctionalModule.local_dim(name)`` is the dim along which the module
 computes on a tp/ep shard of parameter ``name`` itself (None: it takes the
 whole tensor, which ``Problem.forward`` gathers): the expert-stacked MoE
-leaves (``models/moe.py``; on two model axes their experts and hidden
+leaves (``models/moe.py``; on several model axes their experts and hidden
 columns, ``parallel.mesh.moe_local_dim``) for every module, and what an
 ``nn.Module``'s ``tensor_parallel_dims()`` declares
 (``models/transformer.py``).

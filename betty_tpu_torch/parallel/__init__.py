@@ -3,12 +3,14 @@ distributed, zero, fsdp), tensor parallelism (tp, ``tp_shardings`` with
 ``Config.shard_rules``), expert parallelism (ep), pipeline parallelism (pp:
 GPipe over stage-stacked blocks, ``parallel/pipeline.py``) and sequence
 parallelism (sp) (``betty_tpu/parallel/__init__.py``'s names). A mesh takes
-up to two model axes, its leaves cut on two dims (``mesh.Cut``): the JAX
-package's ``dp x mdl x pp`` composition runs Megatron tensor parallelism
-over ``mdl`` inside each GPipe stage over ``pp``, ``mdl x sp`` runs it
-inside each sequence-parallel block (Megatron-SP), and ``ep x mdl`` cuts
-the MoE's experts over ``ep`` and their hidden columns over ``mdl``
-(``MOE_COMPOSED_SHARD_RULES``). See ``parallel/mesh.py``,
+up to four different model axes, its leaves cut on a dim for each
+(``mesh.Cut``): the JAX package's ``dp x mdl x pp`` composition runs
+Megatron tensor parallelism over ``mdl`` inside each GPipe stage over
+``pp``, ``mdl x sp`` runs it inside each sequence-parallel block
+(Megatron-SP), and ``ep x mdl`` cuts the MoE's experts over ``ep`` and
+their hidden columns over ``mdl`` (``MOE_COMPOSED_SHARD_RULES``); an axis
+a module does not split repeats its work (``mdl x pp x sp``, ``mdl x sp x
+ep``, ``ep x mdl x pp``, ``ep x mdl x pp x sp``). See ``parallel/mesh.py``,
 ``parallel/collectives.py`` and ``parallel/pipeline.py``."""
 
 from betty_tpu_torch.parallel.collectives import (

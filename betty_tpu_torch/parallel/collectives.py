@@ -44,12 +44,14 @@ Each has a forward-mode rule, so the ``torch.func`` HVPs differentiate
 through them. ``sharded_dot`` is the inner product of two parameter trees
 in a tp layout: the shards' partial sums reduced over the model group, the
 replicated leaves counted once (``clip_by_sharded_norm`` clips by it). On
-two model axes (``dp x mdl x pp``, ``mdl x sp``, ``ep x mdl``) each
-collective runs over one axis's view of the mesh (``Mesh.view``) or over
-both (``Mesh.over``), a leaf cut on two dims is gathered over each axis in
-turn (``cut_whole`` cuts a whole leaf where a module computes on its cut),
-and ``sharded_dot`` reduces each leaf's partial sum over the ranks of the
-axes it is cut on.
+several model axes (``dp x mdl x pp``, ``mdl x sp``, ``ep x mdl``, and
+three or four of them) each collective runs over one axis's view of the
+mesh (``Mesh.view``) or over the subset of axes it concerns
+(``Mesh.over``: the pair ``mdl+pp`` on ``mdl x pp x sp``, never the whole
+model group where an axis repeats the work), a leaf cut on several dims is
+gathered over each axis in turn (``cut_whole`` cuts a whole leaf where a
+module computes on its cut), and ``sharded_dot`` reduces each leaf's
+partial sum over the ranks of the axes it is cut on, once.
 
 Pipeline and sequence parallelism (a ``pp`` or ``sp`` axis) add three
 more over the model group, each with a differentiable backward and a
@@ -71,7 +73,10 @@ forward-mode rule:
   does not divide raises.
 
 ``CALLS`` counts the ring shifts and sequence gathers made (forward,
-backward and forward mode alike).
+backward and forward mode alike). Every group a collective goes over is
+one of the mesh's (``batch_group``, ``model_group``, ``axis_groups`` keyed
+by ``mesh.group_key``: ``mdl``, ``mdl+pp``, ``model``), so a count of the
+``torch.distributed`` calls by group names each.
 
 A world of one is not special-cased: the collectives are made, over one
 rank.
@@ -323,12 +328,12 @@ def gather_shards(tree, dims, mesh, axis: str = "dp"):
     ``dims`` is not None), gathered in shard order over ``axis``: ``"dp"``
     (FSDP; backward the sum over ``dp`` of the cotangents, reduce-scattered
     to the shards) or ``"model"`` (tp/ep; backward this rank's slice of the
-    cotangent). One collective a dtype, differentiable. On two model axes
-    a leaf cut on two dims (a ``mesh.Cut``) is gathered over each of its
-    axes in turn, one collective a dtype an axis."""
+    cotangent). One collective a dtype, differentiable. On several model
+    axes a leaf cut on several dims (a ``mesh.Cut``) is gathered over each
+    of its axes in turn, one collective a dtype an axis."""
     if not dims:
         return tree
-    if axis == "model" and mesh.composed and mesh.view_axis is None:
+    if axis == "model" and mesh.composed and mesh.model_axis is None:
         return _gather_axes(tree, dims, mesh)
     leaves, dlist, groups = _flat_by_dtype(tree, dims)
     out = list(leaves)
@@ -345,7 +350,7 @@ def gather_shards(tree, dims, mesh, axis: str = "dp"):
 def _gather_axes(tree, dims, mesh):
     """``gather_shards`` over the model axes of a composed mesh: for each
     axis, the leaves cut over it gathered over its view (the dims of the
-    other axis stay cut until their turn)."""
+    other axes stay cut until their turn)."""
     for name in mesh.model_axes:
         along = tree_map(lambda _x, d: next((dim for dim, a in mesh_mod.cut_pairs(d, mesh)
                                              if a == name), None), tree, dims)
@@ -515,9 +520,10 @@ def _promote(x):
 
 def reduction_groups(tree, dims, mesh):
     """``{model axes: [leaf indices]}`` of ``tree`` in ``dims``'s layout:
-    the leaves cut over the same axes together, the sharded ones first and
-    the replicated ones (``()``) last, so that each group's partial sums
-    are reduced over the model ranks of its axes (``mesh.over``) once."""
+    the leaves cut over the same axes together (a pair such as ``(mdl,
+    pp)`` is a group of its own), the sharded ones first and the
+    replicated ones (``()``) last, so that each group's partial sums are
+    reduced over the model ranks of its axes (``mesh.over``) once."""
     groups = OrderedDict()
     for i, d in enumerate(dims_of(tree, dims) if dims else [None] * len(tree_leaves(tree))):
         axes = tuple(a for a in mesh.model_axes
@@ -536,9 +542,9 @@ def sharded_dot(a, b, dims=None, mesh=None):
     """``<vec(a), vec(b)>`` of two trees held in a tp layout (``dims``: the
     leaves' shard dims over the model axes, None where replicated): the
     sharded leaves' local dots summed over the model ranks of their axes
-    (a leaf cut on ``mdl`` and ``pp`` over the whole model group, one cut
-    on ``pp`` alone over the ``pp`` group: the ``mdl`` ranks hold it
-    alike), plus the replicated leaves' once; in at least float32,
+    (a leaf cut on ``mdl`` and ``pp`` over the ``mdl+pp`` group, one cut
+    on ``pp`` alone over the ``pp`` group: the ranks of the other axes
+    hold it alike), plus the replicated leaves' once; in at least float32,
     differentiable. Without sharded leaves (or a model axis)
     ``utils.tree_dot``."""
     mesh = mesh if mesh is not None else mesh_mod.model_mesh()

@@ -48,28 +48,32 @@ that dimension, chunk ``i`` on the rank at ``dp`` coordinate ``i``. A tp or
 ep leaf is cut the same way along its shard dim over the model axis.
 
 A mesh has a ``dp`` axis, optionally a ``dcn`` axis before it and up to
-two model axes (``mdl``, ``ep``, ``pp`` or ``sp``) after it:
+four different model axes (``mdl``, ``ep``, ``pp``, ``sp``) after it:
 ``EngineConfig.mesh_shape=(("dcn", 2), ("dp", 4))``, ``(("dp", 2), ("mdl",
-4))`` or the JAX package's composition ``(("dp", 2), ("mdl", 2), ("pp",
-2))``. Ranks are laid out row-major, the last axis innermost, as JAX's
-``make_mesh`` reshapes the devices: rank = (dcn index x dp size + dp
-index) x model size + model index, and on two model axes model index =
-first axis's index x second's size + second's index. The batch rides
-``dcn`` and ``dp``: every reduction over the batch goes over the *batch
-group* (the ranks at this rank's model coordinates), and the model-axis
-collectives over the *model group* (the ranks at this rank's dcn and dp
-index, every model axis). ZeRO/FSDP shards live on ``dp`` and are
-replicated across ``dcn``. The ranks of a ``pp`` or ``sp`` group share one
-batch, as those of a ``mdl`` group do.
+4))``, the JAX package's composition ``(("dp", 2), ("mdl", 2), ("pp",
+2))`` or ``(("dp", 1), ("mdl", 2), ("pp", 2), ("sp", 2))``. Ranks are laid
+out row-major, the last axis innermost, as JAX's ``make_mesh`` reshapes the
+devices: rank = (dcn index x dp size + dp index) x model size + model
+index, and the model index is row-major over the model axes in the mesh's
+order. The batch rides ``dcn`` and ``dp``: every reduction over the batch
+goes over the *batch group* (the ranks at this rank's model coordinates),
+and the model-axis collectives over the *model group* (the ranks at this
+rank's dcn and dp index, every model axis). ZeRO/FSDP shards live on
+``dp`` and are replicated across ``dcn``. The ranks of a ``pp`` or ``sp``
+group share one batch, as those of a ``mdl`` group do.
 
-On two model axes every axis also has its own group (the ranks at this
-rank's batch index and other model index), and ``Mesh.view(axis)`` is the
-mesh seen along one of them: its ``model_axis``, ``model_group``,
-``model_size`` and ``model_index`` are that axis's, its batch coordinates
-the mesh's. ``tp_mesh()`` and ``axis_mesh("pp")`` return such views, so
-the model-axis collectives run over one axis unchanged. A leaf is then cut
-on a dim for each axis (``Cut``: on ``dp x mdl x pp`` the stage dim over
-``pp`` and the head or column dim over ``mdl``). The compositions computed:
+On several model axes every non-empty subset of them has its groups too
+(the ranks at this rank's batch index and its coordinates on the other
+model axes; ``subset_ranks`` lists them), and ``Mesh.over(axes)`` is the
+mesh seen along a subset: its ``model_group``, ``model_size`` and
+``model_index`` are the subset's, its batch coordinates the mesh's;
+``Mesh.view(axis)`` is ``over`` of one axis. ``tp_mesh()`` and
+``axis_mesh("pp")`` return views, so the model-axis collectives run over
+one axis unchanged, and a sum over the ranks of a leaf's cut axes goes
+over those axes alone: on three axes the third axis's ranks hold the same
+partial sums and stay out of it. A leaf is cut on a dim for each axis
+(``Cut``: on ``dp x mdl x pp`` the stage dim over ``pp`` and the head or
+column dim over ``mdl``). The compositions computed:
 
 * ``mdl x pp`` on ``models.make_pipelined_transformer``: Megatron tensor
   parallelism inside each GPipe stage (``models.COMPOSED_SHARD_RULES``);
@@ -81,10 +85,10 @@ on a dim for each axis (``Cut``: on ``dp x mdl x pp`` the stage dim over
   (``MOE_COMPOSED_SHARD_RULES``);
 * an axis a module does not split repeats its work: ``sp`` beside ``pp``
   (pipelining wins, as in JAX), ``ep`` beside the encoder, ``pp`` or ``sp``
-  beside the MoE.
-
-Three model axes raise ``NotImplementedError`` (``model_parallel_error``,
-naming ROADMAP.md §A.8).
+  beside the MoE. So on three or four model axes each module computes its
+  composition above and the other axes repeat it: ``mdl x pp x sp`` is
+  Megatron inside GPipe stages, ``mdl x sp x ep`` Megatron-SP, ``ep x mdl
+  x pp`` and ``ep x mdl x pp x sp`` the MoE's experts and columns.
 
 The engine binds its mesh while a problem's update, loss or forward runs
 (``active``); the collectives, ``models/batchnorm.py``'s global statistics,
@@ -96,6 +100,7 @@ the global weight normaliser of ``examples/bert_data_reweighting.py``
 import contextlib
 import dataclasses
 import datetime
+import itertools
 import math
 import os
 import re
@@ -117,16 +122,6 @@ TP_AXES = ("mdl", "ep")
 DEFAULT_TIMEOUT_SECONDS = 600.0
 # the engine's FSDP/ZeRO threshold: leaves under it stay replicated
 FSDP_MIN_SIZE = 2**14
-
-
-def model_parallel_error(what: str) -> NotImplementedError:
-    """The error of a composition of model axes the port does not compute
-    (ROADMAP.md §A.8): three model axes."""
-    return NotImplementedError(
-        f"{what}: not computed (ROADMAP.md §A.8, compositions left uncomputed: three model "
-        "axes); the port composes two model axes as 'mdl' x 'pp' and 'mdl' x 'sp' on "
-        "models.make_pipelined_transformer and 'ep' x 'mdl' on the MoE, ITD replays "
-        "included")
 
 
 def maybe_init_distributed(device=None, backend: Optional[str] = None,
@@ -174,18 +169,20 @@ def maybe_init_distributed(device=None, backend: Optional[str] = None,
 @dataclass(eq=False)
 class Mesh:
     """Ranks on named axes: ``("dp", n)``, with an optional ``("dcn", k)``
-    before it and up to two model axes (``"mdl" | "ep" | "pp" | "sp"``)
-    after it.
+    before it and up to four different model axes (``"mdl" | "ep" | "pp" |
+    "sp"``) after it.
     ``group`` spans every rank (``None``: the default group);
     ``batch_group`` the ranks at this rank's model coordinates, over which
     the batch reductions go (``None`` without a model axis: every rank);
     ``model_group`` the ranks at this rank's dcn and dp index (every model
-    axis; in a view, the viewed axis's ranks); ``dp_group`` the ranks of
+    axis; in a view, the viewed axes' ranks); ``dp_group`` the ranks of
     this rank's dcn slice (and model coordinates), over which ZeRO/FSDP
     shard; ``dcn_group`` the ranks at this rank's dp (and model)
-    coordinates. ``axis_groups``: on two model axes, each axis's group and
-    the whole model group (``"model"``); ``view_axis``: the axis a view
-    (``view``) sees."""
+    coordinates. ``axis_groups``: on several model axes, the group of
+    each non-empty subset of them (keyed by ``group_key``: an axis's name,
+    ``"ep+mdl"`` for a pair in the mesh's order, ``"model"`` for every
+    model axis); ``view_axes``: the axes a view (``over``) sees, in the
+    mesh's order (empty: the whole mesh)."""
 
     axes: Tuple[Tuple[str, int], ...]
     rank: int
@@ -196,8 +193,8 @@ class Mesh:
     batch_group: Optional[object] = None
     model_group: Optional[object] = None
     axis_groups: Dict[str, object] = field(default_factory=dict, repr=False)
-    view_axis: Optional[str] = None
-    _views: Dict[str, "Mesh"] = field(default_factory=dict, repr=False)
+    view_axes: Tuple[str, ...] = ()
+    _views: Dict[Tuple[str, ...], "Mesh"] = field(default_factory=dict, repr=False)
 
     @property
     def shape(self):
@@ -210,18 +207,20 @@ class Mesh:
 
     @property
     def composed(self) -> bool:
-        """Two model axes (the JAX package's ``dp x mdl x pp``)."""
+        """Two or more model axes (the JAX package's ``dp x mdl x pp``)."""
         return len(self.model_axes) > 1
+
+    @property
+    def _seen(self) -> Tuple[str, ...]:
+        return self.view_axes or self.model_axes
 
     @property
     def model_axis(self) -> Optional[str]:
         """``"mdl"``, ``"ep"``, ``"pp"`` or ``"sp"``: the model axis, or the
-        viewed one on two model axes (None for a data-parallel mesh or a
-        composed one seen whole)."""
-        if self.view_axis is not None:
-            return self.view_axis
-        axes = self.model_axes
-        return axes[0] if len(axes) == 1 else None
+        viewed one (None for a data-parallel mesh, and for a mesh or a view
+        that sees several model axes)."""
+        seen = self._seen
+        return seen[0] if len(seen) == 1 else None
 
     @property
     def _model_world(self) -> int:
@@ -229,17 +228,19 @@ class Mesh:
 
     @property
     def model_size(self) -> int:
-        """The ranks of the model group (a view's: its axis's)."""
-        if self.view_axis is not None:
-            return self.shape[self.view_axis]
-        return self._model_world
+        """The ranks of the model group (a view's: its axes')."""
+        return math.prod(self.shape[a] for a in self._seen)
 
     @property
     def model_index(self) -> int:
-        """This rank's place in the model group."""
-        if self.view_axis is not None:
-            return self.axis_index(self.view_axis)
-        return self.rank % self._model_world
+        """This rank's place in the model group: row-major over the seen
+        axes in the mesh's order."""
+        if not self.view_axes:
+            return self.rank % self._model_world
+        index = 0
+        for a in self.view_axes:
+            index = index * self.shape[a] + self.axis_index(a)
+        return index
 
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate on the model axis ``axis``."""
@@ -273,22 +274,55 @@ class Mesh:
         size and index are that axis's (this mesh on one model axis)."""
         if axis not in self.model_axes:
             raise ValueError(f"mesh {self.axes} has no model axis {axis!r}")
-        if len(self.model_axes) == 1 or axis == self.view_axis:
-            return self
-        if axis not in self._views:
-            self._views[axis] = dataclasses.replace(self, view_axis=axis,
-                                                    model_group=self.axis_groups.get(axis))
-        return self._views[axis]
+        return self.over((axis,))
 
     def over(self, axes) -> "Mesh":
-        """The mesh whose model group spans the model axes ``axes``: a view
-        for one, the whole mesh for every one."""
+        """The mesh seen along the model axes ``axes`` (a subset, in any
+        order; the others the mesh has not are ignored): its model group is
+        the ranks at this rank's batch index and coordinates on the other
+        model axes, its size and index the subset's. Every model axis: the
+        whole mesh; none: this mesh."""
         axes = tuple(a for a in self.model_axes if a in set(axes))
-        if len(axes) == 1:
-            return self.view(axes[0])
-        if not axes or len(self.model_axes) == 1 or self.view_axis is None:
+        if not axes:
             return self
-        return dataclasses.replace(self, view_axis=None, model_group=self.axis_groups.get("model"))
+        key = () if axes == self.model_axes else axes
+        if key == self.view_axes:
+            return self
+        if key not in self._views:
+            self._views[key] = dataclasses.replace(
+                self, view_axes=key, model_group=self.axis_groups.get(group_key(axes, self)))
+        return self._views[key]
+
+
+def group_key(axes, mesh) -> str:
+    """The ``Mesh.axis_groups`` key of the model axes ``axes`` (in the
+    mesh's order): the axis's name for one, ``"model"`` for every model
+    axis, the names joined by ``+`` otherwise."""
+    axes = tuple(axes)
+    if axes == mesh.model_axes:
+        return "model"
+    return "+".join(axes)
+
+
+def subset_ranks(axes, subset) -> list:
+    """The groups of the model axes ``subset`` on a mesh of ``axes`` (no
+    process group needed): for each batch index, and each coordinate of the
+    other model axes in row-major order, the ranks that differ only in
+    their ``subset`` coordinates, ascending. The order in which
+    ``make_mesh`` makes them."""
+    shape = dict(axes)
+    model = [n for n, _ in axes if n in MODEL_AXES]
+    subset = [a for a in model if a in set(subset)]
+    rest = [a for a in model if a not in subset]
+    m = math.prod(shape[a] for a in model)
+    stride = {a: math.prod(shape[x] for x in model[i + 1:]) for i, a in enumerate(model)}
+    out = []
+    for b in range(math.prod(s for _, s in axes) // m):
+        for other in itertools.product(*(range(shape[a]) for a in rest)):
+            base = b * m + sum(c * stride[a] for a, c in zip(rest, other))
+            out.append([base + sum(c * stride[a] for a, c in zip(subset, coords))
+                        for coords in itertools.product(*(range(shape[a]) for a in subset))])
+    return out
 
 
 def check_axes(mesh_shape):
@@ -303,13 +337,11 @@ def check_axes(mesh_shape):
                              "and 'sp'")
     core = [n for n in names if n not in MODEL_AXES]
     model = [n for n in names if n in MODEL_AXES]
-    if len(model) > 2:
-        raise model_parallel_error(f"mesh {tuple(mesh_shape)} (three model axes)")
     if core not in (["dp"], ["dcn", "dp"]) or names[len(core):] != model or \
             len(set(model)) != len(model):
         raise ValueError(f"mesh {tuple(mesh_shape)}: a 'dp' axis, with an optional 'dcn' axis "
-                         "before it and up to two different model axes ('mdl', 'ep', 'pp' or "
-                         "'sp') after it")
+                         "before it and up to four different model axes ('mdl', 'ep', 'pp' "
+                         "and 'sp') after it")
 
 
 def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
@@ -353,16 +385,14 @@ def make_mesh(mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None) -> Mesh:
                 mesh.model_group = g
         if mesh.composed:
             mesh.axis_groups["model"] = mesh.model_group
-            (a0, s0), (a1, s1) = [(a, mesh.shape[a]) for a in mesh.model_axes]
-            for b in range(batch):
-                for other in range(s1):  # the first axis's groups: one a second-axis index
-                    g = dist.new_group([b * m + i * s1 + other for i in range(s0)])
-                    if b == mesh.batch_index and other == mesh.axis_index(a1):
-                        mesh.axis_groups[a0] = g
-                for other in range(s0):
-                    g = dist.new_group([b * m + other * s1 + j for j in range(s1)])
-                    if b == mesh.batch_index and other == mesh.axis_index(a0):
-                        mesh.axis_groups[a1] = g
+            model = mesh.model_axes
+            # the proper subsets, smallest first, each in the mesh's order
+            subsets = [c for r in range(1, len(model)) for c in itertools.combinations(model, r)]
+            for subset in subsets:
+                for ranks in subset_ranks(axes, subset):
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        mesh.axis_groups[group_key(subset, mesh)] = g
         if dcn == 1:
             mesh.dp_group = mesh.batch_group
     return mesh
@@ -507,7 +537,7 @@ def moe_axes(mesh) -> Tuple[Optional[str], Optional[str]]:
 
 def moe_local_dim(name: str, mesh=None):
     """The dim ``models/moe.py`` computes an expert leaf ``name`` on as a
-    shard (the expert dim), or on two model axes its ``Cut`` (``w1`` on
+    shard (the expert dim), or on several model axes its ``Cut`` (``w1`` on
     ``((0, "ep"), (2, "mdl"))`` on ``(dp, ep, mdl)``); None for another
     leaf, or a mesh without an expert axis."""
     if not MOE_EXPERT_LEAF.search(name):
@@ -542,7 +572,7 @@ def _flax_order(name: str, x) -> Tuple[int, ...]:
 
 @dataclass(frozen=True)
 class Cut:
-    """A leaf's shard on a mesh with two model axes: cut along dim
+    """A leaf's shard on a mesh with several model axes: cut along dim
     ``pairs[k][0]`` over model axis ``pairs[k][1]`` for each k (chunk ``i``
     of a dim on the rank at that axis's coordinate ``i``). A leaf of a
     tree of shard dims, where one model axis has an int."""
@@ -574,7 +604,7 @@ def _axis_size_index(mesh: Mesh, name: str):
 def _spec_dim(name, x, spec, mesh: Mesh):
     """The dim a partition-spec tuple shards ``x`` on, if the spec fits
     (each named dim divisible by the size of its axes): an int on one model
-    axis, a ``Cut`` on two (each model axis named at most once); raises for
+    axis, a ``Cut`` on several (each model axis named at most once); raises for
     a spec the port cannot lay out (more than one sharded dim on one model
     axis, an axis other than the model axes, two axes on one dim)."""
     dims = []
@@ -618,12 +648,12 @@ def tp_shardings(tree, mesh: Mesh, axis: Optional[str] = None, min_size: int = T
     the largest-dim rule, on the flax layout of the tensor (``_flax_order``).
     ``axis``: the model axis (default the mesh's).
 
-    On a ``pp`` or ``sp`` axis, and on two model axes, only ``rules``
+    On a ``pp`` or ``sp`` axis, and on several model axes, only ``rules``
     shard: a leaf no rule names stays replicated (the JAX package's
     ``tp_shardings`` would shard it over ``dp`` by the Megatron rules,
     ``betty_tpu/parallel/mesh.py:173-174``; the port shards over the model
     axes only, and the pipelined module computes on whole leaves outside
-    its stacked blocks). On two model axes a sharded leaf's dims are a
+    its stacked blocks). On several model axes a sharded leaf's dims are a
     ``Cut``: ``("pp", None, "mdl", None)`` cuts dim 0 over ``pp`` and dim
     2 over ``mdl``."""
     if not mesh.model_axes:
@@ -631,7 +661,7 @@ def tp_shardings(tree, mesh: Mesh, axis: Optional[str] = None, min_size: int = T
                          f"{mesh.axes}")
     axis = axis or mesh.model_axis
     user = tuple((re.compile(pat), tuple(spec)) for pat, spec in (rules or ()))
-    # two model axes: the rules alone shard
+    # several model axes: the rules alone shard
     rules_only = axis not in TP_AXES
     size = 1 if axis is None else mesh.shape[axis]
 

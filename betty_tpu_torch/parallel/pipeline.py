@@ -102,7 +102,7 @@ def gpipe(block_apply: Callable, stacked_params, x, mesh=None, axis: str = "pp",
     ``axis``."""
     mesh = mesh if mesh is not None else mesh_mod.current()
     if mesh is not None and axis in mesh.model_axes:
-        mesh = mesh.view(axis)  # on two model axes: the ring over this axis
+        mesh = mesh.view(axis)  # on several model axes: the ring over this axis
     if mesh is None or axis not in mesh.shape or mesh.model_axis != axis:
         raise ValueError(f"gpipe: needs a mesh whose model axis is {axis!r} (got "
                          f"{None if mesh is None else mesh.axes})")

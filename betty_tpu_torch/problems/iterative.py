@@ -28,8 +28,8 @@ the batch ranks (``parallel.all_reduce_tree``), whose backward is itself an
 all-reduce; with the mean over the ranks of the parent's gradient that
 gives the gradient of the global objective. Under zero/fsdp the replay
 starts from the whole tensors of the recorded state and steps whole
-tensors. Under tp, ep, pp and sp with model-sharded leaves, and on two
-model axes, it starts from this rank's shards of the recorded state (no
+tensors. Under tp, ep, pp and sp with model-sharded leaves, and on two to
+four model axes, it starts from this rank's shards of the recorded state (no
 gather), hands them to the loss as the eager step does (``Problem.forward``
 gathers or cuts on use, differentiably), keeps each gradient in the
 shards' layout, steps the shards (``_apply_optimizer``: the clipping norm

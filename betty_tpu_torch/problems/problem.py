@@ -54,8 +54,8 @@ shards, the module computes on the ones it declares
 (``FunctionalModule.local_dim``: the transformer's heads and MLP columns,
 the MoE's experts, the pipelined transformer's stage of stacked blocks) and
 ``Problem.forward`` gathers the others where they are used, differentiably.
-On two model axes (``dp x mdl x pp``, ``mdl x sp``, ``ep x mdl``) a leaf
-may be cut on two dims (``parallel.Cut``): the gathers, cuts and templates
+On several model axes (``dp x mdl x pp``, ``mdl x sp``, ``ep x mdl``, and
+three or four of them) a leaf may be cut on several dims (``parallel.Cut``): the gathers, cuts and templates
 go over each axis, and the module receives each leaf cut as it declares:
 the gather on use takes only the cuts the module does not compute on, and
 a leaf the layout leaves whole where the module computes on a cut is cut
@@ -605,7 +605,7 @@ class Problem(abc.ABC):
         """Under tp/ep, the whole tensors of the sharded parameters the
         module does not compute on as shards (``FunctionalModule.local_dim``),
         gathered over the model group, differentiably; the rest as given
-        (on two model axes cut as the module declares)."""
+        (on several model axes cut as the module declares)."""
         dims = self.model_dims()
         if not dims:
             return params
@@ -616,7 +616,7 @@ class Problem(abc.ABC):
                 lambda name, d: None if d is None or local(name) == d else d, dims)
             return parallel.gather_shards(params, gather, mesh, "model")
 
-        # two model axes: the module receives each leaf cut as it declares
+        # several model axes: the module receives each leaf cut as it declares
         # (an int local dim is a tp dim, over mdl or ep): the cuts it does
         # not take are gathered, and those it takes where the layout leaves
         # the leaf whole are cut through f (``parallel.cut_whole``)

@@ -20,7 +20,10 @@ splits the model, with one config line:
                  x pp``) each stage computes Megatron tensor parallelism
                  over ``mdl``, its leaves cut on two dims by
                  ``models.COMPOSED_SHARD_RULES`` (the stage dim over
-                 ``pp``, heads and MLP columns over ``mdl``).
+                 ``pp``, heads and MLP columns over ``mdl``). On three
+                 model axes (``--mesh dp:1,mdl:2,pp:2,sp:2``) the
+                 same rules cut the same leaves, and the ``sp`` ranks
+                 repeat the stages' work (pipelining wins, as in JAX).
 * ``--mode sp``  sequence parallelism: the same module built with
                  ``seq_axis="sp"`` splits its activations on the sequence
                  over the ``sp`` axis (LayerNorm and the MLP on a rank's
@@ -31,9 +34,10 @@ splits the model, with one config line:
                  columns over ``mdl`` on its positions over ``sp``, the
                  leaves cut over ``mdl`` by
                  ``models.SP_COMPOSED_SHARD_RULES`` under
-                 ``strategy="tp"``; beside ``pp`` or ``ep`` the ``sp``
-                 ranks (or the ``ep`` ranks) repeat the work, under
-                 ``strategy="sp"``.
+                 ``strategy="tp"`` (also beside an ``ep`` axis, whose
+                 ranks repeat it: ``--mesh dp:1,mdl:2,sp:2,ep:2``); beside
+                 ``pp`` or ``ep`` alone the ``sp`` ranks (or the ``ep``
+                 ranks) repeat the work, under ``strategy="sp"``.
 
 Expert parallelism (``strategy="ep"``) is ``examples/moe_reweighting.py
 --strategy ep``.
@@ -51,8 +55,9 @@ sequence). One process a rank (gloo on the CPU, NCCL on the card;
         --device cpu --mode tp          # or --mode pp, --mode sp
 
 ``--mesh`` sets another layout (``--mesh dp:1,pp:2``, ``--mesh
-dp:1,mdl:2,pp:2`` for pp on two model axes, ``--mesh dp:1,mdl:2,sp:2`` for
-Megatron-SP), ``--mesh none``
+dp:1,mdl:2,pp:2`` for pp on two model axes, ``--mesh dp:1,mdl:2,pp:2,sp:2``
+on three, eight ranks; ``--mesh dp:1,mdl:2,sp:2`` for Megatron-SP),
+``--mesh none``
 runs the same program in one process on the global batch. The widths
 (``--vocab_size``, ``--seq_len``, ``--dim``, ``--depth``, ``--heads``), the
 global batch and the microbatches are options; the defaults are the JAX

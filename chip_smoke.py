@@ -112,7 +112,7 @@ Phases:
    ``EngineConfig.profile_dir`` trace in both modes; then the flagship's
    defaults (ResNet-32 B128, fp32, a MultiStepLR at 10000/13000) as ITD at
    unroll 1 and 5 and as reinforce (4 samples), driver mode then compiled:
-   2 + 3 timed periods and a profiled one each (period, busy, idle share,
+   1 + 1 timed periods and a profiled one each (period, busy, idle share,
    launches, peak memory, capture), the two modes' parameters, losses and
    norms, finite losses, no launch of the port's kernels.
 8. checkpoint: engine checkpoints (``betty_tpu_torch/checkpoint.py``)
@@ -145,18 +145,20 @@ Phases:
 10. nas: DARTS architecture search (``examples/neural_architecture_search.py``)
    and its evaluation phase (``examples/nas_eval.py``), which launch no
    kernel of the port (cuDNN and PyTorch convolutions, pools, BatchNorm).
-   Small float64 runs (cuDNN deterministic): the search at C4 L3 B8 for 3
+   Small float64 runs (cuDNN deterministic): the search at C4 L3 B8 for 2
    meta-periods under roll-back and the evaluation phase (DARTS_V2 C4 L4
-   B8, auxiliary head, cutout, drop-path 0, 3 steps) on the card against
+   B8, auxiliary head, cutout, drop-path 0, 2 steps) on the card against
    the CPU from the same weights within 1e-9, and compiled against driver
    mode on the card bit for bit. Then the search at the published DARTS
-   width (C16 L8 B64, float32, TF32 off; 1,401 leaves and 929 BatchNorms
-   held), driver mode then compiled: 1 + 1 timed periods and a profiled
+   width with the depth cut to 3 cells (C16 L3 B64, a normal cell and both
+   reduction cells; float32, TF32 off; 550 leaves and 359 BatchNorms held),
+   driver mode then compiled: 1 + 1 timed periods and a profiled
    one each (period, busy, idle, launches, device time by op class, peak
    memory, capture), fixed-batch losses of the first period within 1e-3
    between the modes, a genotype of 8 + 8 edges, 0 launches of B1-B8; and
-   the evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2 C36 L20
-   B96, auxiliary 0.4, drop-path 0.2, cutout 16, grad clip 5) in both
+   the evaluation phase at DARTS's CIFAR-10 settings with the depth cut
+   to 8 cells (DARTS_V2 C36 L8 B96, auxiliary 0.4, drop-path 0.2, cutout
+   16, grad clip 5) in both
    modes, 1 + 1 timed steps and a profiled one. Each of its lines carries
    the card's name and power limit.
 11. robust: robust NAS (``examples/robust_nas.py``: the DARTS search whose
@@ -173,14 +175,14 @@ Phases:
    (the directions from the example's generator, reseeded every replay).
    Then the robust search at the DARTS search widths with the depth cut
    to 3 cells (C16 L3 B32, both terms, float32, TF32 off; 550 leaves and
-   359 BatchNorms held), driver mode then compiled: 2 + 2 timed
-   periods and a profiled one each (period, busy, idle, launches, device
-   time by op class and convolution time by kernel, peak memory, capture
-   split into warm-up and recording), the fixed-batch losses of the first
-   periods within 1e-3 between the modes, and one more driver period that
-   counts its convolutions at the dispatcher (none may be a per-group one
-   of PyTorch's conv double backward); then SANAS at the JAX example's
-   defaults in driver mode for 20 outer periods (finite losses, three
+   359 BatchNorms held) in driver mode: a warm-up period that counts its
+   convolutions at the dispatcher (none may be a per-group one of
+   PyTorch's conv double backward), then 1 timed period and a profiled one
+   (period, busy, idle, launches, device time by op class and convolution
+   time by kernel, peak memory), finite fixed-batch losses (compiled blocks
+   run this search in the small runs above, and the DARTS supernet at full
+   width in the nas phase); then SANAS at the JAX example's
+   defaults in driver mode for 10 outer periods (finite losses, three
    paths, counts 8:4:2 per 8 inner1 steps). B1-B8 launch 0 times in every run. Each of
    its lines carries the card's name and power limit.
 12. programs: the 3-level image-captioning NAS
@@ -2401,9 +2403,14 @@ NAS_SMALL_SEARCH = ["--channels", "4", "--layers", "3", "--batch_size", "8", "--
 NAS_SMALL_EVAL = ["--init_channels", "4", "--layers", "4", "--batch_size", "8", "--train_size",
                   "32", "--epochs", "1", "--auxiliary", "--cutout", "--drop_path_prob", "0.0",
                   "--valid_every_epochs", "100"]
-NAS_PERIODS = 3  # cut from 4 for the time limit
-NAS_SEARCH_LEAVES = 1_401  # 1,399 of the supernet at C16 L8 and the two alphas
-NAS_SEARCH_BATCHNORMS = 929
+NAS_PERIODS = 2  # cut from 4 for the time limit
+# the full-width cells' depths, cut from DARTS's published 8 search cells and
+# 20 evaluation cells so the whole script keeps its time: L3 keeps a normal
+# cell and both reduction cells (at 1 and 2), L8 the evaluation network's
+# two reduction cells (at 2 and 5) and its auxiliary head
+NAS_SEARCH_LAYERS, NAS_EVAL_LAYERS = 3, 8
+NAS_SEARCH_LEAVES = 550  # 548 of the supernet at C16 L3 and the two alphas
+NAS_SEARCH_BATCHNORMS = 359
 
 
 def _port_launches():
@@ -2452,7 +2459,7 @@ def _nas_engine(example, argv, device, compiled, states=None, dtype=None):
 def nas_small_phase(which, card):
     """The small float64 search (C4 L3 B8, ``NAS_PERIODS`` meta-periods,
     roll-back) or evaluation phase (DARTS_V2 C4 L4 B8, auxiliary head,
-    cutout, drop-path 0, grad clip 5, 4 steps) on the card against the CPU
+    cutout, drop-path 0, grad clip 5, ``NAS_PERIODS`` steps) on the card against the CPU
     from the same weights, within 1e-9; then compiled blocks against driver
     mode on the card, bit for bit. cuDNN runs its deterministic
     algorithms."""
@@ -2527,7 +2534,8 @@ def _nas_eval_loss(engine):
 
 
 def nas_search_cell(card, warmup=1, steady=1):
-    """The DARTS search at its published width (C16 L8 B64, float32, TF32
+    """The DARTS search at its published width, depth cut to
+    ``NAS_SEARCH_LAYERS`` cells (C16 L3 B64, float32, TF32
     off; SGD 0.025 momentum 0.9 with cosine LR, Adam 3e-4 on the alphas,
     unroll 1, roll-back; synthetic CIFAR in the default host loaders),
     driver mode then compiled blocks (one replay a period): ``warmup`` +
@@ -2541,10 +2549,10 @@ def nas_search_cell(card, warmup=1, steady=1):
 
     periods = warmup + steady + 1
     argv = ["--train_iters", str(periods), "--valid_step", "1000000",
-            "--train_size", "2048"]
+            "--train_size", "2048", "--layers", str(NAS_SEARCH_LAYERS)]
     out, losses = {}, {}
     for mode in ("driver", "compiled"):
-        tag = f"[nas search] C16 L8 B64 {mode} [{card}]"
+        tag = f"[nas search] C16 L{NAS_SEARCH_LAYERS} B64 {mode} [{card}]"
         t0 = time.time()
         engine = _nas_engine(ex, argv, "cuda", mode == "compiled")
         leaves, bns, n_params = _nas_counts(engine)
@@ -2597,18 +2605,19 @@ def nas_search_cell(card, warmup=1, steady=1):
 
 def nas_eval_cell(card, warmup=1, steady=1):
     """The evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2, C36
-    L20 B96, auxiliary head 0.4, drop-path 0.2, cutout 16, grad clip 5,
-    float32, TF32 off): driver mode, then compiled blocks (one replay a
-    step): ``warmup`` + ``steady`` timed steps and one profiled each."""
+    B96, auxiliary head 0.4, drop-path 0.2, cutout 16, grad clip 5,
+    float32, TF32 off), depth cut from 20 cells to ``NAS_EVAL_LAYERS``:
+    driver mode, then compiled blocks (one replay a step): ``warmup`` +
+    ``steady`` timed steps and one profiled each."""
     import torch
     from betty_tpu_torch.examples import nas_eval as ex
 
     steps = warmup + steady + 1
     argv = ["--auxiliary", "--cutout", "--train_size", str(96 * steps), "--epochs", "1",
-            "--valid_every_epochs", "100"]
+            "--valid_every_epochs", "100", "--layers", str(NAS_EVAL_LAYERS)]
     out = {}
     for mode in ("driver", "compiled"):
-        tag = f"[nas eval] DARTS_V2 C36 L20 B96 {mode} [{card}]"
+        tag = f"[nas eval] DARTS_V2 C36 L{NAS_EVAL_LAYERS} B96 {mode} [{card}]"
         engine = _nas_engine(ex, argv, "cuda", mode == "compiled")
         # drop-path at its full 0.2: the loader's epoch past the ramp
         engine.network.train_data_loader[0].set_epoch(1)
@@ -2808,102 +2817,72 @@ ROBUST_SEARCH_LEAVES = 550  # 548 of the supernet at C16 L3 and the two alphas
 ROBUST_SEARCH_BATCHNORMS = 359
 
 
-def robust_full_cell(card, warmup=1, steady=1):
+def robust_full_cell(card, steady=1):
     """The robust search at the DARTS search widths, depth cut to
     ``ROBUST_SEARCH_LAYERS`` cells (C16 L3 B32: a normal cell and two
     reduction cells; both regularizers, lambda_j 0.1, lambda_c 0.01; SGD
     0.025 momentum 0.9, no schedule, no roll-back; Adam 3e-4 on the alphas;
-    float32, TF32 off;
-    synthetic CIFAR in the host loaders), driver mode then compiled blocks
-    (one replay a period): ``warmup`` + ``steady`` timed periods and one
-    profiled each (period, busy, idle, launches, device time by op class,
-    convolution time by kernel, peak memory; capture split into the warm-up
-    periods and the recording), then one driver period counting its
-    convolutions (``_ConvCount``: no per-group one, since the grouped
-    convolutions run through ``models/layers.py::grouped_conv2d``). The fixed-batch losses after each
-    warm-up period agree between the modes within 1e-3 relative; B1-B8
-    launch 0 times."""
+    float32, TF32 off; synthetic CIFAR in the host loaders) in driver mode:
+    a warm-up period that counts its convolutions at the dispatcher
+    (``_ConvCount``: none may be a per-group one of PyTorch's conv double
+    backward, since the grouped convolutions run through
+    ``models/layers.py::grouped_conv2d``), then ``steady`` timed periods and
+    a profiled one (period, busy, idle, launches, device time by op class,
+    convolution time by kernel, peak memory); finite fixed-batch losses, a
+    genotype of 8 + 8 edges, B1-B8 launched 0 times. Compiled blocks run
+    this search bit for bit against driver mode in ``robust_small_phase``,
+    and the DARTS supernet at full width in ``nas_search_cell``."""
     import torch
     from betty_tpu_torch.examples import robust_nas as ex
     from betty_tpu_torch.models.darts import derive_genotype
 
     layers = ROBUST_SEARCH_LAYERS
-    periods = warmup + steady + 1
-    argv = ["--layers", str(layers), "--train_iters", str(periods), "--valid_step", "1000000"]
-    out, losses = {}, {}
-    for mode in ("driver", "compiled"):
-        tag = f"[robust search] C16 L{layers} B32 {mode} [{card}]"
-        t0 = time.time()
-        engine = _nas_engine(ex, argv, "cuda", mode == "compiled")
-        leaves, bns, n_params = _nas_counts(engine)
-        log(f"{tag} build_engine {time.time() - t0:.1f} s; parameter leaves {leaves}, "
-            f"BatchNorms {bns}, parameters {n_params}; lambda_j "
-            f"{engine.classifier.cfg['lambda_j']}, lambda_c {engine.classifier.cfg['lambda_c']}")
-        assert leaves == ROBUST_SEARCH_LEAVES and bns == ROBUST_SEARCH_BATCHNORMS, (leaves, bns)
-        seen = losses[mode] = []
-        validate = engine.maybe_validate_checkpoint
-
-        def hook(window=1, _engine=engine, _seen=seen, _validate=validate):
-            stop = _validate(window)
-            if len(_seen) < warmup:
-                _seen.append(_fixed_losses(_engine))
-            return stop
-
-        engine.maybe_validate_checkpoint = hook
-        _reset_port_launches()
-        seconds, report, peak = _timed_run(engine, 1, periods, tag, _op_class, profiled="card")
-        row = out[mode] = _cell_line(tag, seconds, report, peak, warmup)
-        if report:
-            row["launches"] = report["launches"]
-            row["shares"] = {k: round(v / report["busy_ms"], 3)
-                             for k, v in report["by_kind"].items()}
-            convs = sorted((k for k in report["kernels"] if _op_class(k[2]) == "convolution"),
-                           reverse=True)
-            row["conv_ms"] = sum(t for t, _, _ in convs)
-            log(f"{tag} device time shares {row['shares']}; convolution {row['conv_ms']:.1f} ms "
-                f"over {sum(c for _, c, _ in convs)} launches, by kernel:")
-            for t, c, name in convs[:12]:
-                log(f"{tag}   {t:9.2f} ms  x{c:<7d} {t * 1e3 / c:8.1f} us/launch  {name[:100]}")
-        if mode == "compiled":
-            r = engine.block_runner
-            row["capture_s"], row["warmup_s"] = r.capture_seconds, r.warmup_seconds
-            log(f"{tag} captures {r.captures}, replays {r.replays}; capture "
-                f"{r.capture_seconds:.3f} s: two warm-up periods {r.warmup_seconds:.3f} s, "
-                f"recording {r.capture_seconds - r.warmup_seconds:.3f} s; graph nodes (kernels "
-                f"of the profiled replay) {report['launches'] if report else 'not read'}")
-            assert r.captures == 1 and r.replays == periods
-        else:
-            engine.train_iters = 1
-            engine.maybe_validate_checkpoint = validate
-            with _ConvCount() as cc:
-                engine.run()
-            torch.cuda.synchronize()
-            row.update(conv_calls=cc.total, per_group_convs=cc.per_group,
-                       conv_backwards=cc.backward)
-            n_grouped, slices = grouped_convolutions(layers=layers)
-            log(f"{tag} one more driver period at the dispatcher: {cc.total} convolutions, "
-                f"{cc.per_group} per-group convolutions of PyTorch's conv double backward (the "
-                f"supernet's {n_grouped} grouped convolutions hold {slices} groups; "
-                f"models/layers.py::grouped_conv2d takes their weight term whole), "
-                f"{cc.backward} convolution backwards")
-            assert cc.per_group == 0, cc.per_group
-        genotype = derive_genotype(engine.arch.params)
-        final = _fixed_losses(engine)
-        ours = _port_launches()
-        log(f"{tag} fixed-batch losses after periods 1..{warmup} {seen}, at the end {final}; "
-            f"genotype {genotype}; launches of B1-B8 {ours}")
-        assert len(genotype.normal) == len(genotype.reduce) == 8
-        assert all(math.isfinite(v) for d in seen + [final] for v in d.values())
-        assert all(n == 0 for n in ours.values()), ours
-        del engine
-        _free()
-    diffs = [max(abs(a[k] - b[k]) / abs(b[k]) for k in a)
-             for a, b in zip(losses["driver"], losses["compiled"])]
-    log(f"[robust search] [{card}] compiled vs driver: relative difference of the fixed-batch "
-        f"losses after periods 1..{warmup}: {diffs} (tol 1e-3: float32 cuDNN is not "
-        "repeatable)")
-    assert max(diffs) <= 1e-3, diffs
-    return out
+    tag = f"[robust search] C16 L{layers} B32 driver [{card}]"
+    argv = ["--layers", str(layers), "--train_iters", "1", "--valid_step", "1000000"]
+    t0 = time.time()
+    engine = _nas_engine(ex, argv, "cuda", False)
+    leaves, bns, n_params = _nas_counts(engine)
+    log(f"{tag} build_engine {time.time() - t0:.1f} s; parameter leaves {leaves}, "
+        f"BatchNorms {bns}, parameters {n_params}; lambda_j "
+        f"{engine.classifier.cfg['lambda_j']}, lambda_c {engine.classifier.cfg['lambda_c']}")
+    assert leaves == ROBUST_SEARCH_LEAVES and bns == ROBUST_SEARCH_BATCHNORMS, (leaves, bns)
+    _reset_port_launches()
+    t0 = time.time()
+    with _ConvCount() as cc:
+        engine.run()
+    torch.cuda.synchronize()
+    warm_s, warm = time.time() - t0, _fixed_losses(engine)
+    n_grouped, slices = grouped_convolutions(layers=layers)
+    log(f"{tag} warm-up period at the dispatcher ({warm_s:.1f} s): {cc.total} convolutions, "
+        f"{cc.per_group} per-group convolutions of PyTorch's conv double backward (the "
+        f"supernet's {n_grouped} grouped convolutions hold {slices} groups; "
+        f"models/layers.py::grouped_conv2d takes their weight term whole), "
+        f"{cc.backward} convolution backwards")
+    assert cc.total > 0 and cc.per_group == 0, (cc.total, cc.per_group)
+    seconds, report, peak = _timed_run(engine, 1, steady + 1, tag, _op_class, profiled="card")
+    row = _cell_line(tag, seconds, report, peak, 0)
+    row.update(conv_calls=cc.total, per_group_convs=cc.per_group, conv_backwards=cc.backward)
+    if report:
+        row["launches"] = report["launches"]
+        row["shares"] = {k: round(v / report["busy_ms"], 3) for k, v in report["by_kind"].items()}
+        convs = sorted((k for k in report["kernels"] if _op_class(k[2]) == "convolution"),
+                       reverse=True)
+        row["conv_ms"] = sum(t for t, _, _ in convs)
+        log(f"{tag} device time shares {row['shares']}; convolution {row['conv_ms']:.1f} ms "
+            f"over {sum(c for _, c, _ in convs)} launches, by kernel:")
+        for t, c, name in convs[:12]:
+            log(f"{tag}   {t:9.2f} ms  x{c:<7d} {t * 1e3 / c:8.1f} us/launch  {name[:100]}")
+    genotype = derive_genotype(engine.arch.params)
+    final = _fixed_losses(engine)
+    ours = _port_launches()
+    log(f"{tag} fixed-batch losses after the warm-up period {warm}, at the end {final}; "
+        f"genotype {genotype}; launches of B1-B8 {ours}")
+    assert len(genotype.normal) == len(genotype.reduce) == 8
+    assert all(math.isfinite(v) for d in (warm, final) for v in d.values())
+    assert all(n == 0 for n in ours.values()), ours
+    del engine
+    _free()
+    return row
 
 
 def sanas_cell(card, periods=10):
@@ -4525,10 +4504,14 @@ def dist_worker(mode, out):
         _mp_gloo2(out)
     elif mode == "mpgloo4":
         _mp_gloo4(out)
+    elif mode == "mpgloo8":
+        _mp_gloo8(out)
     elif mode == "composedfour":
         _composed_four_rank(out)
     elif mode == "itdfour":
         _itd_four_rank(out)
+    elif mode == "threefour":
+        _three_four_rank(out)
     elif mode == "fourmoe":
         _mp_four_moe(out)
     elif mode.startswith("four:"):
@@ -4762,8 +4745,68 @@ def _mp_gloo4(out):
     torch.distributed.barrier()
 
 
-def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None):
-    """The two-rank leg against this process's one-process runs."""
+def _state_digest(engine):
+    """A digest of the bytes of every tensor of the engine's states as this
+    rank holds them: the ranks that repeat one computation hold equal
+    ones."""
+    import hashlib
+
+    import torch
+    from betty_tpu_torch.utils import tree_leaves
+
+    h = hashlib.sha256()
+    for x in tree_leaves(engine.states):
+        if isinstance(x, torch.Tensor):
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mp_gloo8(out):
+    """One of eight ranks on the one card over gloo (CUDA tensors), three
+    model axes: tutorial 7's program small in float64 on
+    ``mdl:2,pp:2,sp:2`` (M 2), darts and made ITD, and the test's MoE on
+    ``ep:2,mdl:2,pp:2``; the digest of each rank's states, so that the
+    ranks that repeat the work (``sp``; ``pp`` beside the MoE) are held
+    bit-equal; rank 0 saves the whole parameters and the digests."""
+    import torch
+    from betty_tpu_torch import parallel
+
+    parallel.maybe_init_distributed("cuda", backend="gloo", timeout=DIST_OP_TIMEOUT)
+    rank = torch.distributed.get_rank()
+    got, digests = {}, {}
+
+    def digest(engine, repeat):
+        """``(this rank's coordinates on the axes that split, its digest)``."""
+        mesh = engine.mesh
+        return (tuple(mesh.axis_index(a) for a in mesh.model_axes if a not in repeat),
+                _state_digest(engine))
+
+    for key, build, repeat in (
+            ("m3pp_darts", lambda: _t7(M3PP_T7 + PP_SMALL["darts"], dtype=torch.float64),
+             ("sp",)),
+            ("moe_m3", lambda: _mp_engine("moe", MP_MOE_M3), ("pp",))):
+        t0 = time.time()
+        engine = build()
+        losses = _record_losses(engine)
+        engine.run()
+        got[key] = (_whole_params(engine), losses)
+        digests[key] = digest(engine, repeat)
+        log(f"[mp gloo8 {key}] rank {rank}: {time.time() - t0:.2f} s, "
+            f"{engine.mesh.axes}, axis groups {sorted(engine.mesh.axis_groups)}")
+        del engine
+    _itd_leg("[mp gloo8 itd_m3pp]", "itd_m3pp", lambda: _itd_t7(M3PP_T7), got)
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, digests)
+    if rank == 0:
+        got["digests"] = every
+        torch.save(got, out)
+    torch.distributed.barrier()
+
+
+def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None, gloo8=None,
+                    out8=None):
+    """The two-rank leg (and the four- and eight-rank legs) against this
+    process's one-process runs."""
     import torch
     from betty_tpu_torch.utils import tree_leaves
 
@@ -4798,6 +4841,22 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None):
     if gloo4 is not None:
         _dist_wait("[mp gloo4]", gloo4, deadline)
         got.update(torch.load(out4, weights_only=True))
+    if gloo8 is not None:
+        _dist_wait("[mp gloo8]", gloo8, deadline)
+        got.update(torch.load(out8, weights_only=True))
+        every = got.pop("digests")
+        for key in ("m3pp_darts", "moe_m3"):
+            # the ranks at one coordinate of the axes that split hold one state
+            by_place = {}
+            for d in every:
+                place, h = d[key]
+                by_place.setdefault(tuple(place), set()).add(h)
+            log(f"[mp gloo8] [{card}] {key}: distinct states by coordinate of the splitting "
+                f"axes {[len(v) for v in by_place.values()]} (the repeating ranks bit-equal: "
+                "1 each)")
+            assert len(by_place) == 4 and all(len(v) == 1 for v in by_place.values()), by_place
+        for key, one in GLOO8_REFS.items():
+            ref[key] = ref[one]
 
     def err(a, b):
         return max(float((x.double() - y.double()).abs().max())
@@ -4808,7 +4867,8 @@ def _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4=None, out4=None):
     rel = {k: _rel_apart(got[k][0], ref[k][0], ref[k][1])[0] for k in ref}
     dloss = {k: max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got[k][1], ref[k][2]))
              for k in ref}
-    log(f"[mp gloo2] [{card}] two ranks (gloo, CUDA tensors; four for the composed meshes) "
+    log(f"[mp gloo2] [{card}] two ranks (gloo, CUDA tensors; four for the composed meshes, "
+        f"eight for three model axes) "
         f"against one process: max |param "
         f"diff| {errs} (f64 and moe tol {MP_F64_TOL}); |got - one process| / |one process - "
         f"start| {rel} (flash tol {MP_FLASH_REL_TOL}); max relative loss diff {dloss} (flash "
@@ -4960,15 +5020,17 @@ def mp_phase(card):
     os.makedirs("build", exist_ok=True)
     out = os.path.abspath(os.path.join("build", "mp_gloo2.pt"))
     out4 = os.path.abspath(os.path.join("build", "mp_gloo4.pt"))
-    for f in (out, out4):
+    out8 = os.path.abspath(os.path.join("build", "mp_gloo8.pt"))
+    for f in (out, out4, out8):
         if os.path.exists(f):
             os.remove(f)
     gloo = _dist_launch("mpgloo2", 2, out)
     gloo4 = _dist_launch("mpgloo4", 4, out4)
+    gloo8 = _dist_launch("mpgloo8", 8, out8)
     try:
-        _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4, out4)
+        _mp_gloo2_check(card, gloo, out, deadline, t0, gloo4, out4, gloo8, out8)
     finally:
-        for p in gloo + gloo4:
+        for p in gloo + gloo4 + gloo8:
             if p.poll() is None:
                 p.kill()
                 p.wait()
@@ -5021,6 +5083,15 @@ MP_ITD_T7 = {"itd_tp": (["--mode", "tp", "--mesh", "dp:1,mdl:2", "--dropout", "0
                         ["--mode", "tp", "--mesh", "none", "--dropout", "0"]),
              "itd_composed": (["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2",
                                "--num_microbatches", "2"], ["--mode", "pp", "--mesh", "none"])}
+# eight gloo ranks on the card: three model axes, float64 against the same
+# one-process runs (MP_F64_TOL). Tutorial 7's program small on
+# dp:1,mdl:2,pp:2,sp:2 (Megatron inside GPipe stages, the sp ranks repeat
+# them), darts and made ITD, and the test's MoE on dp:1,ep:2,mdl:2,pp:2
+# (experts over ep, hidden columns over mdl, the pp ranks repeat them)
+M3PP_T7 = ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2,sp:2", "--num_microbatches", "2"]
+MP_MOE_M3 = ["--strategy", "tp", "--mesh", "dp:1,ep:2,mdl:2,pp:2"]
+# leg of the eight ranks -> the one-process run it is held to
+GLOO8_REFS = {"m3pp_darts": "composed_darts", "itd_m3pp": "itd_composed", "moe_m3": "moe"}
 
 
 def _t7(argv, device="cuda", dtype=None, solver="darts"):
@@ -5431,6 +5502,12 @@ def _composed_four_rank(out):
             dloss = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, want["losses"]))
             r.update(rel=rel, moved=moved, dloss=dloss, n_losses=len(losses))
         reading["legs"][leg] = r
+        if rank == 0 and leg == "composed":
+            # three_four's references: one card's default and this NCCL run
+            _, moved = _rel_apart(want["params"], want["params"], want["start"])
+            torch.save({"default": want["params"], "default_losses": want["losses"],
+                        "moved": moved, "composed": params, "composed_losses": losses},
+                       THREE_FOUR_REFS)
         del engine, params, rep
         _free()
         torch.distributed.barrier()
@@ -5480,6 +5557,106 @@ def composed_four(card):
         assert r["query_kernel"] == query and r["fc2_weight"] == fc2, r
         assert r["moved"] > 0 and r["rel"] <= rel_tol
         assert r["dloss"] <= loss_tol
+
+
+# three model axes at RoBERTa-large's widths: tutorial 7's program (PP_FULL,
+# fp32, darts, M 4) on dp:1,mdl:2,pp:2,sp:2 as eight gloo ranks, two on each
+# of the four cards (NCCL takes one rank a card): Megatron inside GPipe
+# stages over mdl x pp, the sp ranks repeating it. Held to composed_four's
+# one card's default from the same start and to its NCCL mdl:2,pp:2 run
+# (THREE_FOUR_REFS, written by composed_four's rank 0) with the bounds of
+# the composed leg; the ranks that differ only in their sp coordinate hold
+# bit-equal states
+THREE_FOUR = ["--mode", "pp", "--mesh", "dp:1,mdl:2,pp:2,sp:2", "--num_microbatches", "4"]
+THREE_FOUR_REFS = os.path.join("build", "composed_four_params.pt")
+
+
+def _three_four_rank(out):
+    """One of the eight gloo ranks of ``three_four``: the program on
+    ``mdl:2,pp:2,sp:2`` (period, peak, launches, collective calls by group of
+    a profiled period, the digest of the rank's states); rank 0 holds it to
+    the references and writes every rank's reading."""
+    import torch
+    from betty_tpu_torch import parallel
+    from betty_tpu_torch.utils import tree_leaves
+
+    parallel.maybe_init_distributed("cuda", backend="gloo", timeout=DIST_OP_TIMEOUT)
+    rank = torch.distributed.get_rank()
+    params, losses, periods, peak, engine, rep, calls = _pp_north_run("three", THREE_FOUR)
+    mesh = engine.mesh
+    state = engine.states["classifier"]["params"]
+    r = {"rank": rank, "card": torch.cuda.current_device(), "periods": periods,
+         "peak_mib": peak / 2**20, "calls": calls, "busy_ms": rep.get("busy_ms"),
+         "wall_ms": rep.get("wall_ms"), "launches": rep.get("launches"),
+         "query_kernel": list(state["blocks.attn.query.kernel"].shape),
+         "fc2_weight": list(state["blocks.fc2.weight"].shape),
+         "place": [mesh.axis_index(a) for a in ("mdl", "pp")], "digest": _state_digest(engine),
+         "finite": all(math.isfinite(x) for x in losses)}
+    del engine, rep
+    _free()
+    readings = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(readings, r)
+    if rank == 0:
+        refs = torch.load(THREE_FOUR_REFS, weights_only=True)
+        moved = refs["moved"]
+        for name in ("default", "composed"):
+            apart = math.sqrt(sum(float(((g.double() - w.double()) ** 2).sum())
+                                  for n in refs[name] for g, w in
+                                  zip(tree_leaves(params[n]), tree_leaves(refs[name][n]))))
+            readings[0][f"rel_{name}"] = apart / moved
+            readings[0][f"dloss_{name}"] = max(abs(a - b) / max(abs(b), 1e-30) for a, b in
+                                               zip(losses, refs[f"{name}_losses"]))
+            readings[0][f"n_{name}"] = len(refs[f"{name}_losses"])
+        readings[0].update(moved=moved, n_losses=len(losses))
+        with open(out, "w") as f:
+            json.dump(readings, f)
+    torch.distributed.barrier()
+
+
+def three_four(card):
+    """``--mp-four``'s three-axis leg (after ``composed_four``, whose
+    references it reads): eight gloo ranks, two a card. The period is gloo's
+    (every collective through the host), not comparable with NCCL's."""
+    tag = "[three four]"
+    out = os.path.abspath(os.path.join("build", "three_four.json"))
+    if os.path.exists(out):
+        os.remove(out)
+    try:
+        _dist_wait(tag, _dist_launch("threefour", 8, out), time.time() + 2 * DIST_TIMEOUT)
+    finally:
+        if os.path.exists(THREE_FOUR_REFS):
+            os.remove(THREE_FOUR_REFS)
+    with open(out) as f:
+        readings = json.load(f)
+    for r in readings:
+        log(f"{tag} [{card}] rank {r['rank']} (card {r['card']}, mdl/pp {r['place']}): "
+            f"meta-periods {r['periods']} s (gloo through the host: not comparable with "
+            f"NCCL's), peak {r['peak_mib'] / 1024:.2f} GiB, query kernel {r['query_kernel']}, "
+            f"fc2 weight {r['fc2_weight']}, busy {r['busy_ms']} of {r['wall_ms']} ms, "
+            f"{r['launches']} launches; collective calls in the profiled period {r['calls']}")
+    r = readings[0]
+    for name in ("default", "composed"):
+        log(f"{tag} [{card}] dp:1,mdl:2,pp:2,sp:2 against {name}: |three - {name}| / |default "
+            f"- start| {r[f'rel_{name}']:.4e} (bound {COMPOSED_NORTH_REL_TOL}; |default - "
+            f"start| {r['moved']:.4e}), {r['n_losses']} losses, max relative loss diff "
+            f"{r[f'dloss_{name}']:.3e} (bound {COMPOSED_NORTH_LOSS_TOL})")
+    by_place = {}
+    for x in readings:
+        by_place.setdefault(tuple(x["place"]), set()).add(x["digest"])
+    log(f"{tag} [{card}] distinct states by (mdl, pp) coordinate: "
+        f"{ {k: len(v) for k, v in by_place.items()} } (the sp replicas bit-equal: 1 each)")
+    assert all(x["finite"] for x in readings)
+    assert len(by_place) == 4 and all(len(v) == 1 for v in by_place.values()), by_place
+    assert r["query_kernel"] == [12, 1024, 8, 64] and r["fc2_weight"] == [12, 1024, 2048], r
+    # no collective over a group that holds sp (the whole model group does),
+    # and no sequence gather
+    assert not [k for x in readings for k in x["calls"]
+                if set(k.partition(":")[2].split("+")) & {"sp", "model"}
+                or k == "seq_gather"], readings
+    assert r["moved"] > 0 and r["n_losses"] == r["n_default"] == r["n_composed"]
+    for name in ("default", "composed"):
+        assert r[f"rel_{name}"] <= COMPOSED_NORTH_REL_TOL
+        assert r[f"dloss_{name}"] <= COMPOSED_NORTH_LOSS_TOL
 
 
 # ITD at RoBERTa-large's widths: tutorial 7's program with the classifier
@@ -5844,7 +6021,8 @@ def main(argv=None):
                     help="one rank of the dist phase (run by the dist phase itself)")
     ap.add_argument("--mp-four", action="store_true",
                     help="only the four-card runs: the composed mdl:2,pp:2 mesh, Megatron-SP "
-                         "(darts and ITD), pp, sp, tp and ep (needs four cards)")
+                         "(darts and ITD), three model axes, pp, sp, tp and ep (needs four "
+                         "cards)")
     args = ap.parse_args(argv)
     if args.dist_worker:
         return dist_worker(*args.dist_worker)
@@ -5874,8 +6052,9 @@ def main(argv=None):
         assert torch.cuda.device_count() >= 4, "--mp-four needs four cards"
         os.makedirs("build", exist_ok=True)
         seconds = {}
-        for name, leg in (("composed", composed_four), ("itd", itd_four), ("pp", pp_four),
-                          ("mp", mp_four)):
+        # three_four reads the references composed_four writes
+        for name, leg in (("composed", composed_four), ("three", three_four),
+                          ("itd", itd_four), ("pp", pp_four), ("mp", mp_four)):
             t0 = time.time()
             leg(card)
             seconds[name] = round(time.time() - t0, 1)

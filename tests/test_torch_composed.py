@@ -16,8 +16,8 @@ programs within 1e-10 of JAX and 1e-12 of the port's one-process run,
 blocks whole over ``mdl``), the shards and Adam moments held, compiled
 blocks against driver mode and a run cut and auto-resumed, bit for bit. In
 process: the layouts, the mesh's coordinates and views, the (dp, pp, ep)
-replication of tests/test_composed.py:285-306 and the compositions left
-uncomputed, each raising with its ROADMAP entry named.
+replication of tests/test_composed.py:285-306 and the meshes with three
+model axes accepted.
 
 ``tests/torch_composed_impl.py`` runs the ranks; the JAX references are
 ``tests/torch_pp_impl.py``'s, started side by side with them (one launch
@@ -38,6 +38,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 import torch_composed_impl as ci  # noqa: E402
 import torch_pp_impl as ppi  # noqa: E402
+from torch_parallel_impl import world_of_one  # noqa: E402
 
 GROUPS = tuple(ci.GROUPS)
 CASES = [(g, p) for g in GROUPS for p in ci.GROUP_PROGRAMS[g]]
@@ -108,7 +109,7 @@ def test_composed_cut_and_auto_resumed_equals_uninterrupted(runs):
 
 
 # ---------------------------------------------------------------------------
-# in process: layouts, the mesh, the compositions left uncomputed
+# in process: layouts, the mesh, the meshes of three model axes
 # ---------------------------------------------------------------------------
 
 
@@ -193,12 +194,16 @@ def test_strategy_pp_ep_replicate_non_matching_problems():
 
 
 def test_uncomputed_compositions_raise_naming_the_roadmap():
-    """Three model axes raise ``NotImplementedError`` naming ROADMAP.md
-    §A.8, before any collective; a module built for ``sp`` beside a second
-    model axis and the MoE beside one build and run
-    (tests/test_torch_composed_sp_moe.py holds their values), and an ITD
-    replay on two model axes runs (tests/test_torch_itd_parallel.py holds
-    its values on the shards); nothing falls back."""
+    """Three and four model axes are accepted (``EngineConfig``,
+    ``check_axes``; tests/test_torch_three_axes*.py and
+    test_torch_four_axes.py hold their values on eight and sixteen ranks),
+    and a malformed mesh still raises ``ValueError``; a one-process
+    ``make_mesh`` of such a mesh can only say that it does not cover the
+    world. A module built for ``sp`` beside a second model axis and the MoE
+    beside one build and run (tests/test_torch_composed_sp_moe.py holds
+    their values), and an ITD replay on two model axes runs
+    (tests/test_torch_itd_parallel.py holds its values on the shards);
+    nothing falls back."""
     from betty_tpu_torch import optim
     from betty_tpu_torch.models import init_moe_params, moe_ffn
     from betty_tpu_torch.module import from_fn
@@ -216,10 +221,13 @@ def test_uncomputed_compositions_raise_naming_the_roadmap():
     assert y.shape == (16, 8)
     for shape in ((("dp", 1), ("mdl", 2), ("pp", 2), ("sp", 2)),
                   (("dp", 1), ("mdl", 2), ("ep", 2), ("pp", 2))):
-        with pytest.raises(NotImplementedError, match="three model axes.*§A.8"):
-            EngineConfig(strategy="tp", mesh_shape=shape)
-        with pytest.raises(NotImplementedError, match="§A.8"):
-            parallel.make_mesh(shape)
+        assert EngineConfig(strategy="tp", mesh_shape=shape).mesh_shape == shape
+        parallel.mesh.check_axes(shape)
+        with pytest.raises(ValueError, match="different model axes"):
+            EngineConfig(strategy="tp", mesh_shape=shape + (("pp", 2),))
+        with world_of_one():
+            with pytest.raises(ValueError, match="does not cover"):
+                parallel.make_mesh(shape)
 
     class Inner(IterativeProblem):
         def training_step(self, batch):

@@ -34,6 +34,7 @@ from betty_tpu_torch.parallel.pipeline import gpipe, sequential
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 import torch_pp_impl as ppi  # noqa: E402
+from torch_parallel_impl import world_of_one  # noqa: E402
 
 GROUPS = ("pp2", "dp2pp2")
 PROGRAMS = ("pp:darts", "tp:darts", "pp:cg_jvp", "pp:cg_vjp")
@@ -144,15 +145,20 @@ def test_pp_rules_shard_the_stacked_blocks_only():
 
 
 def test_composed_mesh_raises_naming_the_roadmap():
-    """The ``dp x mdl x pp`` composition is computed (tests/test_torch_composed.py);
-    three model axes still raise, naming ROADMAP.md §A.8."""
+    """The ``dp x mdl x pp`` composition is computed (tests/test_torch_composed.py),
+    and so is ``dp x mdl x pp x sp`` (tests/test_torch_three_axes.py): the
+    mesh is accepted, a one-process ``make_mesh`` of it says it does not
+    cover the world, and a malformed mesh still raises."""
     composed = (("dp", 2), ("mdl", 2), ("pp", 2))
     assert EngineConfig(strategy="tp", mesh_shape=composed).mesh_shape == composed
     three = composed + (("sp", 2),)
-    with pytest.raises(NotImplementedError, match="§A.8.*compositions left uncomputed"):
-        EngineConfig(strategy="tp", mesh_shape=three)
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        parallel.make_mesh(three)
+    assert EngineConfig(strategy="tp", mesh_shape=three).mesh_shape == three
+    parallel.mesh.check_axes(three)
+    with pytest.raises(ValueError, match="different model axes"):
+        EngineConfig(strategy="tp", mesh_shape=(("sp", 2),) + three)
+    with world_of_one():
+        with pytest.raises(ValueError, match="does not cover"):
+            parallel.make_mesh(three)
 
 
 def test_gpipe_checks_depth_and_batch():

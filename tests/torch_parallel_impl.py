@@ -29,6 +29,7 @@ Every loader is unshuffled, so that the ranks' local batches (examples
 """
 
 import json
+import contextlib
 import os
 import sys
 import time
@@ -155,6 +156,25 @@ def jax_mwn_engine(batch):
     engine.states = _f64_jax(engine.states)
     torch_mwn_impl._f64_loaders(engine.problems)
     return engine
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A gloo world of one over an in-process store for the scope (what a
+    ``make_mesh`` without a process group joins; on the CPU over gloo),
+    taken down after if the scope made it."""
+    import torch.distributed as dist
+
+    from betty_tpu_torch import parallel
+
+    made = not dist.is_initialized()
+    if made:
+        parallel.maybe_init_distributed("cpu")
+    try:
+        yield
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def hand_over(path, tensors):
