@@ -20,8 +20,8 @@ schedule as compiled blocks (on CUDA one graph replay a meta-period).
 are kept and B1/B3 is not replayed), ``minimal`` (everything replayed, the
 flash forward included) or ``dots`` (matmul outputs kept); see
 ``models/transformer.py``. ``--checkpoint_dir`` saves an engine checkpoint
-whenever the dev accuracy improves (``SST2Engine.validation``; the
-synthetic data has no dev split, so set ``engine.dev_data``).
+whenever the dev accuracy improves (``SST2Engine.validation``, which reads
+the dev split that ``--data-dir`` loads; the synthetic data has none).
 ``--strategy dp|distributed|zero|fsdp`` runs one process a rank
 (``torchrun --nproc_per_node N -m betty_tpu_torch.examples.bert_data_reweighting
 --strategy fsdp``, or the ``BETTY_*`` variables), each rank loading
@@ -37,11 +37,30 @@ each of the ``dp`` ranks loading ``--batch_size`` examples:
     torchrun --nproc_per_node 4 -m betty_tpu_torch.examples.bert_data_reweighting \
         --model large --flash --strategy tp --mesh mdl:4
 
-Not ported yet: real SST-2 (``--data-dir``) and HuggingFace checkpoints
-(``--hf_model``).
+``--data-dir`` reads SST-2 (the JAX example's ``load_sst2`` and
+``split_imbalanced``, array for array): a GLUE-style directory of
+``train.tsv`` and ``dev.tsv`` (label and sentence in either column order,
+header rows skipped) or an ``.npz`` of token ids ``x_train``, ``y_train``,
+``x_dev``, ``y_dev``. The sentences go through the HuggingFace tokenizer
+at ``<data-dir>/tokenizer`` when that directory exists and
+``transformers`` loads it, else through ``hashed_tokenize`` (whitespace
+words hashed by ``zlib.crc32``); the engine logs which one it used and
+keeps its name in ``engine.tokenizer``. The train set is split into a
+balanced meta set of ``--num_meta`` rows and a long-tail train set
+(``--imbalance``); the dev set feeds ``validation``:
+
+    python -m betty_tpu_torch.examples.bert_data_reweighting --model large --flash \
+        --data-dir ~/glue/SST-2 --valid_step 500 --checkpoint_dir ckpt
+
+Left out: ``--hf_model`` (a HuggingFace Flax checkpoint through
+``transformers``, which the card's machine does not have), ``--donate``
+(JAX buffer donation; the port has no counterpart) and ``--rng_impl``
+(JAX's PRNG choice; the port's streams are splitmix by design).
 """
 
 import argparse
+import os
+import zlib
 
 import numpy as np
 import torch
@@ -50,6 +69,7 @@ import torch.nn.functional as F
 from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.data import ArrayLoader
 from betty_tpu_torch.examples.vision_data import problem_accuracy
+from betty_tpu_torch.logging import get_logger
 from betty_tpu_torch.models import MetaWeightNet, TransformerClassifier, roberta_large_config
 from betty_tpu_torch.module import from_torch
 
@@ -75,6 +95,100 @@ def make_synthetic_sst2(n, seq_len, vocab, seed=0, imbalance=10, signal=1.0):
     return ids, labels
 
 
+def hashed_tokenize(sentences, vocab, seq_len):
+    """Token ids without a vocabulary file: lower-cased whitespace words
+    hashed by ``zlib.crc32`` into ``[2, vocab)``, after a cls id 1, padded
+    with 0 to ``seq_len`` (int32)."""
+    ids = np.zeros((len(sentences), seq_len), np.int32)
+    ids[:, 0] = 1
+    for i, s in enumerate(sentences):
+        for j, t in enumerate(str(s).lower().split()[:seq_len - 1]):
+            ids[i, j + 1] = 2 + (zlib.crc32(t.encode()) % (vocab - 2))
+    return ids
+
+
+def _is_npz(data_dir):
+    return os.path.isfile(data_dir) and data_dir.endswith(".npz")
+
+
+def _read_tsv(path):
+    """(sentences, int32 labels) of a TSV whose numeric label is in either
+    column; rows without one (headers) are skipped."""
+    labels, sents = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t", 1)
+            if len(parts) != 2:
+                continue
+            if parts[0].strip().isdigit():  # label<TAB>sentence
+                labels.append(int(parts[0]))
+                sents.append(parts[1])
+            elif parts[1].strip().isdigit():  # sentence<TAB>label (GLUE's order)
+                labels.append(int(parts[1]))
+                sents.append(parts[0])
+    if not labels:
+        raise ValueError(
+            f"{os.path.basename(path)}: no parseable rows — expected TSV with a numeric "
+            "label column in either position (header rows are skipped)")
+    return sents, np.asarray(labels, np.int32)
+
+
+def sst2_tokenizer(data_dir, vocab, seq_len):
+    """``(name, tokenize)``: the HuggingFace tokenizer saved at
+    ``<data_dir>/tokenizer`` when that directory exists and ``transformers``
+    loads it (local files only), else ``hashed_tokenize``."""
+    path = os.path.join(data_dir, "tokenizer")
+    if os.path.isdir(path):
+        try:
+            from transformers import AutoTokenizer
+
+            tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        except Exception as e:  # no transformers, or not a tokenizer directory
+            get_logger().info(f"{path}: not loaded ({type(e).__name__}: {e})")
+        else:
+            def tokenize(sents):
+                out = tok(sents, max_length=seq_len, padding="max_length", truncation=True)
+                return np.asarray(out["input_ids"], np.int32)
+
+            return f"huggingface:{path}", tokenize
+    return "hashed", lambda sents: hashed_tokenize(sents, vocab, seq_len)
+
+
+def load_sst2(data_dir, vocab, seq_len, tokenizer=None):
+    """``(x_train, y_train, x_dev, y_dev)`` int32 arrays from an npz of
+    token ids or a directory of ``train.tsv`` and ``dev.tsv``, tokenized by
+    ``tokenizer`` (``sst2_tokenizer``'s pair; by default its choice)."""
+    if _is_npz(data_dir):
+        d = np.load(data_dir)
+        return tuple(d[k].astype(np.int32) for k in ("x_train", "y_train", "x_dev", "y_dev"))
+    _, tokenize = tokenizer or sst2_tokenizer(data_dir, vocab, seq_len)
+    s_tr, y_tr = _read_tsv(os.path.join(data_dir, "train.tsv"))
+    s_dev, y_dev = _read_tsv(os.path.join(data_dir, "dev.tsv"))
+    return tokenize(s_tr), y_tr, tokenize(s_dev), y_dev
+
+
+def split_imbalanced(x, y, imbalance_factor, num_meta_total=200, seed=1):
+    """A balanced meta split of ``num_meta_total`` rows and a long-tail
+    train subsample (class 1 cut by ``imbalance_factor``, each class
+    truncated to what it has), both drawn from ``RandomState(seed)`` as the
+    JAX example draws them."""
+    rng = np.random.RandomState(seed)
+    num_classes = 2
+    num_meta = num_meta_total // num_classes
+    sample_num = (len(y) - num_meta_total) // num_classes
+    counts = [int(sample_num / imbalance_factor ** (c / (num_classes - 1)))
+              for c in range(num_classes)]
+    idx_meta, idx_train = [], []
+    for c in range(num_classes):
+        idx_c = np.flatnonzero(y == c)
+        rng.shuffle(idx_c)
+        idx_meta.extend(idx_c[:num_meta])
+        idx_train.extend(idx_c[num_meta:][:counts[c]])
+    idx_meta, idx_train = np.asarray(idx_meta), np.asarray(idx_train)
+    rng.shuffle(idx_train)
+    return x[idx_train], y[idx_train], x[idx_meta], y[idx_meta]
+
+
 class Reweight(ImplicitProblem):
     def training_step(self, batch):
         input_ids, labels = batch
@@ -95,10 +209,12 @@ class Classifier(ImplicitProblem):
 
 
 class SST2Engine(Engine):
-    """Dev-accuracy validation (when a dev set exists), saving a checkpoint
-    into ``checkpoint_dir`` on each improvement."""
+    """Dev-accuracy validation (when a dev set exists: ``--data-dir`` sets
+    ``dev_data``), saving a checkpoint into ``checkpoint_dir`` on each
+    improvement."""
 
     dev_data = None
+    tokenizer = None
     checkpoint_dir = None
     eval_batch = 256
     best_acc = -1.0
@@ -120,10 +236,24 @@ def build_engine(args, **solver_config):
     device = torch.device(args.device)
     if args.strategy != "default" or args.mesh:
         parallel.maybe_init_distributed(device)  # this rank's card, before anything is built
-    x_train, y_train = make_synthetic_sst2(args.train_size, args.seq_len, vocab, seed=0,
-                                           imbalance=args.imbalance, signal=args.signal)
-    x_meta, y_meta = make_synthetic_sst2(args.meta_size, args.seq_len, vocab, seed=1,
-                                         imbalance=1, signal=args.signal)
+    dev_data = tokenizer = None
+    if args.data_dir:
+        # every rank loads the same split; the engine shards the loaders
+        tokenizer = (None if _is_npz(args.data_dir) else
+                     sst2_tokenizer(args.data_dir, vocab, args.seq_len))
+        x_all, y_all, x_dev, y_dev = load_sst2(args.data_dir, vocab, args.seq_len, tokenizer)
+        x_train, y_train, x_meta, y_meta = split_imbalanced(x_all, y_all, args.imbalance,
+                                                            num_meta_total=args.num_meta)
+        dev_data = (x_dev, y_dev)
+        tokenizer = "token ids" if tokenizer is None else tokenizer[0]
+        get_logger().info(f"SST-2 from {args.data_dir} ({tokenizer}): train rows per class "
+                          f"{np.bincount(y_train, minlength=2).tolist()}, meta "
+                          f"{np.bincount(y_meta, minlength=2).tolist()}, dev {len(y_dev)}")
+    else:
+        x_train, y_train = make_synthetic_sst2(args.train_size, args.seq_len, vocab, seed=0,
+                                               imbalance=args.imbalance, signal=args.signal)
+        x_meta, y_meta = make_synthetic_sst2(args.meta_size, args.seq_len, vocab, seed=1,
+                                             imbalance=1, signal=args.signal)
     if args.flash and args.hypergradient in ("cg", "neumann"):
         raise ValueError("--flash runs reverse-mode-only kernels; CG/Neumann need the "
                          "plain attention — drop --flash or use darts/sama")
@@ -168,6 +298,7 @@ def build_engine(args, **solver_config):
         dependencies={"u2l": {reweight: [classifier]}, "l2u": {classifier: [reweight]}},
         device=device,
     )
+    engine.dev_data, engine.tokenizer = dev_data, tokenizer
     engine.checkpoint_dir = args.checkpoint_dir
     return engine
 
@@ -217,6 +348,10 @@ def parse_args(argv=None):
     p.add_argument("--device_data", action="store_true",
                    help="keep the datasets on the device and gather batches there")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--data-dir", dest="data_dir", type=str, default=None,
+                   help="SST-2 TSV directory or npz of token ids; synthetic if unset")
+    p.add_argument("--num_meta", type=int, default=200,
+                   help="rows of the balanced meta set split off the real train set")
     p.add_argument("--checkpoint_dir", type=str, default=None,
                    help="save an engine checkpoint on validation improvement")
     return p.parse_args(argv)

@@ -11,17 +11,23 @@ compiled period.
 
 The genotype comes from ``--genotype-file`` (JSON from either package's
 search, ``genotype_to_json``) or is the published DARTS_V2. Synthetic
-CIFAR-shaped data; the test accuracy of each validation is on 1024
-synthetic images.
+CIFAR-shaped data by default, the test accuracy of each validation on 1024
+synthetic images; ``--data-dir`` reads a local CIFAR-10 copy (the pickle
+directory or an npz, ``vision_data.load_classification``): the classes
+counted from its labels, its test set for the test accuracy, and each
+training batch cropped and flipped on the host (``BatchLoader``'s
+augmentation, before cutout), as the JAX ``train.py`` does exactly when it
+is given a directory.
 
     python -m betty_tpu_torch.examples.nas_eval --auxiliary --cutout
     python -m betty_tpu_torch.examples.nas_eval --device cpu --init_channels 4 \\
         --layers 4 --batch_size 8 --train_size 32 --epochs 2 --auxiliary
+    python -m betty_tpu_torch.examples.nas_eval --data-dir ~/cifar10 --auxiliary --cutout
 
 ``--compile_blocks`` runs the steps as compiled blocks (on CUDA one graph
 replay a step); ``--checkpoint_dir`` saves an engine checkpoint whenever
-the test accuracy improves. Not ported: real CIFAR-10 (``--data-dir``) and
-logger types other than ``none`` and ``stdout``.
+the test accuracy improves; ``--logger tensorboard|wandb`` logs through
+``betty_tpu_torch.logging``'s sinks (stdout when their package is missing).
 """
 
 import argparse
@@ -32,7 +38,7 @@ import torch.nn.functional as F
 
 from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
 from betty_tpu_torch.examples.learning_to_reweight import BatchLoader, make_synthetic_cifar
-from betty_tpu_torch.examples.vision_data import problem_accuracy
+from betty_tpu_torch.examples.vision_data import load_classification, problem_accuracy
 from betty_tpu_torch.models.darts import DARTS_V2, DARTSEvalNetwork, genotype_from_json
 from betty_tpu_torch.module import from_torch
 from betty_tpu_torch.utils import require_device
@@ -122,17 +128,22 @@ def build_engine(args):
     device = require_device(args.device, "nas_eval")
     genotype = (genotype_from_json(Path(args.genotype_file).read_text())
                 if args.genotype_file else DARTS_V2)
-    x_tr, y_tr = make_synthetic_cifar(args.train_size, seed=0)
-    x_te, y_te = make_synthetic_cifar(1024, seed=9)
+    if args.data_dir:
+        x_tr, y_tr, x_te, y_te = load_classification(args.data_dir)
+        num_classes = int(y_tr.max()) + 1
+    else:
+        x_tr, y_tr = make_synthetic_cifar(args.train_size, seed=0)
+        x_te, y_te = make_synthetic_cifar(1024, seed=9)
+        num_classes = 10
     steps_per_epoch = max(len(x_tr) // args.batch_size, 1)
     total_steps = steps_per_epoch * args.epochs
 
     net = DARTSEvalNetwork(genotype, channels=args.init_channels, layers=args.layers,
-                           num_classes=10, auxiliary=args.auxiliary, device=device,
+                           num_classes=num_classes, auxiliary=args.auxiliary, device=device,
                            seed=args.seed)
     loader = EvalLoader(x_tr, y_tr, args.batch_size, drop_path_prob=args.drop_path_prob,
                         epochs=args.epochs, cutout_length=args.cutout_length if args.cutout else 0,
-                        seed=args.seed)
+                        augment=args.data_dir is not None, seed=args.seed)
     network = Network(
         "network",
         module=from_torch(net, rng_names=("dropout", "droppath")),
@@ -156,7 +167,11 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--genotype-file", dest="genotype_file", type=str, default=None,
                    help="JSON genotype from the search phase (default: DARTS_V2)")
-    p.add_argument("--train_size", type=int, default=512, help="synthetic dataset size")
+    p.add_argument("--data-dir", dest="data_dir", type=str, default=None,
+                   help="CIFAR-10 pickle directory or npz (augmented on the host); "
+                        "synthetic if unset")
+    p.add_argument("--train_size", type=int, default=512,
+                   help="synthetic dataset size when no --data-dir")
     p.add_argument("--batch_size", type=int, default=96)
     p.add_argument("--epochs", type=int, default=600)
     p.add_argument("--init_channels", type=int, default=36)

@@ -10,10 +10,14 @@ classifier's own step keeps the supernet's running statistics
 (``Problem.forward``). The defaults are DARTS's search settings (16
 channels, 8 cells, batch 64, SGD 0.025 with momentum 0.9, weight decay
 3e-4 and a cosine LR; Adam 3e-4 with betas (0.5, 0.999) and weight decay
-1e-3 on the alphas; unroll 1). Synthetic CIFAR-shaped data; the derived
-genotype is logged at each validation and written by ``--genotype-out`` as
-JSON, which ``examples/nas_eval.py`` (and the JAX package's ``train.py``)
-read.
+1e-3 on the alphas; unroll 1). Synthetic CIFAR-shaped data by default;
+``--data-dir`` reads a local CIFAR-10 copy (the pickle directory or an
+npz, ``vision_data.load_classification``), whose train set's first half
+trains the weights and second half the architecture, and whose test set
+gives ``test_acc`` at each validation (whole batches only, as the JAX
+search counts). The derived genotype is logged at each validation and
+written by ``--genotype-out`` as JSON, which ``examples/nas_eval.py`` (and
+the JAX package's ``train.py``) read.
 
     python -m betty_tpu_torch.examples.neural_architecture_search
     python -m betty_tpu_torch.examples.neural_architecture_search --device cpu \\
@@ -21,9 +25,10 @@ read.
 
 ``--compile_blocks`` runs the steady schedule as compiled blocks (on CUDA
 one graph replay a meta-period); ``--checkpoint_dir`` with
-``--checkpoint_step`` saves engine checkpoints there. Not ported: real
-CIFAR-10 (``--data-dir``), which waits for its files to be in the
-repository.
+``--checkpoint_step`` saves engine checkpoints there.
+
+    python -m betty_tpu_torch.examples.neural_architecture_search --data-dir ~/cifar10 \
+        --genotype-out genotype.json
 """
 
 import argparse
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 
 from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim
 from betty_tpu_torch.examples.learning_to_reweight import BatchLoader, make_synthetic_cifar
+from betty_tpu_torch.examples.vision_data import load_classification, problem_accuracy
 from betty_tpu_torch.models.darts import (DARTSNetwork, derive_genotype, genotype_to_json,
                                           init_alphas)
 from betty_tpu_torch.module import from_fn, from_torch
@@ -59,22 +65,46 @@ class Classifier(ImplicitProblem):
         return {"loss": loss, "acc": acc}
 
 
+def split_search_data(data_dir):
+    """``(train, arch, test)`` pairs of a CIFAR copy: the first half of the
+    train set trains the weights, the second half the architecture."""
+    x_all, y_all, x_test, y_test = load_classification(data_dir)
+    half = len(y_all) // 2
+    return ((x_all[:half], y_all[:half]), (x_all[half:], y_all[half:]), (x_test, y_test))
+
+
 class SearchEngine(Engine):
-    """Validation: the derived genotype (logged) and the arch's loss on its
-    current batch."""
+    """Validation: the derived genotype (logged), the test accuracy (with a
+    test set) and the arch's loss on its current batch."""
+
+    test_data = None  # (x, y) with --data-dir
+    eval_batch = 256
 
     def validation(self):
         genotype = derive_genotype(self.arch.params)
         self.logger.info(f"genotype = {genotype}")
+        out = {}
+        if self.test_data is not None:
+            x, y = self.test_data
+            # whole batches only, as the JAX search counts
+            n = len(y) - len(y) % min(self.eval_batch, len(y))
+            alphas = self.arch.params
+            out["test_acc"] = problem_accuracy(lambda xb: self.classifier(xb, alphas), x[:n],
+                                               y[:n], batch=self.eval_batch, device=self.device)
         ctx = {n: {"params": s["params"], "extra": s["extra"]} for n, s in self.states.items()}
         loss, _, _ = self.arch.eval_loss(ctx, self.arch.cur_batch)
-        return {"loss": loss}
+        out["loss"] = loss
+        return out
 
 
 def build_engine(args):
     device = require_device(args.device, "neural_architecture_search")
-    x_train, y_train = make_synthetic_cifar(args.train_size, seed=0)
-    x_val, y_val = make_synthetic_cifar(args.train_size, seed=1)
+    test_data = None
+    if args.data_dir:
+        (x_train, y_train), (x_val, y_val), test_data = split_search_data(args.data_dir)
+    else:
+        x_train, y_train = make_synthetic_cifar(args.train_size, seed=0)
+        x_val, y_val = make_synthetic_cifar(args.train_size, seed=1)
 
     net = DARTSNetwork(channels=args.channels, layers=args.layers, num_classes=10,
                        device=device, seed=0)
@@ -98,9 +128,12 @@ def build_engine(args):
                           roll_back=True, compile_blocks=args.compile_blocks,
                           checkpoint_step=args.checkpoint_step,
                           checkpoint_dir=args.checkpoint_dir)
-    return SearchEngine(config=config, problems=[arch, classifier],
-                        dependencies={"u2l": {arch: [classifier]}, "l2u": {classifier: [arch]}},
-                        device=device)
+    engine = SearchEngine(config=config, problems=[arch, classifier],
+                          dependencies={"u2l": {arch: [classifier]},
+                                        "l2u": {classifier: [arch]}},
+                          device=device)
+    engine.test_data = test_data
+    return engine
 
 
 def parse_args(argv=None):
@@ -115,6 +148,8 @@ def parse_args(argv=None):
     p.add_argument("--valid_step", type=int, default=50)
     p.add_argument("--train_size", type=int, default=1024)
     p.add_argument("--log_step", type=int, default=-1)
+    p.add_argument("--data-dir", dest="data_dir", type=str, default=None,
+                   help="CIFAR-10 pickle directory or npz; synthetic if unset")
     p.add_argument("--genotype-out", dest="genotype_out", type=str, default=None,
                    help="write the final genotype as JSON (read by examples/nas_eval.py)")
     p.add_argument("--compile_blocks", action="store_true",

@@ -27,6 +27,10 @@ B32), SGD 0.025 with momentum 0.9 and weight decay 3e-4 (no schedule),
 Adam 3e-4 with betas (0.5, 0.999) and weight decay 1e-3 on the alphas,
 unroll 1, no roll-back, ``lambda_j`` 0.1, ``lambda_c`` 0.01, synthetic
 CIFAR-shaped data. ``--arch mlp`` is the light backbone (``MixMLP``).
+``--data-dir`` reads a local CIFAR-10 copy (the pickle directory or an
+npz) split as the DARTS search splits it (first half of the train set for
+the weights, second half for the architecture), and each validation
+reports ``test_acc`` on its test set.
 
     python -m betty_tpu_torch.examples.robust_nas
     python -m betty_tpu_torch.examples.robust_nas --device cpu --channels 2 --layers 1 \\
@@ -35,9 +39,7 @@ CIFAR-shaped data. ``--arch mlp`` is the light backbone (``MixMLP``).
 ``--compile_blocks`` runs the steady schedule as compiled blocks (on CUDA
 one graph replay a meta-period, the Jacobian directions' generator in the
 graph's reseeded pool); ``--checkpoint_dir`` with ``--checkpoint_step``
-saves engine checkpoints there. Not ported: real CIFAR-10 (``--data-dir``)
-and the test accuracy it feeds, which wait for the files to be in the
-repository.
+saves engine checkpoints there.
 """
 
 import argparse
@@ -48,6 +50,8 @@ import torch.nn.functional as F
 
 from betty_tpu_torch import Config, Engine, EngineConfig, ImplicitProblem, optim, parallel
 from betty_tpu_torch.examples.learning_to_reweight import BatchLoader, make_synthetic_cifar
+from betty_tpu_torch.examples.neural_architecture_search import split_search_data
+from betty_tpu_torch.examples.vision_data import problem_accuracy
 from betty_tpu_torch.models.darts import DARTSNetwork, derive_genotype, init_alphas
 from betty_tpu_torch.models.mlp import ACTIVATIONS, dense
 from betty_tpu_torch.module import from_fn, from_torch
@@ -197,17 +201,28 @@ class MixMLP(nn.Module):
 
 
 class RobustSearchEngine(Engine):
-    """Validation logs the derived genotype."""
+    """Validation logs the derived genotype and, with a test set, reports
+    the supernet's test accuracy under the current alphas."""
+
+    test_data = None  # (x, y) with --data-dir
 
     def validation(self):
         self.logger.info(f"genotype = {derive_genotype(self.arch.params)}")
-        return {}
+        if self.test_data is None:
+            return {}
+        alphas = self.arch.params
+        return {"test_acc": problem_accuracy(lambda xb: self.classifier(xb, alphas),
+                                             *self.test_data, device=self.device)}
 
 
 def build_engine(args):
     device = require_device(args.device, "robust_nas")
-    x_train, y_train = make_synthetic_cifar(args.train_size, seed=0)
-    x_val, y_val = make_synthetic_cifar(args.train_size, seed=1)
+    test_data = None
+    if args.data_dir:
+        (x_train, y_train), (x_val, y_val), test_data = split_search_data(args.data_dir)
+    else:
+        x_train, y_train = make_synthetic_cifar(args.train_size, seed=0)
+        x_val, y_val = make_synthetic_cifar(args.train_size, seed=1)
 
     if args.arch == "mlp":
         net = MixMLP(device=device, generator=torch.Generator(device=device).manual_seed(0))
@@ -234,10 +249,12 @@ def build_engine(args):
                           compile_blocks=args.compile_blocks,
                           checkpoint_step=args.checkpoint_step,
                           checkpoint_dir=args.checkpoint_dir)
-    return RobustSearchEngine(config=config, problems=[arch, classifier],
-                              dependencies={"u2l": {arch: [classifier]},
-                                            "l2u": {classifier: [arch]}},
-                              device=device)
+    engine = RobustSearchEngine(config=config, problems=[arch, classifier],
+                                dependencies={"u2l": {arch: [classifier]},
+                                              "l2u": {classifier: [arch]}},
+                                device=device)
+    engine.test_data = test_data
+    return engine
 
 
 def parse_args(argv=None):
@@ -255,6 +272,8 @@ def parse_args(argv=None):
     p.add_argument("--valid_step", type=int, default=50)
     p.add_argument("--arch", default="darts", choices=["darts", "mlp"],
                    help="mlp = the light backbone (MixMLP)")
+    p.add_argument("--data-dir", dest="data_dir", type=str, default=None,
+                   help="CIFAR-10 pickle directory or npz; synthetic if unset")
     p.add_argument("--compile_blocks", action="store_true",
                    help="compiled blocks: one CUDA graph replay a meta-period")
     p.add_argument("--checkpoint_dir", type=str, default=None,

@@ -23,14 +23,15 @@ turns linear above 20). Labels are int64.
 The defaults are the JAX example's (dim 32, 5 classes, n 512, batch 64,
 ``MLP([64, 5])``, 3 PGD steps at 0.05, unroll 2 and 2, Adam 1e-3 on both
 upper problems, SGD 0.05 with momentum 0.9 on the classifier), synthetic
-Gaussian-cluster data.
+Gaussian-cluster data. ``--data-dir`` reads a classification npz
+(``x_train``, ``y_train``; rows flattened to features) and splits it into
+thirds for the classifier, the budget and the mask, in that order; ``dim``
+and ``classes`` then come from the data.
 
     python -m betty_tpu_torch.examples.saliency_aware_nas_4_level
     python -m betty_tpu_torch.examples.saliency_aware_nas_4_level --device cpu --train_iters 8
 
-``--compile_blocks`` runs the steady schedule as compiled blocks. Not
-ported: a feature npz (``--data-dir``), which waits for its files to be in
-the repository.
+``--compile_blocks`` runs the steady schedule as compiled blocks.
 """
 
 import argparse
@@ -132,9 +133,20 @@ class SanasEngine(Engine):
 
 def build_engine(args):
     device = require_device(args.device, "saliency_aware_nas_4_level")
-    x_tr, y_tr = make_data(args.n, args.dim, args.classes, 0)
-    x_v1, y_v1 = make_data(args.n, args.dim, args.classes, 1)
-    x_v2, y_v2 = make_data(args.n, args.dim, args.classes, 2)
+    if args.data_dir:
+        d = np.load(args.data_dir)
+        x = np.asarray(d["x_train"], np.float32)
+        x = x.reshape(len(x), -1)
+        y = np.asarray(d["y_train"], np.int64)
+        third = len(y) // 3
+        x_tr, y_tr = x[:third], y[:third]
+        x_v1, y_v1 = x[third:2 * third], y[third:2 * third]
+        x_v2, y_v2 = x[2 * third:], y[2 * third:]
+        args.dim, args.classes = x.shape[1], int(y.max()) + 1
+    else:
+        x_tr, y_tr = make_data(args.n, args.dim, args.classes, 0)
+        x_v1, y_v1 = make_data(args.n, args.dim, args.classes, 1)
+        x_v2, y_v2 = make_data(args.n, args.dim, args.classes, 2)
 
     # held-out data for validation(): the last 20% of the outer split never
     # enters a training loader
@@ -197,6 +209,8 @@ def parse_args(argv=None):
     p.add_argument("--train_iters", type=int, default=100)
     p.add_argument("--log_step", type=int, default=-1)
     p.add_argument("--valid_step", type=int, default=50)
+    p.add_argument("--data-dir", dest="data_dir", type=str, default=None,
+                   help="classification npz (x_train/y_train); synthetic if unset")
     p.add_argument("--compile_blocks", action="store_true",
                    help="compiled blocks: one CUDA graph replay a meta-period")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")

@@ -65,7 +65,13 @@ Phases:
    then data reweighting of the RoBERTa-large encoder (24 layers, d 1024, 16
    heads, random weights from a seed) at B32 S128 through ``build_engine``
    and ``Engine.run``: two SAMA meta-periods with ``--flash`` and one more
-   under ``torch.profiler``; two CG meta-periods (3 iterations, fused
+   under ``torch.profiler``, the engine built through ``--data-dir`` from
+   an SST-2 directory the script writes into a temporary directory
+   (GLUE's 67,349 train and 872 dev rows of seeded sentences, label first
+   in ``train.tsv``, sentence first in ``dev.tsv``; ``--num_meta 200``;
+   the tokenizer used and the kept rows per class printed), then one dev
+   validation outside the counted periods (its accuracy, finite in [0,
+   100], and its own launches: 96 B1); two CG meta-periods (3 iterations, fused
    vector loops, dropout 0.1) and one more under the profiler; two Neumann
    meta-periods (3 iterations);
 4. long: the small fp32 SAMA ``--flash`` run at S1024 on the card against
@@ -159,7 +165,12 @@ Phases:
    the evaluation phase at DARTS's CIFAR-10 settings with the depth cut
    to 8 cells (DARTS_V2 C36 L8 B96, auxiliary 0.4, drop-path 0.2, cutout
    16, grad clip 5) in both
-   modes, 1 + 1 timed steps and a profiled one. Each of its lines carries
+   modes, 1 + 1 timed steps and a profiled one, from a CIFAR-10 pickle
+   directory the script writes into a temporary directory (50,000 train
+   and 10,000 test seeded images) through ``--data-dir``: every batch
+   cropped, flipped and cut out on the host (compiled blocks copy the
+   host's batches into the graph's inputs), one ``test_acc`` on the test
+   set after driver mode's steps. Each of its lines carries
    the card's name and power limit.
 11. robust: robust NAS (``examples/robust_nas.py``: the DARTS search whose
    classifier loss adds the input-Jacobian and CURE terms, second order
@@ -350,6 +361,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -929,22 +941,76 @@ def small_run_phase(hypergradient, seq_len=16, batch=4):
     _free()
 
 
+# GLUE's SST-2: 67,349 train and 872 dev rows (the published split sizes;
+# 55.8 % and 50.9 % positive)
+SST2_ROWS = {"train.tsv": (67_349, 37_569), "dev.tsv": (872, 444)}
+
+
+def write_sst2(root, seed=0):
+    """An SST-2-layout directory at ``root`` of seeded synthetic sentences
+    at GLUE's sizes: ``train.tsv`` label first, ``dev.tsv`` sentence first
+    (GLUE's own column order), each under a header row; words from a
+    vocabulary of 20,000 made-up words, about 9 words a train row and 19 a
+    dev row, as in SST-2."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, rng.randint(2, 10))) for _ in range(20_000)]
+    os.makedirs(root, exist_ok=True)
+    for name, (n, positive) in SST2_ROWS.items():
+        labels = np.zeros(n, np.int64)
+        labels[rng.permutation(n)[:positive]] = 1
+        lengths = 1 + rng.poisson(8 if name == "train.tsv" else 18, n)
+        words = rng.randint(0, len(vocab), lengths.sum())
+        ends = np.cumsum(lengths)
+        with open(os.path.join(root, name), "w") as f:
+            f.write("label\tsentence\n" if name == "train.tsv" else "sentence\tlabel\n")
+            for y, a, b in zip(labels, ends - lengths, ends):
+                sentence = " ".join(vocab[w] for w in words[a:b])
+                f.write(f"{y}\t{sentence}\n" if name == "train.tsv" else f"{sentence}\t{y}\n")
+    return root
+
+
+def dev_validation(engine, tag):
+    """One dev validation (``SST2Engine.validation``: 872 rows at B256, the
+    tail padded) outside the counted periods; returns its accuracy and the
+    launches of the port's kernels in it alone."""
+    import torch
+
+    _reset_port_launches()
+    t0 = time.time()
+    engine.eval()
+    stats = engine.validation()
+    engine.train()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {k: n for k, n in _port_launches().items() if n}
+    log(f"{tag} dev validation: accuracy {stats['acc']} on {len(engine.dev_data[1])} rows in "
+        f"{seconds:.3f} s; launches of the port's kernels in it {launches}")
+    return stats["acc"], launches
+
+
 def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_len=128,
-                batch=32):
+                batch=32, data_dir=None):
     """Data reweighting of the RoBERTa-large encoder at B``batch``
     S``seq_len`` for ``meta_periods`` meta-periods, then (``profile``) one
     more under the profiler. Returns the launch counts of the path's kernels
     over the timed periods; ``expected`` gives exact counts to hold them
-    to."""
+    to. With ``data_dir`` (an SST-2 directory) the engine is built through
+    ``--data-dir`` (``--num_meta 200``), and one dev validation follows the
+    counted periods."""
+    import numpy as np
     import torch
     from betty_tpu_torch.examples import bert_data_reweighting as ex
 
     unroll = 5
+    data = (["--data-dir", data_dir, "--num_meta", "200"] if data_dir else
+            ["--train_size", "2048", "--meta_size", "512"])
     argv = ["--model", "large", "--hypergradient", hypergradient, "--precision", "bf16",
             "--solver_precision", "fp32", "--unroll_steps", str(unroll),
             "--batch_size", str(batch), "--seq_len", str(seq_len), "--device_data",
-            "--train_iters", str(unroll * meta_periods), "--train_size", "2048",
-            "--meta_size", "512", "--device", "cuda"]
+            "--train_iters", str(unroll * meta_periods), "--device", "cuda"] + data
     if hypergradient == "sama":
         argv.append("--flash")
     tag = f"[slice {hypergradient}{'' if seq_len == 128 else f' S{seq_len}'}]"
@@ -955,6 +1021,16 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
     n_params = sum(t.numel() for t in engine.states["classifier"]["params"].values())
     log(f"{tag} build_engine {time.time() - t0:.1f} s; classifier parameters {n_params}")
     assert n_params == roberta_large_params(max_len=seq_len), n_params
+    if data_dir:
+        x_tr, y_tr = engine.classifier.train_data_loader[0].arrays
+        y_me = engine.reweight.train_data_loader[0].arrays[1]
+        kept = np.bincount(y_tr.cpu().numpy(), minlength=2).tolist()
+        log(f"{tag} SST-2 from --data-dir: tokenizer {engine.tokenizer}; kept train rows per "
+            f"class {kept}; meta rows per class "
+            f"{np.bincount(y_me.cpu().numpy(), minlength=2).tolist()}; dev rows "
+            f"{len(engine.dev_data[1])}; train ids {tuple(x_tr.shape)} {x_tr.dtype} on "
+            f"{x_tr.device}")
+        assert kept[0] > kept[1] > 0 and len(engine.dev_data[1]) == SST2_ROWS["dev.tsv"][0]
 
     losses = {"classifier": [], "reweight": []}
     period_ends = []  # host clock after each reweight step, device synchronised
@@ -1005,6 +1081,12 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
     finite = all(bool(torch.isfinite(t).all())
                  for s in engine.states.values() for t in s["params"].values())
     assert finite, "non-finite parameters after the run"
+    if data_dir:
+        acc, val_launches = dev_validation(engine, tag)
+        # one B1 a layer for each of the dev set's batches of 256
+        want = {"flash_single_fwd": 24 * -(-SST2_ROWS["dev.tsv"][0] // 256)}
+        assert math.isfinite(acc) and 0.0 <= acc <= 100.0, acc
+        assert val_launches == want, (val_launches, want)
     if profile:
         profile_period(engine, unroll, tag)
     del engine
@@ -2603,22 +2685,53 @@ def nas_search_cell(card, warmup=1, steady=1):
     return out
 
 
-def nas_eval_cell(card, warmup=1, steady=1):
+def write_cifar10(root, seed=0):
+    """A CIFAR-10 copy at ``root`` in the layout ``load_classification``
+    reads (``cifar-10-batches-py/data_batch_1``..``5`` of 10,000 images
+    each and ``test_batch`` of 10,000: pickled dicts of uint8 rows of 3,072
+    channel-major pixels and their labels): seeded images and labels."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    sub = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(sub, exist_ok=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(sub, name), "wb") as f:
+            pickle.dump({b"data": rng.randint(0, 256, (10_000, 3072), dtype=np.uint8),
+                         b"labels": rng.randint(0, 10, 10_000).tolist()}, f)
+    return root
+
+
+def nas_eval_cell(card, warmup=1, steady=1, data_dir=None):
     """The evaluation phase at DARTS's CIFAR-10 settings (DARTS_V2, C36
     B96, auxiliary head 0.4, drop-path 0.2, cutout 16, grad clip 5,
     float32, TF32 off), depth cut from 20 cells to ``NAS_EVAL_LAYERS``:
     driver mode, then compiled blocks (one replay a step): ``warmup`` +
-    ``steady`` timed steps and one profiled each."""
+    ``steady`` timed steps and one profiled each. With ``data_dir`` (a
+    CIFAR-10 copy) both modes read it through ``--data-dir``: every batch
+    cropped, flipped and cut out on the host (compiled blocks copy the
+    host's batches into the graph's inputs), and one ``test_acc`` on its
+    10,000 test images follows driver mode's timed steps."""
     import torch
     from betty_tpu_torch.examples import nas_eval as ex
 
     steps = warmup + steady + 1
-    argv = ["--auxiliary", "--cutout", "--train_size", str(96 * steps), "--epochs", "1",
-            "--valid_every_epochs", "100", "--layers", str(NAS_EVAL_LAYERS)]
+    argv = ["--auxiliary", "--cutout", "--epochs", "1", "--valid_every_epochs", "100",
+            "--layers", str(NAS_EVAL_LAYERS)]
+    argv += (["--data-dir", data_dir] if data_dir else ["--train_size", str(96 * steps)])
+    data = "CIFAR-10 --data-dir, host crop, flip and cutout" if data_dir else "synthetic, cutout"
     out = {}
     for mode in ("driver", "compiled"):
-        tag = f"[nas eval] DARTS_V2 C36 L{NAS_EVAL_LAYERS} B96 {mode} [{card}]"
+        tag = f"[nas eval] DARTS_V2 C36 L{NAS_EVAL_LAYERS} B96 {mode} ({data}) [{card}]"
+        t0 = time.time()
         engine = _nas_engine(ex, argv, "cuda", mode == "compiled")
+        loader = engine.network.train_data_loader[0]
+        log(f"{tag}: build_engine {time.time() - t0:.1f} s; {loader.n} training images, "
+            f"host augmentation {loader.augment}, classes "
+            f"{engine.states['network']['params']['head.weight'].shape[0]}")
+        assert loader.augment == (data_dir is not None)
         # drop-path at its full 0.2: the loader's epoch past the ramp
         engine.network.train_data_loader[0].set_epoch(1)
         leaves, bns, n_params = _nas_counts(engine)
@@ -2641,6 +2754,15 @@ def nas_eval_cell(card, warmup=1, steady=1):
         assert all(n == 0 for n in ours.values()), ours
         assert all(bool(torch.isfinite(t).all())
                    for t in engine.states["network"]["params"].values())
+        if data_dir and mode == "driver":
+            t0 = time.time()
+            engine.eval()
+            stats = engine.validation()
+            engine.train()
+            out[mode]["test_acc"] = stats["test_acc"]
+            log(f"{tag} test_acc {stats['test_acc']} on {len(engine.test_data[1])} test images "
+                f"({time.time() - t0:.2f} s)")
+            assert math.isfinite(stats["test_acc"]) and 0.0 <= stats["test_acc"] <= 100.0
         del engine
         _free()
     return out
@@ -2652,7 +2774,12 @@ def nas_phase(card):
     for which in ("search", "eval"):
         nas_small_phase(which, card)
     nas_search_cell(card)
-    nas_eval_cell(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.time()
+        cifar = write_cifar10(tmp)
+        log(f"[nas eval] [{card}] wrote a CIFAR-10 pickle directory of 50,000 + 10,000 "
+            f"images in {time.time() - t1:.1f} s")
+        nas_eval_cell(card, data_dir=cifar)
     log(f"[nas] [{card}] phase done in {time.time() - t0:.1f} s")
 
 
@@ -6088,7 +6215,12 @@ def main(argv=None):
         marks.append(("slice", time.time()))
         for hypergradient in ("sama", "cg", "neumann"):
             small_run_phase(hypergradient)
-        sama = slice_phase("sama", expected=SAMA_S128)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            sst2 = write_sst2(os.path.join(tmp, "SST-2"))
+            log(f"[slice] wrote an SST-2 directory of {SST2_ROWS} rows in "
+                f"{time.time() - t0:.1f} s")
+            sama = slice_phase("sama", expected=SAMA_S128, data_dir=sst2)
         launches.update({k: sama[k] for k in SINGLE_KERNELS})
         launches.update(slice_phase("cg", expected={"fused_dot2": 2, "cg_fused_step": 6}))
         launches.update(slice_phase("neumann", expected={"neumann_fused_step": 6},

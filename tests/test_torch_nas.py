@@ -102,7 +102,6 @@ def test_cli_defaults_are_the_jax_examples(example):
     ours = vars((tnas if example == "search" else teval).parse_args([]))
     theirs = _jax_args(ROOT / "examples" / "neural_architecture_search" /
                        ("main.py" if example == "search" else "train.py"))
-    theirs.pop("data_dir")
     assert ours["device"] == "cuda"
     assert {k: ours[k] for k in theirs} == theirs
     extra = {"search": {"compile_blocks", "checkpoint_dir", "checkpoint_step"},

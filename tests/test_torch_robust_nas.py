@@ -126,7 +126,6 @@ def test_cli_defaults_are_the_jax_example():
     adds ``--device`` (cuda), compiled blocks and checkpoints."""
     ours = vars(trob.parse_args([]))
     theirs = jax_cli_defaults(ROOT / "examples" / "robust_nas" / "main.py")
-    theirs.pop("data_dir")
     assert ours["device"] == "cuda"
     assert {k: ours[k] for k in theirs} == theirs
     assert set(ours) - set(theirs) == {"device", "compile_blocks", "checkpoint_dir",

@@ -117,7 +117,6 @@ def test_compiled_equals_driver_bit_for_bit():
 def test_cli_defaults_are_the_jax_example():
     ours = vars(tsanas.parse_args([]))
     theirs = jax_cli_defaults(ROOT / "examples" / "saliency_aware_nas_4_level" / "main.py")
-    theirs.pop("data_dir")
     assert ours["device"] == "cuda"
     assert {k: ours[k] for k in theirs} == theirs
     assert set(ours) - set(theirs) == {"device", "compile_blocks"}
