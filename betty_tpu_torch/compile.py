@@ -29,6 +29,15 @@ advances by a constant every period; the warm-up periods give each its
 advance, and the capture is checked against them. A capture that fails
 raises: nothing falls back to driver mode.
 
+Under ``EngineConfig(donate_state=True)`` the runner donates the state,
+by JAX's rule (``betty_tpu/compile.py:400-409``: no ``IterativeProblem``
+and no roll-back cache, ``BlockRunner.donate``): the engine's state is
+the static state (no copy), the period's updates write into it
+(``Problem.build_update_fn(donate=True)``), so the captured graph ends with
+nothing to copy, and the warm-up periods run in place on it from a host
+copy that puts its values back before the capture. No second copy of the
+state lives on the card.
+
 An ``IterativeProblem`` child under a ``first_order=False`` parent is
 replayed inside the period as in driver mode: the period records the
 child's state at its ``inner_loop_start`` event and the batches its later
@@ -305,6 +314,11 @@ def _clone(tree):
     return utils.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
 
 
+def _host_copy(tree):
+    return utils.tree_map(lambda x: x.detach().to("cpu", copy=True)
+                          if isinstance(x, torch.Tensor) else x, tree)
+
+
 def _copy_into(static, new):
     """``static``'s tensors take ``new``'s values (same paths). An output
     that is itself a static tensor at another path is cloned first, so no
@@ -445,7 +459,9 @@ class BlockRunner:
     device one graph replay a period, on the CPU the period function
     eagerly. ``captures``, ``replays`` (CUDA) and ``periods_run`` count what
     it did; ``capture_seconds`` is the time of the warm-up periods and the
-    capture, ``warmup_seconds`` the warm-up periods' part of it."""
+    capture, ``warmup_seconds`` the warm-up periods' part of it. ``donate``:
+    the state is updated in place (``EngineConfig.donate_state`` under
+    JAX's rule)."""
 
     def __init__(self, engine, periods: int = 1, schedule_only: bool = False):
         self.engine = engine
@@ -482,6 +498,10 @@ class BlockRunner:
                     and (engine.mesh is None or engine.mesh.world == 1)):
                 self.fastpath[name] = dl[0]
         self.itd_names = {name for name, p in self.problems.items() if itd_child(p)}
+        # JAX's rule: an IterativeProblem or a roll-back cache holds references
+        # to old states, which donation would overwrite
+        self.donate = bool(engine.config.donate_state and not any(
+            hasattr(p, "replay_unroll") or p._roll_back for p in self.problems.values()))
         self.on_card = engine.device.type == "cuda"
         self.captures = 0
         self.replays = 0
@@ -564,7 +584,8 @@ class BlockRunner:
                 raise RuntimeError(f"compiled block: problem {e.name!r} has no roll-back cache "
                                    "at the first block boundary")
         self._valid_out = valid_out
-        self._states = _clone(engine.states) if self.on_card else engine.states
+        self._states = _clone(engine.states) if self.on_card and not self.donate else \
+            engine.states
         self._cache = {}
         for n in rb:
             if valid_out[n] or self._valid[n]:
@@ -586,17 +607,24 @@ class BlockRunner:
         """Two eager periods on copies of the state: the per-step values'
         advance a period and the integer leaves' advance; on CUDA, on the
         capture stream, so that libraries set up their algorithms and
-        workspaces there."""
+        workspaces there. Under ``donate`` the periods run in place on the
+        static state, whose values a host copy puts back after."""
         counts0 = {n: p._count for n, p in self.problems.items()}
         counts1 = {n: c + self.count_delta[n] for n, c in counts0.items()}
         batches = self._batches(collected)
         records = (_StepValues(), _StepValues())
-        states, cache = _clone(self._states), _clone(self._cache_in(self._cache))
+        if self.donate:  # no roll-back cache under donation
+            host, states, cache = _host_copy(self._states), self._states, {}
+        else:
+            states, cache = _clone(self._states), _clone(self._cache_in(self._cache))
         ints = [(_ints(states), _ints(cache))]
         for rec, counts in zip(records, (counts0, counts1)):
             with utils.step_values(rec):
                 states, cache, _ = self._period(states, cache, batches, counts)
             ints.append((_ints(states), _ints(cache)))
+        del states, cache
+        if self.donate:
+            _copy_into(self._states, host)
         (s0, _), (s1, c1), (s2, c2) = ints
         self._int_base = (s1, c1)
         self._int_step = ({k: s2[k] - v for k, v in s1.items()},
@@ -803,12 +831,14 @@ class BlockRunner:
 
     def _run_inner_loop_start(self, p, states):
         """The problem's ``on_inner_loop_start`` hook on a context binding;
-        edits it makes to any problem's params or extra are kept."""
+        edits it makes to any problem's params or extra are kept (under
+        ``donate`` written into the state's own tensors)."""
         if not p.is_implemented("on_inner_loop_start"):
             return states
         ctx = {name: {"params": s["params"], "extra": s["extra"]} for name, s in states.items()}
         with _CtxBinding(ctx, None, None):
             p.on_inner_loop_start()
             final_ctx = problem_mod._TRACE_CTX
-        return {name: {**states[name], "params": final_ctx[name]["params"],
-                       "extra": final_ctx[name]["extra"]} for name in states}
+        put = utils.tree_copy_ if self.donate else (lambda _old, new: new)
+        return {name: {**states[name], **{k: put(states[name][k], final_ctx[name][k])
+                                          for k in ("params", "extra")}} for name in states}

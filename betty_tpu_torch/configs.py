@@ -7,9 +7,18 @@ fields have no meaning and are accepted but inert:
 * ``Config``: ``initial_dynamic_scale``/``scale_factor`` (bf16 needs no loss
   scaling; ``"fp16"`` is treated as ``"bf16"``), ``retain_graph`` and
   ``allow_unused``.
-* ``EngineConfig``: ``backend``, ``compile_cache_dir`` and ``rng_impl``;
-  ``donate_state`` has no counterpart, since a compiled block's graph
-  updates its static state tensors in place.
+* ``EngineConfig``: ``backend``, ``compile_cache_dir`` and ``rng_impl``.
+
+``EngineConfig.donate_state`` (default off, as in JAX) updates every state
+leaf an update replaces (parameters, optimizer moments, ``grad_acc``,
+``last_grad``, the mutated ``extra``, a hook's edits) in its own storage,
+in driver mode and in compiled blocks, with the values of ``False`` bit for
+bit. JAX's rule holds: no problem donates while any problem keeps a
+roll-back cache or is an ``IterativeProblem`` (references to old states).
+As with JAX's donated buffers, the tensors the state starts from are
+consumed: a ``from_torch`` module's own parameters (which the initial state
+shares) and a state given to ``load_state_dict`` take the updates; leaves
+that share memory are copied apart when ``Engine.run`` starts.
 
 ``EngineConfig.strategy`` is ``"default"`` (one process, no collectives)
 or a strategy over ``torch.distributed`` (``betty_tpu_torch/parallel``):

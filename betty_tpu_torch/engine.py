@@ -27,6 +27,13 @@ A resumed run equals the uninterrupted one bit for bit, in driver mode and
 compiled (a block never spans two checkpoint boundaries, and a save between
 blocks reads the runner's live state).
 
+``EngineConfig(donate_state=True)`` updates the state in place, in driver
+mode and compiled, where JAX's rule allows (no roll-back, no
+``IterativeProblem``): ``run()`` first copies apart any state leaves that
+share memory, and each update then writes into the leaves' own storage
+(``Problem.donate``, ``BlockRunner.donate``). The values are those of
+``donate_state=False`` bit for bit.
+
 ``EngineConfig(strategy="dp" | "distributed" | "zero" | "fsdp" | "tp" |
 "ep" | "pp" | "sp")`` runs one process a rank (``betty_tpu/engine.py:78-187``):
 ``configure_systems`` joins the process group
@@ -62,7 +69,7 @@ from betty_tpu_torch.configs import EngineConfig
 from betty_tpu_torch.logging import logger
 from betty_tpu_torch.logging.logger_base import LoggerBase
 from betty_tpu_torch.misc.early_stopping import EarlyStopping
-from betty_tpu_torch.utils import log_from_loss_dict, require_device, tree_leaves
+from betty_tpu_torch.utils import log_from_loss_dict, require_device, tree_leaves, unalias
 
 
 class Engine:
@@ -270,6 +277,10 @@ class Engine:
 
     def run(self):
         self.maybe_auto_resume()
+        if self.config.donate_state:
+            # a donated update writes each state leaf in its own storage
+            # (``Problem._get_update_fn``): no two leaves may share memory
+            self.states = unalias(self.states)
         if self.config.compile_blocks:
             return self.run_compiled()
         return self._run_driver()

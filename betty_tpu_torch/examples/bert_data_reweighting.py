@@ -52,10 +52,18 @@ balanced meta set of ``--num_meta`` rows and a long-tail train set
     python -m betty_tpu_torch.examples.bert_data_reweighting --model large --flash \
         --data-dir ~/glue/SST-2 --valid_step 500 --checkpoint_dir ckpt
 
+``--donate`` (``EngineConfig.donate_state``) updates the parameters, the
+Adam moments and the gradients in place, in driver mode and compiled, with
+the same values; the state is then held once on the card, where a compiled
+block otherwise keeps a second copy:
+
+    python -m betty_tpu_torch.examples.bert_data_reweighting --model large --flash \
+        --compile_blocks --donate
+
 Left out: ``--hf_model`` (a HuggingFace Flax checkpoint through
-``transformers``, which the card's machine does not have), ``--donate``
-(JAX buffer donation; the port has no counterpart) and ``--rng_impl``
-(JAX's PRNG choice; the port's streams are splitmix by design).
+``transformers``, which the card's machine does not have) and
+``--rng_impl`` (JAX's PRNG choice; the port's streams are splitmix by
+design).
 """
 
 import argparse
@@ -293,6 +301,7 @@ def build_engine(args, **solver_config):
     engine = SST2Engine(
         config=EngineConfig(train_iters=args.train_iters, valid_step=args.valid_step,
                             strategy=args.strategy, compile_blocks=args.compile_blocks,
+                            donate_state=args.donate,
                             mesh_shape=parallel.mesh_shape(args.mesh)),
         problems=[reweight, classifier],
         dependencies={"u2l": {reweight: [classifier]}, "l2u": {classifier: [reweight]}},
@@ -335,6 +344,9 @@ def parse_args(argv=None):
     p.add_argument("--log_step", type=int, default=-1)
     p.add_argument("--flash", action="store_true",
                    help="attention through the CUDA kernels (darts/sama only)")
+    p.add_argument("--donate", action="store_true",
+                   help="donate the state to the update (in place on the device: the "
+                        "parameters, moments and gradients are not held twice)")
     p.add_argument("--remat", action="store_true",
                    help="recompute the encoder blocks in the backward (torch.utils.checkpoint)")
     p.add_argument("--remat_policy", default="full", choices=["full", "minimal", "dots"],

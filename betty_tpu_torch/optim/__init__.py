@@ -23,6 +23,13 @@ replay of its captured period. ``adam_moments``
 returns the raw moments, the layout SAMA's preconditioner reads. Both
 ``adam`` and ``adamw`` have ``kind="adam"``.
 
+``update_`` is the same step written into the storage of the parameters
+and of the moments (``mu``, ``nu``, ``trace``), one leaf at a time: each
+leaf goes through the same products and sums in the same operand order
+(``m.mul_(b1).add_((1 - b1) * g)`` for ``(1 - b1) * g + b1 * m``: IEEE
+addition commutes), so the bits are ``update``'s. It serves the donated
+updates (``EngineConfig.donate_state``), where no old state is kept.
+
 A ``schedule`` gives the learning rate of each step from ``sched_step``;
 ``step_lr``, ``cosine_lr``, ``lambda_lr`` and ``multistep_lr`` build the
 JAX package's schedules (torch ``lr_scheduler`` counterparts).
@@ -43,7 +50,7 @@ import torch
 import functools
 
 from betty_tpu_torch.utils import (step_scalar, tree_leaves, tree_map, tree_paths,
-                                   tree_zeros_like)
+                                   tree_zeros_like, tree_zip)
 
 
 def _bias_correction(decay: float, count: int, dtype=np.float32) -> float:
@@ -118,6 +125,46 @@ class Optimizer:
         lr = self.lr_at(sched_step, tree_leaves(u)[0])
         updates = tree_map(lambda x: -x * lr, u)
         return updates, new_state
+
+    def update_(self, grads, opt_state, params, sched_step=None):
+        """``update`` applied in place: ``params`` and the moments take the
+        step in their own storage, bit for bit ``params + updates`` and the
+        new state of ``update``; one leaf's temporaries at a time. The
+        per-step scalars are read in ``update``'s order (bias corrections,
+        then the learning rate). Returns the new optimizer state: the same
+        tensors, with Adam's ``count`` advanced on the host."""
+        wd, lr = self.weight_decay, None
+        with torch.no_grad():
+            if self.kind == "adam":
+                b1, b2 = self.betas
+                count = opt_state["count"] + 1
+                like = tree_leaves(opt_state["mu"])[0]
+                dt = np.float64 if like.dtype == torch.float64 else np.float32
+                bc1 = step_scalar(functools.partial(_bias_correction, b1, dtype=dt), count, like)
+                bc2 = step_scalar(functools.partial(_bias_correction, b2, dtype=dt), count, like)
+                for g, p, m, n in tree_zip(grads, params, opt_state["mu"], opt_state["nu"]):
+                    if wd and not self.decoupled:
+                        g = g + wd * p
+                    m.mul_(b1).add_((1 - b1) * g)
+                    n.mul_(b2).add_((1 - b2) * (g * g))
+                    x = (m / bc1) / (torch.sqrt(n / bc2) + self.eps)
+                    if wd and self.decoupled:
+                        x = x + wd * p
+                    lr = self.lr_at(sched_step, x) if lr is None else lr
+                    p.add_(-x * lr)
+                return {"count": count, "mu": opt_state["mu"], "nu": opt_state["nu"]}
+            mom = self.momentum
+            traces = opt_state["trace"] if mom else tree_map(lambda _: None, params)
+            for g, p, t in tree_zip(grads, params, traces):
+                if wd:
+                    g = g + wd * p
+                x = g
+                if mom:
+                    t.mul_(mom).add_(g)
+                    x = g + mom * t if self.nesterov else t
+                lr = self.lr_at(sched_step, x) if lr is None else lr
+                p.add_(-x * lr)
+        return {"trace": opt_state["trace"]} if mom else {}
 
     def adam_moments(self, opt_state):
         """Raw first and second moments ``(mu, nu)`` (SAMA's preconditioner)."""
@@ -213,6 +260,15 @@ class GroupedOptimizer(Optimizer):
             updates.update(u)
             states.append(st)
         return _rebuild(params, updates), {"groups": states}
+
+    def update_(self, grads, opt_state, params, sched_step=None):
+        """``update`` in place: each group steps its own leaves (the
+        parameters' own tensors) and moments in their storage."""
+        states = []
+        for opt, g, p, st in zip(self.groups, self._split(grads), self._split(params),
+                                 opt_state["groups"]):
+            states.append(opt.update_(g, st, p, sched_step=sched_step) if p else st)
+        return {"groups": states}
 
     def adam_moments(self, opt_state):
         """The groups' raw Adam moments merged into parameter-shaped trees

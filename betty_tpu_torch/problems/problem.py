@@ -5,7 +5,10 @@ learnable state is an explicit dict (``params / extra / opt_state / grad_acc
 / last_grad / sched_step``) owned by the Engine, and each gradient step is
 a function ``update(states, batch, path_batches, itd_data, rng) -> (states,
 metrics)`` that builds new tensors and never updates a state in place, so a
-roll-back cache is a reference to the old state.
+roll-back cache is a reference to the old state. Under
+``EngineConfig(donate_state=True)`` (``Problem.donate``, JAX's rule: no
+roll-back and no ``IterativeProblem`` in the engine) the step writes every
+leaf it replaces into that leaf's own storage instead, with the same bits.
 
 The user API is the JAX package's: subclass, define ``training_step(self,
 batch)``, call ``self.module(x)`` and other problems by name
@@ -92,8 +95,11 @@ from betty_tpu_torch.utils import (
     fold_in,
     log_from_loss_dict,
     tree_add,
+    tree_add_,
     tree_cast,
+    tree_copy_,
     tree_map,
+    tree_zero_,
     tree_zeros_like,
     value_and_grad,
 )
@@ -179,6 +185,12 @@ def _collect_cross_ctx(post_ctx, base_ctx, own_name):
             if name != own_name and entry is not base_ctx.get(name)}
 
 
+def _donated(dst, new, donate):
+    """``new``, or under ``donate`` ``dst`` (where there is one) with
+    ``new``'s values written into its storage (``utils.tree_copy_``)."""
+    return tree_copy_(dst, new) if donate and dst is not None else new
+
+
 def _rematerialized(fn):
     """``fn`` with its activations recomputed in the backward
     (``jax.checkpoint``'s counterpart). The default generators' states are
@@ -262,6 +274,8 @@ class Problem(abc.ABC):
         self._trace_grads = None
         self._meta_mask = None
         self._update_fns: Dict[Any, Callable] = {}
+        # the donation decision of the update functions (``_get_update_fn``)
+        self.donate = False
         # state key -> tree of shard dims (None: replicated) under zero/fsdp/tp/ep,
         # over the "dp" axis (zero/fsdp) or the "model" axis (tp/ep)
         self._shard_dims: Dict[str, Any] = {}
@@ -320,10 +334,14 @@ class Problem(abc.ABC):
 
     def set_params(self, new_params):
         """Functional parameter mutation, inside a bound context or on the
-        engine state (the counterpart of reference hooks' in-place edits)."""
+        engine state (the counterpart of reference hooks' in-place edits;
+        under donation written into the state's own tensors)."""
         global _TRACE_CTX
         if _TRACE_CTX is not None and self._name in _TRACE_CTX:
             _TRACE_CTX = ctx_replace(_TRACE_CTX, self._name, new_params)
+        elif self._donates():
+            tree_copy_(self.state["params"],
+                       self.shard_full_state({"params": new_params})["params"])
         else:
             st = dict(self.state)
             st["params"] = self.shard_full_state(
@@ -681,10 +699,15 @@ class Problem(abc.ABC):
                         self._meta_mask, grad)
 
     # ------------------------------------------------------------------
-    def build_update_fn(self, apply_update: bool, advance_sched: bool = True) -> Callable:
+    def build_update_fn(self, apply_update: bool, advance_sched: bool = True,
+                        donate: bool = False) -> Callable:
         """The per-step update: direct gradient + hypergradient paths + (at an
         accumulation boundary) the optimizer step. ``path_batches`` maps each
-        intermediate problem on this problem's paths to its current batch."""
+        intermediate problem on this problem's paths to its current batch.
+        With ``donate`` every state leaf the step replaces (parameters,
+        optimizer moments, ``grad_acc``, ``last_grad``, the mutated
+        ``extra`` and a hook's edits, on any problem) is written into its
+        own storage, with the bits of the out-of-place step."""
         from betty_tpu_torch.hypergradient import compute_path_grads
 
         problem = self
@@ -756,11 +779,12 @@ class Problem(abc.ABC):
                 grads = tree_add(grads, hyper)
 
             state = dict(states[problem._name])
-            state["grad_acc"] = tree_add(state["grad_acc"], grads)
+            state["grad_acc"] = (tree_add_ if donate else tree_add)(state["grad_acc"], grads)
             if mutated:
                 if problem.precision in ("fp16", "bf16"):
                     mutated = tree_cast(mutated, torch.float32)
-                state["extra"] = {**state["extra"], **mutated}
+                state["extra"] = {**state["extra"], **{
+                    k: _donated(state["extra"].get(k), v, donate) for k, v in mutated.items()}}
 
             cross_updates = {}
             if problem.is_implemented("grad_callback"):
@@ -773,12 +797,12 @@ class Problem(abc.ABC):
                     problem.grad_callback()
                     cross_updates.update(problem._cut_cross(
                         _collect_cross_ctx(_TRACE_CTX, hook_ctx, problem._name)))
-                state["grad_acc"] = problem.shard_full_state(
-                    {"grad_acc": problem._trace_grads})["grad_acc"]
+                state["grad_acc"] = _donated(state["grad_acc"], problem.shard_full_state(
+                    {"grad_acc": problem._trace_grads})["grad_acc"], donate)
                 problem._trace_grads = None
 
             if apply_update:
-                state, cross = problem._apply_optimizer(state, ctx, rng)
+                state, cross = problem._apply_optimizer(state, ctx, rng, donate=donate)
                 cross_updates.update(cross)
 
             # with roll_back the scheduler is not stepped during the unroll,
@@ -789,15 +813,15 @@ class Problem(abc.ABC):
             new_states = dict(states)
             for name, entry in cross_updates.items():
                 ns = dict(new_states[name])
-                ns["params"] = entry["params"]
-                ns["extra"] = entry["extra"]
+                ns["params"] = _donated(ns["params"], entry["params"], donate)
+                ns["extra"] = _donated(ns["extra"], entry["extra"], donate)
                 new_states[name] = ns
             new_states[problem._name] = state
             return new_states, loss_dict
 
         return update
 
-    def _apply_optimizer(self, state, ctx, rng, sharded: bool = True):
+    def _apply_optimizer(self, state, ctx, rng, sharded: bool = True, donate: bool = False):
         """Optimizer step at a gradient-accumulation boundary. Returns
         ``(new_state, cross_updates)``; ``cross_updates`` carries params/extra
         that ``param_callback`` set on other problems. ``sharded``: ``state``
@@ -806,7 +830,11 @@ class Problem(abc.ABC):
         under zero/fsdp). Over the model axes every step is differentiable
         (an ITD replay steps the shards): the clipping norm is the shards'
         (``parallel.clip_by_sharded_norm``), and what a hook or
-        ``custom_optimizer_step`` gives whole is cut back through *f*."""
+        ``custom_optimizer_step`` gives whole is cut back through *f*.
+        ``donate``: the step writes into the storage of ``state``'s leaves
+        (the optimizer's ``update_``; under zero this rank's shard steps in
+        place and the gathered parameters are copied back; ``last_grad`` is
+        a copy, since ``grad_acc`` is zeroed in place after)."""
         global _TRACE_CTX
         grads = state["grad_acc"]
         cross_updates = {}
@@ -841,20 +869,18 @@ class Problem(abc.ABC):
             udims = self._param_shard_dims()
             p_shard = parallel.mesh.shard_tree(state["params"], udims, mesh)
             g_shard = parallel.mesh.shard_tree(grads, udims, mesh)
-            updates, new_opt_state = self.optimizer.update(
-                g_shard, state["opt_state"], p_shard, sched_step=state["sched_step"])
-            new_params = parallel.gather_shards(tree_map(torch.add, p_shard, updates), udims,
-                                                mesh)
+            new_params, new_opt_state = self._optimizer_step(g_shard, state, p_shard, donate)
+            new_params = parallel.gather_shards(new_params, udims, mesh)
         else:
-            updates, new_opt_state = self.optimizer.update(
-                grads, state["opt_state"], state["params"], sched_step=state["sched_step"])
-            new_params = tree_map(torch.add, state["params"], updates)
+            new_params, new_opt_state = self._optimizer_step(grads, state, state["params"],
+                                                             donate)
 
         state = dict(state)
-        state["params"] = new_params
+        state["params"] = _donated(state["params"], new_params, donate)
         state["opt_state"] = new_opt_state
         if self._needs_last_grad:
-            state["last_grad"] = grads  # SAMA reads the gradient of this step
+            # SAMA reads the gradient of this step
+            state["last_grad"] = _donated(state["last_grad"], grads, donate)
 
         if self.is_implemented("param_callback"):
             base = {k: dict(v) for k, v in (self._whole_ctx(ctx) if sharded else ctx).items()}
@@ -865,13 +891,27 @@ class Problem(abc.ABC):
             with _CtxBinding(base, None, rng):
                 self.param_callback()
                 new_params = _TRACE_CTX[self._name]["params"]
-                state["params"] = cut(new_params) if pdims else new_params
-                state["extra"] = _TRACE_CTX[self._name]["extra"]
+                state["params"] = _donated(state["params"],
+                                           cut(new_params) if pdims else new_params, donate)
+                state["extra"] = _donated(state["extra"], _TRACE_CTX[self._name]["extra"],
+                                          donate)
                 cross = _collect_cross_ctx(_TRACE_CTX, base, self._name)
                 cross_updates.update(self._cut_cross(cross) if sharded else cross)
 
-        state["grad_acc"] = tree_zeros_like(state["grad_acc"])
+        state["grad_acc"] = (tree_zero_ if donate else tree_zeros_like)(state["grad_acc"])
         return state, cross_updates
+
+    def _optimizer_step(self, grads, state, params, donate):
+        """``(params + updates, new optimizer state)`` of the optimizer at
+        ``state``'s moments and scheduler step; under ``donate`` the step is
+        written into the storage of ``params`` and the moments
+        (``Optimizer.update_``) and ``params`` itself comes back."""
+        if donate:
+            return params, self.optimizer.update_(grads, state["opt_state"], params,
+                                                  sched_step=state["sched_step"])
+        updates, new_opt_state = self.optimizer.update(grads, state["opt_state"], params,
+                                                       sched_step=state["sched_step"])
+        return tree_map(torch.add, params, updates), new_opt_state
 
     def _cut_model(self, params):
         """Whole tensors of this problem's model-sharded parameters (or a
@@ -909,11 +949,22 @@ class Problem(abc.ABC):
             out[name] = entry
         return out
 
+    def _donates(self) -> bool:
+        """JAX's rule (``betty_tpu/problems/problem.py:800-817``): donate the
+        states when ``EngineConfig.donate_state`` asks and no problem holds
+        references to old ones (a roll-back cache, an ITD unroll start),
+        which donation would overwrite."""
+        engine = self._engine
+        return bool(engine is not None and engine.config.donate_state and not any(
+            p._roll_back or hasattr(p, "replay_unroll") for p in engine.problems))
+
     def _get_update_fn(self, apply_update: bool, advance_sched: bool = True) -> Callable:
         key = (bool(apply_update), bool(advance_sched))
         if key not in self._update_fns:
+            self.donate = self._donates()
             self._update_fns[key] = self.build_update_fn(apply_update=key[0],
-                                                         advance_sched=key[1])
+                                                         advance_sched=key[1],
+                                                         donate=self.donate)
         return self._update_fns[key]
 
     # ------------------------------------------------------------------

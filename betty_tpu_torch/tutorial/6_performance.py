@@ -13,6 +13,10 @@ is fast the host's launch rate bounds it. Three one-line dials remove that:
 3. ``Config(precision="bf16")``: the steps compute in bfloat16 while the
    hypergradients stay float32 (``solver_precision``).
 
+Also: ``EngineConfig(donate_state=True)`` updates the state in place, so a
+compiled block keeps no second copy of it on the card; the numbers do not
+change.
+
 ``run_all`` times the tutorial's four configurations, each from a fresh
 engine, with ``torch.cuda.synchronize()`` around the run on the card
 (the capture included), and prints meta-steps per second.

@@ -4,6 +4,10 @@ Counterpart of ``betty_tpu/utils.py``. A "tree" here is a nested structure
 of dicts, lists and tuples with tensors at the leaves (a problem's params
 dict maps parameter names to tensors); the helpers build new tensors and
 never update in place, so a state that a roll-back cache holds stays valid.
+The exceptions end in ``_`` (``tree_add_``, ``tree_zero_``, ``tree_copy_``):
+they write into the storage of their first tree, with the kernel of the
+out-of-place helper they stand for, and serve the donated updates
+(``EngineConfig.donate_state``).
 """
 
 from typing import Any
@@ -74,6 +78,74 @@ def tree_add(a, b):
     if b is None:
         return a
     return tree_map(torch.add, a, b)
+
+
+def tree_add_(a, b):
+    """``a += b``, leafwise into ``a``'s storage: ``a.add_(b)`` is the kernel
+    of ``torch.add(a, b)``, so the bits are ``tree_add``'s. Returns ``a``."""
+    with torch.no_grad():
+        tree_map(lambda x, y: x.add_(y), a, b)
+    return a
+
+
+def tree_zero_(a):
+    """Every leaf of ``a`` set to zero in its storage (``tree_zeros_like``'s
+    values). Returns ``a``."""
+    with torch.no_grad():
+        tree_map(lambda x: x.zero_(), a)
+    return a
+
+
+def _same_memory(x, y):
+    return (x.data_ptr() == y.data_ptr() and x.shape == y.shape
+            and x.stride() == y.stride() and x.dtype == y.dtype)
+
+
+def tree_copy_(dst, src):
+    """``src``'s values written into the storage of ``dst``, leafwise (the
+    same structure, shapes and dtypes, or ``ValueError``). A leaf whose
+    source already is its destination is left alone; a source that shares
+    other memory with its destination is copied out first. Returns
+    ``dst``."""
+    def copy(d, s):
+        if s is d or _same_memory(d, s):
+            return d
+        if s.shape != d.shape or s.dtype != d.dtype:
+            raise ValueError(f"tree_copy_: a {tuple(s.shape)} {s.dtype} value for a "
+                             f"{tuple(d.shape)} {d.dtype} leaf")
+        if s.untyped_storage().data_ptr() == d.untyped_storage().data_ptr():
+            s = s.clone()
+        return d.copy_(s)
+
+    with torch.no_grad():
+        tree_map(copy, dst, src)
+    return dst
+
+
+def tree_zip(tree, *rest):
+    """The leaves of ``tree`` with the leaves at the same places in
+    ``rest``, as tuples in ``tree_leaves`` order."""
+    out = []
+    tree_map(lambda *xs: out.append(xs), tree, *rest)
+    return out
+
+
+def unalias(tree):
+    """``tree`` with every tensor leaf that shares memory with an earlier
+    leaf replaced by a copy, so that no in-place update of one leaf writes
+    another."""
+    seen = set()
+
+    def own(x):
+        if not isinstance(x, torch.Tensor) or x.numel() == 0:
+            return x
+        key = (x.device, x.untyped_storage().data_ptr())
+        if key in seen:
+            return x.clone()
+        seen.add(key)
+        return x
+
+    return tree_map(own, tree)
 
 
 def tree_sub(a, b):

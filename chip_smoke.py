@@ -992,14 +992,15 @@ def dev_validation(engine, tag):
 
 
 def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_len=128,
-                batch=32, data_dir=None):
+                batch=32, data_dir=None, donate=False):
     """Data reweighting of the RoBERTa-large encoder at B``batch``
     S``seq_len`` for ``meta_periods`` meta-periods, then (``profile``) one
     more under the profiler. Returns the launch counts of the path's kernels
     over the timed periods; ``expected`` gives exact counts to hold them
     to. With ``data_dir`` (an SST-2 directory) the engine is built through
     ``--data-dir`` (``--num_meta 200``), and one dev validation follows the
-    counted periods."""
+    counted periods. ``donate``: ``--donate`` (the state updated in place),
+    its peak printed beside the undonated run's of ``UNDONATED_PEAK_GIB``."""
     import numpy as np
     import torch
     from betty_tpu_torch.examples import bert_data_reweighting as ex
@@ -1013,8 +1014,11 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
             "--train_iters", str(unroll * meta_periods), "--device", "cuda"] + data
     if hypergradient == "sama":
         argv.append("--flash")
+    if donate:
+        argv.append("--donate")
     tag = f"[slice {hypergradient}{'' if seq_len == 128 else f' S{seq_len}'}]"
     log(f"{tag} argv: {' '.join(argv)}; solver config {SOLVER_CONFIG[hypergradient]}")
+    _free()  # the engine of an earlier leg (a cycle) would count in this run's peak
     t0 = time.time()
     engine = ex.build_engine(ex.parse_args(argv), **SOLVER_CONFIG[hypergradient])
     torch.cuda.synchronize()
@@ -1067,6 +1071,11 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
     log(f"{tag} meta-period seconds {periods} (the first includes warm-up); run "
         f"{elapsed:.3f} s; max_memory_allocated {peak / 2**30:.2f} GiB "
         f"({held / 2**30:.2f} GiB allocated when the run started)")
+    if donate:
+        assert engine.classifier.donate and engine.reweight.donate
+        log(f"{tag} donated: max_memory_allocated {peak / 2**30:.2f} GiB against the "
+            f"undonated run's {UNDONATED_PEAK_GIB[hypergradient]:.2f} GiB (PERF.md §5); "
+            f"state {_state_bytes(engine.states)} bytes; card {card_line()}")
     assert engine.classifier.count == unroll * meta_periods, engine.classifier.count
     assert engine.reweight.count == meta_periods, engine.reweight.count
     assert all(math.isfinite(x) for v in vals.values() for x in v), vals
@@ -1092,6 +1101,18 @@ def slice_phase(hypergradient, meta_periods=2, expected=None, profile=True, seq_
     del engine
     _free()
     return launches
+
+
+# driver-mode peaks of the undonated S128 CG and Neumann runs (PERF.md §5)
+UNDONATED_PEAK_GIB = {"cg": 56.95, "neumann": 52.98}
+
+
+def _state_bytes(states):
+    """Bytes of every tensor leaf of an engine's states."""
+    import torch
+    from betty_tpu_torch.utils import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(states) if torch.is_tensor(t))
 
 
 def profile_period(engine, unroll, tag, classify=None):
@@ -1721,6 +1742,7 @@ def compiled_mwn_cell(warmup=2, steady=5):
             log(f"{tag} captures {r.captures}, replays {r.replays}, capture (two warm-up "
                 f"periods and the capture) {r.capture_seconds:.3f} s")
             assert r.captures == 1 and r.replays == warmup + steady + 1
+            del r  # the runner holds its engine: the next turn's peak would count it
         assert engine.classifier.count == warmup + steady + 1
         assert all(bool(torch.isfinite(t).all()) for s in engine.states.values()
                    for t in s["params"].values())
@@ -1736,55 +1758,122 @@ def compiled_mwn_cell(warmup=2, steady=5):
     return out
 
 
+class _PeakParts:
+    """The peak of allocated device memory of a compiled run in three parts,
+    each read with ``max_memory_allocated`` and reset after: from the start
+    of the run to the end of ``BlockRunner._start`` ("start", with the
+    driver steps before the first block), the warm-up periods and the
+    capture ("warm-up and capture"), and the rest (the replays), which the
+    caller reads at the end of the run."""
+
+    def __init__(self):
+        from betty_tpu_torch import compile as comp
+
+        self.comp, self.parts = comp, {}
+
+    def __enter__(self):
+        import torch
+
+        comp, parts = self.comp, self.parts
+        self._start, self._capture = comp.BlockRunner._start, comp.BlockRunner._capture
+
+        def read(name):
+            torch.cuda.synchronize()
+            parts[name] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+        def start(runner, _orig=self._start):
+            _orig(runner)
+            read("start")
+
+        def capture(runner, collected, _orig=self._capture):
+            _orig(runner, collected)
+            read("warm-up and capture")
+
+        comp.BlockRunner._start, comp.BlockRunner._capture = start, capture
+        return self
+
+    def __exit__(self, *exc):
+        self.comp.BlockRunner._start, self.comp.BlockRunner._capture = self._start, self._capture
+        return False
+
+
 def compiled_sama_cell():
     """SAMA reweighting of the RoBERTa-large encoder at B32 S128 with
-    ``--flash`` (the north star), driver mode and then compiled blocks: a
-    first period (for compiled blocks: the warm-up periods and the
-    capture), 2 timed ones and a profiled one each. B1/B2 launches a replay must
-    equal driver mode's a period."""
+    ``--flash`` (the north star), driver mode and compiled blocks, each
+    without and with ``--donate`` (the state updated in place): a first
+    period (for compiled blocks: the warm-up periods and the capture) and 2
+    more each, the last profiled in the undonated runs. B1/B2 launches a
+    period (a replay) must equal ``SAMA_S128``'s in every run, the donated
+    runs' parameters the undonated runs' bit for bit. Prints each run's
+    peak of allocated memory (compiled: in ``_PeakParts``'s three parts)
+    and the state's bytes."""
     import torch
     from betty_tpu_torch.examples import bert_data_reweighting as ex
 
-    unroll = 5
+    unroll, periods = 5, 3  # cut from 4 for the time limit
     argv = ["--model", "large", "--hypergradient", "sama", "--precision", "bf16",
             "--solver_precision", "fp32", "--unroll_steps", str(unroll), "--batch_size", "32",
             "--seq_len", "128", "--device_data", "--train_size", "2048", "--meta_size", "512",
             "--device", "cuda", "--flash"]
-    out, finals = {}, {}
-    for mode, periods in (("driver", 3), ("compiled", 3)):  # cut from 4 for the time limit
-        tag = f"[compiled sama S128 {mode}]"
-        engine = ex.build_engine(ex.parse_args(argv + (["--compile_blocks"]
-                                                       if mode == "compiled" else [])))
+    out, finals, peaks = {}, {}, {}
+    for mode, donate in (("driver", False), ("driver", True), ("compiled", False),
+                         ("compiled", True)):
+        key = mode + (" donated" if donate else "")
+        tag = f"[compiled sama S128 {key}]"
+        engine = ex.build_engine(ex.parse_args(
+            argv + (["--compile_blocks"] if mode == "compiled" else [])
+            + (["--donate"] if donate else [])))
         engine.config.block_periods = 1
+        state_bytes = _state_bytes(engine.states)
         reset, counters = _counters("sama")
-        with _CaptureWatch(counters) as watch:
+        with _CaptureWatch(counters) as watch, _PeakParts() as parts:
             reset()
-            seconds, report, peak = _timed_run(engine, unroll, periods, tag, profiled="card")
+            held = torch.cuda.memory_allocated()
+            seconds, report, peak = _timed_run(engine, unroll, periods, tag,
+                                               profiled=None if donate else "card")
         launches = {k: c.launches for k, c in counters.items()}
-        out[mode] = _cell_line(tag, seconds, report, peak, 1)
+        out[key] = _cell_line(tag, seconds, report, peak, 1)
         per_period = {k: v // periods for k, v in launches.items()}
+        peak_parts = {k: v / 2**30 for k, v in parts.parts.items()}
+        peaks[key] = max([peak, *peak_parts.values()])
         if mode == "compiled":
             r = engine.block_runner
             per_period = watch.per_replay
             log(f"{tag} captures {r.captures}, replays {r.replays}, capture (two warm-up "
-                f"periods and the capture) {r.capture_seconds:.3f} s; launches a replay "
-                f"{watch.per_replay}; in the profiled replay "
-                f"{report['own_launches'] if report else 'not read'}")
-            assert r.captures == 1 and r.replays == periods
+                f"periods and the capture) {r.capture_seconds:.3f} s, warm-up "
+                f"{r.warmup_seconds:.3f} s; launches a replay {watch.per_replay}; in the "
+                f"profiled replay {report['own_launches'] if report else 'not profiled'}")
+            log(f"{tag} max_memory_allocated by part: start {peak_parts['start']:.3f} GiB, "
+                f"warm-up and capture {peak_parts.get('warm-up and capture', math.nan):.3f} "
+                f"GiB, replays {peak:.3f} GiB; run {peaks[key]:.3f} GiB")
+            assert r.captures == 1 and r.replays == periods and r.donate == donate
+            del r  # the runner holds its engine: the next run's peak would count it
         else:
             assert launches == {k: v * periods // 2 for k, v in SAMA_S128.items()}, launches
-        out[mode]["launches"] = per_period
+        log(f"{tag} donate {[p.donate for p in engine.problems]}; state {state_bytes} bytes "
+            f"({state_bytes / 2**30:.3f} GiB); {held / 2**30:.3f} GiB allocated when the run "
+            f"started; max_memory_allocated {peaks[key]:.3f} GiB; card {card_line()}")
+        assert all(p.donate == donate for p in engine.problems)
+        out[key]["launches"] = per_period
+        out[key]["peak_gib"] = peaks[key]
         assert per_period == {k: v // 2 for k, v in SAMA_S128.items()}, per_period
         assert engine.classifier.count == unroll * periods
         assert all(bool(torch.isfinite(t).all()) for s in engine.states.values()
                    for t in s["params"].values())
-        finals[mode] = {n: {k: t.cpu() for k, t in s["params"].items()}
-                        for n, s in engine.states.items()}
-        del engine
+        finals[key] = {n: {k: t.cpu() for k, t in s["params"].items()}
+                       for n, s in engine.states.items()}
+        del engine, parts
         _free()
-    out["param_diff"] = _state_err(finals["driver"], finals["compiled"])
-    log(f"[compiled sama S128] compiled vs driver after {periods} periods: max |param diff| "
-        f"{out['param_diff']:.3e} (reported)")
+    diff = {f"{a} vs {b}": _state_err(finals[a], finals[b])
+            for a, b in (("driver donated", "driver"), ("compiled donated", "compiled"),
+                         ("compiled", "driver"), ("compiled donated", "driver donated"))}
+    out["param_diff"] = diff["compiled vs driver"]
+    log(f"[compiled sama S128] max |param diff| after {periods} periods: {diff}; peaks GiB "
+        f"{ {k: round(v, 3) for k, v in peaks.items()} }")
+    assert diff["driver donated vs driver"] == 0 and diff["compiled donated vs compiled"] == 0, \
+        diff
+    assert diff["compiled donated vs driver donated"] == diff["compiled vs driver"], diff
     return out
 
 
@@ -6222,9 +6311,10 @@ def main(argv=None):
                 f"{time.time() - t0:.1f} s")
             sama = slice_phase("sama", expected=SAMA_S128, data_dir=sst2)
         launches.update({k: sama[k] for k in SINGLE_KERNELS})
-        launches.update(slice_phase("cg", expected={"fused_dot2": 2, "cg_fused_step": 6}))
+        launches.update(slice_phase("cg", expected={"fused_dot2": 2, "cg_fused_step": 6},
+                                    donate=True))
         launches.update(slice_phase("neumann", expected={"neumann_fused_step": 6},
-                                    profile=False))
+                                    profile=False, donate=True))
     if "long" in phases:
         marks.append(("long", time.time()))
         small_run_phase("sama", seq_len=1024, batch=2)
